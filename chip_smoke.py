@@ -7,19 +7,35 @@ Run from the repository root with no arguments:
 
 1. Device: needs CUDA (exits nonzero without it) and prints the card's
    name and power limit as nvidia-smi reports them.
-2. Build: compiles nemo_tpu_torch/csrc/*.cu for sm_90a (ops/_build.py).
+2. Build: compiles nemo_tpu_torch/csrc/*.cu for sm_90a (ops/_build.py, one
+   nvcc per source, in parallel).
 3. Kernels against their plain PyTorch versions on the card, at the shapes
-   of the fit's main path: K1 forward and backward (B=512, random
-   rotations) and K2 in grad and forward-only mode (B=512, the 6890-vertex
-   synthetic SMPL's tables), with max errors beside stated tolerances and
-   median CUDA-event times of kernel and plain.
-4. The fit at the reference width (bench.py's NemoConfig: NemoV2, batch
-   512, h_dim 1000, RBF 100 quadratic, 200-node phase nets, 8 views x 120
-   frames, VPoser v2v weight 10 + KL 1 + GMM 1): warmup, camera and main
-   stages, eval_loss and the eval CSVs. Launch counters are zeroed just
-   before and read just after; every kernel must have run. Losses must be
-   finite, the main-stage kp_loss must fall, and fit_loss on the card must
-   agree with the port's CPU path from the same parameters.
+   of the fit's paths: K1 forward and backward (B=512, random rotations);
+   K2 in fused, forward-only and pair modes (B=512, the 6890-vertex
+   synthetic SMPL's tables); K3f at (512, 6890) and (960, 1024); K3b with
+   a random cotangent at (512, 6890), recomputing the posed vertices and
+   reading stored ones. Each check prints its max error beside its
+   tolerance; each kernel's median CUDA-event time beside its plain
+   version's, one PyTorch call's (where one computes the whole function or
+   its largest contraction) and its bound (the least time the card could
+   take: the larger of bytes over 3.35 TB/s and f32 FLOPs over 67 TFLOP/s).
+4. The fit, one path after another, each with the launch counters zeroed
+   just before and read just after, and each asserting that its own
+   kernels ran:
+   - slice 1: the reference configuration (bench.py's NemoConfig: NemoV2,
+     batch 512, h_dim 1000, RBF 100 quadratic, 200-node phase nets, 8 views
+     x 120 frames, VPoser v2v 10 + KL 1 + GMM 1), warmup, camera and main
+     stages, eval_loss and the eval CSVs, the K2 fused mode;
+   - path A: the custom-video configuration (run_examples/
+     custom-video-example.sh: NemoV3, full_batch so B=960, weight_3d_loss
+     1000, lr_phase 0, lr_factor 1) with the v2v prior on 1024 vertices
+     through K3f/K3b;
+   - path B: slice 1's workload with the K2 pair mode, then pair_vp;
+   - path C: a few steps of each stage for model versions 0, 1 and 4.
+   Losses must be finite, main-stage kp_loss must fall on slice 1 and path
+   A, fit_loss on the card must agree with the port's CPU path from the
+   same parameters, and one step of each stage must run without a device
+   synchronisation.
 
 Prints a JSON line of per-kernel results, the nvidia-smi line as the tool
 prints it, and as the last line {"ok": true, "device": {...}}. Any failure
@@ -34,10 +50,11 @@ import sys
 import tempfile
 import time
 
-WARMUP_STEPS, CAM_STEPS, MAIN_STEPS = 10, 10, 50
 BATCH = 512
+PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores, 700 W
+PEAK_HBM_BYTES = 3.35e12
 
-# (counter key, source, TPU kernel it replaces)
+# counter key -> (source, TPU kernel it replaces)
 KERNELS = {
     "fk_fwd": ("nemo_tpu_torch/csrc/fk.cu",
                "nemo_tpu/ops/fk_pallas.py:197"),
@@ -47,7 +64,29 @@ KERNELS = {
                  "nemo_tpu/ops/lbs_pallas.py:709"),
     "v2v_fwd": ("nemo_tpu_torch/csrc/v2v.cu",
                 "nemo_tpu/ops/lbs_pallas.py:560"),
+    "v2v_pair": ("nemo_tpu_torch/csrc/v2v.cu",
+                 "nemo_tpu/ops/lbs_pallas.py:560"),
+    "skin_fwd": ("nemo_tpu_torch/csrc/skin.cu",
+                 "nemo_tpu/ops/lbs_pallas.py:129"),
+    "skin_bwd": ("nemo_tpu_torch/csrc/skin.cu",
+                 "nemo_tpu/ops/lbs_pallas.py:259"),
+    "skin_bwd_vp": ("nemo_tpu_torch/csrc/skin.cu",
+                    "nemo_tpu/ops/lbs_pallas.py:259"),
 }
+
+# f32 operations per (batch row, vertex) of the skinning kernels (a MAC is
+# 2): posing 3x207 MACs + 3 adds, blending 12x24 MACs, transforming 9 MACs;
+# in a backward gvp 9 MACs, gpf 3x207 MACs, gA 9 products + 12x24 MACs,
+# gvsh 3 adds; |rec - orig| and its sum 9.
+POSE_FLOP = 2 * 621 + 3
+BLEND_FLOP = 2 * 288
+SIDE_FLOP = POSE_FLOP + BLEND_FLOP + 2 * 9
+GRAD_FLOP = 2 * 9 + 2 * 621 + 9 + 2 * 288 + 3
+L1_FLOP = 9
+# per joint: forward R = R_p R_l (27 MACs), t = R_p t_l + t_p (9 MACs + 3);
+# backward twice the products (the parent's and the local cotangents)
+FK_FLOP_PER_JOINT = {"fk_fwd": 2 * (27 + 9) + 3,
+                     "fk_bwd": 2 * 2 * (27 + 9) + 3}
 
 
 def nvidia_smi_line() -> str:
@@ -76,6 +115,16 @@ def median_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return times[len(times) // 2]
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound_ms(flop: float, bytes_: float):
+    """(least time in ms, what bounds it)."""
+    t_op, t_mem = flop / PEAK_F32_FLOPS, bytes_ / PEAK_HBM_BYTES
+    return 1e3 * max(t_op, t_mem), ("operations" if t_op >= t_mem else "bytes")
+
+
 def check(name: str, got, want, atol: float, results: dict) -> float:
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
@@ -96,16 +145,48 @@ def random_rotations(B: int, J: int, gen, device, scale: float = 0.6):
     return batch_rodrigues(aa).to(device)
 
 
-def kernel_phase(device, smpl):
-    """K1/K2 against their plain versions at the main path's shapes."""
+def skin_side_inputs(smpl, B, gen, device, offset=0.0):
+    """(pf, A34) as smpl_v2v_l1_sum builds them from random rotations; a
+    nonzero offset moves each row by +-offset metres on each axis."""
     import torch
     from nemo_tpu_torch.body.smpl import fk_rt
+    Jr = torch.einsum('jv,vk->jk', smpl.J_regressor, smpl.v_template)[None]
+    with torch.no_grad():
+        rot = random_rotations(B, 24, gen, device)
+        pf = (rot[:, 1:] - torch.eye(3, device=device)).reshape(B, 207)
+        R_g, _, t_rel = fk_rt(rot, Jr, smpl.parents)
+        A = torch.cat([R_g, t_rel[..., None]], -1)
+    if offset:
+        A[..., 3] += offset * torch.sign(torch.randn((B, 1, 3),
+                                                     generator=gen)).to(device)
+    return pf.contiguous(), A.reshape(B, 24, 12).contiguous()
+
+
+def kernel_phase(device, smpl):
+    """Every kernel against its plain version, with times and bounds.
+    Returns ({kernel: max_abs_err}, {kernel: timing record})."""
+    import torch
+    from nemo_tpu_torch.body.smpl import subset_skin_tables
     from nemo_tpu_torch.ops import fk, lbs
 
     gen = torch.Generator().manual_seed(0)
-    errs, times = {}, {}
+    errs, rec = {}, {}
     parents = tuple(int(p) for p in smpl.parents)
     B, J, V = BATCH, 24, smpl.num_vertices
+
+    def timed(key, shape, kernel, plain, flop, bytes_, library=None):
+        b_ms, by = bound_ms(flop, bytes_)
+        r = {"ms": median_ms(kernel), "plain_ms": median_ms(plain),
+             "library_ms": None if library is None else median_ms(library),
+             "bound_ms": b_ms, "bound_by": by, "shape": shape,
+             "gflop": flop / 1e9, "mbytes": bytes_ / 1e6}
+        lib = "none" if library is None else f"{r['library_ms']:.4f} ms"
+        print(f"[time] {key} {shape}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, one PyTorch call {lib}, bound "
+              f"{b_ms:.4f} ms ({by}; {flop / 1e9:.3f} GFLOP, "
+              f"{bytes_ / 1e6:.3f} MB) (median of 20 CUDA-event timings)")
+        rec.setdefault(key, r)
+        return r
 
     # K1. Tolerance: an 8-level chain of f32 3x3 products of O(1) entries;
     # the two sides differ only in summation order (~1e-7 per product).
@@ -122,33 +203,26 @@ def kernel_phase(device, smpl):
     # cotangents are N(0,1) summed over up to 23 descendants: entries O(10)
     check("fk_bwd", torch.cat([gRk.flatten(), gtk.flatten()]),
           torch.cat([gRp.flatten(), gtp.flatten()]), 1e-4, errs)
-    times["fk_fwd"] = (median_ms(lambda: fk.fk_fwd_cuda(R_l, t_l, parents)),
-                       median_ms(lambda: fk.fk_fwd_plain(R_l, t_l, parents)))
-    times["fk_bwd"] = (
-        median_ms(lambda: fk.fk_bwd_cuda(R_l, t_l, Rk, gR, gt, parents)),
-        median_ms(lambda: fk.fk_bwd_plain(R_l, t_l, Rk, gR, gt, parents)))
+    # no single PyTorch call composes a kinematic tree: library none
+    timed("fk_fwd", f"B={B}", lambda: fk.fk_fwd_cuda(R_l, t_l, parents),
+          lambda: fk.fk_fwd_plain(R_l, t_l, parents),
+          FK_FLOP_PER_JOINT["fk_fwd"] * 23 * B, nbytes(R_l, t_l, Rk, tk))
+    timed("fk_bwd", f"B={B}",
+          lambda: fk.fk_bwd_cuda(R_l, t_l, Rk, gR, gt, parents),
+          lambda: fk.fk_bwd_plain(R_l, t_l, Rk, gR, gt, parents),
+          FK_FLOP_PER_JOINT["fk_bwd"] * 23 * B,
+          nbytes(R_l, t_l, Rk, gR, gt, gRk, gtk))
 
     # K2 inputs as smpl_v2v_l1_sum builds them. The rec side gets a
     # per-row offset of +-10 m on each axis, so no vertex difference is
     # near 0: there sign(rec - orig) could flip between two summation
     # orders and move a gradient entry by a whole term.
     vsh = smpl.v_template.t().contiguous()
-    Jr = torch.einsum('jv,vk->jk', smpl.J_regressor, smpl.v_template)[None]
-
-    def side(rot):
-        pf = (rot[:, 1:] - torch.eye(3, device=device)).reshape(B, 207)
-        R_g, _, t_rel = fk_rt(rot, Jr, smpl.parents)
-        return pf.contiguous(), torch.cat([R_g, t_rel[..., None]], -1).reshape(
-            B, 24, 12).contiguous()
-
-    with torch.no_grad():
-        pf_o, A_o = side(random_rotations(B, J, gen, device))
-        pf_r, A_r = side(random_rotations(B, J, gen, device))
-    offset = 10.0 * torch.sign(torch.randn((B, 1, 3), generator=gen)).to(device)
-    A_r = A_r.reshape(B, 24, 3, 4).clone()
-    A_r[..., 3] += offset
-    A_r = A_r.reshape(B, 24, 12).contiguous()
-    args = (pf_o, A_o, vsh, smpl.posedirs_t, smpl.lbs_weights_t, pf_r, A_r)
+    pd, W = smpl.posedirs_t, smpl.lbs_weights_t
+    pf_o, A_o = skin_side_inputs(smpl, B, gen, device)
+    pf_r, A_r = skin_side_inputs(smpl, B, gen, device, offset=10.0)
+    args = (pf_o, A_o, vsh, pd, W, pf_r, A_r)
+    side = (pf_o, A_o, vsh, pd, W)
     tot_k, (gpf_k, gA_k, gvsh_k) = lbs.v2v_l1_cuda(*args, grad=True)
     tot_p, (gpf_p, gA_p, gvsh_p) = lbs.v2v_l1_plain(*args, grad=True)
     tot_f, _ = lbs.v2v_l1_cuda(*args, grad=False)
@@ -167,134 +241,216 @@ def kernel_phase(device, smpl):
     if not (torch.equal(rerun[0], tot_k) and all(
             torch.equal(a, b) for a, b in zip(rerun[1], (gpf_k, gA_k, gvsh_k)))):
         raise AssertionError("K2 is not bit-stable run to run")
-    times["v2v_grad"] = (median_ms(lambda: lbs.v2v_l1_cuda(*args, grad=True)),
-                         median_ms(lambda: lbs.v2v_l1_plain(*args, grad=True)))
-    times["v2v_fwd"] = (median_ms(lambda: lbs.v2v_l1_cuda(*args, grad=False)),
-                        median_ms(lambda: lbs.v2v_l1_plain(*args, grad=False)))
-    for k, (tk_, tp_) in times.items():
-        print(f"[time] {k}: kernel {tk_:.4f} ms, plain {tp_:.4f} ms "
-              f"(median of 20 CUDA-event timings, B={B}, V={V})")
+
+    # K2 pair mode: sign exact (the offset keeps every difference far from
+    # 0), vp to f32 ordering noise, and the gradients K3b computes from
+    # them against the plain gradients.
+    tot_q, sign_k, vp_k = lbs.v2v_pair_cuda(*args, want_vp=True)
+    _, sign_p, vp_p = lbs.v2v_pair_plain(*args, want_vp=True)
+    check("v2v_pair total", tot_q, tot_p, 1e-5 * float(tot_p.abs()), errs)
+    check("v2v_pair sign", sign_k, sign_p, 0.0, errs)
+    check("v2v_pair vp", vp_k, vp_p, 1e-5 * float(vp_p.abs().max()), errs)
+    pair = lbs.skin_bwd_cuda(*side, sign_k)
+    pair_vp = lbs.skin_bwd_cuda(*side, sign_k, vp=vp_k)
+    for name, gk, gp in zip(("gpf", "gA", "gvsh"), pair, (gpf_p, gA_p, gvsh_p)):
+        check(f"v2v_pair grad {name}", gk, gp, 1e-4 * float(gp.abs().max()),
+              errs)
+    ident = {
+        "pair_vp vs pair": all(torch.equal(a, b) for a, b in zip(pair_vp, pair)),
+        "pair vs fused": all(torch.equal(a, b) for a, b in
+                             zip(pair, (gpf_k, gA_k, gvsh_k)))}
+    print(f"[kernel] bit-identical gradients: {json.dumps(ident)}")
+    for name, a, b in zip(("gpf", "gA", "gvsh"), pair_vp, pair):
+        check(f"skin_bwd_vp vs skin_bwd (pair) {name}", a, b,
+              1e-5 * float(b.abs().max()), errs)
+
+    # K3b under a random cotangent at (512, 6890): recompute vs plain, and
+    # the stored-vp variant reading the K2 pair mode's vp.
+    g = torch.randn((B, 3, V), generator=gen).to(device)
+    want = lbs.skin_bwd_plain(*side, g)
+    got = lbs.skin_bwd_cuda(*side, g)
+    got_vp = lbs.skin_bwd_cuda(*side, g, vp=vp_k)
+    # sums over V=6890 (gpf, gA) or B=512 (gvsh) products of N(0,1)
+    # cotangents; atol 1e-4 x the tensor's largest entry
+    for name, a, b, c in zip(("gpf", "gA", "gvsh"), got, got_vp, want):
+        check(f"skin_bwd {name}", a, c, 1e-4 * float(c.abs().max()), errs)
+        check(f"skin_bwd_vp {name}", b, c, 1e-4 * float(c.abs().max()), errs)
+    ident["skin_bwd_vp vs skin_bwd (random g)"] = all(
+        torch.equal(a, b) for a, b in zip(got_vp, got))
+    print(f"[kernel] bit-identical gradients: {json.dumps(ident)}")
+
+    # K3f at the slice-1 shape and at path A's (B=960, V=1024 subset)
+    vidx, pd_s, W_s = subset_skin_tables(smpl, 1024)
+    B_a = 960
+    pf_a, A_a = skin_side_inputs(smpl, B_a, gen, device)
+    fwd_cases = (((pf_o, A_o, vsh, pd, W), f"B={B}, V={V}"),
+                 ((pf_a, A_a, vsh[:, vidx].contiguous(), pd_s, W_s),
+                  f"B={B_a}, V={len(vidx)}"))
+    for a, shape in fwd_cases:
+        out_k = lbs.skin_fwd_cuda(*a)
+        out_p = lbs.skin_verts_t_plain(*a)
+        # sums of 207 + 24 + 3 f32 products of metre-scale values
+        check(f"skin_fwd {shape}", out_k, out_p,
+              1e-5 * float(out_p.abs().max()), errs)
+
+    # times at the paths' shapes
+    VV = 3 * V
+    pd2 = pd.reshape(207, VV)
+    gvp = torch.randn((B, VV), generator=gen).to(device)
+    pf2 = torch.cat([pf_o, pf_r])
+    tables = nbytes(vsh, pd, W)
+    bv = B * V
+    timed("v2v_grad", f"B={B}, V={V}",
+          lambda: lbs.v2v_l1_cuda(*args, grad=True),
+          lambda: lbs.v2v_l1_plain(*args, grad=True),
+          bv * (2 * SIDE_FLOP + L1_FLOP + GRAD_FLOP),
+          nbytes(pf_o, A_o, pf_r, A_r, tot_k, gpf_k, gA_k, gvsh_k) + tables,
+          library=lambda: torch.matmul(gvp, pd2.t()))
+    timed("v2v_fwd", f"B={B}, V={V}",
+          lambda: lbs.v2v_l1_cuda(*args, grad=False),
+          lambda: lbs.v2v_l1_plain(*args, grad=False),
+          bv * (2 * SIDE_FLOP + L1_FLOP),
+          nbytes(pf_o, A_o, pf_r, A_r, tot_k) + tables,
+          library=lambda: torch.matmul(pf2, pd2))
+    timed("v2v_pair", f"B={B}, V={V}, vp stored",
+          lambda: lbs.v2v_pair_cuda(*args, want_vp=True),
+          lambda: lbs.v2v_pair_plain(*args, want_vp=True),
+          bv * (2 * SIDE_FLOP + L1_FLOP),
+          nbytes(pf_o, A_o, pf_r, A_r, tot_k, sign_k, vp_k) + tables,
+          library=lambda: torch.matmul(pf2, pd2))
+    timed("skin_bwd", f"B={B}, V={V}",
+          lambda: lbs.skin_bwd_cuda(*side, g),
+          lambda: lbs.skin_bwd_plain(*side, g),
+          bv * (POSE_FLOP + BLEND_FLOP + GRAD_FLOP),
+          nbytes(*side, g, *got), library=lambda: torch.matmul(gvp, pd2.t()))
+    timed("skin_bwd_vp", f"B={B}, V={V}",
+          lambda: lbs.skin_bwd_cuda(*side, g, vp=vp_k),
+          lambda: lbs.skin_bwd_plain(*side, g, vp=vp_k),
+          bv * (BLEND_FLOP + GRAD_FLOP),
+          nbytes(A_o, pd, W, g, vp_k, *got),
+          library=lambda: torch.matmul(gvp, pd2.t()))
+    for a, shape in reversed(fwd_cases):     # path A's shape is the record
+        Bk, Vk = a[0].shape[0], a[2].shape[1]
+        pdk = a[3].reshape(207, 3 * Vk)
+        timed("skin_fwd", shape, lambda: lbs.skin_fwd_cuda(*a),
+              lambda: lbs.skin_verts_t_plain(*a),
+              Bk * Vk * SIDE_FLOP, nbytes(*a) + 4 * Bk * 3 * Vk,
+              library=lambda: torch.matmul(a[0], pdk))
+    # path A's K3b shape, recorded in the log beside the (512, 6890) one
+    Bk, Vk = B_a, len(vidx)
+    a = fwd_cases[1][0]
+    ga = torch.randn((Bk, 3, Vk), generator=gen).to(device)
+    pdk = a[3].reshape(207, 3 * Vk)
+    gvpa = torch.randn((Bk, 3 * Vk), generator=gen).to(device)
+    timed("skin_bwd path A", f"B={Bk}, V={Vk}",
+          lambda: lbs.skin_bwd_cuda(*a, ga),
+          lambda: lbs.skin_bwd_plain(*a, ga),
+          Bk * Vk * (POSE_FLOP + BLEND_FLOP + GRAD_FLOP),
+          nbytes(*a, ga) + 4 * (Bk * 207 + Bk * 288 + 3 * Vk),
+          library=lambda: torch.matmul(gvpa, pdk.t()))
+
     kernel_err = {
         "fk_fwd": errs["fk_fwd"], "fk_bwd": errs["fk_bwd"],
-        "v2v_grad": max(errs["v2v_grad total"], errs["v2v_grad gpf"],
-                        errs["v2v_grad gA"], errs["v2v_grad gvsh"]),
+        "v2v_grad": max(errs[k] for k in errs if k.startswith("v2v_grad")),
         "v2v_fwd": errs["v2v_fwd total"],
+        "v2v_pair": max(errs[k] for k in errs if k.startswith("v2v_pair")),
+        "skin_fwd": max(errs[k] for k in errs if k.startswith("skin_fwd")),
+        "skin_bwd": max(errs[k] for k in errs if k.startswith("skin_bwd ")),
+        "skin_bwd_vp": max(errs[k] for k in errs
+                           if k.startswith("skin_bwd_vp")),
     }
-    return kernel_err, times
+    return kernel_err, rec
 
 
-def slice_phase(device, smpl):
-    """The fit's main path at the reference width, through the kernels."""
-    import numpy as np
-    import torch
-    from nemo_tpu_torch.data.synthetic import synthetic_problem
-    from nemo_tpu_torch.eval.metrics import eval_2d, eval_3d, write_csv
-    from nemo_tpu_torch.fit import (NemoConfig, NemoFitter, NemoParams,
-                                    build_assets, fit_loss, predict,
-                                    project_to_views)
-    from nemo_tpu_torch.fit.optimizer import make_camera_stage_optimizer
-    from nemo_tpu_torch.ops import launch_counts, reset_launches
-    from nemo_tpu_torch.priors.gmm import synthetic_gmm_prior
-    from nemo_tpu_torch.priors.vposer import init_vposer
+# ---------------------------------------------------------------------------
+# the fit's paths
+# ---------------------------------------------------------------------------
 
-    cfg = NemoConfig(
+def reference_config(**over):
+    from nemo_tpu_torch.fit import NemoConfig
+    base = dict(
         model_version=2, h_dim=1000, instance_code_size=5,
         phase_rbf_dim=100, rbf_kernel="quadratic",
         monotonic_network_n_nodes=200, phase_init="rand",
         batch_size=BATCH, loss="mse_robust",
         weight_vp_loss=10.0, weight_vp_z_loss=1.0, weight_gmm_loss=1.0,
-        lr_factor=0.5, n_steps=MAIN_STEPS, warmup_step=WARMUP_STEPS,
-        opt_cam_step=CAM_STEPS, label_type="gt")
-    bundle, _ = synthetic_problem(smpl, num_views=8, num_frames=120, seed=0)
+        lr_factor=0.5, label_type="gt")
+    return NemoConfig(**{**base, **over})
+
+
+def make_fitter(device, smpl, bundle, cfg, v2v_vjp="fused"):
+    import torch
+    from nemo_tpu_torch.fit import NemoFitter, build_assets
+    from nemo_tpu_torch.priors.gmm import synthetic_gmm_prior
+    from nemo_tpu_torch.priors.vposer import init_vposer
     assets = build_assets(bundle, smpl, cfg, gmm=synthetic_gmm_prior(8),
                           vposer=init_vposer(
                               generator=torch.Generator().manual_seed(7)),
-                          device=device)
-    fitter = NemoFitter(cfg, assets, seed=0)
+                          device=device, v2v_vjp=v2v_vjp)
+    return NemoFitter(cfg, assets, seed=0)
 
+
+def run_path(name, expected, fn):
+    """Zero the launch counters, run fn, read them; the path's kernels must
+    have launched. Returns (counts, fn's result)."""
+    import torch
+    from nemo_tpu_torch.ops import launch_counts, reset_launches
     torch.cuda.synchronize()
     reset_launches()
-    init = fitter.eval_loss()
-    wm = fitter.warmup()
-    cm = fitter.opt_cam()
-    # chunks of 10 steps; each chunk ends with its metrics on the host (a
-    # sync), so the chunk boundaries time the steps. The first chunk takes
-    # the one-off costs of the stage (first launches at new shapes, caching
-    # allocator growth); steps/s is read over the other four.
+    out = fn()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"[{name}] launches: {json.dumps(counts)}")
+    missing = [k for k in expected if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{name}: kernels {missing} were not launched")
+    return counts, out
+
+
+def stages(fitter, warmup, cam, main, chunk):
+    """warmup -> camera -> main; returns (metrics, steady steps/s over all
+    chunks but the first, main seconds). Each chunk ends with its metrics
+    on the host (a sync), so the chunk boundaries time the steps."""
+    import torch
+    wm = fitter.warmup(warmup)
+    cm = fitter.opt_cam(cam)
     stamps = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fm = fitter.fit(chunk=10, on_chunk=lambda *_: stamps.append(
-        time.perf_counter()))
-    main_s = stamps[-1] - t0
-    steady_s = stamps[-1] - stamps[0]
-    final = fitter.eval_loss()
-    V, F = assets.num_views, assets.num_frames
-    vi = torch.arange(V, device=device).repeat_interleave(F)
-    fi = torch.arange(F, device=device).repeat(V)
-    with torch.no_grad():
-        preds = predict(fitter.params, cfg, assets, vi, fi)
-        pts2d = project_to_views(fitter.params, cfg, assets, preds["j"], vi)
-    pts2d = pts2d.cpu().numpy().reshape(V, F, 25, 2)
-    with tempfile.TemporaryDirectory() as d:
-        write_csv(eval_2d(pts2d, {"op": bundle.labels["op"]},
-                          bundle.labels["gt"], bundle.bbox_diag("gt")),
-                  os.path.join(d, "eval_2d.csv"))
-        stats3d = eval_3d(assets.smpl, preds["poses"].cpu().numpy().reshape(
-            V, F, 69), bundle.gt3d_pose, {"vibe": bundle.hmr_theta})
-        write_csv(stats3d, os.path.join(d, "eval_3d.csv"))
-        with open(os.path.join(d, "eval_2d.csv")) as f:
-            header = f.readline().strip()
-    torch.cuda.synchronize()
-    counts = launch_counts()
-    print(f"[slice] launches during the fit: {json.dumps(counts)}")
-    for k in KERNELS:
-        if counts[k] <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the fit")
+    fm = fitter.fit(main, chunk=chunk,
+                    on_chunk=lambda *_: stamps.append(time.perf_counter()))
+    steady = (main - chunk) / (stamps[-1] - stamps[0]) if len(stamps) > 1 \
+        else float("nan")
+    return (wm, cm, fm), steady, stamps[-1] - t0
 
-    steps_per_s = (MAIN_STEPS - 10) / steady_s
-    print(f"[slice] main stage: {MAIN_STEPS} steps in {main_s:.3f} s; the "
-          f"last {MAIN_STEPS - 10} in {steady_s:.3f} s = {steps_per_s:.3f} "
-          f"steps/s (batch {BATCH}, 8 views x 120 frames, "
-          f"V={smpl.num_vertices})")
-    kp = fm["kp_loss"]
-    print(f"[slice] init {init}\n[slice] final {final}")
-    print(f"[slice] warmup_loss {wm['warmup_loss'][0]:.4f} -> "
-          f"{wm['warmup_loss'][-1]:.4f}; cam_loss {cm['cam_loss'][0]:.2f} -> "
-          f"{cm['cam_loss'][-1]:.2f}; kp_loss {kp[0]:.2f} -> {kp[-1]:.2f}")
-    arrays = [wm["warmup_loss"], cm["cam_loss"], *fm.values()]
+
+def check_finite(name, metrics, *evals):
+    import numpy as np
+    arrays = [a for m in metrics for a in m.values()]
     if not all(np.isfinite(a).all() for a in arrays) or not all(
-            math.isfinite(v) for v in (*init.values(), *final.values())):
-        raise AssertionError("non-finite loss in the fit")
-    if not kp[-10:].mean() < kp[:10].mean():
-        raise AssertionError("main-stage kp_loss did not fall")
-    for name, v in stats3d.items():
-        if not np.isfinite(v).all() or len(v) != V:
-            raise AssertionError(f"eval_3d column {name} malformed")
-    if header != ",recon_error_2d-ours,pck-ours,recon_error_2d-op,pck-op":
-        raise AssertionError(f"eval_2d header {header!r}")
+            math.isfinite(v) for e in evals for v in e.values()):
+        raise AssertionError(f"{name}: non-finite loss")
 
-    # One more step of each stage with every synchronising call turned into
-    # an error: nothing inside a stage may wait for the device.
-    cam_opt = make_camera_stage_optimizer(fitter.params, cfg)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        fitter.warmup_step(0)
-        fitter.camera_step(cam_opt)
-        fitter.main_step()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    print("[slice] a step of each stage ran without a device synchronisation")
 
-    # The card against the port's CPU path (plain PyTorch versions of the
-    # kernels) from the same parameters, on one batch of 64.
+def check_falls(name, kp, n):
+    print(f"[{name}] kp_loss {kp[0]:.2f} -> {kp[-1]:.2f}")
+    if not kp[-n:].mean() < kp[:n].mean():
+        raise AssertionError(f"{name}: main-stage kp_loss did not fall")
+
+
+def card_vs_cpu(name, fitter, bundle, smpl):
+    """fit_loss on the card against the port's CPU path (plain versions of
+    the kernels) from the same parameters, on one batch of 64."""
+    import torch
+    from nemo_tpu_torch.fit import NemoParams, build_assets, fit_loss
+    cfg, assets = fitter.cfg, fitter.assets
+    V, F = assets.num_views, assets.num_frames
     g = torch.Generator().manual_seed(3)
     vi = torch.randint(0, V, (64,), generator=g)
     fi = torch.randint(0, F, (64,), generator=g)
     with torch.no_grad():
-        _, m_gpu = fit_loss(fitter.params, cfg, assets, vi.to(device),
-                            fi.to(device))
+        _, m_gpu = fit_loss(fitter.params, cfg, assets, vi.to(assets.device),
+                            fi.to(assets.device))
         cpu_assets = build_assets(bundle, smpl.to("cpu"), cfg,
                                   gmm=assets.gmm.to("cpu"),
                                   vposer={k: v.cpu()
@@ -306,10 +462,161 @@ def slice_phase(device, smpl):
         _, m_cpu = fit_loss(params_cpu, cfg, cpu_assets, vi, fi)
     for k in m_cpu:
         a, b = float(m_gpu[k]), float(m_cpu[k])
-        print(f"[slice] fit_loss {k}: cuda {a:.6f} cpu {b:.6f}")
+        print(f"[{name}] fit_loss {k}: cuda {a:.6f} cpu {b:.6f}")
         if not abs(a - b) <= 1e-4 * abs(b) + 1e-6:
-            raise AssertionError(f"fit_loss {k}: card and CPU disagree")
-    return counts, steps_per_s
+            raise AssertionError(f"{name} fit_loss {k}: card and CPU disagree")
+
+
+def no_sync_steps(name, fitter):
+    """One step of each stage with every synchronising call an error."""
+    import torch
+    from nemo_tpu_torch.fit.optimizer import (make_camera_stage_optimizer,
+                                              make_v0_warmup_optimizer)
+    cfg = fitter.cfg
+    cam_opt = None if cfg.model_version >= 4 else \
+        make_camera_stage_optimizer(fitter.params, cfg)
+    warm_opt = make_v0_warmup_optimizer(fitter.params, cfg) \
+        if cfg.model_version == 0 else None
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fitter.warmup_step(0, warm_opt)
+        fitter.camera_step(cam_opt)
+        fitter.main_step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"[{name}] a step of each stage ran without a device "
+          "synchronisation")
+
+
+def slice1_path(device, smpl, bundle):
+    """The reference configuration through K1 and K2's fused mode."""
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.eval.metrics import eval_2d, eval_3d, write_csv
+    from nemo_tpu_torch.fit import predict, project_to_views
+    main = 30
+    fitter = make_fitter(device, smpl, bundle, reference_config())
+
+    def run():
+        init = fitter.eval_loss()
+        ms, steady, main_s = stages(fitter, 10, 10, main, 10)
+        final = fitter.eval_loss()
+        V, F = fitter.assets.num_views, fitter.assets.num_frames
+        vi = torch.arange(V, device=device).repeat_interleave(F)
+        fi = torch.arange(F, device=device).repeat(V)
+        with torch.no_grad():
+            preds = predict(fitter.params, fitter.cfg, fitter.assets, vi, fi)
+            pts2d = project_to_views(fitter.params, fitter.cfg, fitter.assets,
+                                     preds["j"], vi)
+        pts2d = pts2d.cpu().numpy().reshape(V, F, 25, 2)
+        with tempfile.TemporaryDirectory() as d:
+            write_csv(eval_2d(pts2d, {"op": bundle.labels["op"]},
+                              bundle.labels["gt"], bundle.bbox_diag("gt")),
+                      os.path.join(d, "eval_2d.csv"))
+            stats3d = eval_3d(fitter.assets.smpl, preds["poses"].cpu().numpy()
+                              .reshape(V, F, 69), bundle.gt3d_pose,
+                              {"vibe": bundle.hmr_theta})
+            write_csv(stats3d, os.path.join(d, "eval_3d.csv"))
+            with open(os.path.join(d, "eval_2d.csv")) as f:
+                header = f.readline().strip()
+        return init, ms, steady, main_s, final, stats3d, header
+
+    counts, (init, ms, steady, main_s, final, stats3d, header) = run_path(
+        "slice 1", ("fk_fwd", "fk_bwd", "v2v_grad", "v2v_fwd"), run)
+    print(f"[slice 1] main stage: {main} steps in {main_s:.3f} s; the last "
+          f"{main - 10} at {steady:.3f} steps/s (batch {BATCH}, 8 views x "
+          f"120 frames, V={smpl.num_vertices})")
+    print(f"[slice 1] init {init}\n[slice 1] final {final}")
+    check_finite("slice 1", ms, init, final)
+    check_falls("slice 1", ms[2]["kp_loss"], 10)
+    V = fitter.assets.num_views
+    for name, v in stats3d.items():
+        if not np.isfinite(v).all() or len(v) != V:
+            raise AssertionError(f"eval_3d column {name} malformed")
+    if header != ",recon_error_2d-ours,pck-ours,recon_error_2d-op,pck-op":
+        raise AssertionError(f"eval_2d header {header!r}")
+    no_sync_steps("slice 1", fitter)
+    card_vs_cpu("slice 1", fitter, bundle, smpl)
+    return counts, steady
+
+
+def path_a(device, smpl, bundle):
+    """The custom-video configuration with the 1024-vertex v2v subset."""
+    cfg = reference_config(
+        model_version=3, phase_init="linear", lr_human=1e-3, lr_instance=1e-3,
+        lr_phase=0.0, lr_factor=1.0, weight_3d_loss=1000.0, full_batch=True,
+        vp_v2v_n_verts=1024)
+    fitter = make_fitter(device, smpl, bundle, cfg)
+    print(f"[path A] {cfg}")
+    main = 40
+
+    def run():
+        ms, steady, main_s = stages(fitter, 10, 10, main, 10)
+        return ms, steady, main_s, fitter.eval_loss()
+
+    counts, (ms, steady, main_s, final) = run_path(
+        "path A", ("fk_fwd", "fk_bwd", "skin_fwd", "skin_bwd"), run)
+    B = fitter.assets.num_views * fitter.assets.num_frames
+    print(f"[path A] main stage: {main} steps in {main_s:.3f} s; the last "
+          f"{main - 10} at {steady:.3f} steps/s (full batch B={B}, v2v on "
+          f"{len(fitter.assets.v2v_vidx)} vertices; {nvidia_smi_line()})")
+    print(f"[path A] final {final}")
+    check_finite("path A", ms, final)
+    check_falls("path A", ms[2]["kp_loss"], 10)
+    card_vs_cpu("path A", fitter, bundle, smpl)
+    no_sync_steps("path A", fitter)
+    return counts, steady
+
+
+def path_b(device, smpl, bundle):
+    """Slice 1's workload with the K2 pair modes: 10 main steps each, from
+    the same fresh parameters, so the two loss curves must agree."""
+    import numpy as np
+    out, curves = {}, {}
+    for vjp, bwd in (("pair", "skin_bwd"), ("pair_vp", "skin_bwd_vp")):
+        fitter = make_fitter(device, smpl, bundle, reference_config(),
+                             v2v_vjp=vjp)
+        counts, fm = run_path(f"path B {vjp}", ("v2v_pair", bwd),
+                              lambda: fitter.fit(10, chunk=10))
+        if counts["v2v_grad"]:
+            raise AssertionError(f"path B {vjp}: the fused mode ran")
+        check_finite(f"path B {vjp}", [fm])
+        print(f"[path B {vjp}] total_loss {fm['total_loss'][0]:.3f} -> "
+              f"{fm['total_loss'][-1]:.3f}")
+        out[vjp], curves[vjp] = counts, fm["total_loss"]
+    # the kernel phase shows the two modes' gradients bit-identical; allow
+    # f32 reassociation elsewhere in the step
+    if not np.allclose(curves["pair"], curves["pair_vp"], rtol=1e-4, atol=0):
+        raise AssertionError("path B: pair and pair_vp losses disagree")
+    return out
+
+
+def path_c(device, smpl, bundle):
+    """Model versions 0, 1 and 4 at the reference width: 5 steps of each
+    stage."""
+    out = {}
+    for v, over in ((0, dict(phase_rbf_dim=0)), (1, dict(phase_rbf_dim=0)),
+                    (4, dict(weight_3d_loss=1.0, weight_instance_loss=0.1,
+                             code_noise=0.01))):
+        fitter = make_fitter(device, smpl, bundle,
+                             reference_config(model_version=v, **over))
+
+        def run():
+            ms, _, _ = stages(fitter, 5, 5, 5, 5)
+            return ms
+
+        counts, ms = run_path(f"path C v{v}", ("fk_fwd", "fk_bwd",
+                                                 "v2v_grad"), run)
+        check_finite(f"path C v{v}", ms)
+        print(f"[path C v{v}] " + "; ".join(
+            f"{k} {a[0]:.3f} -> {a[-1]:.3f}" for m in ms
+            for k, a in m.items() if k in ("warmup_loss", "cam_loss",
+                                           "total_loss")))
+        if v == 4:
+            no_sync_steps("path C v4", fitter)
+        out[f"v{v}"] = counts
+    return out
 
 
 def main() -> int:
@@ -318,12 +625,14 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     smi = nvidia_smi_line()
     print(f"[device] {smi}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}")
     device = torch.device("cuda", 0)
 
     from nemo_tpu_torch.body.assets import synthetic_smpl_model
+    from nemo_tpu_torch.data.synthetic import synthetic_problem
     from nemo_tpu_torch.ops import _build
     t0 = time.perf_counter()
     _build.library()
@@ -332,13 +641,26 @@ def main() -> int:
           f"{_build.build_seconds if _build.build_seconds is not None else 0:.2f} s)")
 
     smpl = synthetic_smpl_model(6890, seed=0, device=device)
-    kernel_err, times = kernel_phase(device, smpl)
-    counts, steps_per_s = slice_phase(device, smpl)
+    kernel_err, rec = kernel_phase(device, smpl)
+    bundle, _ = synthetic_problem(smpl, num_views=8, num_frames=120, seed=0)
+    paths = {}
+    paths["slice 1"], steady1 = slice1_path(device, smpl, bundle)
+    paths["path A"], steady_a = path_a(device, smpl, bundle)
+    for k, c in path_b(device, smpl, bundle).items():
+        paths[f"path B {k}"] = c
+    for k, c in path_c(device, smpl, bundle).items():
+        paths[f"path C {k}"] = c
+    launches = {k: sum(c[k] for c in paths.values()) for k in KERNELS}
+    print(f"[paths] steps/s: slice 1 {steady1:.3f}, path A {steady_a:.3f}; "
+          f"launches summed over the paths {json.dumps(launches)}; "
+          f"{time.perf_counter() - t_start:.1f} s in all")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[k], "max_abs_err": kernel_err[k],
-         "ms": times[k][0], "plain_ms": times[k][1]}
+         "launches": launches[k], "max_abs_err": kernel_err[k],
+         "ms": rec[k]["ms"], "plain_ms": rec[k]["plain_ms"],
+         "bound_ms": rec[k]["bound_ms"], "bound_by": rec[k]["bound_by"],
+         "library_ms": rec[k]["library_ms"], "shape": rec[k]["shape"]}
         for k, (src, rep) in KERNELS.items()]}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,15 @@
 """SMPL body model: linear blend skinning and the 49-joint output.
 
 Port of nemo_tpu/body/smpl.py. Forward kinematics runs through kernel K1
-(``ops.fk.fk_compose``) and the VPoser v2v objective through kernel K2
-(``ops.lbs.skin_v2v_l1``); everything else is plain PyTorch.
+(``ops.fk.fk_compose``), the VPoser v2v objective through kernel K2
+(``ops.lbs.skin_v2v_l1``) and the vertex-major meshes of ``smpl_verts_t``
+through kernel K3 (``ops.lbs.skin_verts_t``); everything else is plain
+PyTorch.
 
 The model keeps logical tables only: ``posedirs_t (207, 3, V)`` and
-``lbs_weights_t (24, V)`` feed K2 directly (the kernel masks the ragged
-vertex edge, so there is no tiled or padded copy).
+``lbs_weights_t (24, V)`` feed K2 and K3 directly (the kernels mask the
+ragged vertex edge, so there is no tiled or padded copy), and a vertex
+subset's tables are contiguous column slices of them.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 from .. import device_index
 from ..geometry.rotations import batch_rodrigues
 from ..ops.fk import fk_compose
-from ..ops.lbs import skin_v2v_l1
+from ..ops.lbs import skin_v2v_l1, skin_verts_t
 
 NUM_BODY_JOINTS = 23
 NUM_JOINTS = 24
@@ -210,32 +213,89 @@ def smpl_forward(model: SMPLModel, betas: torch.Tensor,
     return None, joints49
 
 
-def smpl_v2v_l1_sum(model: SMPLModel, betas: torch.Tensor,
-                    body_rot_o: torch.Tensor, orient_rot_o: torch.Tensor,
-                    body_rot_r: torch.Tensor, orient_rot_r: torch.Tensor
-                    ) -> torch.Tensor:
-    """sum |verts(rec) - verts(orig)| through K2, without building either
-    mesh. The rec side is computed detached (no FK backward runs for it),
-    like the reference's detached reconstruction. Shared betas (1, 10)."""
+def _skin_inputs(model: SMPLModel, betas: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(v_shaped (V, 3), rest joints (1, 24, 3)) for shared betas (1, 10)."""
     v_shaped = _v_shaped(model, betas)
     if v_shaped.shape[0] != 1:
-        raise NotImplementedError("smpl_v2v_l1_sum requires shared betas")
+        raise NotImplementedError("vertex-major skinning requires shared "
+                                  "betas (shape (1, 10))")
     J = torch.einsum('jv,bvk->bjk', model.J_regressor, v_shaped)
+    return v_shaped[0], J
+
+
+def _pose_inputs(model: SMPLModel, J: torch.Tensor, body_rot: torch.Tensor,
+                 orient_rot: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pf (B, 207), A34 (B, 24, 12)): the skinning kernels' per-row
+    inputs, FK in (R, t) form through K1."""
+    B = body_rot.shape[0]
+    rot_mats = torch.cat([orient_rot.reshape(-1, 1, 3, 3).expand(
+        B, 1, 3, 3), body_rot], dim=1)
     ident = torch.eye(3, dtype=J.dtype, device=J.device)
+    pf = (rot_mats[:, 1:] - ident).reshape(B, 23 * 9)
+    R_g, _, t_rel = fk_rt(rot_mats, J, model.parents)
+    A34 = torch.cat([R_g, t_rel[..., None]], dim=-1).reshape(
+        B, NUM_JOINTS, 12)
+    return pf.contiguous(), A34.contiguous()
 
-    def side(body_rot, orient_rot):
-        B = body_rot.shape[0]
-        rot_mats = torch.cat([orient_rot.reshape(-1, 1, 3, 3).expand(
-            B, 1, 3, 3), body_rot], dim=1)
-        pf = (rot_mats[:, 1:] - ident).reshape(B, 23 * 9)
-        R_g, _, t_rel = fk_rt(rot_mats, J, model.parents)
-        A34 = torch.cat([R_g, t_rel[..., None]], dim=-1).reshape(
-            B, NUM_JOINTS, 12)
-        return pf.contiguous(), A34.contiguous()
 
-    pf_o, A_o = side(body_rot_o, orient_rot_o)
+def smpl_verts_t(model: SMPLModel, betas: torch.Tensor,
+                 body_rot: torch.Tensor, orient_rot: torch.Tensor
+                 ) -> torch.Tensor:
+    """Vertex-major SMPL vertices (B, 3, V) through K3: the same math as
+    smpl_forward(want_vertices=True) minus the joint outputs. Shared betas
+    (1, 10). The JAX package's padded variant (zero lanes past V) has no
+    counterpart: the kernels mask the ragged edge, so there are no lanes
+    to pad."""
+    v_shaped, J = _skin_inputs(model, betas)
+    pf, A34 = _pose_inputs(model, J, body_rot, orient_rot)
+    return skin_verts_t(model.num_vertices, pf, A34,
+                        v_shaped.t().contiguous(), model.posedirs_t,
+                        model.lbs_weights_t)
+
+
+def subset_skin_tables(model: SMPLModel, n: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """An even vertex subsample and its skinning tables (once, at setup):
+    (vidx (n',) long, posedirs_t (207, 3, n'), lbs_weights_t (24, n')),
+    contiguous on the model's device. The vertices are those of
+    nemo_tpu/body/smpl.py subset_skin_tables, unique(linspace(0, V-1, n)),
+    so n' <= n; the tables are logical column slices, not tiles."""
+    V = model.num_vertices
+    vidx = np.unique(np.linspace(0, V - 1, n).astype(np.int64))
+    idx = torch.as_tensor(vidx, device=model.device)
+    return (idx, model.posedirs_t[:, :, idx].contiguous(),
+            model.lbs_weights_t[:, idx].contiguous())
+
+
+def smpl_verts_t_subset(model: SMPLModel, betas: torch.Tensor,
+                        body_rot: torch.Tensor, orient_rot: torch.Tensor,
+                        vidx: torch.Tensor, posedirs_sub: torch.Tensor,
+                        weights_sub: torch.Tensor) -> torch.Tensor:
+    """smpl_verts_t on a vertex subset: (B, 3, len(vidx)), tables from
+    subset_skin_tables. The joints still come from the full v_shaped (the
+    kinematic tree does not change); only the skinned output is subsampled,
+    and the gradient of v_shaped reaches the betas through the gather."""
+    v_shaped, J = _skin_inputs(model, betas)
+    pf, A34 = _pose_inputs(model, J, body_rot, orient_rot)
+    vsh_sub = v_shaped.t()[:, vidx].contiguous()
+    return skin_verts_t(int(vidx.shape[0]), pf, A34, vsh_sub, posedirs_sub,
+                        weights_sub)
+
+
+def smpl_v2v_l1_sum(model: SMPLModel, betas: torch.Tensor,
+                    body_rot_o: torch.Tensor, orient_rot_o: torch.Tensor,
+                    body_rot_r: torch.Tensor, orient_rot_r: torch.Tensor,
+                    vjp: str = "fused") -> torch.Tensor:
+    """sum |verts(rec) - verts(orig)| through K2, without building either
+    mesh. The rec side is computed detached (no FK backward runs for it),
+    like the reference's detached reconstruction. Shared betas (1, 10).
+    vjp: the gradient mode of ops.lbs.skin_v2v_l1."""
+    v_shaped, J = _skin_inputs(model, betas)
+    pf_o, A_o = _pose_inputs(model, J, body_rot_o, orient_rot_o)
     with torch.no_grad():
-        pf_r, A_r = side(body_rot_r, orient_rot_r)
+        pf_r, A_r = _pose_inputs(model, J, body_rot_r, orient_rot_r)
     return skin_v2v_l1(model.num_vertices, pf_o, A_o,
-                       v_shaped[0].t().contiguous(), model.posedirs_t,
-                       model.lbs_weights_t, pf_r, A_r)
+                       v_shaped.t().contiguous(), model.posedirs_t,
+                       model.lbs_weights_t, pf_r, A_r, vjp=vjp)

@@ -12,10 +12,12 @@ Usage:
       --label_type gt --loss mse_robust --weight_gmm_loss 0.5 \
       --out_dir out/verify_fit_torch
 
+Every model version (--model_version 0..4) runs, with --full_batch,
+--weight_3d_loss, --weight_instance_loss, --code_noise and --vp_v2v_n_verts.
 Writes config.json, metrics.jsonl, losses.npz, eval_2d.csv, eval_3d.csv,
 eval_3d_dynamic.csv and eval_3d_global.csv under out_dir/<NNNNNN>/.
 Real SMPL/VPoser/GMM assets, checkpoints and resume, rendering, --dp and
---full_batch are still to port (ROADMAP.md Queue 1) and raise.
+--weight_humor_loss are still to port (ROADMAP.md Queue 1) and raise.
 """
 
 from __future__ import annotations
@@ -102,7 +104,6 @@ def _reject_unported(args) -> None:
             args.render_video or args.render_rollout_figure
             or args.render_every,
         "--dp": args.dp,
-        "--full_batch": args.full_batch,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -165,8 +166,9 @@ def main(argv=None) -> int:
     with Timer("Camera opt"):
         cm = fitter.opt_cam()
         if cm:
+            key = "cam_loss" if "cam_loss" in cm else "total_loss"  # V4
             metrics_log.write({"phase": "opt_cam_done",
-                               "loss": float(cm["cam_loss"][-1])})
+                               "loss": float(cm[key][-1])})
         metrics_log.write({"phase": "cam_eval", **fitter.eval_loss(full=full)})
 
     def on_chunk(f, step, chunk_metrics):

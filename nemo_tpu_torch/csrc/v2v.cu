@@ -1,17 +1,21 @@
 // The VPoser v2v-L1 prior in one kernel pass plus gradient reductions: the
-// Hopper port of nemo_tpu/ops/lbs_pallas.py _v2v_fwdbwd_kernel (and, in
-// forward-only mode, of the total that _v2v_fwd_kernel computes).
+// Hopper port of nemo_tpu/ops/lbs_pallas.py _v2v_fwdbwd_kernel (fused
+// mode), and of _v2v_fwd_kernel / _v2v_fwd_kernel_vp (total-only and pair
+// modes).
 //
 // For every (batch row b, vertex v), both pose sets are skinned,
 //   vph[k]  = sum_p pf[b,p] posedirs_t[p,k,v] + v_shaped_t[k,v],  vph[3] = 1
 //   M[l]    = sum_j A[b,j,l] W_t[j,v]                     (l = i*4 + k)
 //   vert[i] = M[4i+3] + sum_k M[4i+k] vph[k]
-// and total = sum |vert_rec - vert_orig|. In grad mode the orig-side
-// gradients under the raw cotangent g = sign(rec - orig) (sign(0) = 0) are
-//   gA[b,j,i*4+k] = sum_v g[b,i,v] vph_o[b,k,v] W_t[j,v]
-//   gvp[b,k,v]    = sum_i M_o[b,4i+k,v] g[b,i,v]
-//   gpf[b,p]      = sum_v sum_k gvp[b,k,v] posedirs_t[p,k,v]
-//   gvsh[k,v]     = sum_b gvp[b,k,v]
+// and total = sum |vert_rec - vert_orig|. The modes:
+//   0 total only (the undifferentiated call);
+//   1 fused: also the orig-side gradients under the raw cotangent
+//     g = sign(rec - orig) (sign(0) = 0), by the second pass of
+//     skin_common.cuh;
+//   2 pair: writes sign (B,3,V) and, if asked, the orig-side posed vertices
+//     vp (B,3,V), and stops; the backward runs K3b (csrc/skin.cu) on them.
+//     The sign is stored as f32: {-1, 0, 1} is exact there, and K3b takes
+//     any f32 cotangent, so one gradient code path serves both.
 //
 // What bounds it on the H100: arithmetic on the CUDA cores in f32,
 // 2*B*V*2*(3*207 + 12*24 + 12) FLOP forward (13.0 GFLOP at B=512, V=6890)
@@ -25,35 +29,25 @@
 //      The blend M reads A with warp-uniform (broadcast) loads and W
 //      coalesced along v. The |diff| partial of each block is reduced in
 //      shared memory in a fixed order.
-//   2. In grad mode the tile kernel writes sign, vph_o and gvp (B,3,V) to
-//      scratch, and three second-pass kernels reduce across tiles: gpf is a
-//      tiled (B x 3V) . (3V x 207) contraction, gA one block per batch row,
-//      gvsh a column sum. The TPU kernel keeps gvp on-chip and accumulates
-//      gpf/gA in its sequential V grid; on Hopper, blocks run in parallel in
-//      no order, so the port reduces in a second pass. Keeping gvp on-chip
-//      (no (B,3,V) round trip) is later work.
+//   2. In fused mode the tile kernel writes sign, vph_o and gvp (B,3,V) to
+//      scratch, and the second-pass kernels of skin_common.cuh reduce across
+//      tiles. The TPU kernel keeps gvp on-chip and accumulates gpf/gA in its
+//      sequential V grid; on Hopper, blocks run in parallel in no order, so
+//      the port reduces in a second pass. Keeping gvp on-chip (no (B,3,V)
+//      round trip) is later work.
 // Every reduction runs in a fixed order with no atomics, so repeated runs
 // are bit-identical. The ragged vertex edge is masked (no padded tables).
 
-#include <cuda_runtime.h>
+#include "skin_common.cuh"
 
 namespace {
-
-constexpr int kP = 207;   // pose features (23 joints x 9)
-constexpr int kJ = 24;    // joints
-constexpr int kL = 12;    // 3x4 transform components
-constexpr int kTV = 32;   // vertices per tile (one per lane)
-constexpr int kTY = 8;    // warps per tile
-constexpr int kRB = 4;    // batch rows per thread
-constexpr int kTB = kTY * kRB;  // batch rows per tile
-constexpr int kPK = 16;   // pose-feature slice staged per step
 
 __global__ void __launch_bounds__(kTV * kTY)
 v2v_tile_kernel(int B, int V, const float* __restrict__ pf_o,
                 const float* __restrict__ A_o, const float* __restrict__ pf_r,
                 const float* __restrict__ A_r, const float* __restrict__ vsh,
                 const float* __restrict__ pd, const float* __restrict__ W,
-                int grad, float* __restrict__ partial, float* __restrict__ sign,
+                int mode, float* __restrict__ partial, float* __restrict__ sign,
                 float* __restrict__ vp, float* __restrict__ gvp) {
   __shared__ float s_pfo[kTB][kPK];
   __shared__ float s_pfr[kTB][kPK];
@@ -134,13 +128,14 @@ v2v_tile_kernel(int B, int V, const float* __restrict__ pf_o,
         local += fabsf(diff);
         g[i] = (float)(diff > 0.f) - (float)(diff < 0.f);
       }
-      if (grad) {
+      if (mode != 0) {
         const size_t base = (size_t)b * V3 + v;
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
           sign[base + (size_t)k * V] = g[k];
-          vp[base + (size_t)k * V] = vo[k];
-          gvp[base + (size_t)k * V] = Mo[k] * g[0] + Mo[4 + k] * g[1] + Mo[8 + k] * g[2];
+          if (vp) vp[base + (size_t)k * V] = vo[k];
+          if (mode == 1)
+            gvp[base + (size_t)k * V] = Mo[k] * g[0] + Mo[4 + k] * g[1] + Mo[8 + k] * g[2];
         }
       }
     }
@@ -155,103 +150,6 @@ v2v_tile_kernel(int B, int V, const float* __restrict__ pf_o,
   if (tid == 0) partial[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = s_red[0];
 }
 
-// total = sum of the tile partials, in a fixed order.
-__global__ void __launch_bounds__(256)
-total_kernel(int n, const float* __restrict__ partial, float* __restrict__ total) {
-  __shared__ float s[256];
-  const int t = threadIdx.x;
-  float acc = 0.f;
-  for (int i = t; i < n; i += 256) acc += partial[i];
-  s[t] = acc;
-  __syncthreads();
-  for (int k = 128; k > 0; k >>= 1) {
-    if (t < k) s[t] += s[t + k];
-    __syncthreads();
-  }
-  if (t == 0) *total = s[0];
-}
-
-// gpf[b,p] = sum_c gvp[b,c] pd[p,c] over c < K = 3V: a 32 x 32 output tile
-// per block, 32-wide K slices staged in shared memory, 4 outputs a thread.
-constexpr int kGT = 32, kGK = 32;
-
-__global__ void __launch_bounds__(kGT * 8)
-gpf_kernel(int B, int K, const float* __restrict__ gvp,
-           const float* __restrict__ pd, float* __restrict__ gpf) {
-  __shared__ float s_a[kGT][kGK + 1];
-  __shared__ float s_b[kGT][kGK + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * kGT + tx;
-  const int p0 = blockIdx.x * kGT, b0 = blockIdx.y * kGT;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < K; k0 += kGK) {
-    for (int e = tid; e < kGT * kGK; e += kGT * 8) {
-      const int r = e / kGK, c = e % kGK, kk = k0 + c;
-      s_a[r][c] = (b0 + r < B && kk < K) ? gvp[(size_t)(b0 + r) * K + kk] : 0.f;
-      s_b[r][c] = (p0 + r < kP && kk < K) ? pd[(size_t)(p0 + r) * K + kk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < kGK; ++c) {
-      const float bv = s_b[tx][c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[r] += s_a[ty * 4 + r][c] * bv;
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int b = b0 + ty * 4 + r, p = p0 + tx;
-    if (b < B && p < kP) gpf[(size_t)b * kP + p] = acc[r];
-  }
-}
-
-// gA[b,j,i*4+k] = sum_v sign[b,i,v] vph[b,k,v] W[j,v]: one block per batch
-// row, one thread per (j, l) output, vertex slices staged in shared memory.
-constexpr int kVC = 64;
-
-__global__ void __launch_bounds__(kJ * kL)
-ga_kernel(int V, const float* __restrict__ sign, const float* __restrict__ vp,
-          const float* __restrict__ W, float* __restrict__ gA) {
-  __shared__ float s_g[3][kVC + 1];
-  __shared__ float s_v[3][kVC + 1];
-  __shared__ float s_w[kJ][kVC + 1];
-  const int b = blockIdx.x, t = threadIdx.x;
-  const int j = t / kL, l = t % kL, i = l / 4, k = l % 4;
-  const size_t base = (size_t)b * 3 * V;
-  float acc = 0.f;
-  for (int v0 = 0; v0 < V; v0 += kVC) {
-    for (int e = t; e < 3 * kVC; e += kJ * kL) {
-      const int c = e / kVC, x = e % kVC, vv = v0 + x;
-      const bool ok = vv < V;
-      s_g[c][x] = ok ? sign[base + (size_t)c * V + vv] : 0.f;
-      s_v[c][x] = ok ? vp[base + (size_t)c * V + vv] : 0.f;
-    }
-    for (int e = t; e < kJ * kVC; e += kJ * kL) {
-      const int jj = e / kVC, x = e % kVC, vv = v0 + x;
-      s_w[jj][x] = vv < V ? W[(size_t)jj * V + vv] : 0.f;
-    }
-    __syncthreads();
-    for (int x = 0; x < kVC; ++x) {
-      const float gm = k < 3 ? s_g[i][x] * s_v[k][x] : s_g[i][x];
-      acc += gm * s_w[j][x];
-    }
-    __syncthreads();
-  }
-  gA[((size_t)b * kJ + j) * kL + l] = acc;
-}
-
-// gvsh[c] = sum_b gvp[b,c] for c < K = 3V, batch rows summed in order.
-__global__ void __launch_bounds__(256)
-gvsh_kernel(int B, int K, const float* __restrict__ gvp, float* __restrict__ gvsh) {
-  const int c = blockIdx.x * 256 + threadIdx.x;
-  if (c >= K) return;
-  float s = 0.f;
-  for (int b = 0; b < B; ++b) s += gvp[(size_t)b * K + c];
-  gvsh[c] = s;
-}
-
-inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
 }  // namespace
 
 extern "C" int nemo_v2v_num_partials(int B, int V) {
@@ -260,28 +158,26 @@ extern "C" int nemo_v2v_num_partials(int B, int V) {
 
 // pf_* (B,207), A_* (B,24,12), vsh (3,V), pd (207,3,V), W (24,V), all f32
 // contiguous on one device. partial: nemo_v2v_num_partials(B, V) floats;
-// total: 1 float. With grad != 0: sign, vp, gvp scratch (B,3,V) each and
-// outputs gpf (B,207), gA (B,24,12), gvsh (3,V); otherwise those may be null.
+// total: 1 float. mode 0: total only; sign, vp, gvp, gpf, gA, gvsh may be
+// null. mode 1 (fused): sign, vp, gvp scratch (B,3,V) each and outputs
+// gpf (B,207), gA (B,24,12), gvsh (3,V). mode 2 (pair): outputs sign
+// (B,3,V) and, unless vp is null, vp (B,3,V); gvp, gpf, gA, gvsh unused.
 extern "C" int nemo_v2v_l1(int B, int V, const float* pf_o, const float* A_o,
                            const float* pf_r, const float* A_r,
                            const float* vsh, const float* pd, const float* W,
-                           int grad, float* partial, float* sign, float* vp,
+                           int mode, float* partial, float* sign, float* vp,
                            float* gvp, float* total, float* gpf, float* gA,
                            float* gvsh, cudaStream_t stream) {
-  if (B <= 0 || V <= 0 || cdiv(B, kTB) > 65535) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || V <= 0 || cdiv(B, kTB) > 65535 || mode < 0 || mode > 2 ||
+      (mode != 0 && !sign) || (mode == 1 && (!vp || !gvp)))
+    return (int)cudaErrorInvalidValue;
   const dim3 tile_grid(cdiv(V, kTV), cdiv(B, kTB));
   v2v_tile_kernel<<<tile_grid, dim3(kTV, kTY), 0, stream>>>(
-      B, V, pf_o, A_o, pf_r, A_r, vsh, pd, W, grad, partial, sign, vp, gvp);
+      B, V, pf_o, A_o, pf_r, A_r, vsh, pd, W, mode, partial, sign, vp, gvp);
   if (cudaError_t err = cudaGetLastError()) return (int)err;
   total_kernel<<<1, 256, 0, stream>>>(nemo_v2v_num_partials(B, V), partial, total);
   if (cudaError_t err = cudaGetLastError()) return (int)err;
-  if (!grad) return 0;
-  const int K = 3 * V;
-  gpf_kernel<<<dim3(cdiv(kP, kGT), cdiv(B, kGT)), dim3(kGT, 8), 0, stream>>>(
-      B, K, gvp, pd, gpf);
-  if (cudaError_t err = cudaGetLastError()) return (int)err;
-  ga_kernel<<<B, kJ * kL, 0, stream>>>(V, sign, vp, W, gA);
-  if (cudaError_t err = cudaGetLastError()) return (int)err;
-  gvsh_kernel<<<cdiv(K, 256), 256, 0, stream>>>(B, K, gvp, gvsh);
-  return (int)cudaGetLastError();
+  if (mode != 1) return 0;
+  return (int)launch_skin_grads(B, V, sign, vp, gvp, pd, W, gpf, gA, gvsh,
+                                stream);
 }

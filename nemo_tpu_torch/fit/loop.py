@@ -1,11 +1,17 @@
 """The three-stage NeMo fit: warmup -> camera stage -> main optimization.
 
 Port of nemo_tpu/fit/loop.py. Each stage is a plain Python loop of
-PyTorch steps. Nothing inside a stage waits for the device: batches are drawn
-on the device from a ``torch.Generator``, the plateau schedulers are device
-tensors, and per-step metrics stay on the device until the end of the stage
-(or of a main-stage chunk), where they are stacked and copied to the host
-once.
+PyTorch steps. Nothing inside a stage waits for the device: batches and
+code noise are drawn on the device from a ``torch.Generator``, the
+full-batch grid is built once, the plateau schedulers are device tensors,
+and per-step metrics stay on the device until the end of the stage (or of a
+main-stage chunk), where they are stacked and copied to the host once.
+
+Per model version: V0 warms up through a fresh Adam over its pose network,
+V1+ through the persistent motion/rbf/phase Adams; the camera stage of
+V0-V3 steps a fresh cameras-only Adam at frame 0 of every view, that of V4
+steps every group but the betas on random batches. ``full_batch`` main
+steps run the fixed (view x frame) grid instead of a random batch.
 """
 
 from __future__ import annotations
@@ -18,10 +24,12 @@ import torch
 from .model import (NemoAssets, NemoConfig, camera_stage_loss, fit_loss,
                     init_params, warmup_loss)
 from .optimizer import (GroupOptimizer, make_camera_stage_optimizer,
-                        plateau_init_all, plateau_update_all)
+                        make_v0_warmup_optimizer, plateau_init_all,
+                        plateau_update_all)
 
-# batch_source(stage, step) -> (view_idx, frame_idx) for stage "warmup"
-# (step counted within the stage) or "main" (step counted over all chunks)
+# batch_source(stage, step) -> (view_idx, frame_idx) for stage "warmup",
+# "camera" (V4; both counted within the stage) or "main" (counted over all
+# chunks)
 BatchSource = Callable[[str, int], Tuple[object, object]]
 
 
@@ -54,6 +62,9 @@ class NemoFitter:
             seed + 1)
         self.batch_source = batch_source
         self.step = 0
+        V, F = assets.num_views, assets.num_frames
+        self._grid = (torch.arange(V, device=self.device).repeat_interleave(F),
+                      torch.arange(F, device=self.device).repeat(V))
 
     def _batch(self, stage: str, step: int, batch_size: int):
         V, F = self.assets.num_views, self.assets.num_frames
@@ -67,22 +78,46 @@ class NemoFitter:
         return (torch.randint(0, V, (batch_size,), **kw),
                 torch.randint(0, F, (batch_size,), **kw))
 
-    def _grad_step(self, loss_fn, vi, fi):
+    def _noise(self, batch: int) -> Optional[torch.Tensor]:
+        """The code noise draw of a training step (None when off)."""
+        cfg = self.cfg
+        if cfg.code_noise <= 0 or not cfg.uses_instance_code:
+            return None
+        return torch.randn((batch, cfg.instance_code_size),
+                           generator=self.generator, device=self.device)
+
+    def _grad_step(self, loss_fn, vi, fi, **kw):
         self.params.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(self.params, self.cfg, self.assets, vi, fi)
+        loss, metrics = loss_fn(self.params, self.cfg, self.assets, vi, fi,
+                                **kw)
         loss.backward()
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
     # One step of each stage. Each returns its metrics as device scalars
     # and never waits for the device.
 
-    def warmup_step(self, i: int) -> Dict[str, torch.Tensor]:
+    def warmup_step(self, i: int, opt=None) -> Dict[str, torch.Tensor]:
+        """opt: V0's warmup Adam (make_v0_warmup_optimizer); V1+ steps the
+        persistent motion/rbf/phase Adams."""
         vi, fi = self._batch("warmup", i, self.cfg.batch_size)
         _, metrics = self._grad_step(warmup_loss, vi, fi)
-        self.optimizer.step(active=("motion", "rbf", "phase"))
+        if opt is not None:
+            opt.step()
+        else:
+            self.optimizer.step(active=("motion", "rbf", "phase"))
         return metrics
 
-    def camera_step(self, cam_opt) -> Dict[str, torch.Tensor]:
+    def camera_step(self, cam_opt=None, i: int = 0
+                    ) -> Dict[str, torch.Tensor]:
+        """cam_opt: the V0-V3 cameras-only Adam; V4 (cam_opt None) steps
+        every group but the betas on batch i of the stage."""
+        if self.cfg.model_version >= 4:
+            vi, fi = self._batch("camera", i, self.cfg.batch_size)
+            _, metrics = self._grad_step(camera_stage_loss, vi, fi,
+                                         noise=self._noise(vi.shape[0]))
+            self.optimizer.step(active=("cameras", "motion", "rbf", "phase",
+                                        "instance"))
+            return metrics
         V = self.assets.num_views
         vi = torch.arange(V, device=self.device)
         fi = torch.zeros(V, dtype=torch.long, device=self.device)
@@ -91,25 +126,35 @@ class NemoFitter:
         return metrics
 
     def main_step(self) -> Dict[str, torch.Tensor]:
-        vi, fi = self._batch("main", self.step, self.cfg.batch_size)
-        loss, metrics = self._grad_step(fit_loss, vi, fi)
+        if self.cfg.full_batch:
+            vi, fi = self._grid
+        else:
+            vi, fi = self._batch("main", self.step, self.cfg.batch_size)
+        loss, metrics = self._grad_step(fit_loss, vi, fi,
+                                        noise=self._noise(vi.shape[0]))
         self.optimizer.step(plateau=self.plateau)
         self.plateau = plateau_update_all(self.plateau, loss, self.cfg)
         self.step += 1
         return metrics
 
     def warmup(self, steps: Optional[int] = None) -> Dict[str, np.ndarray]:
-        """Fit the predicted pose to the initializer theta; steps the
-        persistent motion/rbf/phase Adams (reference :3493-3503)."""
+        """Fit the predicted pose to the initializer theta: V1+ steps the
+        persistent motion/rbf/phase Adams (reference :3493-3503), V0 a
+        fresh Adam over its pose network that is dropped after the stage
+        (:3211-3214)."""
         steps = self.cfg.warmup_step if steps is None else steps
-        return _stack([self.warmup_step(i) for i in range(steps)])
+        opt = make_v0_warmup_optimizer(self.params, self.cfg) \
+            if self.cfg.model_version == 0 else None
+        return _stack([self.warmup_step(i, opt) for i in range(steps)])
 
     def opt_cam(self, steps: Optional[int] = None) -> Dict[str, np.ndarray]:
-        """Frame 0 of every view, a fresh cameras-only Adam that is dropped
-        after the stage (reference :2869-2906)."""
+        """V0-V3: frame 0 of every view, a fresh cameras-only Adam that is
+        dropped after the stage (reference :2869-2906). V4: random batches,
+        the persistent Adams of every group but the betas (:4060-4149)."""
         steps = self.cfg.opt_cam_step if steps is None else steps
-        cam_opt = make_camera_stage_optimizer(self.params, self.cfg)
-        return _stack([self.camera_step(cam_opt) for _ in range(steps)])
+        cam_opt = None if self.cfg.model_version >= 4 else \
+            make_camera_stage_optimizer(self.params, self.cfg)
+        return _stack([self.camera_step(cam_opt, i) for i in range(steps)])
 
     def fit(self, steps: Optional[int] = None, chunk: int = 500,
             on_chunk: Optional[Callable[["NemoFitter", int, dict], None]] = None
@@ -134,10 +179,8 @@ class NemoFitter:
                   full: bool = True) -> Dict[str, float]:
         """Loss without an update: the full (view, frame) grid, or one
         random batch with full=False."""
-        V, F = self.assets.num_views, self.assets.num_frames
         if full:
-            vi = torch.arange(V, device=self.device).repeat_interleave(F)
-            fi = torch.arange(F, device=self.device).repeat(V)
+            vi, fi = self._grid
         else:
             vi, fi = self._batch("eval", -1, batch_size or self.cfg.batch_size)
         _, metrics = fit_loss(self.params, self.cfg, self.assets, vi, fi)

@@ -1,9 +1,18 @@
 """The NeMo neural motion model: parameters, forward pass and losses.
 
-Port of nemo_tpu/fit/model.py for model version 2 (MotionNet + RBF phase
-embedding + instance codes), the version of the reference workload. Versions
-0, 1, 3 and 4, the HuMoR dynamics term, the v2v vertex subset and the 3D
-theta loss are still to port (ROADMAP Queue 1, Slice 2) and raise.
+Port of nemo_tpu/fit/model.py, model versions 0-4:
+
+  V0  separate pose/orient/trans networks, warmup on SPIN theta
+  V1  one MotionNet (pose+orient+trans) + instance codes
+  V2  V1 + RBF phase embedding (the reference workload)
+  V3  V2 + instance-code L2 + 3D loss against the initializer theta + code
+      noise
+  V4  V3 + a camera stage that trains every group with the pose detached,
+      and straight 25-joint projection indexing
+
+The VPoser v2v prior runs on the full mesh through K2 or on a vertex subset
+(``vp_v2v_n_verts``) through K3. The HuMoR dynamics term is still to port
+(ROADMAP Queue 1, Slice 6) and raises.
 """
 
 from __future__ import annotations
@@ -17,11 +26,12 @@ from torch import nn
 
 from .. import device_index
 from ..body import constants as body_constants
-from ..body.smpl import SMPLModel, smpl_forward, smpl_v2v_l1_sum
+from ..body.smpl import (SMPLModel, smpl_forward, smpl_v2v_l1_sum,
+                         smpl_verts_t_subset)
 from ..geometry.camera import (FOCAL_LENGTH, camera_from_params,
                                init_camera_params, perspective_projection)
 from ..geometry.rotations import batch_rodrigues, rot6d_to_rotmat
-from ..modules.networks import (RBF, MonotonicNets, MotionNet,
+from ..modules.networks import (FCNN, RBF, MonotonicNets, MotionNet, RotNet,
                                 apply_monotonic_gather, apply_rbf)
 from ..priors.gmm import GMMPrior, gmm_log_likelihood
 from ..priors.vposer import (vposer_decode, vposer_encode,
@@ -30,7 +40,7 @@ from .losses import camera_fitting_loss, keypoint_loss, per_view_average
 
 Metrics = Dict[str, torch.Tensor]
 
-_ROADMAP = "see ROADMAP.md, Queue 1 (Slice 2)"
+_ROADMAP = "see ROADMAP.md, Queue 1 (Slice 6)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +93,8 @@ class NemoConfig:
 
     @property
     def proj_joint_idx(self) -> np.ndarray:
+        if self.model_version >= 4:
+            return np.asarray(body_constants.PROJ_JOINT_IDX_V4)
         return np.asarray(body_constants.PROJ_JOINT_IDX_V0)
 
     @property
@@ -93,18 +105,9 @@ class NemoConfig:
 
 def check_supported(cfg: NemoConfig) -> None:
     """Raise for every setting the port does not run yet."""
-    unsupported = {
-        "model_version != 2": cfg.model_version != 2,
-        "vp_v2v_n_verts": cfg.vp_v2v_n_verts != 0,
-        "weight_3d_loss": cfg.weight_3d_loss != 0,
-        "weight_humor_loss": cfg.weight_humor_loss != 0,
-        "code_noise": cfg.code_noise != 0,
-        "full_batch": cfg.full_batch,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
+    if cfg.weight_humor_loss != 0:
         raise NotImplementedError(
-            f"nemo_tpu_torch does not port {', '.join(bad)} yet ({_ROADMAP})")
+            f"nemo_tpu_torch does not port weight_humor_loss yet ({_ROADMAP})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +122,15 @@ class NemoAssets:
     hmr_mask: torch.Tensor       # (V, F, 1)
     img_d0: float
     img_d1: float
+    # V0's warmup target when the bundle carries SPIN theta (:3216-3227)
+    spin_theta: Optional[torch.Tensor] = None          # (V, F, 69)
+    # the v2v prior's vertex subset (cfg.vp_v2v_n_verts > 0), from
+    # body.smpl.subset_skin_tables
+    v2v_vidx: Optional[torch.Tensor] = None            # (n,) long
+    v2v_posedirs_t: Optional[torch.Tensor] = None      # (207, 3, n)
+    v2v_lbs_weights_t: Optional[torch.Tensor] = None   # (24, n)
+    # gradient mode of the full-mesh v2v prior (ops.lbs.skin_v2v_l1)
+    v2v_vjp: str = "fused"
 
     @property
     def num_views(self) -> int:
@@ -134,8 +146,9 @@ class NemoAssets:
 
 
 class NemoParams(nn.Module):
-    """The trainable parameters, one attribute per optimizer group:
-    cameras, phase, betas, motion, instance, rbf (the JAX pytree's keys)."""
+    """The trainable parameters, one attribute per optimizer group, named
+    as the JAX pytree's keys: cameras, phase, betas, and for V1+ motion,
+    instance, rbf, for V0 poses, orient, trans."""
 
     def __init__(self, cfg: NemoConfig, num_views: int, img_d0: float,
                  generator: Optional[torch.Generator] = None):
@@ -146,6 +159,12 @@ class NemoParams(nn.Module):
         self.phase = MonotonicNets(num_views, cfg.monotonic_network_n_nodes,
                                    cfg.phase_init, generator)
         self.betas = nn.Parameter(torch.zeros(1, 10))
+        if cfg.model_version == 0:
+            # separate RotNet(23) / RotNet(1) / FCNN(1 -> 3) (:3127-3205)
+            self.poses = RotNet(1, cfg.h_dim, 23, generator=generator)
+            self.orient = RotNet(1, cfg.h_dim, 1, generator=generator)
+            self.trans = FCNN(1, cfg.h_dim, 3, generator)
+            return
         self.motion = MotionNet(cfg.motion_input_dim, cfg.h_dim, n_joints=24,
                                 init_last_layer_zero=True,
                                 generator=generator)
@@ -191,17 +210,32 @@ def _trans_at_phase0(params: NemoParams, cfg: NemoConfig) -> torch.Tensor:
 def predict(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
             view_idx: torch.Tensor, frame_idx: torch.Tensor,
             want_vertices: bool = False, detach_pose: bool = False,
-            add_trans: bool = True) -> Dict[str, torch.Tensor]:
-    """Phase warp -> motion MLP -> SMPL FK (+ translation). Returns 'j'
-    (B, 25, 3) projection joints, 'j49', 'poses' (B, 69) axis-angle,
+            add_trans: bool = True, noise: Optional[torch.Tensor] = None
+            ) -> Dict[str, torch.Tensor]:
+    """Phase warp -> motion networks -> SMPL FK (+ translation). Returns
+    'j' (B, 25, 3) projection joints, 'j49', 'poses' (B, 69) axis-angle,
     'pose_rotmat', 'orient' (B, 6), 'orient_aa', 'trans', 'warped_phase',
-    and 'v' (B, V, 3) with want_vertices."""
+    and 'v' (B, V, 3) with want_vertices.
+
+    noise: a standard normal draw shaped like the batch's instance codes
+    (B, instance_code_size); with cfg.code_noise > 0 the codes become
+    codes + code_noise * noise (:206-217). The caller draws it, from a
+    torch.Generator in the fitter or injected by a test.
+    """
     raw = frame_idx_to_raw_phase(frame_idx, assets.num_frames)[:, None]
     warped = apply_monotonic_gather(params.phase, view_idx, raw)
-    codes = params.instance[view_idx] if cfg.uses_instance_code else None
-    pose_d, orient_d, trans = params.motion(
-        _embed(params, cfg, warped, codes))
-    trans = trans - _trans_at_phase0(params, cfg)
+    if cfg.model_version == 0:
+        # separate networks (get_preds_given_phases :3005-3034)
+        pose_d = params.poses(warped)
+        orient_d = params.orient(warped)
+        trans = params.trans(warped) - params.trans(warped.new_zeros((1, 1)))
+    else:
+        codes = params.instance[view_idx] if cfg.uses_instance_code else None
+        if codes is not None and noise is not None and cfg.code_noise > 0:
+            codes = codes + cfg.code_noise * noise
+        pose_d, orient_d, trans = params.motion(
+            _embed(params, cfg, warped, codes))
+        trans = trans - _trans_at_phase0(params, cfg)
 
     body_rotmat = pose_d["rotmat"]
     if detach_pose:
@@ -242,7 +276,9 @@ def vposer_losses(params: NemoParams, assets: NemoAssets,
                   poses: torch.Tensor, orient6d: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(v2v recon L1, KL): the VPoser mean-latent reconstruction, compared
-    mesh to mesh through K2 with the reconstruction detached."""
+    mesh to mesh with the reconstruction detached (:2775-2804). The full
+    mesh goes through K2 (in the assets' v2v_vjp mode); a vertex subset
+    through K3, the rec side forward only."""
     vp = assets.vposer
     B = poses.shape[0]
     mu, scale = vposer_encode(vp, poses[:, :63])
@@ -251,17 +287,40 @@ def vposer_losses(params: NemoParams, assets: NemoAssets,
     rot_o = batch_rodrigues(poses.reshape(B, 23, 3))
     rot_r = batch_rodrigues(recon.reshape(B, 23, 3))
     orient_rot = rot6d_to_rotmat(orient6d)[:, None]
-    total = smpl_v2v_l1_sum(assets.smpl, params.betas, rot_o, orient_rot,
-                            rot_r, orient_rot)
-    v2v = total / (B * 3 * assets.smpl.num_vertices)
+    smpl = assets.smpl
+    if assets.v2v_vidx is None:
+        total = smpl_v2v_l1_sum(smpl, params.betas, rot_o, orient_rot,
+                                rot_r, orient_rot, vjp=assets.v2v_vjp)
+        v2v = total / (B * 3 * smpl.num_vertices)
+    else:
+        sub = (assets.v2v_vidx, assets.v2v_posedirs_t,
+               assets.v2v_lbs_weights_t)
+        verts_o = smpl_verts_t_subset(smpl, params.betas, rot_o, orient_rot,
+                                      *sub)
+        with torch.no_grad():
+            verts_r = smpl_verts_t_subset(smpl, params.betas, rot_r,
+                                          orient_rot, *sub)
+        v2v = (verts_r - verts_o).abs().sum() / (B * 3 * sub[0].shape[0])
     return v2v, vposer_kl_to_std_normal(mu, scale)
 
 
 def fit_loss(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
              view_idx: torch.Tensor, frame_idx: torch.Tensor,
-             include_priors: bool = True) -> Tuple[torch.Tensor, Metrics]:
-    """Main-stage loss (reference NemoV2 step): (total, metrics)."""
-    preds = predict(params, cfg, assets, view_idx, frame_idx)
+             include_priors: bool = True, noise: Optional[torch.Tensor] = None,
+             detach_pose: bool = False, include_3d: Optional[bool] = None
+             ) -> Tuple[torch.Tensor, Metrics]:
+    """Main-stage loss (reference NemoV3 step :3796-3909, the V1/V2 path
+    when the extra weights are zero): (total, metrics).
+
+    include_priors gates the VPoser, instance-code and GMM terms; include_3d
+    (default: include_priors) gates the 3D theta loss, which V4's camera
+    stage keeps while dropping the priors (:4128-4140). noise: the code
+    noise draw of predict (training steps only).
+    """
+    if include_3d is None:
+        include_3d = include_priors
+    preds = predict(params, cfg, assets, view_idx, frame_idx,
+                    detach_pose=detach_pose, noise=noise)
     points2d = project_to_views(params, cfg, assets, preds["j"], view_idx)
     gt = assets.points2d_gt[view_idx, frame_idx]
     gt_size = assets.bbox_diag[view_idx, frame_idx]
@@ -283,11 +342,23 @@ def fit_loss(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
         else:
             metrics["vp_recon_loss"] = kp.new_zeros(())
             metrics["vp_kl_loss"] = kp.new_zeros(())
+        if cfg.uses_instance_code and cfg.model_version >= 3:
+            inst = (params.instance ** 2).mean()
+            metrics["instance_loss"] = inst
+            if cfg.weight_instance_loss:
+                loss = loss + cfg.weight_instance_loss * inst
         if assets.gmm is not None:
             g = gmm_log_likelihood(assets.gmm, poses).mean()
             metrics["gmm_loss"] = g
             if cfg.weight_gmm_loss:
                 loss = loss + cfg.weight_gmm_loss * g
+    if include_3d and cfg.weight_3d_loss and cfg.model_version >= 3:
+        theta = assets.hmr_theta[view_idx, frame_idx]
+        mask = assets.hmr_mask[view_idx, frame_idx]
+        l3d = keypoint_loss(preds["poses"], theta, mask,
+                            loss_type="mse_robust").mean()
+        metrics["loss_3d"] = l3d
+        loss = loss + cfg.weight_3d_loss * l3d
     metrics["total_loss"] = loss
     return loss, metrics
 
@@ -295,21 +366,35 @@ def fit_loss(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
 def warmup_loss(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
                 view_idx: torch.Tensor, frame_idx: torch.Tensor
                 ) -> Tuple[torch.Tensor, Metrics]:
-    """Warmup: mse_robust of the predicted axis-angle pose against the
-    initializer theta under its validity mask (reference :3455-3509)."""
+    """Warmup: fit the predicted axis-angle pose to an initializer theta.
+    V1+ (:3455-3509): mse_robust under the initializer's validity mask.
+    V0 (:3207-3269): plain unmasked MSE against SPIN theta, or the VIBE
+    theta when the bundle carries no SPIN slot."""
     preds = predict(params, cfg, assets, view_idx, frame_idx)
-    theta = assets.hmr_theta[view_idx, frame_idx]
-    mask = assets.hmr_mask[view_idx, frame_idx]
-    loss = keypoint_loss(preds["poses"], theta, mask,
-                         loss_type="mse_robust").mean()
+    if cfg.model_version == 0:
+        src = assets.spin_theta if assets.spin_theta is not None \
+            else assets.hmr_theta
+        loss = ((preds["poses"] - src[view_idx, frame_idx]) ** 2).mean()
+    else:
+        theta = assets.hmr_theta[view_idx, frame_idx]
+        mask = assets.hmr_mask[view_idx, frame_idx]
+        loss = keypoint_loss(preds["poses"], theta, mask,
+                             loss_type="mse_robust").mean()
     return loss, {"warmup_loss": loss}
 
 
 def camera_stage_loss(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
-                      view_idx: torch.Tensor, frame_idx: torch.Tensor
+                      view_idx: torch.Tensor, frame_idx: torch.Tensor,
+                      noise: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, Metrics]:
-    """Camera stage (V0-V3, reference :2869-2906): plain mean keypoint
-    loss; the fitter steps the cameras only."""
+    """Camera stage. V0-V3 (:2869-2906): a plain mean keypoint loss; the
+    fitter steps the cameras only, at frame 0 of every view. V4
+    (:4060-4149): fit_loss with the pose detached, no priors and the 3D
+    loss, on random batches; the fitter steps every group but the betas."""
+    if cfg.model_version >= 4:
+        return fit_loss(params, cfg, assets, view_idx, frame_idx,
+                        include_priors=False, noise=noise, detach_pose=True,
+                        include_3d=True)
     joints = predict(params, cfg, assets, view_idx, frame_idx)["j"]
     points2d = project_to_views(params, cfg, assets, joints, view_idx)
     gt = assets.points2d_gt[view_idx, frame_idx]

@@ -1,7 +1,8 @@
 """Per-parameter-group Adam and on-device plateau LR scheduling.
 
 Port of nemo_tpu/fit/optimizer.py. The reference builds one torch Adam per
-group (cameras, motion+rbf, phase, instance) with a ReduceLROnPlateau each,
+group (cameras, motion+rbf, phase, instance; for model version 0 cameras,
+poses, orient, trans, phase) with a ReduceLROnPlateau each,
 stepped every main-stage step with the current loss. Here each group has its
 own Adam state, and each plateau scheduler is a small state machine of device
 tensors (best, bad-step count, scale) whose scale multiplies the group's
@@ -25,7 +26,12 @@ PLATEAU_PATIENCE = 10
 PLATEAU_THRESHOLD = 1e-4
 PLATEAU_MIN_LR = 1e-6
 
-GROUPS = ("cameras", "motion", "rbf", "phase", "instance", "betas")
+# parameter groups: motion/rbf/instance exist for V1+, poses/orient/trans
+# for V0
+GROUPS = ("cameras", "motion", "rbf", "phase", "instance", "betas",
+          "poses", "orient", "trans")
+V0_GROUPS = ("poses", "orient", "trans")
+DECAYED_GROUPS = ("motion", "rbf", "poses", "orient")
 
 
 class PlateauState(NamedTuple):
@@ -64,7 +70,19 @@ def group_lrs(cfg: NemoConfig) -> Dict[str, float]:
         "phase": cfg.lr_phase,
         "instance": cfg.lr_instance,
         "betas": 0.0,            # the reference never optimizes its betas
+        # V0's five-optimizer split (:3172-3199)
+        "poses": cfg.lr_pose,
+        "orient": cfg.lr_orient,
+        "trans": cfg.lr_trans,
     }
+
+
+def version_groups(cfg: NemoConfig):
+    """The groups a model version's parameters can hold."""
+    if cfg.model_version == 0:
+        return tuple(g for g in GROUPS
+                     if g not in ("motion", "rbf", "instance"))
+    return tuple(g for g in GROUPS if g not in V0_GROUPS)
 
 
 class GroupAdam:
@@ -124,7 +142,7 @@ class GroupOptimizer:
         for g in GROUPS:
             if not hasattr(params, g) or lrs[g] == 0.0:
                 continue
-            wd = cfg.wd_human if g in ("motion", "rbf") else 0.0
+            wd = cfg.wd_human if g in DECAYED_GROUPS else 0.0
             self.groups[g] = GroupAdam(_group_tensors(params, g), lrs[g],
                                        weight_decay=wd,
                                        decoupled=cfg.opt_human == "adamw")
@@ -147,9 +165,17 @@ def make_camera_stage_optimizer(params: NemoParams,
     return GroupAdam([params.cameras], cfg.lr_camera)
 
 
+def make_v0_warmup_optimizer(params: NemoParams,
+                             cfg: NemoConfig) -> GroupAdam:
+    """V0's warmup builds a fresh Adam over the pose network at lr_camera
+    (:3211-3214); it is dropped after the stage."""
+    return GroupAdam(_group_tensors(params, "poses"), cfg.lr_camera)
+
+
 def plateau_init_all(cfg: NemoConfig, device=None) -> Dict[str, PlateauState]:
-    return {g: plateau_init(device) for g, lr in group_lrs(cfg).items()
-            if lr > 0}
+    lrs = group_lrs(cfg)
+    return {g: plateau_init(device) for g in version_groups(cfg)
+            if lrs[g] > 0}
 
 
 def plateau_update_all(states: Dict[str, PlateauState], loss: torch.Tensor,

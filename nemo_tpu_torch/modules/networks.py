@@ -1,4 +1,5 @@
-"""Neural modules of the NeMo fit: FCNN, MotionNet, monotonic phase warps, RBF.
+"""Neural modules of the NeMo fit: FCNN, MotionNet, RotNet, monotonic phase
+warps, RBF.
 
 Port of nemo_tpu/modules/networks.py. Weights are stored ``(in, out)`` as in
 the JAX parameter pytree (``x @ W + b``), so converted JAX parameters load
@@ -86,6 +87,32 @@ class MotionNet(nn.Module):
         pose_d = {"rot6d": rot6d[:, 6:], "rotmat": rotmat[:, 1:],
                   "pose": pose[:, 3:]}
         return pose_d, orient, trans
+
+
+class RotNet(nn.Module):
+    """Trunk -> per-joint 6D rotations: model version 0's pose and orient
+    networks (reference neural_motion_model.py:74-103)."""
+
+    def __init__(self, input_dim: int, h_dim: int, n_joints: int,
+                 init_last_layer_zero: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.n_joints = n_joints
+        self.trunk = FCNN(input_dim, h_dim, h_dim, generator)
+        gain = 1e-5 if init_last_layer_zero else 0.01
+        a = gain * math.sqrt(6.0 / (h_dim + n_joints * 6))
+        self.W_rot = nn.Parameter(_uniform((h_dim, n_joints * 6), a, generator))
+        self.b_rot = nn.Parameter(
+            torch.tensor(IDENTITY_6D).repeat(n_joints) if init_last_layer_zero
+            else torch.zeros(n_joints * 6))
+
+    def forward(self, x: torch.Tensor) -> dict:
+        """{'rot6d', 'rotmat', 'pose' (axis-angle)} over all n_joints."""
+        B = x.shape[0]
+        rot6d = torch.relu(self.trunk(x)) @ self.W_rot + self.b_rot
+        rotmat = rot6d_to_rotmat(rot6d.reshape(B, self.n_joints, 6))
+        pose = rotmat_to_aa(rotmat).reshape(B, self.n_joints * 3)
+        return {"rot6d": rot6d, "rotmat": rotmat, "pose": pose}
 
 
 class MonotonicNets(nn.Module):

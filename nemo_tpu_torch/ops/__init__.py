@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels with their plain PyTorch versions.
 
-K1 ``fk.fk_compose`` (forward and backward kernels) and K2
-``lbs.skin_v2v_l1`` (grad and forward-only modes). Each wrapper counts its
+K1 ``fk.fk_compose`` (forward and backward kernels), K2
+``lbs.skin_v2v_l1`` (fused, pair and forward-only modes) and K3
+``lbs.skin_verts_t`` (forward and backward kernels). Each wrapper counts its
 kernel launches; :func:`launch_counts` reads the counts and
 :func:`reset_launches` sets them to zero.
 """
@@ -12,7 +13,7 @@ from typing import Dict
 
 from . import fk, lbs
 from .fk import fk_compose
-from .lbs import skin_v2v_l1
+from .lbs import skin_v2v_l1, skin_verts_t
 
 
 def launch_counts() -> Dict[str, int]:
@@ -26,4 +27,5 @@ def reset_launches() -> None:
             counts[k] = 0
 
 
-__all__ = ["fk_compose", "skin_v2v_l1", "launch_counts", "reset_launches"]
+__all__ = ["fk_compose", "skin_v2v_l1", "skin_verts_t", "launch_counts",
+           "reset_launches"]

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels from ``nemo_tpu_torch/csrc``.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, loaded with ``ctypes``. The
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all started together, and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes``. The
 library lands in ``build/nemo_tpu_torch/`` at the repository root, named by a
 hash of the sources, so an edit to any source rebuilds it and an unchanged
 tree reuses it. Nothing is compiled or loaded at import time: the first
@@ -29,7 +30,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "nemo_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,12 +40,18 @@ _SIGNATURES = {
     "nemo_fk_fwd": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
     # R_l, t_l, R_g, gR_g, gt_g, parents, order, B, J, acc, gR_l, gt_l, stream
     "nemo_fk_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-    # B, V, pf_o, A_o, pf_r, A_r, vsh_t, posedirs_t, W_t, grad,
+    # B, V, pf_o, A_o, pf_r, A_r, vsh_t, posedirs_t, W_t, mode,
     # partial, sign, vp, gvp, total, gpf, gA, gvsh, stream
     "nemo_v2v_l1": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                     _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # number of per-block partial sums nemo_v2v_l1 writes for (B, V)
     "nemo_v2v_num_partials": [_I, _I],
+    # B, V, pf, A, vsh_t, posedirs_t, W_t, verts, stream
+    "nemo_skin_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P],
+    # B, V, pf, A, vsh_t, posedirs_t, W_t, g, vp_in, vp_scratch, gvp,
+    # gpf, gA, gvsh, stream
+    "nemo_skin_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _P, _P],
 }
 
 build_seconds = None  # wall time of the build this process ran, if any
@@ -79,31 +86,43 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libnemo_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run(cmds):
+    """Run the commands at the same time; raise with the output of the
+    first that fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> str:
     """Compile the sources if their library is not built yet; returns its
-    path. The build writes to a temporary name and renames it into place,
-    so a concurrent or interrupted build never leaves a half-written
-    library under the final name."""
+    path. One nvcc per source runs in parallel, then one links. The build
+    writes to a temporary directory and renames the library into place, so
+    a concurrent or interrupted build never leaves a half-written library
+    under the final name."""
     global build_seconds
     path = library_path()
     if os.path.exists(path):
         return path
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o")
+                for src in _sources()]
+        _run([[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+              for src, obj in zip(_sources(), objs)])
+        lib = os.path.join(tmp, "lib.so")
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, path)
     build_seconds = time.perf_counter() - t0
     return path
 

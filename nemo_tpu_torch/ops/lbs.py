@@ -1,26 +1,31 @@
-"""The VPoser v2v-L1 skinning prior: kernel K2 (grad and forward-only modes).
+"""Linear blend skinning: kernels K3 (plain skinning) and K2 (the v2v prior).
 
-Replaces nemo_tpu/ops/lbs_pallas.py ``skin_v2v_l1``: in grad mode
-``_v2v_fwdbwd_pallas`` (``_v2v_fwdbwd_kernel``), in forward-only mode the
-total that ``_v2v_fwd_pallas`` computes for the undifferentiated call in
-``eval_loss``.
+Replaces nemo_tpu/ops/lbs_pallas.py:
+
+- ``skin_verts_t`` (K3): ``_fwd_pallas``/``_fwd_kernel`` forward and
+  ``_bwd_pallas``/``_bwd_kernel`` backward, on ``csrc/skin.cu``.
+- ``skin_v2v_l1`` (K2): in its default ``vjp="fused"`` mode
+  ``_v2v_fwdbwd_pallas`` (``_v2v_fwdbwd_kernel``); in the ``"pair"`` and
+  ``"pair_vp"`` modes ``_v2v_fwd_pallas`` (``_v2v_fwd_kernel`` and
+  ``_v2v_fwd_kernel_vp``) followed by K3b's ``_bwd_kernel``/``_bwd_kernel_vp``
+  on the stored sign (and posed vertices); undifferentiated, the total that
+  ``_v2v_fwd_pallas`` computes. On ``csrc/v2v.cu``.
 
 ``skin_v2v_l1`` returns sum |skin(pf_r, A_r) - skin(pf_o, A_o)| without
 building either mesh. The rec side is a constant (zero gradient), as in the
-reference's detached reconstruction. When any of pf_o, A_o, v_shaped_t needs
-a gradient, the forward computes the orig-side gradients under the raw
-cotangent sign(rec - orig) in the same call and the backward only scales them
-by -ghat, exactly like the TPU kernel's ``_v2v_fwd``/``_v2v_bwd``.
+reference's detached reconstruction. The orig-side gradients are those of
+the raw cotangent sign(rec - orig), scaled by -ghat in the backward, exactly
+like the TPU kernel's ``_v2v_fwd``/``_v2v_bwd``. The ``vjp`` argument takes
+the place of the JAX package's NEMO_TPU_SKIN_FUSED_VJP and
+NEMO_TPU_SKIN_VP_RES environment knobs; all three modes give the same
+gradients.
 
 Layouts are the logical vertex-major tables: posedirs_t (207, 3, V),
-W_t (24, V), v_shaped_t (3, V). On a CUDA tensor the wrapper launches
-``csrc/v2v.cu``: f32 arithmetic on the CUDA cores bounds it on the H100
-(~19.5 GFLOP per grad-mode call at B=512, V=6890, 13 of them forward; the
-17 MB posedirs table sits in L2). Its tile kernel keeps both skinnings in registers and shares
-the table loads between them; second-pass kernels reduce the gradients
-across tiles in a fixed order (no atomics). The source note there has the
-details. On a CPU tensor the wrapper runs the plain versions below, which
-mirror ``_skin_verts_t_xla`` and ``_bwd_xla``.
+W_t (24, V), v_shaped_t (3, V), verts (B, 3, V). On a CUDA tensor a wrapper
+launches its kernel; f32 arithmetic on the CUDA cores bounds both files on
+the H100 (the source notes there have the counts and the designs). On a CPU
+tensor it runs the plain versions below, which mirror ``_skin_verts_t_xla``
+and ``_bwd_xla``.
 """
 
 from __future__ import annotations
@@ -33,34 +38,49 @@ from . import _build
 
 NUM_POSE_FEATURES = 207
 NUM_JOINTS = 24
+VJP_MODES = ("fused", "pair", "pair_vp")
 
-LAUNCHES = {"v2v_grad": 0, "v2v_fwd": 0}
+LAUNCHES = {"v2v_grad": 0, "v2v_fwd": 0, "v2v_pair": 0, "skin_fwd": 0,
+            "skin_bwd": 0, "skin_bwd_vp": 0}
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 # ---------------------------------------------------------------------------
-# plain PyTorch versions (CPU path and the kernel's reference)
+# plain PyTorch versions (CPU path and the kernels' reference)
 # ---------------------------------------------------------------------------
+
+def _posed(pf, posedirs_t, v_shaped_t) -> torch.Tensor:
+    """Posed rest vertices vp (B, 3, V)."""
+    return torch.einsum('bp,pkv->bkv', pf, posedirs_t) + v_shaped_t
+
+
+def _blend(A34, W_t) -> torch.Tensor:
+    """Blended transforms M (B, 3, 4, V)."""
+    return torch.einsum('bjl,jv->blv', A34, W_t).reshape(
+        A34.shape[0], 3, 4, -1)
+
+
+def _homogeneous(vposed) -> torch.Tensor:
+    B, _, V = vposed.shape
+    return torch.cat([vposed, vposed.new_ones((B, 1, V))], dim=1)
+
 
 def skin_verts_t_plain(pf, A34, v_shaped_t, posedirs_t, W_t) -> torch.Tensor:
     """verts_t (B, 3, V) from pf (B, 207), A34 (B, 24, 12), v_shaped_t
     (3, V), posedirs_t (207, 3, V), W_t (24, V)."""
-    B = pf.shape[0]
-    V = v_shaped_t.shape[-1]
-    vposed = torch.einsum('bp,pkv->bkv', pf, posedirs_t) + v_shaped_t
-    vph = torch.cat([vposed, vposed.new_ones((B, 1, V))], dim=1)
-    M4 = torch.einsum('bjl,jv->blv', A34, W_t).reshape(B, 3, 4, V)
-    return torch.einsum('bikv,bkv->biv', M4, vph)
+    vph = _homogeneous(_posed(pf, posedirs_t, v_shaped_t))
+    return torch.einsum('bikv,bkv->biv', _blend(A34, W_t), vph)
 
 
-def skin_bwd_plain(pf, A34, v_shaped_t, posedirs_t, W_t, g) -> Grads:
-    """(gpf, gA, gvsh) of skin_verts_t_plain under the cotangent g (B,3,V)."""
+def skin_bwd_plain(pf, A34, v_shaped_t, posedirs_t, W_t, g,
+                   vp: Optional[torch.Tensor] = None) -> Grads:
+    """(gpf, gA, gvsh) of skin_verts_t_plain under the cotangent g (B,3,V).
+    vp: the posed vertices stored by the forward, or None to recompute."""
     B = pf.shape[0]
-    vposed = torch.einsum('bp,pkv->bkv', pf, posedirs_t) + v_shaped_t
-    vph = torch.cat([vposed, vposed.new_ones((B, 1, vposed.shape[-1]))], dim=1)
-    M4 = torch.einsum('bjl,jv->blv', A34, W_t).reshape(B, 3, 4, -1)
-    gM4 = torch.einsum('biv,bkv->bikv', g, vph)
+    vposed = _posed(pf, posedirs_t, v_shaped_t) if vp is None else vp
+    M4 = _blend(A34, W_t)
+    gM4 = torch.einsum('biv,bkv->bikv', g, _homogeneous(vposed))
     ga = torch.einsum('bikv,jv->bjik', gM4, W_t).reshape(B, NUM_JOINTS, 12)
     gvposed = torch.einsum('bikv,biv->bkv', M4[:, :, :3], g)
     gpf = torch.einsum('bkv,pkv->bp', gvposed, posedirs_t)
@@ -71,91 +91,221 @@ def skin_bwd_plain(pf, A34, v_shaped_t, posedirs_t, W_t, g) -> Grads:
 def v2v_l1_plain(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
                  grad: bool) -> Tuple[torch.Tensor, Optional[Grads]]:
     """(total, orig-side grads under sign(rec - orig) or None)."""
-    o = skin_verts_t_plain(pf_o, A_o, v_shaped_t, posedirs_t, W_t)
-    r = skin_verts_t_plain(pf_r, A_r, v_shaped_t, posedirs_t, W_t)
-    diff = r - o
-    total = diff.abs().sum()
+    total, sign, _ = v2v_pair_plain(pf_o, A_o, v_shaped_t, posedirs_t, W_t,
+                                    pf_r, A_r, want_vp=False)
     if not grad:
         return total, None
-    return total, skin_bwd_plain(pf_o, A_o, v_shaped_t, posedirs_t, W_t,
-                                 torch.sign(diff))
+    return total, skin_bwd_plain(pf_o, A_o, v_shaped_t, posedirs_t, W_t, sign)
+
+
+def v2v_pair_plain(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
+                   want_vp: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """(total, sign(rec - orig) (B, 3, V), orig-side vp (B, 3, V) or None)."""
+    vp_o = _posed(pf_o, posedirs_t, v_shaped_t)
+    o = torch.einsum('bikv,bkv->biv', _blend(A_o, W_t), _homogeneous(vp_o))
+    r = skin_verts_t_plain(pf_r, A_r, v_shaped_t, posedirs_t, W_t)
+    diff = r - o
+    return diff.abs().sum(), torch.sign(diff), (vp_o if want_vp else None)
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel (csrc/v2v.cu)
+# CUDA kernels (csrc/skin.cu, csrc/v2v.cu)
 # ---------------------------------------------------------------------------
 
-def v2v_l1_cuda(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
-                grad: bool) -> Tuple[torch.Tensor, Optional[Grads]]:
-    """Launch K2 (CUDA tensors only): grad mode or forward-only mode."""
-    B = pf_o.shape[0]
+def _check_skin_inputs(pf, A34, v_shaped_t, posedirs_t, W_t, **extra):
+    """Validate the shared operands (and ``extra`` (B, 3, V) tensors);
+    returns (B, V, device)."""
+    B = pf.shape[0]
     V = v_shaped_t.shape[-1]
-    dev = pf_o.device
+    dev = pf.device
     P, J = NUM_POSE_FEATURES, NUM_JOINTS
-    for name, t, shape in (("pf_o", pf_o, (B, P)), ("A_o", A_o, (B, J, 12)),
-                           ("pf_r", pf_r, (B, P)), ("A_r", A_r, (B, J, 12)),
+    for name, t, shape in (("pf", pf, (B, P)), ("A34", A34, (B, J, 12)),
                            ("v_shaped_t", v_shaped_t, (3, V)),
                            ("posedirs_t", posedirs_t, (P, 3, V)),
-                           ("W_t", W_t, (J, V))):
+                           ("W_t", W_t, (J, V)),
+                           *((k, t, (B, 3, V)) for k, t in extra.items())):
         _build.check_input(name, t, shape, dev)
+    return B, V, dev
+
+
+def skin_fwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t) -> torch.Tensor:
+    """Launch K3f (CUDA tensors only): verts_t (B, 3, V)."""
+    B, V, dev = _check_skin_inputs(pf, A34, v_shaped_t, posedirs_t, W_t)
+    lib = _build.library()
+    verts = torch.empty((B, 3, V), dtype=torch.float32, device=dev)
+    err = lib.nemo_skin_fwd(B, V, pf.data_ptr(), A34.data_ptr(),
+                            v_shaped_t.data_ptr(), posedirs_t.data_ptr(),
+                            W_t.data_ptr(), verts.data_ptr(),
+                            _build.stream_handle(dev))
+    _build.check(err, "nemo_skin_fwd")
+    LAUNCHES["skin_fwd"] += 1
+    return verts
+
+
+def skin_bwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t, g,
+                  vp: Optional[torch.Tensor] = None) -> Grads:
+    """Launch K3b (CUDA tensors only): (gpf, gA, gvsh) under the f32
+    cotangent g (B, 3, V), recomputing the posed vertices or reading the
+    stored ``vp`` (B, 3, V)."""
+    extra = {"g": g} if vp is None else {"g": g, "vp": vp}
+    B, V, dev = _check_skin_inputs(pf, A34, v_shaped_t, posedirs_t, W_t,
+                                   **extra)
     lib = _build.library()
     f32 = dict(dtype=torch.float32, device=dev)
-    partial = torch.empty(lib.nemo_v2v_num_partials(B, V), **f32)
-    total = torch.empty((), **f32)
-    if grad:
-        sign, vp, gvp = (torch.empty((B, 3, V), **f32) for _ in range(3))
-        gpf = torch.empty((B, P), **f32)
-        gA = torch.empty((B, J, 12), **f32)
-        gvsh = torch.empty((3, V), **f32)
-        ptrs = [t.data_ptr() for t in (sign, vp, gvp, total, gpf, gA, gvsh)]
-    else:
-        ptrs = [None, None, None, total.data_ptr(), None, None, None]
+    gvp = torch.empty((B, 3, V), **f32)
+    vp_scratch = torch.empty((B, 3, V), **f32) if vp is None else None
+    gpf = torch.empty((B, NUM_POSE_FEATURES), **f32)
+    gA = torch.empty((B, NUM_JOINTS, 12), **f32)
+    gvsh = torch.empty((3, V), **f32)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = lib.nemo_skin_bwd(B, V, pf.data_ptr(), A34.data_ptr(),
+                            v_shaped_t.data_ptr(), posedirs_t.data_ptr(),
+                            W_t.data_ptr(), g.data_ptr(), ptr(vp),
+                            ptr(vp_scratch), gvp.data_ptr(), gpf.data_ptr(),
+                            gA.data_ptr(), gvsh.data_ptr(),
+                            _build.stream_handle(dev))
+    _build.check(err, "nemo_skin_bwd")
+    LAUNCHES["skin_bwd" if vp is None else "skin_bwd_vp"] += 1
+    return gpf, gA, gvsh
+
+
+def _v2v_launch(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
+                mode: int, want_vp: bool):
+    """One nemo_v2v_l1 call: mode 0 total, 1 fused grads, 2 pair. Returns
+    (total, sign, vp, (gpf, gA, gvsh)), with None for what the mode skips."""
+    B, V, dev = _check_skin_inputs(pf_o, A_o, v_shaped_t, posedirs_t, W_t)
+    _check_skin_inputs(pf_r, A_r, v_shaped_t, posedirs_t, W_t)
+    lib = _build.library()
+    f32 = dict(dtype=torch.float32, device=dev)
+    empty = lambda *shape, on=True: torch.empty(shape, **f32) if on else None
+    partial = empty(lib.nemo_v2v_num_partials(B, V))
+    total = empty()
+    sign = empty(B, 3, V, on=mode != 0)
+    vp = empty(B, 3, V, on=mode == 1 or want_vp)
+    gvp = empty(B, 3, V, on=mode == 1)
+    grads = (empty(B, NUM_POSE_FEATURES), empty(B, NUM_JOINTS, 12),
+             empty(3, V)) if mode == 1 else None
+    ptr = lambda t: None if t is None else t.data_ptr()
     err = lib.nemo_v2v_l1(B, V, pf_o.data_ptr(), A_o.data_ptr(),
                           pf_r.data_ptr(), A_r.data_ptr(),
                           v_shaped_t.data_ptr(), posedirs_t.data_ptr(),
-                          W_t.data_ptr(), int(grad), partial.data_ptr(),
-                          *ptrs, _build.stream_handle(dev))
+                          W_t.data_ptr(), mode, partial.data_ptr(),
+                          ptr(sign), ptr(vp), ptr(gvp), total.data_ptr(),
+                          *(ptr(t) for t in (grads or (None,) * 3)),
+                          _build.stream_handle(dev))
     _build.check(err, "nemo_v2v_l1")
-    LAUNCHES["v2v_grad" if grad else "v2v_fwd"] += 1
-    return total, ((gpf, gA, gvsh) if grad else None)
+    LAUNCHES[("v2v_fwd", "v2v_grad", "v2v_pair")[mode]] += 1
+    return total, sign, vp, grads
+
+
+def v2v_l1_cuda(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
+                grad: bool) -> Tuple[torch.Tensor, Optional[Grads]]:
+    """Launch K2 (CUDA tensors only): fused grad mode or total only."""
+    total, _, _, grads = _v2v_launch(pf_o, A_o, v_shaped_t, posedirs_t, W_t,
+                                     pf_r, A_r, int(grad), want_vp=False)
+    return total, grads
+
+
+def v2v_pair_cuda(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
+                  want_vp: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Launch K2 in pair mode (CUDA tensors only): (total, sign, vp or
+    None), the counterpart of v2v_pair_plain."""
+    total, sign, vp, _ = _v2v_launch(pf_o, A_o, v_shaped_t, posedirs_t, W_t,
+                                     pf_r, A_r, 2, want_vp=want_vp)
+    return total, sign, vp
 
 
 # ---------------------------------------------------------------------------
-# public op
+# public ops
 # ---------------------------------------------------------------------------
 
-class SkinV2VL1(torch.autograd.Function):
-    """Grad mode saves (gpf, gA, gvsh) from the forward; backward scales."""
+class SkinVertsT(torch.autograd.Function):
+    """K3f forward, K3b backward (recomputing the posed vertices)."""
 
     @staticmethod
-    def forward(ctx, pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r):
-        grad = any(ctx.needs_input_grad[:3])
-        args = (pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r)
+    def forward(ctx, pf, A34, v_shaped_t, posedirs_t, W_t):
+        args = (pf, A34, v_shaped_t, posedirs_t, W_t)
+        ctx.save_for_backward(*args)
         if _build.route(*args) == "cpu":
-            total, grads = v2v_l1_plain(*args, grad=grad)
-        else:
-            total, grads = v2v_l1_cuda(*args, grad=grad)
-        if grad:
-            ctx.save_for_backward(*grads)
+            return skin_verts_t_plain(*args)
+        return skin_fwd_cuda(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = ctx.saved_tensors
+        g = g.contiguous()
+        bwd = skin_bwd_plain if _build.route(*args, g) == "cpu" \
+            else skin_bwd_cuda
+        return (*bwd(*args, g), None, None)
+
+
+def skin_verts_t(V: int, pf: torch.Tensor, A34: torch.Tensor,
+                 v_shaped_t: torch.Tensor, posedirs_t: torch.Tensor,
+                 W_t: torch.Tensor) -> torch.Tensor:
+    """Pose blend shapes + skinning, vertex-major: verts_t (B, 3, V).
+
+    V: the vertex count (checked against the tables). pf: (B, 207) pose
+    features; A34: (B, 24, 12) top three rows of the FK transforms;
+    v_shaped_t (3, V); posedirs_t (207, 3, V) and W_t (24, V) are frozen
+    tables. Gradients flow to pf, A34 and v_shaped_t.
+    """
+    if v_shaped_t.shape[-1] != V or W_t.shape[-1] != V:
+        raise ValueError(f"tables hold {W_t.shape[-1]} vertices, expected {V}")
+    return SkinVertsT.apply(pf, A34, v_shaped_t, posedirs_t, W_t)
+
+
+class SkinV2VL1(torch.autograd.Function):
+    """Fused mode saves (gpf, gA, gvsh) from the forward and the backward
+    scales them; the pair modes save sign (and vp) and run K3b backward."""
+
+    @staticmethod
+    def forward(ctx, vjp, pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r):
+        grad = any(ctx.needs_input_grad[1:4])
+        args = (pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r)
+        cpu = _build.route(*args) == "cpu"
+        ctx.fused = vjp == "fused"
+        if not grad or ctx.fused:
+            total, grads = (v2v_l1_plain if cpu else v2v_l1_cuda)(
+                *args, grad=grad)
+            if grad:
+                ctx.save_for_backward(*grads)
+            return total
+        total, sign, vp = (v2v_pair_plain if cpu else v2v_pair_cuda)(
+            *args, want_vp=vjp == "pair_vp")
+        ctx.save_for_backward(*args[:5], sign, vp)
         return total
 
     @staticmethod
     def backward(ctx, ghat):
-        gpf, gA, gvsh = ctx.saved_tensors
+        if ctx.fused:
+            gpf, gA, gvsh = ctx.saved_tensors
+        else:
+            *args, sign, vp = ctx.saved_tensors
+            bwd = skin_bwd_plain if _build.route(*args) == "cpu" \
+                else skin_bwd_cuda
+            gpf, gA, gvsh = bwd(*args, sign, vp)
         s = -ghat
-        return gpf * s, gA * s, gvsh * s, None, None, None, None
+        return None, gpf * s, gA * s, gvsh * s, None, None, None, None
 
 
 def skin_v2v_l1(V: int, pf_o: torch.Tensor, A_o: torch.Tensor,
                 v_shaped_t: torch.Tensor, posedirs_t: torch.Tensor,
                 W_t: torch.Tensor, pf_r: torch.Tensor,
-                A_r: torch.Tensor) -> torch.Tensor:
+                A_r: torch.Tensor, vjp: str = "fused") -> torch.Tensor:
     """sum |skin(pf_r, A_r) - skin(pf_o, A_o)| (a 0-d tensor).
 
     V: the vertex count (checked against the tables). pf_*: (B, 207) pose
     features; A_*: (B, 24, 12) top three rows of the FK transforms.
-    Gradients flow to pf_o, A_o and v_shaped_t only.
+    Gradients flow to pf_o, A_o and v_shaped_t only. vjp: "fused" (one K2
+    call computes the loss and the gradients), "pair" (K2 stores the sign,
+    K3b computes the gradients in the backward) or "pair_vp" (K2 also
+    stores the posed vertices, and K3b reads them instead of recomputing).
     """
+    if vjp not in VJP_MODES:
+        raise ValueError(f"vjp {vjp!r}: expected one of {VJP_MODES}")
     if v_shaped_t.shape[-1] != V or W_t.shape[-1] != V:
         raise ValueError(f"tables hold {W_t.shape[-1]} vertices, expected {V}")
-    return SkinV2VL1.apply(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r)
+    return SkinV2VL1.apply(vjp, pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r,
+                           A_r)

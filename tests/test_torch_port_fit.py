@@ -107,9 +107,7 @@ class TestConfigAndWeights:
         with pytest.raises(KeyError, match="motion.W_lin"):
             params_from_numpy(tp, flat)
 
-    @pytest.mark.parametrize("field,value", [
-        ("model_version", 3), ("vp_v2v_n_verts", 64), ("weight_3d_loss", 1.0),
-        ("weight_humor_loss", 1.0), ("full_batch", True)])
+    @pytest.mark.parametrize("field,value", [("weight_humor_loss", 1.0)])
     def test_unported_settings_raise(self, problem, field, value):
         cfg = dataclasses.replace(problem["tcfg"], **{field: value})
         with pytest.raises(NotImplementedError, match="ROADMAP"):

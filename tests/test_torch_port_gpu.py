@@ -9,6 +9,9 @@ machine need not have, hence --noconftest):
 
 Shapes are small and ragged (B and V not multiples of the kernels' tiles)
 so the edge masking is exercised; chip_smoke.py checks the full-width shapes.
+Tolerances: f32 sums over 207 pose features, 24 joints and up to 3V
+vertex terms taken in another order than the plain version's; 1e-5 (values)
+or 1e-4 (gradients) of the tensor's largest entry.
 """
 
 import numpy as np
@@ -73,43 +76,127 @@ def test_v2v_kernel_matches_plain(cuda, B, V):
                                    atol=1e-4 * float(b.abs().max()))
 
 
-def _tiny_fitter(cuda):
+def _skin_args(B, V, cuda, seed):
+    gen = torch.Generator().manual_seed(seed)
+    f = lambda *s: torch.randn(s, generator=gen)
+    W = torch.rand((24, V), generator=gen)
+    W = W / W.sum(0, keepdim=True)
+    args = [x.to(cuda).contiguous() for x in
+            (0.1 * f(B, 207), f(B, 24, 12), f(3, V), 0.01 * f(207, 3, V), W)]
+    return args, f(B, 3, V).to(cuda)
+
+
+def _close_scaled(a, b, rel):
+    torch.testing.assert_close(a, b, rtol=0,
+                               atol=rel * max(1.0, float(b.abs().max())))
+
+
+@pytest.mark.parametrize("B,V", [(1, 5), (37, 300), (300, 1000)])
+def test_skin_kernels_match_plain(cuda, B, V):
+    """K3f, and K3b recomputing vp and reading a stored vp, under a random
+    (not +-1) cotangent."""
+    args, g = _skin_args(B, V, cuda, seed=B + V)
+    _close_scaled(lbs.skin_fwd_cuda(*args), lbs.skin_verts_t_plain(*args),
+                  1e-5)
+    want = lbs.skin_bwd_plain(*args, g)
+    vp = torch.einsum('bp,pkv->bkv', args[0], args[3]) + args[2]
+    for got in (lbs.skin_bwd_cuda(*args, g),
+                lbs.skin_bwd_cuda(*args, g, vp=vp.contiguous())):
+        for a, b in zip(got, want):
+            _close_scaled(a, b, 1e-4)
+
+
+@pytest.mark.parametrize("B,V", [(1, 5), (37, 300), (300, 1000)])
+def test_v2v_pair_mode_matches_plain(cuda, B, V):
+    """K2 pair mode: sign (exact, the rec side offset by +-10 m), vp, total,
+    and the gradients K3b computes from them against the fused mode."""
+    args, _ = _skin_args(B, V, cuda, seed=V)
+    gen = torch.Generator().manual_seed(B)
+    pf_r = (0.1 * torch.randn((B, 207), generator=gen)).to(cuda)
+    A_r = torch.randn((B, 24, 12), generator=gen)
+    A_r.view(B, 24, 3, 4)[..., 3] += 10.0 * torch.sign(
+        torch.randn((B, 1, 3), generator=gen))
+    full = args + [pf_r, A_r.to(cuda).contiguous()]
+    tot_k, sign_k, vp_k = lbs.v2v_pair_cuda(*full, want_vp=True)
+    tot_p, sign_p, vp_p = lbs.v2v_pair_plain(*full, want_vp=True)
+    torch.testing.assert_close(tot_k, tot_p, rtol=1e-5, atol=0)
+    assert torch.equal(sign_k, sign_p)
+    _close_scaled(vp_k, vp_p, 1e-5)
+    tot_n, sign_n, none = lbs.v2v_pair_cuda(*full, want_vp=False)
+    assert none is None and torch.equal(sign_n, sign_k)
+    assert torch.equal(tot_n, tot_k)
+    _, fused = lbs.v2v_l1_cuda(*full, grad=True)
+    for got in (lbs.skin_bwd_cuda(*args, sign_k),
+                lbs.skin_bwd_cuda(*args, sign_k, vp=vp_k)):
+        for a, b in zip(got, fused):
+            _close_scaled(a, b, 1e-5)
+
+
+def _tiny_fitter(cuda, v2v_vjp="fused", **over):
     from nemo_tpu_torch.body.assets import synthetic_smpl_model
     from nemo_tpu_torch.data.synthetic import synthetic_problem
     from nemo_tpu_torch.fit import NemoConfig, NemoFitter, build_assets
     from nemo_tpu_torch.priors.gmm import synthetic_gmm_prior
     from nemo_tpu_torch.priors.vposer import init_vposer
-    cfg = NemoConfig(model_version=2, h_dim=32, instance_code_size=4,
-                     phase_rbf_dim=8, rbf_kernel="quadratic",
-                     monotonic_network_n_nodes=4, batch_size=16,
-                     weight_vp_loss=10.0, weight_vp_z_loss=1.0,
-                     label_type="gt")
+    cfg = NemoConfig(**{**dict(
+        model_version=2, h_dim=32, instance_code_size=4, phase_rbf_dim=8,
+        rbf_kernel="quadratic", monotonic_network_n_nodes=4, batch_size=16,
+        weight_vp_loss=10.0, weight_vp_z_loss=1.0, label_type="gt"), **over})
     smpl = synthetic_smpl_model(300, device=cuda)
     bundle, _ = synthetic_problem(smpl, num_views=2, num_frames=12)
     assets = build_assets(bundle, smpl, cfg, gmm=synthetic_gmm_prior(4),
-                          vposer=init_vposer(), device=cuda)
+                          vposer=init_vposer(), device=cuda, v2v_vjp=v2v_vjp)
     return NemoFitter(cfg, assets)
 
 
-def test_fit_steps_launch_every_kernel(cuda):
-    fitter = _tiny_fitter(cuda)
+# configuration -> (fitter arguments, kernels its fit must launch)
+FIT_CASES = {
+    "v2_fused": ({}, {"fk_fwd", "fk_bwd", "v2v_grad", "v2v_fwd"}),
+    "v2_pair": ({"v2v_vjp": "pair"},
+                {"fk_fwd", "fk_bwd", "v2v_pair", "skin_bwd", "v2v_fwd"}),
+    "v2_pair_vp": ({"v2v_vjp": "pair_vp"},
+                   {"fk_fwd", "fk_bwd", "v2v_pair", "skin_bwd_vp",
+                    "v2v_fwd"}),
+    "v3_subset_full_batch": (
+        dict(model_version=3, vp_v2v_n_verts=64, full_batch=True,
+             weight_3d_loss=1.0, code_noise=0.01),
+        {"fk_fwd", "fk_bwd", "skin_fwd", "skin_bwd"}),
+    "v4": (dict(model_version=4, weight_3d_loss=1.0),
+           {"fk_fwd", "fk_bwd", "v2v_grad", "v2v_fwd"}),
+    "v0": (dict(model_version=0), {"fk_fwd", "fk_bwd", "v2v_grad",
+                                   "v2v_fwd"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FIT_CASES))
+def test_fit_steps_launch_every_kernel(cuda, case):
+    """Each configuration's stages launch exactly the kernels of its path."""
+    over, expected = FIT_CASES[case]
+    fitter = _tiny_fitter(cuda, **over)
     reset_launches()
     fitter.warmup(2)
     fitter.opt_cam(2)
     m = fitter.fit(3, chunk=3)
     fitter.eval_loss()
     counts = launch_counts()
-    assert all(v > 0 for v in counts.values()), counts
+    assert {k for k, v in counts.items() if v > 0} == expected, counts
     assert np.isfinite(m["total_loss"]).all()
 
 
-def test_stage_steps_never_synchronise(cuda):
+@pytest.mark.parametrize("case", ["v2_fused", "v3_subset_full_batch", "v4",
+                                  "v0"])
+def test_stage_steps_never_synchronise(cuda, case):
     """No step of any stage waits for the device (no .item(), no host
     copies, no host-built index tensors)."""
-    from nemo_tpu_torch.fit.optimizer import make_camera_stage_optimizer
-    fitter = _tiny_fitter(cuda)
-    cam_opt = make_camera_stage_optimizer(fitter.params, fitter.cfg)
-    steps = (lambda: fitter.warmup_step(0),
+    from nemo_tpu_torch.fit.optimizer import (make_camera_stage_optimizer,
+                                              make_v0_warmup_optimizer)
+    fitter = _tiny_fitter(cuda, **FIT_CASES[case][0])
+    cfg = fitter.cfg
+    cam_opt = None if cfg.model_version >= 4 else \
+        make_camera_stage_optimizer(fitter.params, cfg)
+    warm_opt = make_v0_warmup_optimizer(fitter.params, cfg) \
+        if cfg.model_version == 0 else None
+    steps = (lambda: fitter.warmup_step(0, warm_opt),
              lambda: fitter.camera_step(cam_opt), fitter.main_step)
     for step in steps:      # first calls build the cached index tensors
         step()
