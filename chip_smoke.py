@@ -10,11 +10,12 @@ Run from the repository root with no arguments:
 2. Build: compiles nemo_tpu_torch/csrc/*.cu for sm_90a (ops/_build.py, one
    nvcc per source, in parallel).
 3. Kernels against their plain PyTorch versions on the card, at the shapes
-   of the fit's paths: K1 forward and backward (B=512, random rotations);
-   K2 in fused, forward-only and pair modes (B=512, the 6890-vertex
-   synthetic SMPL's tables); K3f at (512, 6890) and (960, 1024); K3b with
-   a random cotangent at (512, 6890), recomputing the posed vertices and
-   reading stored ones. Each check prints its max error beside its
+   of the fit's paths: K1 forward and backward (B=512 and 960, random
+   rotations); K2 in fused, forward-only and pair modes (B=512, the
+   6890-vertex synthetic SMPL's tables); K3f at (512, 6890) and (960,
+   1024); K3b with a random cotangent at (512, 6890), recomputing the posed
+   vertices and reading stored ones, and at (960, 1024) recomputing them
+   as path A does. Each check prints its max error beside its
    tolerance; each kernel's median CUDA-event time beside its plain
    version's, one PyTorch call's (where one computes the whole function or
    its largest contraction) and its bound (the least time the card could
@@ -28,8 +29,8 @@ Run from the repository root with no arguments:
      stages, eval_loss and the eval CSVs, the K2 fused mode;
    - path A: the custom-video configuration (run_examples/
      custom-video-example.sh: NemoV3, full_batch so B=960, weight_3d_loss
-     1000, lr_phase 0, lr_factor 1) with the v2v prior on 1024 vertices
-     through K3f/K3b;
+     1000, lr_phase 0, lr_factor 1) with the opt-in v2v prior on 1024
+     vertices (the recipe itself keeps the full mesh) through K3f/K3b;
    - path B: slice 1's workload with the K2 pair mode, then pair_vp;
    - path C: a few steps of each stage for model versions 0, 1 and 4.
    Losses must be finite, main-stage kp_loss must fall on slice 1 and path
@@ -51,6 +52,7 @@ import tempfile
 import time
 
 BATCH = 512
+BATCH_A = 8 * 120       # path A's full batch: every view and frame
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores, 700 W
 PEAK_HBM_BYTES = 3.35e12
 
@@ -76,10 +78,13 @@ KERNELS = {
 
 # f32 operations per (batch row, vertex) of the skinning kernels (a MAC is
 # 2): posing 3x207 MACs + 3 adds, blending 12x24 MACs, transforming 9 MACs;
-# in a backward gvp 9 MACs, gpf 3x207 MACs, gA 9 products + 12x24 MACs,
-# gvsh 3 adds; |rec - orig| and its sum 9.
+# in a backward blending only the 3x3 rotation part, 9x24 MACs (gvp reads
+# M's rotation, gA reads [vp; 1], never M's translation), gvp 9 MACs, gpf
+# 3x207 MACs, gA 9 products + 12x24 MACs, gvsh 3 adds; |rec - orig| and its
+# sum 9.
 POSE_FLOP = 2 * 621 + 3
 BLEND_FLOP = 2 * 288
+BWD_BLEND_FLOP = 2 * 216
 SIDE_FLOP = POSE_FLOP + BLEND_FLOP + 2 * 9
 GRAD_FLOP = 2 * 9 + 2 * 621 + 9 + 2 * 288 + 3
 L1_FLOP = 9
@@ -172,7 +177,7 @@ def kernel_phase(device, smpl):
     gen = torch.Generator().manual_seed(0)
     errs, rec = {}, {}
     parents = tuple(int(p) for p in smpl.parents)
-    B, J, V = BATCH, 24, smpl.num_vertices
+    B, B_A, J, V = BATCH, BATCH_A, 24, smpl.num_vertices
 
     def timed(key, shape, kernel, plain, flop, bytes_, library=None):
         b_ms, by = bound_ms(flop, bytes_)
@@ -188,30 +193,32 @@ def kernel_phase(device, smpl):
         rec.setdefault(key, r)
         return r
 
-    # K1. Tolerance: an 8-level chain of f32 3x3 products of O(1) entries;
-    # the two sides differ only in summation order (~1e-7 per product).
-    R_l = random_rotations(B, J, gen, device)
-    t_l = (0.3 * torch.randn((B, J, 3), generator=gen)).to(device)
-    gR = torch.randn((B, J, 3, 3), generator=gen).to(device)
-    gt = torch.randn((B, J, 3), generator=gen).to(device)
-    Rk, tk = fk.fk_fwd_cuda(R_l, t_l, parents)
-    Rp, tp = fk.fk_fwd_plain(R_l, t_l, parents)
-    check("fk_fwd", torch.cat([Rk.flatten(), tk.flatten()]),
-          torch.cat([Rp.flatten(), tp.flatten()]), 1e-5, errs)
-    gRk, gtk = fk.fk_bwd_cuda(R_l, t_l, Rk, gR, gt, parents)
-    gRp, gtp = fk.fk_bwd_plain(R_l, t_l, Rp, gR, gt, parents)
-    # cotangents are N(0,1) summed over up to 23 descendants: entries O(10)
-    check("fk_bwd", torch.cat([gRk.flatten(), gtk.flatten()]),
-          torch.cat([gRp.flatten(), gtp.flatten()]), 1e-4, errs)
-    # no single PyTorch call composes a kinematic tree: library none
-    timed("fk_fwd", f"B={B}", lambda: fk.fk_fwd_cuda(R_l, t_l, parents),
-          lambda: fk.fk_fwd_plain(R_l, t_l, parents),
-          FK_FLOP_PER_JOINT["fk_fwd"] * 23 * B, nbytes(R_l, t_l, Rk, tk))
-    timed("fk_bwd", f"B={B}",
-          lambda: fk.fk_bwd_cuda(R_l, t_l, Rk, gR, gt, parents),
-          lambda: fk.fk_bwd_plain(R_l, t_l, Rk, gR, gt, parents),
-          FK_FLOP_PER_JOINT["fk_bwd"] * 23 * B,
-          nbytes(R_l, t_l, Rk, gR, gt, gRk, gtk))
+    # K1 at slice 1's batch and path A's full batch (8 views x 120 frames).
+    # Tolerance: an 8-level chain of f32 3x3 products of O(1) entries; the
+    # two sides differ only in summation order (~1e-7 per product).
+    for Bk in (B, B_A):
+        R_l = random_rotations(Bk, J, gen, device)
+        t_l = (0.3 * torch.randn((Bk, J, 3), generator=gen)).to(device)
+        gR = torch.randn((Bk, J, 3, 3), generator=gen).to(device)
+        gt = torch.randn((Bk, J, 3), generator=gen).to(device)
+        Rk, tk = fk.fk_fwd_cuda(R_l, t_l, parents)
+        Rp, tp = fk.fk_fwd_plain(R_l, t_l, parents)
+        check(f"fk_fwd B={Bk}", torch.cat([Rk.flatten(), tk.flatten()]),
+              torch.cat([Rp.flatten(), tp.flatten()]), 1e-5, errs)
+        gRk, gtk = fk.fk_bwd_cuda(R_l, t_l, Rk, gR, gt, parents)
+        gRp, gtp = fk.fk_bwd_plain(R_l, t_l, Rp, gR, gt, parents)
+        # cotangents are N(0,1) summed over up to 23 descendants: O(10)
+        check(f"fk_bwd B={Bk}", torch.cat([gRk.flatten(), gtk.flatten()]),
+              torch.cat([gRp.flatten(), gtp.flatten()]), 1e-4, errs)
+        # no single PyTorch call composes a kinematic tree: library none
+        timed("fk_fwd", f"B={Bk}", lambda: fk.fk_fwd_cuda(R_l, t_l, parents),
+              lambda: fk.fk_fwd_plain(R_l, t_l, parents),
+              FK_FLOP_PER_JOINT["fk_fwd"] * 23 * Bk, nbytes(R_l, t_l, Rk, tk))
+        timed("fk_bwd", f"B={Bk}",
+              lambda: fk.fk_bwd_cuda(R_l, t_l, Rk, gR, gt, parents),
+              lambda: fk.fk_bwd_plain(R_l, t_l, Rk, gR, gt, parents),
+              FK_FLOP_PER_JOINT["fk_bwd"] * 23 * Bk,
+              nbytes(R_l, t_l, Rk, gR, gt, gRk, gtk))
 
     # K2 inputs as smpl_v2v_l1_sum builds them. The rec side gets a
     # per-row offset of +-10 m on each axis, so no vertex difference is
@@ -281,11 +288,10 @@ def kernel_phase(device, smpl):
 
     # K3f at the slice-1 shape and at path A's (B=960, V=1024 subset)
     vidx, pd_s, W_s = subset_skin_tables(smpl, 1024)
-    B_a = 960
-    pf_a, A_a = skin_side_inputs(smpl, B_a, gen, device)
+    pf_a, A_a = skin_side_inputs(smpl, B_A, gen, device)
     fwd_cases = (((pf_o, A_o, vsh, pd, W), f"B={B}, V={V}"),
                  ((pf_a, A_a, vsh[:, vidx].contiguous(), pd_s, W_s),
-                  f"B={B_a}, V={len(vidx)}"))
+                  f"B={B_A}, V={len(vidx)}"))
     for a, shape in fwd_cases:
         out_k = lbs.skin_fwd_cuda(*a)
         out_p = lbs.skin_verts_t_plain(*a)
@@ -321,12 +327,12 @@ def kernel_phase(device, smpl):
     timed("skin_bwd", f"B={B}, V={V}",
           lambda: lbs.skin_bwd_cuda(*side, g),
           lambda: lbs.skin_bwd_plain(*side, g),
-          bv * (POSE_FLOP + BLEND_FLOP + GRAD_FLOP),
+          bv * (POSE_FLOP + BWD_BLEND_FLOP + GRAD_FLOP),
           nbytes(*side, g, *got), library=lambda: torch.matmul(gvp, pd2.t()))
     timed("skin_bwd_vp", f"B={B}, V={V}",
           lambda: lbs.skin_bwd_cuda(*side, g, vp=vp_k),
           lambda: lbs.skin_bwd_plain(*side, g, vp=vp_k),
-          bv * (BLEND_FLOP + GRAD_FLOP),
+          bv * (BWD_BLEND_FLOP + GRAD_FLOP),
           nbytes(A_o, pd, W, g, vp_k, *got),
           library=lambda: torch.matmul(gvp, pd2.t()))
     for a, shape in reversed(fwd_cases):     # path A's shape is the record
@@ -336,21 +342,29 @@ def kernel_phase(device, smpl):
               lambda: lbs.skin_verts_t_plain(*a),
               Bk * Vk * SIDE_FLOP, nbytes(*a) + 4 * Bk * 3 * Vk,
               library=lambda: torch.matmul(a[0], pdk))
-    # path A's K3b shape, recorded in the log beside the (512, 6890) one
-    Bk, Vk = B_a, len(vidx)
+    # K3b at path A's shape (recomputing vp, as the subset loss runs it)
+    # under a random cotangent; timed in the log beside the (512, 6890) one
+    Bk, Vk = B_A, len(vidx)
     a = fwd_cases[1][0]
     ga = torch.randn((Bk, 3, Vk), generator=gen).to(device)
+    got_a = lbs.skin_bwd_cuda(*a, ga)
+    # sums over V=1024 (gpf, gA) or B=960 (gvsh) products of N(0,1)
+    # cotangents; atol 1e-4 x the tensor's largest entry
+    for name, gk, gp in zip(("gpf", "gA", "gvsh"), got_a,
+                            lbs.skin_bwd_plain(*a, ga)):
+        check(f"skin_bwd {name} B={Bk}, V={Vk}", gk, gp,
+              1e-4 * float(gp.abs().max()), errs)
     pdk = a[3].reshape(207, 3 * Vk)
     gvpa = torch.randn((Bk, 3 * Vk), generator=gen).to(device)
     timed("skin_bwd path A", f"B={Bk}, V={Vk}",
           lambda: lbs.skin_bwd_cuda(*a, ga),
           lambda: lbs.skin_bwd_plain(*a, ga),
-          Bk * Vk * (POSE_FLOP + BLEND_FLOP + GRAD_FLOP),
-          nbytes(*a, ga) + 4 * (Bk * 207 + Bk * 288 + 3 * Vk),
-          library=lambda: torch.matmul(gvpa, pdk.t()))
+          Bk * Vk * (POSE_FLOP + BWD_BLEND_FLOP + GRAD_FLOP),
+          nbytes(*a, ga, *got_a), library=lambda: torch.matmul(gvpa, pdk.t()))
 
     kernel_err = {
-        "fk_fwd": errs["fk_fwd"], "fk_bwd": errs["fk_bwd"],
+        "fk_fwd": max(errs[k] for k in errs if k.startswith("fk_fwd")),
+        "fk_bwd": max(errs[k] for k in errs if k.startswith("fk_bwd")),
         "v2v_grad": max(errs[k] for k in errs if k.startswith("v2v_grad")),
         "v2v_fwd": errs["v2v_fwd total"],
         "v2v_pair": max(errs[k] for k in errs if k.startswith("v2v_pair")),
@@ -376,6 +390,16 @@ def reference_config(**over):
         weight_vp_loss=10.0, weight_vp_z_loss=1.0, weight_gmm_loss=1.0,
         lr_factor=0.5, label_type="gt")
     return NemoConfig(**{**base, **over})
+
+
+def custom_video_config(**over):
+    """run_examples/custom-video-example.sh's fit (lr_human 1e-3 of its
+    sweep) at the reference widths: NemoV3, full batch over every view and
+    frame, the 3D loss against the initializer, the full-mesh v2v prior."""
+    return reference_config(**{**dict(
+        model_version=3, phase_init="linear", lr_human=1e-3,
+        lr_instance=1e-3, lr_phase=0.0, lr_factor=1.0, weight_3d_loss=1000.0,
+        full_batch=True), **over})
 
 
 def make_fitter(device, smpl, bundle, cfg, v2v_vjp="fused"):
@@ -542,11 +566,9 @@ def slice1_path(device, smpl, bundle):
 
 
 def path_a(device, smpl, bundle):
-    """The custom-video configuration with the 1024-vertex v2v subset."""
-    cfg = reference_config(
-        model_version=3, phase_init="linear", lr_human=1e-3, lr_instance=1e-3,
-        lr_phase=0.0, lr_factor=1.0, weight_3d_loss=1000.0, full_batch=True,
-        vp_v2v_n_verts=1024)
+    """The custom-video configuration with the opt-in 1024-vertex v2v
+    subset, which runs K3 in place of K2."""
+    cfg = custom_video_config(vp_v2v_n_verts=1024)
     fitter = make_fitter(device, smpl, bundle, cfg)
     print(f"[path A] {cfg}")
     main = 40

@@ -11,9 +11,10 @@
 // with vp either recomputed from pf or read from a stored (B,3,V) copy.
 //
 // What bounds it on the H100: arithmetic on the CUDA cores in f32. K3f is
-// 2*B*V*921 FLOP (1.81 GFLOP at B=960, V=1024), K3b 2*B*V*(621 + 288 + 9 +
+// 2*B*V*921 FLOP (1.81 GFLOP at B=960, V=1024), K3b 2*B*V*(621 + 216 + 9 +
 // 621 + 297) with vp recomputed and 621 MACs fewer per (b, v) with vp
-// stored. The posedirs table (2.5 KB a vertex) sits in L2 at these sizes.
+// stored: the backward blends only the rotation part of M (gvp reads it,
+// gA reads [vp; 1]), 9 of the 12 components. The posedirs table (2.5 KB a vertex) sits in L2 at these sizes.
 // The design is one side of v2v_tile_kernel (csrc/v2v.cu): a 32-row x
 // 32-vertex tile per block, pf and a 16-feature slice of posedirs staged in
 // shared memory, 4 rows x 3 coordinates of vph in registers a thread, the
@@ -97,7 +98,10 @@ skin_tile_kernel(int B, int V, const float* __restrict__ pf,
 #pragma unroll 4
     for (int j = 0; j < kJ; ++j) {
 #pragma unroll
-      for (int l = 0; l < kL; ++l) M[l] += a_row[j * kL + l] * w[j];
+      for (int l = 0; l < kL; ++l) {
+        if (kMode != 0 && l % 4 == 3) continue;  // translation: unused
+        M[l] += a_row[j * kL + l] * w[j];
+      }
     }
     const size_t base = (size_t)b * V3 + v;
     float vo[3];

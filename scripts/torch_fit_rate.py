@@ -1,26 +1,30 @@
 #!/usr/bin/env python
 """Main-stage rate and device profile of the PyTorch port on one GPU.
 
-    python scripts/torch_fit_rate.py [--root DIR] [--config NAME]
-        [--steps 50] [--reps 5] [--profile_steps 10]
+    python scripts/torch_fit_rate.py [--config NAME] [--steps 50] [--reps 5]
+        [--profile_steps 10]
 
-Imports ``nemo_tpu_torch`` from ``--root`` (default: this repository), so
-an unpacked copy of another commit can be timed by the same script in the
-same call. Builds a fitter on the synthetic 6890-vertex SMPL and 8 views x
-120 frames, runs 10 warmup and 10 camera steps, one untimed main run of
-``--steps``, then ``--reps`` timed main runs of ``--steps`` each (host
-clock; each run ends with its metrics on the host). With ``--profile_steps``
-it then traces that many main steps under torch.profiler and reports the
-kernels a step, the launch calls a step, the device's kernel time a step,
-the busy share of the traced wall time (the union of kernel intervals over
-it) and the kernels with the most device time.
+Builds a fitter on the synthetic 6890-vertex SMPL and 8 views x 120 frames
+with chip_smoke.py's configurations and fitter set-up, runs 10 warmup and
+10 camera steps, one untimed main run of ``--steps``, then ``--reps`` timed
+main runs of ``--steps`` each (host clock; each run ends with its metrics
+on the host). With ``--profile_steps`` it then traces that many main steps
+under torch.profiler and reports the kernels a step, the launch calls a
+step, the device's kernel time a step, the busy share of the traced wall
+time (the union of kernel intervals over it) and the kernels with the most
+device time. To compare two commits, unpack each (git archive) and run
+each copy's own script in one call.
 
-Configurations:
-  reference     NemoV2, batch 512, h_dim 1000, RBF 100 quadratic, 200-node
-                phase nets, VPoser v2v 10 + KL 1 + GMM 1 (bench.py:99-113)
-  custom_video  NemoV3 as run_examples/custom-video-example.sh:52-84
-                (full batch B=960, weight_3d_loss 1000, lr_phase 0,
-                lr_factor 1) with the v2v prior on 1024 vertices
+Configurations (chip_smoke.py):
+  reference            reference_config: NemoV2, batch 512, h_dim 1000, RBF
+                       100 quadratic, 200-node phase nets, VPoser v2v 10 +
+                       KL 1 + GMM 1 (bench.py:99-113)
+  custom_video         custom_video_config: NemoV3 as
+                       run_examples/custom-video-example.sh:52-85 (full
+                       batch B=960, weight_3d_loss 1000, lr_phase 0,
+                       lr_factor 1), full-mesh v2v prior through K2
+  custom_video_subset  the same with the opt-in v2v prior on 1024 vertices
+                       through K3 (chip_smoke.py's path A)
 
 Prints one JSON line per timed run and per profile, then the nvidia-smi
 line (name, power limit).
@@ -30,39 +34,28 @@ import argparse
 import collections
 import json
 import os
-import subprocess
 import sys
 import time
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402  (stdlib imports only at module level)
+
 CONFIGS = {
-    "reference": dict(model_version=2, phase_init="rand", lr_factor=0.5),
-    "custom_video": dict(model_version=3, phase_init="linear", lr_human=1e-3,
-                         lr_instance=1e-3, lr_phase=0.0, lr_factor=1.0,
-                         weight_3d_loss=1000.0, full_batch=True,
-                         vp_v2v_n_verts=1024),
+    "reference": chip_smoke.reference_config,
+    "custom_video": chip_smoke.custom_video_config,
+    "custom_video_subset": lambda: chip_smoke.custom_video_config(
+        vp_v2v_n_verts=1024),
 }
-COMMON = dict(h_dim=1000, instance_code_size=5, phase_rbf_dim=100,
-              rbf_kernel="quadratic", monotonic_network_n_nodes=200,
-              batch_size=512, loss="mse_robust", weight_vp_loss=10.0,
-              weight_vp_z_loss=1.0, weight_gmm_loss=1.0, label_type="gt")
 
 
 def make_fitter(config: str):
     import torch
     from nemo_tpu_torch.body.assets import synthetic_smpl_model
     from nemo_tpu_torch.data.synthetic import synthetic_problem
-    from nemo_tpu_torch.fit import NemoConfig, NemoFitter, build_assets
-    from nemo_tpu_torch.priors.gmm import synthetic_gmm_prior
-    from nemo_tpu_torch.priors.vposer import init_vposer
     device = torch.device("cuda", 0)
     smpl = synthetic_smpl_model(6890, seed=0, device=device)
     bundle, _ = synthetic_problem(smpl, num_views=8, num_frames=120, seed=0)
-    cfg = NemoConfig(**{**COMMON, **CONFIGS[config]})
-    assets = build_assets(bundle, smpl, cfg, gmm=synthetic_gmm_prior(8),
-                          vposer=init_vposer(
-                              generator=torch.Generator().manual_seed(7)),
-                          device=device)
-    return NemoFitter(cfg, assets, seed=0)
+    return chip_smoke.make_fitter(device, smpl, bundle, CONFIGS[config]())
 
 
 def timed_run(fitter, steps: int) -> float:
@@ -118,26 +111,21 @@ def profile(fitter, steps: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
     ap.add_argument("--config", choices=sorted(CONFIGS), default="reference")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--profile_steps", type=int, default=0)
     args = ap.parse_args(argv)
-    sys.path.insert(0, os.path.abspath(args.root))
     import torch
     if not torch.cuda.is_available():
         print("torch_fit_rate: needs a CUDA device", file=sys.stderr)
         return 1
-    import nemo_tpu_torch
     from nemo_tpu_torch.ops import launch_counts, reset_launches
     fitter = make_fitter(args.config)
     fitter.warmup(10)
     fitter.opt_cam(10)
     timed_run(fitter, args.steps)
-    tag = {"package": os.path.dirname(nemo_tpu_torch.__file__),
-           "config": args.config, "steps": args.steps}
+    tag = {"config": args.config, "steps": args.steps}
     for rep in range(args.reps):
         reset_launches()
         s = timed_run(fitter, args.steps)
@@ -151,10 +139,7 @@ def main(argv=None) -> int:
         print(json.dumps({**tag, "profile": profile(fitter,
                                                      args.profile_steps)}),
               flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip())
+    print(chip_smoke.nvidia_smi_line())
     return 0
 
 
