@@ -15,7 +15,9 @@ Run from the repository root with no arguments:
    6890-vertex synthetic SMPL's tables); K3f at (512, 6890) and (960,
    1024); K3b with a random cotangent at (512, 6890), recomputing the posed
    vertices and reading stored ones, and at (960, 1024) recomputing them
-   as path A does. Each check prints its max error beside its
+   as path A does; K5s and K5g (the tile rasterizer's stream and gather
+   modes) on the synthetic problem's posed mesh at 1000 x 1900, one panel
+   and a batch of four. Each check prints its max error beside its
    tolerance; each kernel's median CUDA-event time beside its plain
    version's, one PyTorch call's (where one computes the whole function or
    its largest contraction) and its bound (the least time the card could
@@ -32,7 +34,11 @@ Run from the repository root with no arguments:
      1000, lr_phase 0, lr_factor 1) with the opt-in v2v prior on 1024
      vertices (the recipe itself keeps the full mesh) through K3f/K3b;
    - path B: slice 1's workload with the K2 pair mode, then pair_vp;
-   - path C: a few steps of each stage for model versions 0, 1 and 4.
+   - path C: a few steps of each stage for model versions 0, 1 and 4;
+   - path D: the fit's render outputs on K5s (a mesh video of 4 views x
+     30 frames, the 8 x 8 rollout figure, the comparison strip), a
+     checkpoint saved and loaded into a fresh fitter, and K5g equal to K5s
+     on the video's panels.
    Losses must be finite, main-stage kp_loss must fall on slice 1 and path
    A, fit_loss on the card must agree with the port's CPU path from the
    same parameters, and one step of each stage must run without a device
@@ -43,6 +49,7 @@ prints it, and as the last line {"ok": true, "device": {...}}. Any failure
 raises (exit code 1).
 """
 
+import importlib.util
 import json
 import math
 import os
@@ -74,6 +81,10 @@ KERNELS = {
                  "nemo_tpu/ops/lbs_pallas.py:259"),
     "skin_bwd_vp": ("nemo_tpu_torch/csrc/skin.cu",
                     "nemo_tpu/ops/lbs_pallas.py:259"),
+    "raster_stream": ("nemo_tpu_torch/csrc/raster.cu",
+                      "nemo_tpu/ops/raster_pallas.py:391"),
+    "raster_gather": ("nemo_tpu_torch/csrc/raster.cu",
+                      "nemo_tpu/ops/raster_pallas.py:199"),
 }
 
 # f32 operations per (batch row, vertex) of the skinning kernels (a MAC is
@@ -92,6 +103,20 @@ L1_FLOP = 9
 # backward twice the products (the parent's and the local cotangents)
 FK_FLOP_PER_JOINT = {"fk_fwd": 2 * (27 + 9) + 3,
                      "fk_bwd": 2 * 2 * (27 + 9) + 3}
+# f32 operations of one face test at one pixel in the rasterizer's fold
+# (csrc/raster_common.cuh): three edge functions of 2 subtractions, 2
+# products and 1 subtraction each (15), three sign products and three
+# comparisons (6), three barycentric and three inverse-depth products (6),
+# 2 additions, 1 depth comparison: 30. Counted once for each distinct
+# (face, tile) pair over the tile's 4096 pixels; duplicate entries of the
+# span scatter repeat the same work and are not counted. Bytes: each entry
+# read once (9 f32 attributes and a face id), z, fid and bary written (20 B
+# a pixel).
+RASTER_FLOP = 30
+RASTER_TILE_PIXELS = 32 * 128
+RASTER_ENTRY_BYTES = 40
+RASTER_PIXEL_BYTES = 20
+IMG_HW = (1000, 1900)    # synthetic_problem's image, (D0 height, D1 width)
 
 
 def nvidia_smi_line() -> str:
@@ -143,6 +168,27 @@ def check(name: str, got, want, atol: float, results: dict) -> float:
     return err
 
 
+def time_kernel(rec, key, shape, kernel, plain, flop, bytes_, library=None,
+                plain_reps: int = 20):
+    """Median CUDA-event times of a kernel, its plain version and one
+    PyTorch call, beside the bound; the first record of a key is kept."""
+    b_ms, by = bound_ms(flop, bytes_)
+    r = {"ms": median_ms(kernel),
+         "plain_ms": median_ms(plain, reps=plain_reps,
+                               warm=min(3, plain_reps)),
+         "library_ms": None if library is None else median_ms(library),
+         "bound_ms": b_ms, "bound_by": by, "shape": shape,
+         "gflop": flop / 1e9, "mbytes": bytes_ / 1e6}
+    lib = "none" if library is None else f"{r['library_ms']:.4f} ms"
+    print(f"[time] {key} {shape}: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, one PyTorch call {lib}, bound "
+          f"{b_ms:.4f} ms ({by}; {flop / 1e9:.3f} GFLOP, "
+          f"{bytes_ / 1e6:.3f} MB) (median of 20 CUDA-event timings, "
+          f"{plain_reps} of the plain version)")
+    rec.setdefault(key, r)
+    return r
+
+
 def random_rotations(B: int, J: int, gen, device, scale: float = 0.6):
     import torch
     from nemo_tpu_torch.geometry.rotations import batch_rodrigues
@@ -179,19 +225,8 @@ def kernel_phase(device, smpl):
     parents = tuple(int(p) for p in smpl.parents)
     B, B_A, J, V = BATCH, BATCH_A, 24, smpl.num_vertices
 
-    def timed(key, shape, kernel, plain, flop, bytes_, library=None):
-        b_ms, by = bound_ms(flop, bytes_)
-        r = {"ms": median_ms(kernel), "plain_ms": median_ms(plain),
-             "library_ms": None if library is None else median_ms(library),
-             "bound_ms": b_ms, "bound_by": by, "shape": shape,
-             "gflop": flop / 1e9, "mbytes": bytes_ / 1e6}
-        lib = "none" if library is None else f"{r['library_ms']:.4f} ms"
-        print(f"[time] {key} {shape}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, one PyTorch call {lib}, bound "
-              f"{b_ms:.4f} ms ({by}; {flop / 1e9:.3f} GFLOP, "
-              f"{bytes_ / 1e6:.3f} MB) (median of 20 CUDA-event timings)")
-        rec.setdefault(key, r)
-        return r
+    def timed(*a, **k):
+        return time_kernel(rec, *a, **k)
 
     # K1 at slice 1's batch and path A's full batch (8 views x 120 frames).
     # Tolerance: an 8-level chain of f32 3x3 products of O(1) entries; the
@@ -374,6 +409,107 @@ def kernel_phase(device, smpl):
                            if k.startswith("skin_bwd_vp")),
     }
     return kernel_err, rec
+
+
+def posed_panels(smpl, bundle, device, views):
+    """The synthetic problem's ground-truth mesh at frame 0 of each view, in
+    that view's camera frame: (verts_cam (N, V, 3), focals, centers)."""
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.body.smpl import smpl_forward
+    from nemo_tpu_torch.geometry.camera import camera_from_params_np
+    pose = torch.as_tensor(bundle.gt3d_pose[views, 0], device=device)
+    trans = torch.as_tensor(bundle.gt3d_trans[views, 0], device=device)
+    with torch.no_grad():
+        verts, _ = smpl_forward(smpl, torch.zeros((1, 10), device=device),
+                                pose[:, 3:], pose[:, :3], pose2rot=True,
+                                want_vertices=True, transl=trans)
+    cams = [camera_from_params_np(bundle.gt_cameras[v], *IMG_HW)
+            for v in views]
+    R = torch.as_tensor(np.stack([c.rotation for c in cams]), device=device)
+    t = torch.as_tensor(np.stack([c.translation for c in cams]),
+                        device=device)
+    verts_cam = (verts @ R.transpose(-1, -2) + t[:, None]).contiguous()
+    return (verts_cam, [float(c.focal_length) for c in cams],
+            [(float(c.center[0]), float(c.center[1])) for c in cams])
+
+
+def raster_work(ent):
+    """(distinct (face, tile) pairs, entries) that a fold of ``ent`` reads."""
+    import torch
+    counts = ent.counts
+    tile = torch.repeat_interleave(torch.arange(counts.numel(),
+                                                device=counts.device), counts)
+    first = torch.repeat_interleave(ent.starts, counts)
+    offset = torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
+    face = ent.face[first + torch.arange(tile.numel(), device=tile.device)
+                    - offset]
+    pairs = torch.unique(tile * (ent.N * ent.F) + face).numel()
+    return pairs, int(counts.sum())
+
+
+def raster_phase(device, smpl, bundle, rec):
+    """K5s and K5g against the plain fold on the card at path D's shapes:
+    the posed 6890-vertex mesh at 1000 x 1900, one panel and a batch of
+    four views. Face ids and coverage must be identical, z and bary within
+    one ulp of the largest value (the kernels round every operation as the
+    plain version does, so the expected difference is 0); the image's
+    ragged right and bottom tiles are part of every comparison. Returns
+    {kernel: max_abs_err} and adds the times to rec."""
+    import torch
+    from nemo_tpu_torch.ops import raster
+    faces = smpl.faces
+    verts_cam, focals, centers = posed_panels(smpl, bundle, device,
+                                              [0, 1, 2, 3])
+    errs = {}
+    for n, shape in ((4, "4 panels 1000x1900"), (1, "1 panel 1000x1900")):
+        ent = raster.prepare(verts_cam[:n], faces, focals[:n], centers[:n],
+                             IMG_HW)
+        for v in range(n):
+            over = raster.gather_mode_overflow(
+                verts_cam[v].cpu().numpy(), faces, focals[v], centers[v],
+                IMG_HW)
+            if over:
+                raise AssertionError(f"panel {v}: gather mode overflows")
+        si, gi = raster.stream_inputs(ent), raster.gather_inputs(ent)
+        ks = raster.raster_stream_cuda(ent, si, IMG_HW)
+        kg = raster.raster_gather_cuda(ent, gi, IMG_HW)
+        ps = raster.rasterize_plain(ent, IMG_HW, stream=True)
+        pg = raster.rasterize_plain(ent, IMG_HW, stream=False)
+        for key, got, want in (("raster_stream", ks, ps),
+                               ("raster_gather", kg, pg),
+                               ("raster_gather vs stream", kg, ks)):
+            (zk, fk, bk), (zp, fp, bp) = got, want
+            cov = torch.isfinite(zp)
+            if not (torch.equal(torch.isfinite(zk), cov)
+                    and torch.equal(fk, fp)):
+                raise AssertionError(f"{key} {shape}: coverage or face ids "
+                                     "differ from the plain version")
+            ulp = 2.0 ** -23
+            check(f"{key} z {shape}", zk[cov], zp[cov],
+                  ulp * float(zp[cov].abs().max()), errs)
+            check(f"{key} bary {shape}", bk, bp, ulp, errs)
+        pairs, entries = raster_work(ent)
+        pix = n * IMG_HW[0] * IMG_HW[1]
+        print(f"[raster] {shape}: {entries} entries, {pairs} distinct "
+              f"(face, tile) pairs, busiest tile {int(ent.counts.max())} "
+              f"entries, {int((ent.counts > 0).sum())} of "
+              f"{ent.counts.numel()} tiles hold entries, coverage "
+              f"{float(torch.isfinite(ks[0]).float().mean()):.4f}")
+        flop = pairs * RASTER_TILE_PIXELS * RASTER_FLOP
+        bytes_ = entries * RASTER_ENTRY_BYTES + pix * RASTER_PIXEL_BYTES
+        # no single PyTorch call rasterizes: library none
+        time_kernel(rec, "raster_stream", shape,
+                    lambda: raster.raster_stream_cuda(ent, si, IMG_HW),
+                    lambda: raster.rasterize_plain(ent, IMG_HW), flop,
+                    bytes_, plain_reps=3)
+        time_kernel(rec, "raster_gather", shape,
+                    lambda: raster.raster_gather_cuda(ent, gi, IMG_HW),
+                    lambda: raster.rasterize_plain(ent, IMG_HW,
+                                                   stream=False), flop,
+                    bytes_, plain_reps=3)
+    return {k: max(v for name, v in errs.items() if name.startswith(k + " "))
+            for k in ("raster_stream", "raster_gather")}
 
 
 # ---------------------------------------------------------------------------
@@ -641,6 +777,147 @@ def path_c(device, smpl, bundle):
     return out
 
 
+def path_d(device, smpl, bundle):
+    """The fit's render outputs and a checkpoint round trip: the reference
+    configuration, a few steps of each stage; save_fit_state and
+    load_fit_state into a fresh fitter (parameters bit-identical, eval_loss
+    equal); the full mesh per view; the mesh video (4 views, every 4th of
+    120 frames: 30 frames, 120 panels), the rollout figure (8 views x 8
+    frames) and the comparison strip (6 panels) on K5s at 1000 x 1900; then
+    K5g on the video's panels, which gather mode holds without overflow,
+    equal to K5s."""
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.fit import predict
+    from nemo_tpu_torch.geometry.camera import camera_from_params_np
+    from nemo_tpu_torch.ops import raster
+    from nemo_tpu_torch.render import (make_mesh_panel_fn,
+                                       render_comparison_figure,
+                                       render_mesh_video,
+                                       render_rollout_figure)
+    from nemo_tpu_torch.render.mesh import composite_panel
+    from nemo_tpu_torch.utils.checkpoint import load_fit_state, save_fit_state
+    cfg = reference_config()
+    fitter = make_fitter(device, smpl, bundle, cfg)
+    V, F = fitter.assets.num_views, fitter.assets.num_frames
+    n_frames = len(range(0, F, 4))
+    faces = smpl.faces
+    out = {}
+
+    def run():
+        ms, _, _ = stages(fitter, 5, 5, 10, 5)
+        check_finite("path D", ms)
+        with tempfile.TemporaryDirectory() as d:
+            save_fit_state(d, fitter, cfg)
+            fresh = make_fitter(device, smpl, bundle, cfg)
+            if not load_fit_state(d, fresh):
+                raise AssertionError("path D: generator state not restored")
+        same = all(torch.equal(a, b) for a, b in
+                   zip(fitter.params.parameters(), fresh.params.parameters()))
+        e0, e1 = fitter.eval_loss(), fresh.eval_loss()
+        print(f"[path D] checkpoint round trip: parameters bit-identical "
+              f"{same}, eval_loss equal {e0 == e1} ({e0})")
+        if not same or e0 != e1 or fresh.step != fitter.step:
+            raise AssertionError("path D: the checkpoint did not restore "
+                                 "the fit")
+        with torch.no_grad():
+            verts = np.stack([predict(
+                fitter.params, cfg, fitter.assets,
+                torch.full((F,), v, device=device),
+                torch.arange(F, device=device),
+                want_vertices=True)["v"].cpu().numpy() for v in range(V)])
+        cam9 = fitter.params.cameras.detach().cpu().numpy()
+        cams = [camera_from_params_np(cam9[v], *IMG_HW) for v in range(V)]
+        with tempfile.TemporaryDirectory() as d:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vid = render_mesh_video(os.path.join(d, "mesh_rollout.mp4"),
+                                    verts, faces, cams, bundle, max_views=4,
+                                    every=4, device=device)
+            t_video = time.perf_counter() - t0
+            frames = sorted(os.listdir(vid)) if os.path.isdir(vid) else None
+            # the same frames without the PNG writes: render, one copy to
+            # the host, composite
+            fn = make_mesh_panel_fn(faces, cams[:4], IMG_HW, device=device)
+            R = np.stack([c.rotation for c in cams[:4]])
+            t = np.stack([c.translation for c in cams[:4]])
+            split = {"render": 0.0, "copy": 0.0, "composite": 0.0}
+            for f in range(0, F, 4):
+                t0 = time.perf_counter()
+                imgs, masks = fn(verts[:4, f], R, t)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                both = torch.cat([imgs, masks[..., None]], -1).cpu().numpy()
+                t2 = time.perf_counter()
+                np.concatenate([composite_panel(b[..., :3], b[..., 3], None,
+                                                IMG_HW) for b in both], 1)
+                t3 = time.perf_counter()
+                for k, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+                    split[k] += dt / n_frames
+            t_nopng = n_frames * sum(split.values())
+            t0 = time.perf_counter()
+            grid = render_rollout_figure(
+                os.path.join(d, "rollout_figure.png"), verts, faces, cams,
+                bundle, num_frames=8, device=device)
+            t_fig = time.perf_counter() - t0
+            comp = render_comparison_figure(
+                os.path.join(d, "comparison_view0.png"), 0, verts[0], faces,
+                cams[0], bundle, num_frames=6, device=device)
+            sizes = {n: os.path.getsize(os.path.join(d, n)) for n in
+                     ("rollout_figure.png", "comparison_view0.png")}
+        print(f"[path D] {vid}: {len(frames) if frames else 'mp4'} frames "
+              f"of {4 * IMG_HW[1]}x{IMG_HW[0]}; {t_video / n_frames:.4f} s a "
+              f"frame with the PNG writes, {t_nopng / n_frames:.4f} s "
+              f"without; rollout "
+              f"figure {grid.shape} in {t_fig:.2f} s, comparison "
+              f"{comp.shape}; PNG bytes {json.dumps(sizes)}; s a frame "
+              f"without the PNG writes: {json.dumps(split)}")
+        if frames is not None and len(frames) != n_frames:
+            raise AssertionError(f"path D: {len(frames)} video frames")
+        if grid.shape != (1052, 2000, 3) or comp.shape[0] != 2 * IMG_HW[0] \
+                * 2000 // (6 * IMG_HW[1]):
+            raise AssertionError("path D: figure grids malformed")
+        covered = float((grid < 0.99).any(-1).mean())
+        if not np.isfinite(grid).all() or covered < 0.001:
+            raise AssertionError(f"path D: rollout figure covers "
+                                 f"{covered:.5f} of its pixels")
+        # K5g on the video's panels, equal to K5s
+        Rt = torch.as_tensor(R, device=device)
+        tt = torch.as_tensor(t, device=device)
+        foc = [float(c.focal_length) for c in cams[:4]]
+        ctr = [(float(c.center[0]), float(c.center[1])) for c in cams[:4]]
+        # JAX's default capacity, doubled for a frame whose busiest tile
+        # holds more entries, so that no panel overflows
+        grown = {}
+        for f in range(0, F, 4):
+            vc = (torch.as_tensor(verts[:4, f], device=device)
+                  @ Rt.transpose(-1, -2) + tt[:, None]).contiguous()
+            fpt = 4096
+            while any(raster.gather_mode_overflow(
+                    vc[v].cpu().numpy(), faces, foc[v], ctr[v], IMG_HW,
+                    faces_per_tile=fpt) for v in range(4)):
+                fpt *= 2
+            if fpt > 4096:
+                grown[f] = fpt
+            a = raster.rasterize_triangles_batched(vc, faces, foc, ctr,
+                                                   IMG_HW, stream=True)
+            b = raster.rasterize_triangles_batched(
+                vc, faces, foc, ctr, IMG_HW, faces_per_tile=fpt,
+                stream=False)
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"path D frame {f}: K5g differs from "
+                                     "K5s")
+        print(f"[path D] K5g equals K5s on the video's {4 * n_frames} "
+              "panels, each with a gather-mode overflow of 0 at "
+              f"faces_per_tile 4096 except frames {json.dumps(grown)} "
+              "(frame: the capacity that holds its busiest tile)")
+        out.update(video_s=t_video / n_frames, nopng_s=t_nopng / n_frames)
+
+    counts, _ = run_path("path D", ("fk_fwd", "fk_bwd", "v2v_grad",
+                                    "raster_stream", "raster_gather"), run)
+    return counts, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -651,6 +928,9 @@ def main() -> int:
     smi = nvidia_smi_line()
     print(f"[device] {smi}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}")
+    print("[device] " + ", ".join(
+        f"{m} {'present' if importlib.util.find_spec(m) else 'absent'}"
+        for m in ("matplotlib", "PIL")))
     device = torch.device("cuda", 0)
 
     from nemo_tpu_torch.body.assets import synthetic_smpl_model
@@ -664,7 +944,9 @@ def main() -> int:
 
     smpl = synthetic_smpl_model(6890, seed=0, device=device)
     kernel_err, rec = kernel_phase(device, smpl)
-    bundle, _ = synthetic_problem(smpl, num_views=8, num_frames=120, seed=0)
+    bundle, _ = synthetic_problem(smpl, num_views=8, num_frames=120,
+                                  img_hw=IMG_HW, seed=0)
+    kernel_err.update(raster_phase(device, smpl, bundle, rec))
     paths = {}
     paths["slice 1"], steady1 = slice1_path(device, smpl, bundle)
     paths["path A"], steady_a = path_a(device, smpl, bundle)
@@ -672,7 +954,10 @@ def main() -> int:
         paths[f"path B {k}"] = c
     for k, c in path_c(device, smpl, bundle).items():
         paths[f"path C {k}"] = c
+    paths["path D"], render = path_d(device, smpl, bundle)
     launches = {k: sum(c[k] for c in paths.values()) for k in KERNELS}
+    print(f"[paths] render: {render['video_s']:.4f} s a video frame with the "
+          f"PNG writes, {render['nopng_s']:.4f} s without")
     print(f"[paths] steps/s: slice 1 {steady1:.3f}, path A {steady_a:.3f}; "
           f"launches summed over the paths {json.dumps(launches)}; "
           f"{time.perf_counter() - t_start:.1f} s in all")

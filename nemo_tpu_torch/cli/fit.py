@@ -1,22 +1,30 @@
 """CLI: fit a neural motion field to a multi-view action (PyTorch port).
 
 The port's counterpart of ``python -m nemo_tpu.cli.fit``: the same flags,
-config merge and stage schedule (warmup -> camera stage -> main fit), then
-the eval CSVs, on the device named by ``--device`` (default ``cuda``).
+config merge and stage schedule (warmup -> camera stage -> main fit with a
+checkpoint every --save_every steps), then the eval CSVs and the render
+outputs, on the device named by ``--device`` (default ``cuda``).
 
 Usage:
-  python -m nemo_tpu_torch.cli.fit --synthetic_assets --model_version 2 \
-      --phase_rbf_dim 16 --rbf_kernel quadratic --h_dim 64 \
-      --monotonic_network_n_nodes 8 --instance_code_size 4 --batch_size 64 \
-      --n_steps 100 --warmup_step 20 --opt_cam_step 30 --save_every 50 \
-      --label_type gt --loss mse_robust --weight_gmm_loss 0.5 \
-      --out_dir out/verify_fit_torch
+  python -m nemo_tpu_torch.cli.fit --synthetic_assets --model_version 2 \\
+      --phase_rbf_dim 16 --rbf_kernel quadratic --h_dim 64 \\
+      --monotonic_network_n_nodes 8 --instance_code_size 4 --batch_size 64 \\
+      --n_steps 100 --warmup_step 20 --opt_cam_step 30 --save_every 50 \\
+      --label_type gt --loss mse_robust --weight_gmm_loss 0.5 \\
+      --render_video 4 --render_rollout_figure --out_dir out/verify_fit_torch
+  # evaluate and render a saved fit without fitting again:
+  python -m nemo_tpu_torch.cli.fit --synthetic_assets --test \\
+      --load_ckpt_path out/verify_fit_torch/000000/ckpt/sd_000100 ...
 
 Every model version (--model_version 0..4) runs, with --full_batch,
 --weight_3d_loss, --weight_instance_loss, --code_noise and --vp_v2v_n_verts.
-Writes config.json, metrics.jsonl, losses.npz, eval_2d.csv, eval_3d.csv,
-eval_3d_dynamic.csv and eval_3d_global.csv under out_dir/<NNNNNN>/.
-Real SMPL/VPoser/GMM assets, checkpoints and resume, rendering, --dp and
+Writes config.json, metrics.jsonl, ckpt/sd_NNNNNN/, losses.npz, the eval
+CSVs and, with --render_video / --render_rollout_figure / --render_every,
+the mesh renders (mesh_rollout.mp4 or its .frames directory,
+rollout_figure.png, comparison_view0.png, vibe_rollout.png) and the
+matplotlib figures, under out_dir/<NNNNNN>/. The mesh renders need neither
+matplotlib nor PIL; where matplotlib is missing the CLI skips its figures
+and names each file it skipped. Real SMPL/VPoser/GMM assets, --dp and
 --weight_humor_loss are still to port (ROADMAP.md Queue 1) and raise.
 """
 
@@ -24,7 +32,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib.util
 import json
+import math
 import os.path as osp
 import sys
 
@@ -96,13 +106,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _reject_unported(args) -> None:
     unported = {
-        "--load_ckpt_path / --test (resume)": args.load_ckpt_path or args.test,
         "--smpl_path / --vposer_path / --gmm_path / --j_regressor_extra "
         "(real assets)": (args.smpl_path or args.vposer_path or args.gmm_path
                           or args.j_regressor_extra),
-        "--render_video / --render_rollout_figure / --render_every":
-            args.render_video or args.render_rollout_figure
-            or args.render_every,
         "--dp": args.dp,
     }
     bad = [k for k, v in unported.items() if v]
@@ -110,17 +116,47 @@ def _reject_unported(args) -> None:
         raise NotImplementedError(f"{'; '.join(bad)}: {_ROADMAP}")
 
 
+def _figure(paths, draw, *args, **kw) -> None:
+    """Draw a matplotlib figure (writing paths), or name each path skipped
+    where matplotlib is missing."""
+    if importlib.util.find_spec("matplotlib") is not None:
+        draw(*args, **kw)
+        return
+    for path in [paths] if isinstance(paths, str) else paths:
+        print(f"[fit] matplotlib is not installed: skipped {path}")
+
+
+def _restore_config(cfg, args, argv):
+    """The config a checkpoint was saved with; flags the user typed win."""
+    from ..fit.model import NemoConfig
+    from ..utils.checkpoint import load_saved_config
+    from ..utils.exp import explicit_cli_keys
+    saved = load_saved_config(args.load_ckpt_path)
+    if not saved:
+        return cfg
+    fields = NemoConfig.__dataclass_fields__
+    merged = {k: v for k, v in saved.items() if k in fields}
+    for k in explicit_cli_keys(argv):
+        if k in fields:
+            merged[k] = getattr(args, k)
+    print("[fit] restored model config from checkpoint")
+    return NemoConfig(**{**dataclasses.asdict(cfg), **merged})
+
+
 def main(argv=None) -> int:
     from .. import resolve_device
     from ..body.assets import synthetic_smpl_model
     from ..data.bundle import MultiViewBundle
     from ..data.synthetic import synthetic_problem
-    from ..eval.metrics import eval_2d, eval_3d, eval_3d_global, write_csv
+    from ..eval.metrics import (eval_2d, eval_3d, eval_3d_global,
+                                smpl_grid_forward, write_csv)
     from ..fit.assemble import build_assets
     from ..fit.loop import NemoFitter
     from ..fit.model import NemoConfig, predict, project_to_views
     from ..priors.gmm import synthetic_gmm_prior
     from ..priors.vposer import init_vposer
+    from ..render import keypoints as kp_render
+    from ..utils.checkpoint import load_fit_state, save_fit_state
     from ..utils.exp import (MetricWriter, Timer, create_latest_child_dir,
                              dataclass_from_namespace, merge_config)
 
@@ -128,6 +164,8 @@ def main(argv=None) -> int:
     _reject_unported(args)
     device = resolve_device(args.device)
     cfg = dataclass_from_namespace(NemoConfig, args)
+    if args.load_ckpt_path:
+        cfg = _restore_config(cfg, args, argv)
     out_dir = create_latest_child_dir(args.out_dir)
     with open(osp.join(out_dir, "config.json"), "w") as f:
         json.dump({"args": vars(args), "cfg": dataclasses.asdict(cfg)}, f,
@@ -155,45 +193,82 @@ def main(argv=None) -> int:
                               device=device)
         fitter = NemoFitter(cfg, assets, seed=args.seed)
 
+    if args.load_ckpt_path:
+        rng = load_fit_state(args.load_ckpt_path, fitter)
+        print(f"[fit] resumed from {args.load_ckpt_path} at step "
+              f"{fitter.step}")
+        if not rng:
+            print("[fit] the checkpoint holds no batch generator state for "
+                  f"this device: the batch stream restarts from --seed "
+                  f"{args.seed}")
+
+    V, F = assets.num_views, assets.num_frames
+    vi_grid = torch.arange(V, device=device).repeat_interleave(F)
+    fi_grid = torch.arange(F, device=device).repeat(V)
+
+    @torch.no_grad()
+    def grid_keypoints(f):
+        pr = predict(f.params, cfg, assets, vi_grid, fi_grid)
+        p2 = project_to_views(f.params, cfg, assets, pr["j"], vi_grid)
+        return pr, p2.cpu().numpy().reshape(V, F, 25, 2)
+
     metrics_log = MetricWriter(osp.join(out_dir, "metrics.jsonl"))
-    full = bool(args.eval_full_batch)
-    metrics_log.write({"phase": "init", **fitter.eval_loss(full=full)})
-    with Timer("Warmup"):
-        wm = fitter.warmup()
-        if wm:
-            metrics_log.write({"phase": "warmup_done",
-                               "loss": float(wm["warmup_loss"][-1])})
-    with Timer("Camera opt"):
-        cm = fitter.opt_cam()
-        if cm:
-            key = "cam_loss" if "cam_loss" in cm else "total_loss"  # V4
-            metrics_log.write({"phase": "opt_cam_done",
-                               "loss": float(cm[key][-1])})
-        metrics_log.write({"phase": "cam_eval", **fitter.eval_loss(full=full)})
+    if not args.test:
+        full = bool(args.eval_full_batch)
+        metrics_log.write({"phase": "init", **fitter.eval_loss(full=full)})
+        with Timer("Warmup"):
+            wm = fitter.warmup()
+            if wm:
+                metrics_log.write({"phase": "warmup_done",
+                                   "loss": float(wm["warmup_loss"][-1])})
+        with Timer("Camera opt"):
+            cm = fitter.opt_cam()
+            if cm:
+                key = "cam_loss" if "cam_loss" in cm else "total_loss"  # V4
+                metrics_log.write({"phase": "opt_cam_done",
+                                   "loss": float(cm[key][-1])})
+            metrics_log.write({"phase": "cam_eval",
+                               **fitter.eval_loss(full=full)})
 
-    def on_chunk(f, step, chunk_metrics):
-        metrics_log.write({"phase": "fit", "step": step,
-                           **{k: float(v[-1])
-                              for k, v in chunk_metrics.items()}})
-        print(f"[fit] step {step}: "
-              f"total={float(chunk_metrics['total_loss'][-1]):.4f} "
-              f"kp={float(chunk_metrics['kp_loss'][-1]):.4f}")
+        def on_chunk(f, step, chunk_metrics):
+            if step % args.save_every == 0 or step >= cfg.n_steps:
+                save_fit_state(osp.join(out_dir, "ckpt", f"sd_{step:06d}"), f,
+                               cfg)
+            if args.render_every > 0 and step % args.render_every == 0:
+                path = osp.join(out_dir, f"rollout_{step:06d}.png")
+                _figure(path, lambda: kp_render.render_keypoint_rollout(
+                    path, grid_keypoints(f)[1], bundle))
+            metrics_log.write({"phase": "fit", "step": step,
+                               **{k: float(v[-1])
+                                  for k, v in chunk_metrics.items()}})
+            print(f"[fit] step {step}: "
+                  f"total={float(chunk_metrics['total_loss'][-1]):.4f} "
+                  f"kp={float(chunk_metrics['kp_loss'][-1]):.4f}")
 
-    with Timer("Main fit"):
-        all_metrics = fitter.fit(chunk=args.save_every, on_chunk=on_chunk)
-    np.savez(osp.join(out_dir, "losses.npz"), **all_metrics)
+        chunk = args.save_every if args.render_every <= 0 else \
+            math.gcd(args.save_every, args.render_every)
+        with Timer("Main fit"):
+            all_metrics = fitter.fit(chunk=chunk, on_chunk=on_chunk)
+        np.savez(osp.join(out_dir, "losses.npz"), **all_metrics)
+        _figure([osp.join(out_dir, f"{k}.png") for k in all_metrics],
+                kp_render.render_loss_curves, out_dir, all_metrics)
+
+    _figure(osp.join(out_dir, "phases.png"), kp_render.render_phase_plot,
+            osp.join(out_dir, "phases.png"), fitter.params.phase, V)
 
     final = fitter.eval_loss()
     metrics_log.write({"phase": "final", **final})
     print("[fit] final:", {k: round(v, 4) for k, v in final.items()})
 
-    V, F = assets.num_views, assets.num_frames
-    vi = torch.arange(V, device=device).repeat_interleave(F)
-    fi = torch.arange(F, device=device).repeat(V)
-    with torch.no_grad():
-        preds = predict(fitter.params, cfg, assets, vi, fi)
-        pts2d = project_to_views(fitter.params, cfg, assets, preds["j"], vi)
-    pts2d = pts2d.cpu().numpy().reshape(V, F, 25, 2)
+    preds, pts2d = grid_keypoints(fitter)
+    full_mesh_verts = None   # per-view full-mesh forwards, reused by renders
+
+    def view_meshes():
+        with torch.no_grad():
+            return [predict(fitter.params, cfg, assets,
+                            torch.full((F,), v, device=device),
+                            torch.arange(F, device=device),
+                            want_vertices=True) for v in range(V)]
 
     if "gt" in bundle.labels:
         label_order = [k for k in ("op", "vibe", "vs", "pare")
@@ -213,24 +288,88 @@ def main(argv=None) -> int:
                           baselines, dynamic_only=True,
                           framerate_multiplier=bundle.framerate_multiplier),
                   osp.join(out_dir, "eval_3d_dynamic.csv"))
+        if args.render_video:
+            def velocity_plots():
+                _, j49 = smpl_grid_forward(
+                    assets.smpl, bundle.gt3d_pose[..., 3:].reshape(V * F, 69))
+                kp_render.render_dynamic_velocity_plots(
+                    osp.join(out_dir, "dynamic"),
+                    j49.reshape(V, F, 49, 3)[..., :15, :],
+                    bundle.framerate_multiplier)
+            _figure([osp.join(out_dir, "dynamic", f"v{v}_vel{s}.png")
+                     for v in range(V) for s in ("", "_stats")],
+                    velocity_plots)
         if bundle.gt3d_trans is not None:
-            pred_j, pred_v = [], []
-            with torch.no_grad():
-                for v in range(V):
-                    pv = predict(fitter.params, cfg, assets,
-                                 torch.full((F,), v, device=device),
-                                 torch.arange(F, device=device),
-                                 want_vertices=True)
-                    pred_j.append(pv["j"].cpu().numpy())
-                    pred_v.append(pv["v"].cpu().numpy())
-            write_csv(eval_3d_global(assets.smpl, np.stack(pred_j),
-                                     np.stack(pred_v), bundle.gt3d_pose,
-                                     bundle.gt3d_trans),
-                      osp.join(out_dir, "eval_3d_global.csv"))
+            pv = view_meshes()
+            full_mesh_verts = [p["v"].cpu().numpy() for p in pv]
+            stats_g, aligned = eval_3d_global(
+                assets.smpl, np.stack([p["j"].cpu().numpy() for p in pv]),
+                np.stack(full_mesh_verts), bundle.gt3d_pose,
+                bundle.gt3d_trans,
+                pred_trans=preds["trans"].cpu().numpy().reshape(V, F, 3),
+                want_aligned=True)
+            write_csv(stats_g, osp.join(out_dir, "eval_3d_global.csv"))
+            from ..render.figures import render_global_overlay
+            _figure(osp.join(out_dir, "overlay.png"), render_global_overlay,
+                    osp.join(out_dir, "overlay.png"), aligned["gt-t"][0],
+                    aligned["pred-t"][0])
+
+    if args.render_video or args.render_rollout_figure:
+        _render_outputs(args, out_dir, fitter, bundle, pts2d, full_mesh_verts
+                        if full_mesh_verts is not None else
+                        [p["v"].cpu().numpy() for p in view_meshes()])
 
     metrics_log.close()
     print(f"[fit] outputs in {out_dir}")
     return 0
+
+
+def _render_outputs(args, out_dir, fitter, bundle, pts2d, mesh_verts) -> None:
+    """The keypoint figures and overlay video (with --render_video) and the
+    mesh renders through the learned cameras."""
+    from ..geometry.camera import camera_from_params_np
+    from ..render import (baseline_persons_from_bundle,
+                          render_baseline_rollout,
+                          render_comparison_figure, render_eval_grid,
+                          render_keypoint_rollout, render_mesh_video,
+                          render_overlay_video, render_rollout_figure)
+    cfg, assets, device = fitter.cfg, fitter.assets, fitter.device
+    V, F = assets.num_views, assets.num_frames
+    if args.render_video:
+        path = osp.join(out_dir, "rollout.png")
+        _figure(path, render_keypoint_rollout, path, pts2d, bundle)
+        path = osp.join(out_dir, "eval_2d_grid.png")
+        _figure(path, render_eval_grid, path, pts2d, bundle, cfg.label_type)
+        path = osp.join(out_dir, "overlay.mp4")
+        _figure(path, lambda: print(
+            "[fit] overlay video: "
+            f"{render_overlay_video(path, pts2d, bundle, cfg.label_type)}"))
+    faces = assets.smpl.faces
+    if faces is None:
+        print("[fit] no mesh faces in the SMPL model; skipping mesh rollout")
+        return
+    cam9 = fitter.params.cameras.detach().cpu().numpy()
+    cams = [camera_from_params_np(cam9[v], assets.img_d0, assets.img_d1,
+                                  cfg.focal_length) for v in range(V)]
+    verts = np.stack(mesh_verts)
+    if args.render_video:
+        every = max(1, F // max(args.render_video, 1)) \
+            if args.render_video > 1 else 1
+        out = render_mesh_video(osp.join(out_dir, "mesh_rollout.mp4"), verts,
+                                faces, cams, bundle, every=every,
+                                device=device)
+        print(f"[fit] mesh rollout: {out}")
+    render_rollout_figure(osp.join(out_dir, "rollout_figure.png"), verts,
+                          faces, cams, bundle, num_frames=min(8, F),
+                          device=device)
+    render_comparison_figure(osp.join(out_dir, "comparison_view0.png"), 0,
+                             mesh_verts[0], faces, cams[0], bundle,
+                             num_frames=min(6, F), device=device)
+    persons = baseline_persons_from_bundle(bundle)
+    if persons is not None:
+        render_baseline_rollout(osp.join(out_dir, "vibe_rollout.png"),
+                                assets.smpl, persons, bundle,
+                                num_frames=min(8, F), device=device)
 
 
 if __name__ == "__main__":

@@ -54,6 +54,14 @@ def dynamic_frame_mask(gt_joints15: np.ndarray,
     return mask
 
 
+def eval_frame_indices(F: int, num_frames: int = -1) -> np.ndarray:
+    """The reference's eval frame sampling: ncol = min(F, num_frames) when
+    num_frames > 0 else F; frame = round(cidx / ncol * F)."""
+    ncol = F if num_frames <= 0 else min(F, num_frames)
+    return np.minimum(np.round(np.arange(ncol) / ncol * F).astype(np.int64),
+                      F - 1)
+
+
 def eval_3d(model: SMPLModel, pred_pose: np.ndarray, gt_pose: np.ndarray,
             baselines: Optional[Dict[str, np.ndarray]] = None,
             dynamic_only: bool = False,
@@ -158,26 +166,40 @@ def world_grid_forward(model: SMPLModel, pose72: np.ndarray,
 
 
 def eval_3d_global(model: SMPLModel, pred_j: np.ndarray, pred_v: np.ndarray,
-                   gt_pose: np.ndarray, gt_trans: np.ndarray
-                   ) -> Dict[str, list]:
+                   gt_pose: np.ndarray, gt_trans: np.ndarray,
+                   pred_trans: Optional[np.ndarray] = None,
+                   want_aligned: bool = False):
     """Global-frame MPJPE / MPVPE after a per-view all-frames rigid
     (Kabsch) alignment of the predicted vertices to GT (reference
     eval_3d_global + rigid_transform_to_gt). The GLAMR baseline columns are
-    still to port."""
+    still to port.
+
+    want_aligned=True also returns the per-view aligned root translations
+    {'gt-t': (V, F, 3), 'pred-t': (V, F, 3) when pred_trans is given}: the
+    alignment moves the translations too, for the overlay.png plot."""
     v_gt, j_gt = world_grid_forward(model, np.asarray(gt_pose),
                                     np.asarray(gt_trans))
     v_cmp = np.asarray(pred_v)
     j_cmp = np.asarray(pred_j)[..., :15, :]
     stats: Dict[str, list] = {"mpjpe-ours": [], "mpvpe-ours": []}
+    aligned = {"gt-t": np.asarray(gt_trans)}
+    t_out = []
     for v in range(v_gt.shape[0]):
         R, t = rigid_transform_np(v_cmp[v].reshape(-1, 3),
                                   v_gt[v].reshape(-1, 3))
-        vv = (v_cmp[v].reshape(-1, 3) @ R.T + t).reshape(v_gt[v].shape)
-        vj = (j_cmp[v].reshape(-1, 3) @ R.T + t).reshape(j_gt[v].shape)
+        align = lambda X: X.reshape(-1, 3) @ R.T + t
+        vv = align(v_cmp[v]).reshape(v_gt[v].shape)
+        vj = align(j_cmp[v]).reshape(j_gt[v].shape)
         stats["mpjpe-ours"].append(float(
             1000 * reconstruction_error_np(j_gt[v], vj, pa=False)))
         stats["mpvpe-ours"].append(float(
             1000 * reconstruction_error_np(v_gt[v], vv, pa=False)))
+        if pred_trans is not None:
+            t_out.append(align(np.asarray(pred_trans[v])))
+    if pred_trans is not None:
+        aligned["pred-t"] = np.stack(t_out)
+    if want_aligned:
+        return stats, aligned
     return stats
 
 

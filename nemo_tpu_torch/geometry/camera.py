@@ -78,3 +78,39 @@ def project(points: torch.Tensor, camera: Camera) -> torch.Tensor:
     """Project through a Camera tuple."""
     return perspective_projection(points, camera.rotation, camera.translation,
                                   camera.focal_length, camera.center)
+
+
+def camera_from_params_np(params9, img_d0: float, img_d1: float,
+                          focal_length: float = FOCAL_LENGTH) -> Camera:
+    """Numpy twin of camera_from_params for host-side render prep: the same
+    9-parameter encoding and principal-point convention, numpy fields."""
+    import numpy as np
+    from .rotations import rot6d_to_rotmat_np
+    params9 = np.asarray(params9, np.float32)
+    batch_shape = params9.shape[:-1]
+    center = np.broadcast_to(
+        np.array([img_d0 // 2, img_d1 // 2], np.float32), batch_shape + (2,))
+    f = np.broadcast_to(np.float32(focal_length), batch_shape)
+    return Camera(rotation=rot6d_to_rotmat_np(params9[..., 3:]),
+                  translation=params9[..., :3], focal_length=f, center=center)
+
+
+def camera_from_weak_persp(cam4, img_h: float, img_w: float,
+                           focal_length: float = FOCAL_LENGTH) -> Camera:
+    """VIBE's weak-perspective orig_cam (sx, sy, tx, ty) as the equivalent
+    perspective Camera: identity rotation, translation (tx, ty,
+    2f / (W sx)), principal point (W/2, H/2). Numpy fields, for host-side
+    render prep; center[0] is the width axis, as render_mesh_overlay
+    reads it."""
+    import numpy as np
+    cam4 = np.asarray(cam4, np.float32)
+    sx, tx, ty = cam4[..., 0], cam4[..., 2], cam4[..., 3]
+    tz = 2.0 * np.float32(focal_length) / (np.float32(img_w) * sx + 1e-9)
+    trans = np.stack([tx, ty, tz], axis=-1)
+    batch_shape = cam4.shape[:-1]
+    eye = np.broadcast_to(np.eye(3, dtype=np.float32), batch_shape + (3, 3))
+    center = np.broadcast_to(
+        np.array([img_w / 2.0, img_h / 2.0], np.float32), batch_shape + (2,))
+    f = np.broadcast_to(np.float32(focal_length), batch_shape)
+    return Camera(rotation=eye, translation=trans, focal_length=f,
+                  center=center)

@@ -141,3 +141,16 @@ def aa_to_quat(aa: torch.Tensor) -> torch.Tensor:
     normalized = aa / angle
     half = angle * 0.5
     return torch.cat([torch.cos(half), torch.sin(half) * normalized], dim=-1)
+
+
+def rot6d_to_rotmat_np(x):
+    """Numpy twin of rot6d_to_rotmat for host-side render and eval prep:
+    (..., 6) viewed as (..., 3, 2) columns, Gram-Schmidt, output columns
+    [b1, b2, b1 x b2]."""
+    import numpy as np
+    x = np.asarray(x, np.float32).reshape(np.shape(x)[:-1] + (3, 2))
+    a1, a2 = x[..., 0], x[..., 1]
+    b1 = a1 / np.maximum(np.linalg.norm(a1, axis=-1, keepdims=True), 1e-12)
+    b2 = a2 - np.sum(b1 * a2, axis=-1, keepdims=True) * b1
+    b2 = b2 / np.maximum(np.linalg.norm(b2, axis=-1, keepdims=True), 1e-12)
+    return np.stack([b1, b2, np.cross(b1, b2)], axis=-1)

@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels with their plain PyTorch versions.
 
 K1 ``fk.fk_compose`` (forward and backward kernels), K2
-``lbs.skin_v2v_l1`` (fused, pair and forward-only modes) and K3
-``lbs.skin_verts_t`` (forward and backward kernels). Each wrapper counts its
-kernel launches; :func:`launch_counts` reads the counts and
+``lbs.skin_v2v_l1`` (fused, pair and forward-only modes), K3
+``lbs.skin_verts_t`` (forward and backward kernels) and K5
+``raster.rasterize_triangles`` (stream and gather modes). Each wrapper
+counts its kernel launches; :func:`launch_counts` reads the counts and
 :func:`reset_launches` sets them to zero.
 """
 
@@ -11,21 +12,25 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import fk, lbs
+from . import fk, lbs, raster
 from .fk import fk_compose
 from .lbs import skin_v2v_l1, skin_verts_t
+from .raster import rasterize_triangles, rasterize_triangles_batched
+
+_COUNTERS = (fk.LAUNCHES, lbs.LAUNCHES, raster.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset, by kernel and mode."""
-    return {**fk.LAUNCHES, **lbs.LAUNCHES}
+    return {k: v for counts in _COUNTERS for k, v in counts.items()}
 
 
 def reset_launches() -> None:
-    for counts in (fk.LAUNCHES, lbs.LAUNCHES):
+    for counts in _COUNTERS:
         for k in counts:
             counts[k] = 0
 
 
-__all__ = ["fk_compose", "skin_v2v_l1", "skin_verts_t", "launch_counts",
-           "reset_launches"]
+__all__ = ["fk_compose", "skin_v2v_l1", "skin_verts_t",
+           "rasterize_triangles", "rasterize_triangles_batched",
+           "launch_counts", "reset_launches"]

@@ -52,6 +52,14 @@ _SIGNATURES = {
     # gpf, gA, gvsh, stream
     "nemo_skin_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _P, _P, _P, _P],
+    # N, T, H, W, th, tw, ntx, attr, efid, starts, counts, z, fid, bary,
+    # stream
+    "nemo_raster_stream": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                           _P, _P, _P, _P],
+    # N, T, H, W, th, tw, ntx, F, K, attr_face, tbl, counts, z, fid, bary,
+    # stream
+    "nemo_raster_gather": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                           _P, _P, _P, _P],
 }
 
 build_seconds = None  # wall time of the build this process ran, if any

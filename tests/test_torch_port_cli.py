@@ -71,7 +71,7 @@ def test_cli_outputs_match_jax_cli(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--render_video", "1"], ["--dp", "2"], ["--load_ckpt_path", "ckpt"],
+    ["--vposer_path", "vposer"], ["--dp", "2"], ["--gmm_path", "gmm"],
     ["--smpl_path", "smpl"], ["--weight_humor_loss", "1"]])
 def test_unported_flags_raise(tmp_path, extra):
     from nemo_tpu_torch.cli.fit import main

@@ -11,7 +11,9 @@ Shapes are small and ragged (B and V not multiples of the kernels' tiles)
 so the edge masking is exercised; chip_smoke.py checks the full-width shapes.
 Tolerances: f32 sums over 207 pose features, 24 joints and up to 3V
 vertex terms taken in another order than the plain version's; 1e-5 (values)
-or 1e-4 (gradients) of the tensor's largest entry.
+or 1e-4 (gradients) of the tensor's largest entry. The rasterizer (K5s,
+K5g) rounds every operation as its plain version does: its outputs must be
+identical.
 """
 
 import numpy as np
@@ -207,3 +209,81 @@ def test_stage_steps_never_synchronise(cuda, case):
             step()
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+def _raster_case(name, gen):
+    """(verts (N, V, 3), faces, focals, centers, img_hw, th, tw)."""
+    def blobs(N, F, spread, size):
+        c = torch.stack([torch.empty(N, F).uniform_(-spread, spread,
+                                                    generator=gen),
+                         torch.empty(N, F).uniform_(-spread, spread,
+                                                    generator=gen),
+                         torch.empty(N, F).uniform_(3, 5, generator=gen)], -1)
+        off = torch.empty(N, F, 3, 3).uniform_(-size, size, generator=gen)
+        return (c[:, :, None] + off).reshape(N, 3 * F, 3), \
+            np.arange(3 * F).reshape(F, 3)
+    if name == "ragged":
+        v, f = blobs(1, 2000, 1.0, 0.15)
+        return v, f, [300.0], [(95.0, 50.0)], (100, 190), 32, 128
+    if name == "empty_tiles_behind":
+        v, f = blobs(1, 300, 0.05, 0.05)
+        v[0, :30, 2] = -1.0                  # ten faces behind the camera
+        return v, f, [200.0], [(40.0, 200.0)], (257, 300), 32, 128
+    if name == "batch_intrinsics":
+        v, f = blobs(3, 1500, 0.8, 0.2)
+        return v, f, [250.0, 180.0, 320.0], \
+            [(150.0, 100.0), (120.0, 90.0), (170.0, 110.0)], (200, 301), \
+            32, 128
+    if name == "small_tiles":
+        v, f = blobs(2, 500, 0.5, 0.1)
+        return v, f, [200.0, 150.0], [(64.0, 48.0), (70.0, 40.0)], \
+            (96, 130), 16, 32
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("case", ["ragged", "empty_tiles_behind",
+                                  "batch_intrinsics", "small_tiles"])
+@pytest.mark.parametrize("stream", [True, False])
+def test_raster_kernels_match_plain(cuda, case, stream):
+    """K5s / K5g against the plain fold on the same binned entries:
+    coverage, face ids, z and bary identical (the kernels round every
+    operation as the plain version does), and one launch of the mode's
+    kernel through the public op."""
+    from nemo_tpu_torch.ops import raster
+    gen = torch.Generator().manual_seed(len(case))
+    v, f, foc, ctr, hw, th, tw = _raster_case(case, gen)
+    ent = raster.prepare(v.to(cuda), f, foc, ctr, hw, th, tw)
+    kernel = raster.raster_stream_cuda(ent, raster.stream_inputs(ent), hw,
+                                       th, tw) if stream else \
+        raster.raster_gather_cuda(ent, raster.gather_inputs(ent), hw, th, tw)
+    plain = raster.rasterize_plain(ent, hw, th, tw, stream=stream)
+    for a, b in zip(kernel, plain):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    z = kernel[0]
+    assert torch.isfinite(z).any() and not torch.isfinite(z).all()
+    reset_launches()
+    got = raster.rasterize_triangles_batched(v.to(cuda), f, foc, ctr, hw,
+                                             th=th, tw=tw, stream=stream)
+    counts = launch_counts()
+    assert counts["raster_stream"] == int(stream)
+    assert counts["raster_gather"] == int(not stream)
+    for a, b in zip(got, kernel):
+        assert torch.equal(a, b)
+
+
+def test_raster_gather_overflow(cuda):
+    """Gather mode on a tile over faces_per_tile drops what the plain
+    gather drops, and differs from the stream mode there."""
+    from nemo_tpu_torch.ops import raster
+    gen = torch.Generator().manual_seed(5)
+    v, f, foc, ctr, hw, th, tw = _raster_case("empty_tiles_behind", gen)
+    assert raster.gather_mode_overflow(v[0].numpy(), f, foc[0], ctr[0], hw,
+                                       faces_per_tile=64) > 0
+    ent = raster.prepare(v.to(cuda), f, foc, ctr, hw)
+    got = raster.raster_gather_cuda(ent, raster.gather_inputs(ent, 64), hw)
+    want = raster.rasterize_plain(ent, hw, faces_per_tile=64, stream=False)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    stream = raster.raster_stream_cuda(ent, raster.stream_inputs(ent), hw)
+    assert not torch.equal(got[1], stream[1])
