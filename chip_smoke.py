@@ -17,8 +17,9 @@ Run from the repository root with no arguments:
    vertices and reading stored ones, and at (960, 1024) recomputing them
    as path A does; K5s and K5g (the tile rasterizer's stream and gather
    modes) on the synthetic problem's posed mesh at 1000 x 1900, one panel
-   and a batch of four. Each check prints its max error beside its
-   tolerance; each kernel's median CUDA-event time beside its plain
+   and a batch of four; K4 (the one-way nearest-neighbour chamfer) at
+   (60, 512, 6890) and (60, 6890, 512). Each check prints its max error
+   beside its tolerance; each kernel's median CUDA-event time beside its plain
    version's, one PyTorch call's (where one computes the whole function or
    its largest contraction) and its bound (the least time the card could
    take: the larger of bytes over 3.35 TB/s and f32 FLOPs over 67 TFLOP/s).
@@ -38,10 +39,15 @@ Run from the repository root with no arguments:
    - path D: the fit's render outputs on K5s (a mesh video of 4 views x
      30 frames, the 8 x 8 rollout figure, the comparison strip), a
      checkpoint saved and loaded into a fresh fitter, and K5g equal to K5s
-     on the video's panels.
+     on the video's panels;
+   - path E: HuMoR 3D fitting through humor_tool, process-amass on a
+     synthetic raw AMASS walk, then fit-amass --obs joints verts points at
+     the CLI's defaults (60 frames, 512 scan points, 30/70/70 steps, the
+     reference HuMoR widths) through K4 and K1, and the eval CSVs.
    Losses must be finite, main-stage kp_loss must fall on slice 1 and path
-   A, fit_loss on the card must agree with the port's CPU path from the
-   same parameters, and one step of each stage must run without a device
+   A (stage 2's loss on path E), fit_loss on the card must agree with the
+   port's CPU path from the same parameters (points3d_loss and the stage-3
+   loss on path E), and one step of each stage must run without a device
    synchronisation.
 
 Prints a JSON line of per-kernel results, the nvidia-smi line as the tool
@@ -85,6 +91,8 @@ KERNELS = {
                       "nemo_tpu/ops/raster_pallas.py:391"),
     "raster_gather": ("nemo_tpu_torch/csrc/raster.cu",
                       "nemo_tpu/ops/raster_pallas.py:199"),
+    "chamfer_nn": ("nemo_tpu_torch/csrc/chamfer.cu",
+                   "nemo_tpu/ops/chamfer.py:111"),
 }
 
 # f32 operations per (batch row, vertex) of the skinning kernels (a MAC is
@@ -117,6 +125,13 @@ RASTER_TILE_PIXELS = 32 * 128
 RASTER_ENTRY_BYTES = 40
 RASTER_PIXEL_BYTES = 20
 IMG_HW = (1000, 1900)    # synthetic_problem's image, (D0 height, D1 width)
+# f32 operations per (query, candidate) pair of the chamfer kernel
+# (csrc/chamfer.cu's inner loop): 3 products and 2 sums for the dot, the
+# product by 2, one sum, one difference, one comparison
+CHAMFER_FLOP = 9
+# path E: fit-amass's defaults (seq_len 60, num_samp_pts 512, steps 30 70
+# 70, lr 1e-2, latent 48) on the 6890-vertex synthetic SMPL
+SEQ_LEN, SAMP_PTS = 60, 512
 
 
 def nvidia_smi_line() -> str:
@@ -510,6 +525,45 @@ def raster_phase(device, smpl, bundle, rec):
                     bytes_, plain_reps=3)
     return {k: max(v for name, v in errs.items() if name.startswith(k + " "))
             for k in ("raster_stream", "raster_gather")}
+
+
+def chamfer_phase(device, smpl, rec):
+    """K4 against its plain version on the card at path E's shapes: 60
+    frames of a 512-point scan near the 6890-vertex mesh, scan -> mesh (the
+    direction the loss reads) and mesh -> scan. The kernel rounds every
+    operation in the plain version's order, so distances and indices must
+    be identical (tolerance 0). Returns {"chamfer_nn": max_abs_err} and adds
+    the times to rec (the scan -> mesh record first)."""
+    import torch
+    from nemo_tpu_torch.ops import chamfer
+    gen = torch.Generator().manual_seed(4)
+    T, N = SEQ_LEN, SAMP_PTS
+    V = smpl.num_vertices
+    mesh = (smpl.v_template.cpu()[None] + 0.02 * torch.randn(
+        (T, V, 3), generator=gen)).to(device).contiguous()
+    pick = torch.randint(0, V, (T, N), generator=gen).to(device)
+    scan = (torch.gather(mesh, 1, pick[..., None].expand(T, N, 3))
+            + 0.01 * torch.randn((T, N, 3), generator=gen).to(device)
+            ).contiguous()
+    errs = {}
+    for a, b, shape in ((scan, mesh, f"T={T}, N={N}, M={V}"),
+                        (mesh, scan, f"T={T}, N={V}, M={N}")):
+        dk, ik = chamfer.nn_one_way_cuda(a, b)
+        dp, ip = chamfer.nn_one_way_plain(a, b)
+        n_idx = int((ik != ip).sum())
+        print(f"[kernel] chamfer_nn {shape}: indices differing from the "
+              f"plain version {n_idx} of {ik.numel()} (tolerance 0)")
+        if n_idx:
+            raise AssertionError("chamfer_nn: argmin differs from plain")
+        check(f"chamfer_nn {shape}", dk, dp, 0.0, errs)
+        Tk, Nk, Mk = a.shape[0], a.shape[1], b.shape[1]
+        bt = b.transpose(1, 2).contiguous()
+        time_kernel(rec, "chamfer_nn", shape,
+                    lambda: chamfer.nn_one_way_cuda(a, b),
+                    lambda: chamfer.nn_one_way_plain(a, b),
+                    CHAMFER_FLOP * Tk * Nk * Mk, nbytes(a, b, dk, ik),
+                    library=lambda: torch.bmm(a, bt), plain_reps=5)
+    return {"chamfer_nn": max(errs.values())}
 
 
 # ---------------------------------------------------------------------------
@@ -918,6 +972,144 @@ def path_d(device, smpl, bundle):
     return counts, out
 
 
+def raw_amass_walk(path, T=360):
+    """A synthetic raw AMASS sequence (the JAX CLI test's swaying walk,
+    tests/test_humor_tool_cli.py) over T frames at 120 fps: process-amass
+    keeps the middle 80%, drops the two edge frames and downsamples to 30
+    fps, so 360 frames leave 71 (300 would leave 59, short of seq_len 60)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    t = np.linspace(0, 4 * np.pi, T)[:, None]
+    poses = np.zeros((T, 156))
+    poses[:, :3] = 0.2 * np.stack(
+        [np.sin(t[:, 0]), np.cos(t[:, 0]), 0 * t[:, 0]], 1)
+    poses[:, 3:66] = 0.15 * np.sin(t + rng.uniform(0, np.pi, (1, 63)))
+    trans = np.stack([0.3 * t[:, 0], 0.1 * np.sin(t[:, 0]), np.zeros(T)], 1)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, poses=poses, trans=trans,
+             betas=rng.standard_normal(16) * 0.3, gender="neutral",
+             mocap_framerate=120.0)
+
+
+def path_e(device, smpl):
+    """HuMoR 3D fitting through the port's humor_tool: process-amass on a
+    synthetic raw sequence, then fit-amass --obs joints verts points at the
+    CLI's defaults (60 frames, 512 scan points, 30/70/70 steps, the
+    reference HuMoR widths with latent 48, the 6890-vertex synthetic SMPL),
+    on the card (the CLI's default device), and the eval CSVs. K4 runs in
+    every step (both directions), K1 in every SMPL forward and backward.
+    Then points3d_loss and the stage-3 loss on the card against the port's
+    CPU path from the same parameters (the fit's result)."""
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.cli import humor_tool
+    from nemo_tpu_torch.models import humor_fit
+    from nemo_tpu_torch.models.humor import HumorConfig, humor_to
+    fits, stage_s = [], []
+    real_fit, real_adam = humor_fit.humor_motion_fit, humor_fit._run_adam
+
+    def recording_fit(*a, **k):         # the CLI's fit, with its outputs kept
+        out = real_fit(*a, **k)
+        fits.append((a, k, out))
+        return out
+
+    def timed_stage(*a, **k):           # each stage's Adam loop, timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_adam(*a, **k)
+        torch.cuda.synchronize()
+        stage_s.append(time.perf_counter() - t0)
+        return out
+
+    with tempfile.TemporaryDirectory() as d:
+        raw_amass_walk(os.path.join(d, "raw", "HumanEva", "S1",
+                                    "walk_poses.npz"))
+        proc, out = os.path.join(d, "proc"), os.path.join(d, "fit")
+
+        def run():
+            humor_fit.humor_motion_fit = recording_fit
+            humor_fit._run_adam = timed_stage
+            try:
+                t0 = time.perf_counter()
+                if humor_tool.main(["process-amass", "--amass_root",
+                                    os.path.join(d, "raw"), "--out", proc,
+                                    "--datasets", "HumanEva"]) != 0:
+                    raise AssertionError("path E: process-amass failed")
+                t1 = time.perf_counter()
+                if humor_tool.main(["fit-amass", "--amass", proc, "--out",
+                                    out, "--obs", "joints", "verts",
+                                    "points"]) != 0:
+                    raise AssertionError("path E: fit-amass failed")
+                return t1 - t0, time.perf_counter() - t1
+            finally:
+                humor_fit.humor_motion_fit = real_fit
+                humor_fit._run_adam = real_adam
+
+        counts, (t_proc, t_fit) = run_path(
+            "path E", ("chamfer_nn", "fk_fwd", "fk_bwd"), run)
+        (args, kw, fit), = fits
+        losses = {s: fit[f"stage{s}_loss"].cpu().numpy() for s in (1, 2, 3)}
+        print(f"[path E] process-amass {t_proc:.2f} s, fit-amass "
+              f"{t_fit:.2f} s; " + "; ".join(
+                  f"stage {s}: {len(v)} steps in {t:.2f} s "
+                  f"({len(v) / t:.2f} steps/s), loss {v[0]:.4f} -> "
+                  f"{v[-1]:.4f}" for (s, v), t in zip(losses.items(),
+                                                     stage_s)))
+        if not all(np.isfinite(v).all() for v in losses.values()):
+            raise AssertionError("path E: non-finite stage loss")
+        if not losses[2][-1] < losses[2][0]:
+            raise AssertionError("path E: stage-2 loss did not fall")
+        res = os.path.join(out, "results_out")
+        seq_dir = os.path.join(res, os.listdir(res)[0])
+        with np.load(os.path.join(seq_dir, "observations.npz")) as f:
+            if f["points3d"].shape != (SEQ_LEN, SAMP_PTS, 3):
+                raise AssertionError("path E: scan shape")
+        csvs = sorted(os.listdir(os.path.join(out, "eval_out")))
+        print(f"[path E] {seq_dir}: {sorted(os.listdir(seq_dir))}; eval "
+              f"CSVs {csvs}")
+        for name in ("stage3_results_per_seq_mean.csv",
+                     "stage3_results_agg_mean.csv", "compare_mean.csv"):
+            if name not in csvs:
+                raise AssertionError(f"path E: {name} missing")
+        with open(os.path.join(out, "eval_out",
+                               "stage3_results_agg_mean.csv")) as f:
+            head, vals = f.read().splitlines()[:2]
+        agg = dict(zip(head.split(","), map(float, vals.split(","))))
+        print(f"[path E] eval (mean): " + ", ".join(
+            f"{k} {agg[k]:.4f}" for k in ("joints3d_all", "verts3d_all",
+                                           "mesh3d_all", "contact_acc")))
+
+    # card vs CPU from the same parameters: the fit's motion and latents
+    smpl_c, hp = args[0], args[1]
+    cfg, obs = kw["cfg"], kw["obs3d"]
+    hcfg = HumorConfig(latent_size=48)
+    pose, trans, betas = fit["pose"], fit["trans"], fit["betas"]
+    p = {"x0": humor_fit.state_from(smpl_c, betas, pose[1], trans[1],
+                                    pose[0], trans[0])[None],
+         "z": fit["z"][None], "floor": fit["floor"]}
+    vals = []
+    for dev in (device, torch.device("cpu")):
+        mv = lambda t: t.to(dev) if torch.is_tensor(t) else t
+        sm = smpl_c.to(dev)
+        o = {k: mv(v) for k, v in obs.items()}
+        with torch.no_grad():
+            verts = humor_fit.body_verts(sm, mv(pose), mv(trans), mv(betas))
+            vals.append((
+                float(humor_fit.points3d_loss(o["points3d"], verts)),
+                float(humor_fit.stage3_loss(
+                    sm, humor_to(hp, dev), hcfg, cfg,
+                    {k: mv(v) for k, v in p.items()}, mv(betas),
+                    mv(fit["floor"]), o))))
+    for k, (a, b) in zip(("points3d_loss", "stage-3 loss"), zip(*vals)):
+        print(f"[path E] {k}: cuda {a:.6f} cpu {b:.6f}")
+        # the card's SMPL forward and rollout sum their matmuls in another
+        # order than the CPU's (~1e-6 relative); K4 and the plain version
+        # agree bit for bit given the same vertices
+        if not abs(a - b) <= 1e-4 * abs(b) + 1e-6:
+            raise AssertionError(f"path E {k}: card and CPU disagree")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -947,6 +1139,7 @@ def main() -> int:
     bundle, _ = synthetic_problem(smpl, num_views=8, num_frames=120,
                                   img_hw=IMG_HW, seed=0)
     kernel_err.update(raster_phase(device, smpl, bundle, rec))
+    kernel_err.update(chamfer_phase(device, smpl, rec))
     paths = {}
     paths["slice 1"], steady1 = slice1_path(device, smpl, bundle)
     paths["path A"], steady_a = path_a(device, smpl, bundle)
@@ -955,6 +1148,7 @@ def main() -> int:
     for k, c in path_c(device, smpl, bundle).items():
         paths[f"path C {k}"] = c
     paths["path D"], render = path_d(device, smpl, bundle)
+    paths["path E"] = path_e(device, smpl)
     launches = {k: sum(c[k] for c in paths.values()) for k in KERNELS}
     print(f"[paths] render: {render['video_s']:.4f} s a video frame with the "
           f"PNG writes, {render['nopng_s']:.4f} s without")

@@ -2,7 +2,8 @@
 
 K1 ``fk.fk_compose`` (forward and backward kernels), K2
 ``lbs.skin_v2v_l1`` (fused, pair and forward-only modes), K3
-``lbs.skin_verts_t`` (forward and backward kernels) and K5
+``lbs.skin_verts_t`` (forward and backward kernels), K4
+``chamfer.nn_one_way`` (under ``chamfer.chamfer_distance``) and K5
 ``raster.rasterize_triangles`` (stream and gather modes). Each wrapper
 counts its kernel launches; :func:`launch_counts` reads the counts and
 :func:`reset_launches` sets them to zero.
@@ -12,12 +13,13 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import fk, lbs, raster
+from . import chamfer, fk, lbs, raster
+from .chamfer import chamfer_distance, nn_one_way
 from .fk import fk_compose
 from .lbs import skin_v2v_l1, skin_verts_t
 from .raster import rasterize_triangles, rasterize_triangles_batched
 
-_COUNTERS = (fk.LAUNCHES, lbs.LAUNCHES, raster.LAUNCHES)
+_COUNTERS = (fk.LAUNCHES, lbs.LAUNCHES, chamfer.LAUNCHES, raster.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -31,6 +33,7 @@ def reset_launches() -> None:
             counts[k] = 0
 
 
-__all__ = ["fk_compose", "skin_v2v_l1", "skin_verts_t",
+__all__ = ["fk_compose", "skin_v2v_l1", "skin_verts_t", "nn_one_way",
+           "chamfer_distance",
            "rasterize_triangles", "rasterize_triangles_batched",
            "launch_counts", "reset_launches"]

@@ -60,6 +60,8 @@ _SIGNATURES = {
     # stream
     "nemo_raster_gather": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                            _P, _P, _P, _P],
+    # a, b, T, N, M, dist, idx, stream
+    "nemo_chamfer_nn": [_P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 build_seconds = None  # wall time of the build this process ran, if any

@@ -12,8 +12,8 @@ so the edge masking is exercised; chip_smoke.py checks the full-width shapes.
 Tolerances: f32 sums over 207 pose features, 24 joints and up to 3V
 vertex terms taken in another order than the plain version's; 1e-5 (values)
 or 1e-4 (gradients) of the tensor's largest entry. The rasterizer (K5s,
-K5g) rounds every operation as its plain version does: its outputs must be
-identical.
+K5g) and the chamfer (K4) round every operation as their plain versions do:
+their outputs must be identical.
 """
 
 import numpy as np
@@ -287,3 +287,72 @@ def test_raster_gather_overflow(cuda):
         assert torch.equal(a, b)
     stream = raster.raster_stream_cuda(ent, raster.stream_inputs(ent), hw)
     assert not torch.equal(got[1], stream[1])
+
+
+# K4 cases: (T, N, M, kind). N and M straddle the kernel's 128-query block
+# and 1024-candidate tile; "dup" repeats every candidate (ties, the lowest
+# index must win) and puts some queries exactly on candidates; "far" puts
+# the sets 100 m apart.
+CHAMFER_CASES = {"one_point": (1, 1, 1, "normal"),
+                 "ragged": (3, 129, 1025, "normal"),
+                 "t1_two_tiles": (1, 300, 2100, "normal"),
+                 "t60": (60, 200, 700, "normal"),
+                 "dup": (4, 150, 600, "dup"),
+                 "far": (5, 97, 1500, "far")}
+
+
+def _chamfer_inputs(case, cuda):
+    T, N, M, kind = CHAMFER_CASES[case]
+    gen = torch.Generator().manual_seed(N + M)
+    b = torch.randn((T, M, 3), generator=gen)
+    a = torch.randn((T, N, 3), generator=gen)
+    if kind == "dup":
+        b[:, M // 2:] = b[:, :M - M // 2]
+        a[:, :N // 3] = b[:, M // 2:M // 2 + N // 3]
+    elif kind == "far":
+        a += 100.0
+    return a.to(cuda).contiguous(), b.to(cuda).contiguous()
+
+
+@pytest.mark.parametrize("case", sorted(CHAMFER_CASES))
+def test_chamfer_kernel_matches_plain(cuda, case):
+    """K4 against its plain version on the card: distances and indices
+    bit-equal (the kernel rounds every operation in the plain version's
+    order), in both directions; one launch per call through nn_one_way."""
+    from nemo_tpu_torch.ops import chamfer
+    a, b = _chamfer_inputs(case, cuda)
+    for x, y in ((a, b), (b, a)):
+        dk, ik = chamfer.nn_one_way_cuda(x, y)
+        dp, ip = chamfer.nn_one_way_plain(x, y)
+        assert dk.dtype == dp.dtype and ik.dtype == ip.dtype == torch.int64
+        assert torch.equal(dk, dp) and torch.equal(ik, ip)
+        if CHAMFER_CASES[case][3] == "dup" and y is b:
+            M = b.shape[1]
+            assert bool((ik < M - M // 2).all())
+    reset_launches()
+    chamfer.nn_one_way(a, b)
+    assert launch_counts()["chamfer_nn"] == 1
+
+
+@pytest.mark.parametrize("case", ["ragged", "dup"])
+def test_chamfer_distance_grads_card_vs_cpu(cuda, case):
+    """chamfer_distance's value and gradients on the card against the CPU
+    path from the same inputs (the kernel on the card, the plain version on
+    the CPU): values and gradients within 1e-5 of the largest entry, as
+    index_add_ on CUDA sums onto a point with atomics, in an order that
+    changes from run to run."""
+    from nemo_tpu_torch.ops.chamfer import chamfer_distance
+    a, b = _chamfer_inputs(case, cuda)
+    g = torch.Generator().manual_seed(9)
+    w1 = torch.rand(a.shape[:2], generator=g)
+    w2 = torch.rand(b.shape[:2], generator=g)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        x = a.detach().to(dev).requires_grad_()
+        y = b.detach().to(dev).requires_grad_()
+        d1, d2 = chamfer_distance(x, y)
+        ((d1 * w1.to(dev)).sum() + (d2 * w2.to(dev)).sum()).backward()
+        outs.append([t.detach().cpu() for t in (d1, d2, x.grad, y.grad)])
+    for k, c in zip(*outs):
+        torch.testing.assert_close(k, c, rtol=0,
+                                   atol=1e-5 * max(1.0, float(c.abs().max())))
