@@ -18,8 +18,10 @@ Run from the repository root with no arguments:
    as path A does; K5s and K5g (the tile rasterizer's stream and gather
    modes) on the synthetic problem's posed mesh at 1000 x 1900, one panel
    and a batch of four; K4 (the one-way nearest-neighbour chamfer) at
-   (60, 512, 6890) and (60, 6890, 512). Each check prints its max error
-   beside its tolerance; each kernel's median CUDA-event time beside its plain
+   (60, 512, 6890) and (60, 6890, 512); K6f and K6b (the fused MotionNet
+   MLP, forward and backward) at (B, D, H, O) = (512, 105, 1000, 147),
+   (960, ...) and (1, ...), each run twice for bit-stability. Each check
+   prints its max error beside its tolerance; each kernel's median CUDA-event time beside its plain
    version's, one PyTorch call's (where one computes the whole function or
    its largest contraction) and its bound (the least time the card could
    take: the larger of bytes over 3.35 TB/s and f32 FLOPs over 67 TFLOP/s).
@@ -43,9 +45,13 @@ Run from the repository root with no arguments:
    - path E: HuMoR 3D fitting through humor_tool, process-amass on a
      synthetic raw AMASS walk, then fit-amass --obs joints verts points at
      the CLI's defaults (60 frames, 512 scan points, 30/70/70 steps, the
-     reference HuMoR widths) through K4 and K1, and the eval CSVs.
-   Losses must be finite, main-stage kp_loss must fall on slice 1 and path
-   A (stage 2's loss on path E), fit_loss on the card must agree with the
+     reference HuMoR widths) through K4 and K1, and the eval CSVs;
+   - path F: slice 1's reference configuration with the MotionNet through
+     K6 (motion_mlp="fused"), two K6f launches a predict (the batch and the
+     B = 1 phase-0 anchor), and fit_loss with its gradients against the
+     plain MotionNet on the card from the same parameters and batch.
+   Losses must be finite, main-stage kp_loss must fall on slice 1 and paths
+   A and F (stage 2's loss on path E), fit_loss on the card must agree with the
    port's CPU path from the same parameters (points3d_loss and the stage-3
    loss on path E), and one step of each stage must run without a device
    synchronisation.
@@ -93,6 +99,10 @@ KERNELS = {
                       "nemo_tpu/ops/raster_pallas.py:199"),
     "chamfer_nn": ("nemo_tpu_torch/csrc/chamfer.cu",
                    "nemo_tpu/ops/chamfer.py:111"),
+    "mlp_fwd": ("nemo_tpu_torch/csrc/mlp.cu",
+                "nemo_tpu/ops/mlp_pallas.py:153"),
+    "mlp_bwd": ("nemo_tpu_torch/csrc/mlp.cu",
+                "nemo_tpu/ops/mlp_pallas.py:177"),
 }
 
 # f32 operations per (batch row, vertex) of the skinning kernels (a MAC is
@@ -132,6 +142,9 @@ CHAMFER_FLOP = 9
 # path E: fit-amass's defaults (seq_len 60, num_samp_pts 512, steps 30 70
 # 70, lr 1e-2, latent 48) on the 6890-vertex synthetic SMPL
 SEQ_LEN, SAMP_PTS = 60, 512
+# the reference MotionNet (bench.py:101): input RBF 100 + instance code 5,
+# width 1000, heads 24 x 6 rotations + 3 translations
+MLP_D, MLP_H, MLP_O = 105, 1000, 147
 
 
 def nvidia_smi_line() -> str:
@@ -566,6 +579,71 @@ def chamfer_phase(device, smpl, rec):
     return {"chamfer_nn": max(errs.values())}
 
 
+def mlp_phase(device, rec):
+    """K6f and K6b against their plain versions on the card at the fit's
+    shapes: the reference MotionNet at B = 512 (slice 1, path F), 960 (the
+    custom-video full batch) and 1 (the phase-0 anchor of every predict),
+    weights drawn at the init's scale (U(+-1/sqrt(fan_in))), inputs in
+    [0, 1) like the RBF features, a random N(0, 1) cotangent. Both sides
+    of the backward read the kernel's saved activations, so the ReLU masks
+    are the same. Tolerances: sums of up to 1000 f32 products in another
+    order than cuBLAS's (the plain version, TF32 off), 1e-5 (forward) and
+    1e-4 (gradients) of each tensor's largest entry. A second run of each
+    kernel must be bit-identical (fixed-order sums, no atomics). Returns
+    {kernel: max_abs_err} and adds the times to rec (B = 512 first)."""
+    import torch
+    from nemo_tpu_torch.ops import mlp
+    gen = torch.Generator().manual_seed(6)
+    D, H, O = MLP_D, MLP_H, MLP_O
+
+    def init(*shape, fan_in):
+        u = torch.rand(shape, generator=gen) * 2.0 - 1.0
+        return (u / math.sqrt(fan_in)).to(device)
+
+    W = (init(D, H, fan_in=D), init(H, fan_in=D), init(H, H, fan_in=H),
+         init(H, fan_in=H), init(H, H, fan_in=H), init(H, fan_in=H),
+         init(H, O, fan_in=H), init(O, fan_in=H))
+    errs = {}
+    print(f"[kernel] TF32 in matmuls: {torch.backends.cuda.matmul.allow_tf32}")
+    for B in (BATCH, BATCH_A, 1):
+        x = torch.rand((B, D), generator=gen).to(device)
+        gout = torch.randn((B, O), generator=gen).to(device)
+        args = (x, *W)
+        got = mlp.mlp_fwd_cuda(*args)
+        want = mlp.motion_net_mlp_plain(*args)
+        for name, a, b in zip(("out", "h1", "h2", "z"), got, want):
+            check(f"mlp_fwd {name} B={B}", a, b, 1e-5 * float(b.abs().max()),
+                  errs)
+        bwd_args = (gout, x, *got[1:], W[0], W[2], W[4], W[6])
+        gk = mlp.mlp_bwd_cuda(*bwd_args)
+        gp = mlp.motion_net_mlp_bwd_plain(*bwd_args)
+        for name, a, b in zip(("gx", "gW1", "gb1", "gW2", "gb2", "gW3", "gb3",
+                               "gWo", "gbo"), gk, gp):
+            check(f"mlp_bwd {name} B={B}", a, b, 1e-4 * float(b.abs().max()),
+                  errs)
+        again = mlp.mlp_fwd_cuda(*args) + mlp.mlp_bwd_cuda(*bwd_args)
+        if not all(torch.equal(a, b) for a, b in zip(again, got + gk)):
+            raise AssertionError(f"K6 is not bit-stable run to run (B={B})")
+        flop = 2 * B * (D * H + 2 * H * H + H * O)
+        shape = f"B={B}, D={D}, H={H}, O={O}"
+        h1, h2 = got[1], got[2]
+        # one call: the largest contraction, (B, 1000).(1000, 1000) forward
+        # and (1000, B).(B, 1000) backward, f32 with TF32 off
+        time_kernel(rec, "mlp_fwd", shape, lambda: mlp.mlp_fwd_cuda(*args),
+                    lambda: mlp.motion_net_mlp_plain(*args), flop,
+                    nbytes(*args, *got),
+                    library=lambda: torch.addmm(W[3], h1, W[2]))
+        time_kernel(rec, "mlp_bwd", shape,
+                    lambda: mlp.mlp_bwd_cuda(*bwd_args),
+                    lambda: mlp.motion_net_mlp_bwd_plain(*bwd_args),
+                    2 * flop, nbytes(*bwd_args, *gk),
+                    library=lambda: torch.mm(h1.t(), h2))
+    print(f"[kernel] K6f and K6b bit-identical on a second run at B = "
+          f"{BATCH}, {BATCH_A} and 1")
+    return {k: max(v for name, v in errs.items() if name.startswith(k + " "))
+            for k in ("mlp_fwd", "mlp_bwd")}
+
+
 # ---------------------------------------------------------------------------
 # the fit's paths
 # ---------------------------------------------------------------------------
@@ -592,7 +670,8 @@ def custom_video_config(**over):
         full_batch=True), **over})
 
 
-def make_fitter(device, smpl, bundle, cfg, v2v_vjp="fused"):
+def make_fitter(device, smpl, bundle, cfg, v2v_vjp="fused",
+                motion_mlp="plain"):
     import torch
     from nemo_tpu_torch.fit import NemoFitter, build_assets
     from nemo_tpu_torch.priors.gmm import synthetic_gmm_prior
@@ -600,7 +679,8 @@ def make_fitter(device, smpl, bundle, cfg, v2v_vjp="fused"):
     assets = build_assets(bundle, smpl, cfg, gmm=synthetic_gmm_prior(8),
                           vposer=init_vposer(
                               generator=torch.Generator().manual_seed(7)),
-                          device=device, v2v_vjp=v2v_vjp)
+                          device=device, v2v_vjp=v2v_vjp,
+                          motion_mlp=motion_mlp)
     return NemoFitter(cfg, assets, seed=0)
 
 
@@ -654,7 +734,8 @@ def check_falls(name, kp, n):
 
 def card_vs_cpu(name, fitter, bundle, smpl):
     """fit_loss on the card against the port's CPU path (plain versions of
-    the kernels) from the same parameters, on one batch of 64."""
+    the kernels, in the same v2v and MotionNet modes) from the same
+    parameters, on one batch of 64."""
     import torch
     from nemo_tpu_torch.fit import NemoParams, build_assets, fit_loss
     cfg, assets = fitter.cfg, fitter.assets
@@ -669,7 +750,8 @@ def card_vs_cpu(name, fitter, bundle, smpl):
                                   gmm=assets.gmm.to("cpu"),
                                   vposer={k: v.cpu()
                                           for k, v in assets.vposer.items()},
-                                  device="cpu")
+                                  device="cpu", v2v_vjp=assets.v2v_vjp,
+                                  motion_mlp=assets.motion_mlp)
         params_cpu = NemoParams(cfg, V, assets.img_d0)
         params_cpu.load_state_dict({k: v.cpu() for k, v in
                                     fitter.params.state_dict().items()})
@@ -1110,6 +1192,103 @@ def path_e(device, smpl):
     return counts
 
 
+def fused_vs_plain(name, fitter):
+    """fit_loss and its parameter gradients with the MotionNet through K6
+    against the plain MotionNet (cuBLAS, TF32 off), on the card, from the
+    same parameters and batch. Loss within 1e-5 relative, gradients within
+    1e-4 of each tensor's largest entry. b_lin's gradient is 0 (trans -
+    trans0 cancels it): what each mode computes there is the difference of
+    two equal column sums taken in different orders, held to the scale of
+    W_lin's gradient."""
+    import dataclasses
+    import torch
+    from nemo_tpu_torch.fit import fit_loss
+    cfg, params = fitter.cfg, fitter.params
+    V, F = fitter.assets.num_views, fitter.assets.num_frames
+    g = torch.Generator().manual_seed(5)
+    vi = torch.randint(0, V, (cfg.batch_size,), generator=g).to(fitter.device)
+    fi = torch.randint(0, F, (cfg.batch_size,), generator=g).to(fitter.device)
+    res = {}
+    for mode in ("plain", "fused"):
+        assets = dataclasses.replace(fitter.assets, motion_mlp=mode)
+        params.zero_grad(set_to_none=True)
+        loss, _ = fit_loss(params, cfg, assets, vi, fi)
+        loss.backward()
+        res[mode] = (float(loss.detach()), {n: p.grad.detach().clone()
+                                   for n, p in params.named_parameters()
+                                   if p.grad is not None})
+    params.zero_grad(set_to_none=True)
+    (lp, gp), (lf, gf) = res["plain"], res["fused"]
+    print(f"[{name}] fit_loss fused {lf:.6f} plain {lp:.6f} (relative "
+          f"{abs(lf - lp) / abs(lp):.3e}, tolerance 1e-5)")
+    if not abs(lf - lp) <= 1e-5 * abs(lp):
+        raise AssertionError(f"{name}: fused and plain fit_loss disagree")
+    if sorted(gp) != sorted(gf):
+        raise AssertionError(f"{name}: the modes reach different parameters")
+    worst = 0.0
+    for k, b in gp.items():
+        scale = gp["motion.W_lin"] if k == "motion.b_lin" else b
+        err = float((gf[k] - b).abs().max())
+        tol = 1e-4 * float(scale.abs().max())
+        worst = max(worst, err / max(tol, 1e-30))
+        if not err <= tol:
+            raise AssertionError(f"{name}: gradient {k} differs by {err:.3e} "
+                                 f"(tolerance {tol:.3e})")
+    print(f"[{name}] gradients of {len(gp)} tensors, fused vs plain: the "
+          f"largest error is {worst:.3f} of its tolerance (1e-4 of the "
+          "tensor's largest entry)")
+
+
+def path_f(device, smpl, bundle):
+    """Slice 1's reference configuration with the MotionNet through K6
+    (motion_mlp="fused", the JAX package's NEMO_TPU_NET_FUSED=1): 10 warmup,
+    10 camera and 30 main steps at B=512, h_dim 1000. Then the K6 launches
+    of one predict (two K6f: the batch and the B = 1 phase-0 anchor) and of
+    one fit_loss with its backward, a step of each stage without a device
+    synchronisation, card vs CPU, and fused vs plain on the card."""
+    import torch
+    from nemo_tpu_torch.fit import fit_loss, predict
+    from nemo_tpu_torch.ops import launch_counts, reset_launches
+    fitter = make_fitter(device, smpl, bundle, reference_config(),
+                         motion_mlp="fused")
+    main = 30
+
+    def run():
+        ms, steady, main_s = stages(fitter, 10, 10, main, 10)
+        return ms, steady, main_s, fitter.eval_loss()
+
+    counts, (ms, steady, main_s, final) = run_path(
+        "path F", ("fk_fwd", "fk_bwd", "v2v_grad", "mlp_fwd", "mlp_bwd"), run)
+    print(f"[path F] main stage: {main} steps in {main_s:.3f} s; the last "
+          f"{main - 10} at {steady:.3f} steps/s (batch {BATCH}, the "
+          "MotionNet through K6)")
+    print(f"[path F] final {final}")
+    check_finite("path F", ms, final)
+    check_falls("path F", ms[2]["kp_loss"], 10)
+    cfg, assets = fitter.cfg, fitter.assets
+    vi = torch.arange(BATCH, device=device) % assets.num_views
+    fi = torch.arange(BATCH, device=device) % assets.num_frames
+    reset_launches()
+    with torch.no_grad():
+        predict(fitter.params, cfg, assets, vi, fi)
+    one_predict = launch_counts()
+    reset_launches()
+    fit_loss(fitter.params, cfg, assets, vi, fi)[0].backward()
+    one_loss = launch_counts()
+    fitter.params.zero_grad(set_to_none=True)
+    got = {"predict": [one_predict[k] for k in ("mlp_fwd", "mlp_bwd")],
+           "fit_loss and backward": [one_loss[k]
+                                     for k in ("mlp_fwd", "mlp_bwd")]}
+    print(f"[path F] (mlp_fwd, mlp_bwd) launches: {json.dumps(got)}")
+    if got != {"predict": [2, 0], "fit_loss and backward": [2, 2]}:
+        raise AssertionError("path F: expected two K6f launches a predict "
+                             "(the batch and the phase-0 anchor)")
+    no_sync_steps("path F", fitter)
+    card_vs_cpu("path F", fitter, bundle, smpl)
+    fused_vs_plain("path F", fitter)
+    return counts, steady
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1140,6 +1319,7 @@ def main() -> int:
                                   img_hw=IMG_HW, seed=0)
     kernel_err.update(raster_phase(device, smpl, bundle, rec))
     kernel_err.update(chamfer_phase(device, smpl, rec))
+    kernel_err.update(mlp_phase(device, rec))
     paths = {}
     paths["slice 1"], steady1 = slice1_path(device, smpl, bundle)
     paths["path A"], steady_a = path_a(device, smpl, bundle)
@@ -1149,10 +1329,12 @@ def main() -> int:
         paths[f"path C {k}"] = c
     paths["path D"], render = path_d(device, smpl, bundle)
     paths["path E"] = path_e(device, smpl)
+    paths["path F"], steady_f = path_f(device, smpl, bundle)
     launches = {k: sum(c[k] for c in paths.values()) for k in KERNELS}
     print(f"[paths] render: {render['video_s']:.4f} s a video frame with the "
           f"PNG writes, {render['nopng_s']:.4f} s without")
-    print(f"[paths] steps/s: slice 1 {steady1:.3f}, path A {steady_a:.3f}; "
+    print(f"[paths] steps/s: slice 1 {steady1:.3f}, path A {steady_a:.3f}, "
+          f"path F {steady_f:.3f}; "
           f"launches summed over the paths {json.dumps(launches)}; "
           f"{time.perf_counter() - t_start:.1f} s in all")
 

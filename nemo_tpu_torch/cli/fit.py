@@ -17,7 +17,8 @@ Usage:
       --load_ckpt_path out/verify_fit_torch/000000/ckpt/sd_000100 ...
 
 Every model version (--model_version 0..4) runs, with --full_batch,
---weight_3d_loss, --weight_instance_loss, --code_noise and --vp_v2v_n_verts.
+--weight_3d_loss, --weight_instance_loss, --code_noise and --vp_v2v_n_verts;
+--motion_mlp fused runs the MotionNet through the fused MLP kernels (K6).
 Writes config.json, metrics.jsonl, ckpt/sd_NNNNNN/, losses.npz, the eval
 CSVs and, with --render_video / --render_rollout_figure / --render_every,
 the mesh renders (mesh_rollout.mp4 or its .frames directory,
@@ -41,6 +42,8 @@ import sys
 import numpy as np
 import torch
 
+from ..modules.networks import MLP_MODES
+
 _ROADMAP = "still to port: see ROADMAP.md, Queue 1"
 
 
@@ -48,6 +51,11 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (kernels) or 'cpu' (plain PyTorch versions)")
+    p.add_argument("--motion_mlp", type=str, default="plain",
+                   choices=MLP_MODES,
+                   help="the MotionNet's MLP: plain matmuls, or fused "
+                        "through the K6 kernels (the JAX package's "
+                        "NEMO_TPU_NET_FUSED=1)")
     p.add_argument("--bundle", type=str, default="")
     p.add_argument("--default_config", type=str, default="")
     p.add_argument("--out_dir", type=str, default="out/multi_view/default")
@@ -190,7 +198,7 @@ def main(argv=None) -> int:
             if args.synthetic_assets and (cfg.weight_vp_loss
                                           or cfg.weight_vp_z_loss) else None
         assets = build_assets(bundle, smpl, cfg, gmm=gmm, vposer=vposer,
-                              device=device)
+                              device=device, motion_mlp=args.motion_mlp)
         fitter = NemoFitter(cfg, assets, seed=args.seed)
 
     if args.load_ckpt_path:

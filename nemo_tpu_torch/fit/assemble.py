@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from ..body.smpl import SMPLModel, subset_skin_tables
+from ..modules.networks import MLP_MODES
 from ..ops.lbs import VJP_MODES
 from ..priors.gmm import GMMPrior
 from .model import NemoAssets, NemoConfig
@@ -16,14 +17,21 @@ from .model import NemoAssets, NemoConfig
 def build_assets(bundle, smpl: SMPLModel, cfg: NemoConfig,
                  gmm: Optional[GMMPrior] = None,
                  vposer: Optional[Dict[str, torch.Tensor]] = None,
-                 device=None, v2v_vjp: str = "fused") -> NemoAssets:
+                 device=None, v2v_vjp: str = "fused",
+                 motion_mlp: str = "plain") -> NemoAssets:
     """Collate the 2D supervision (reference collate_gt_2d :2908-2961) and
     move everything to ``device`` once. ``bundle`` is a MultiViewBundle of
     either package (both are numpy). With cfg.vp_v2v_n_verts > 0 the v2v
     prior's vertex subset and its tables are built here; v2v_vjp picks the
-    full-mesh prior's gradient mode (ops.lbs.skin_v2v_l1)."""
+    full-mesh prior's gradient mode (ops.lbs.skin_v2v_l1), motion_mlp the
+    MotionNet's MLP ("plain" matmuls or "fused" through K6, the counterpart
+    of the JAX package's NEMO_TPU_NET_FUSED=1; model version 0 has no
+    MotionNet and ignores it)."""
     if v2v_vjp not in VJP_MODES:
         raise ValueError(f"v2v_vjp {v2v_vjp!r}: expected one of {VJP_MODES}")
+    if motion_mlp not in MLP_MODES:
+        raise ValueError(f"motion_mlp {motion_mlp!r}: expected one of "
+                         f"{MLP_MODES}")
     device = torch.device(device) if device is not None else smpl.device
     thr = cfg.label_intersection_threshold
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
@@ -46,5 +54,6 @@ def build_assets(bundle, smpl: SMPLModel, cfg: NemoConfig,
         img_d1=bundle.img_d1,
         spin_theta=None if spin is None else t(spin),
         v2v_vjp=v2v_vjp,
+        motion_mlp=motion_mlp,
         **subset,
     )

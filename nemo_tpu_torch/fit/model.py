@@ -131,6 +131,9 @@ class NemoAssets:
     v2v_lbs_weights_t: Optional[torch.Tensor] = None   # (24, n)
     # gradient mode of the full-mesh v2v prior (ops.lbs.skin_v2v_l1)
     v2v_vjp: str = "fused"
+    # the MotionNet's MLP: "plain" matmuls or "fused" through K6
+    # (modules.networks.MotionNet.forward)
+    motion_mlp: str = "plain"
 
     @property
     def num_views(self) -> int:
@@ -197,13 +200,16 @@ def _embed(params: NemoParams, cfg: NemoConfig, phases: torch.Tensor,
     return emb
 
 
-def _trans_at_phase0(params: NemoParams, cfg: NemoConfig) -> torch.Tensor:
+def _trans_at_phase0(params: NemoParams, cfg: NemoConfig,
+                     mlp: str = "plain") -> torch.Tensor:
     """MotionNet translation at phase 0 (through the RBF) with a ZERO
-    instance code (reference :3754-3764)."""
+    instance code (reference :3754-3764), a batch of one through the
+    MotionNet's ``mlp`` mode."""
     dev = params.cameras.device
     zero_phase = torch.zeros((1, 1), device=dev)
     codes = torch.zeros((1, cfg.instance_code_size), device=dev)
-    _, _, trans0 = params.motion(_embed(params, cfg, zero_phase, codes))
+    _, _, trans0 = params.motion(_embed(params, cfg, zero_phase, codes),
+                                 mlp=mlp)
     return trans0
 
 
@@ -234,8 +240,8 @@ def predict(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
         if codes is not None and noise is not None and cfg.code_noise > 0:
             codes = codes + cfg.code_noise * noise
         pose_d, orient_d, trans = params.motion(
-            _embed(params, cfg, warped, codes))
-        trans = trans - _trans_at_phase0(params, cfg)
+            _embed(params, cfg, warped, codes), mlp=assets.motion_mlp)
+        trans = trans - _trans_at_phase0(params, cfg, assets.motion_mlp)
 
     body_rotmat = pose_d["rotmat"]
     if detach_pose:

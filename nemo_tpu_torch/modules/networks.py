@@ -3,8 +3,11 @@ warps, RBF.
 
 Port of nemo_tpu/modules/networks.py. Weights are stored ``(in, out)`` as in
 the JAX parameter pytree (``x @ W + b``), so converted JAX parameters load
-without transposes. The MotionNet is plain ``torch.matmul``: the JAX package
-runs it outside any kernel by default.
+without transposes. The MotionNet runs as plain ``torch.matmul`` by default,
+as the JAX package runs it outside any kernel by default; ``mlp="fused"``
+sends its trunk and heads through K6 (``ops.mlp.motion_net_mlp``), the
+counterpart of the JAX package's ``NEMO_TPU_NET_FUSED=1``. RotNet and FCNN
+stay plain, as in JAX.
 
 Initializers follow torch's defaults as the JAX package does, drawing from an
 explicit ``torch.Generator``; they cannot reproduce jax.random's numbers, so
@@ -20,8 +23,10 @@ import torch
 from torch import nn
 
 from ..geometry.rotations import rot6d_to_rotmat, rotmat_to_aa
+from ..ops.mlp import motion_net_mlp
 
 IDENTITY_6D = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
+MLP_MODES = ("plain", "fused")
 
 
 def _uniform(shape, bound: float, generator) -> torch.Tensor:
@@ -73,13 +78,20 @@ class MotionNet(nn.Module):
         self.W_lin = nn.Parameter(W_lin)
         self.b_lin = nn.Parameter(b_lin)
 
-    def forward(self, x: torch.Tensor) -> Tuple[dict, dict, torch.Tensor]:
+    def forward(self, x: torch.Tensor, mlp: str = "plain"
+                ) -> Tuple[dict, dict, torch.Tensor]:
         """(pose_dict, orient_dict, trans); the dicts carry 'rot6d',
-        'rotmat' and 'pose' (axis-angle). Joint 0 is the global orient."""
+        'rotmat' and 'pose' (axis-angle). Joint 0 is the global orient.
+        mlp: "plain" (torch matmuls) or "fused" (K6, the same function)."""
         B = x.shape[0]
-        z = torch.relu(self.trunk(x))
-        rot6d = z @ self.W_rot + self.b_rot
-        trans = z @ self.W_lin + self.b_lin
+        if mlp == "fused":
+            rot6d, trans = motion_net_mlp(self, x)
+        elif mlp == "plain":
+            z = torch.relu(self.trunk(x))
+            rot6d = z @ self.W_rot + self.b_rot
+            trans = z @ self.W_lin + self.b_lin
+        else:
+            raise ValueError(f"mlp {mlp!r}: expected one of {MLP_MODES}")
         rotmat = rot6d_to_rotmat(rot6d.reshape(B, self.n_joints, 6))
         pose = rotmat_to_aa(rotmat).reshape(B, self.n_joints * 3)
         orient = {"rot6d": rot6d[:, :6], "rotmat": rotmat[:, :1],

@@ -62,6 +62,14 @@ _SIGNATURES = {
                            _P, _P, _P, _P],
     # a, b, T, N, M, dist, idx, stream
     "nemo_chamfer_nn": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # floats of scratch nemo_mlp_fwd/_bwd need at (B, D, H, O), -1 if refused
+    "nemo_mlp_scratch_floats": [_I, _I, _I, _I],
+    # B, D, H, O, x, W1, b1, W2, b2, W3, b3, Wo, bo, out, h1, h2, z, scratch,
+    # stream
+    "nemo_mlp_fwd": [_I] * 4 + [_P] * 15,
+    # B, D, H, O, gout, x, h1, h2, z, W1, W2, W3, Wo, gx, gW1, gb1, gW2, gb2,
+    # gW3, gb3, gWo, gbo, scratch, stream
+    "nemo_mlp_bwd": [_I] * 4 + [_P] * 20,
 }
 
 build_seconds = None  # wall time of the build this process ran, if any

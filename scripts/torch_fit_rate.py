@@ -1,17 +1,19 @@
 #!/usr/bin/env python
 """Main-stage rate and device profile of the PyTorch port on one GPU.
 
-    python scripts/torch_fit_rate.py [--config NAME] [--steps 50] [--reps 5]
-        [--profile_steps 10]
+    python scripts/torch_fit_rate.py [--config NAME ...] [--steps 50]
+        [--reps 5] [--profile_steps 10]
 
-Builds a fitter on the synthetic 6890-vertex SMPL and 8 views x 120 frames
-with chip_smoke.py's configurations and fitter set-up, runs 10 warmup and
-10 camera steps, one untimed main run of ``--steps``, then ``--reps`` timed
-main runs of ``--steps`` each (host clock; each run ends with its metrics
-on the host). With ``--profile_steps`` it then traces that many main steps
-under torch.profiler and reports the kernels a step, the launch calls a
-step, the device's kernel time a step, the busy share of the traced wall
-time (the union of kernel intervals over it) and the kernels with the most
+Builds a fitter for each named configuration on the synthetic 6890-vertex
+SMPL and 8 views x 120 frames with chip_smoke.py's configurations and
+fitter set-up, runs 10 warmup and 10 camera steps and one untimed main run
+of ``--steps`` each, then ``--reps`` rounds of timed main runs of
+``--steps``, one run a configuration in turn within each round (host
+clock; each run ends with its metrics on the host). With
+``--profile_steps`` it then traces that many main steps of each under
+torch.profiler and reports the kernels a step, the launch calls a step,
+the device's kernel time a step, the busy share of the traced wall time
+(the union of kernel intervals over it) and the kernels with the most
 device time. To compare two commits, unpack each (git archive) and run
 each copy's own script in one call.
 
@@ -19,6 +21,8 @@ Configurations (chip_smoke.py):
   reference            reference_config: NemoV2, batch 512, h_dim 1000, RBF
                        100 quadratic, 200-node phase nets, VPoser v2v 10 +
                        KL 1 + GMM 1 (bench.py:99-113)
+  reference_fused      the same with the MotionNet through the fused MLP
+                       kernels K6 (motion_mlp="fused"; chip_smoke.py's path F)
   custom_video         custom_video_config: NemoV3 as
                        run_examples/custom-video-example.sh:52-85 (full
                        batch B=960, weight_3d_loss 1000, lr_phase 0,
@@ -40,22 +44,27 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (stdlib imports only at module level)
 
+# name -> (configuration, MotionNet mode)
 CONFIGS = {
-    "reference": chip_smoke.reference_config,
-    "custom_video": chip_smoke.custom_video_config,
-    "custom_video_subset": lambda: chip_smoke.custom_video_config(
-        vp_v2v_n_verts=1024),
+    "reference": (chip_smoke.reference_config, "plain"),
+    "reference_fused": (chip_smoke.reference_config, "fused"),
+    "custom_video": (chip_smoke.custom_video_config, "plain"),
+    "custom_video_subset": (lambda: chip_smoke.custom_video_config(
+        vp_v2v_n_verts=1024), "plain"),
 }
 
 
-def make_fitter(config: str):
+def make_fitters(configs):
     import torch
     from nemo_tpu_torch.body.assets import synthetic_smpl_model
     from nemo_tpu_torch.data.synthetic import synthetic_problem
     device = torch.device("cuda", 0)
     smpl = synthetic_smpl_model(6890, seed=0, device=device)
     bundle, _ = synthetic_problem(smpl, num_views=8, num_frames=120, seed=0)
-    return chip_smoke.make_fitter(device, smpl, bundle, CONFIGS[config]())
+    return {name: chip_smoke.make_fitter(device, smpl, bundle,
+                                         CONFIGS[name][0](),
+                                         motion_mlp=CONFIGS[name][1])
+            for name in configs}
 
 
 def timed_run(fitter, steps: int) -> float:
@@ -111,7 +120,8 @@ def profile(fitter, steps: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", choices=sorted(CONFIGS), default="reference")
+    ap.add_argument("--config", choices=sorted(CONFIGS), nargs="+",
+                    default=["reference"])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--profile_steps", type=int, default=0)
@@ -121,24 +131,27 @@ def main(argv=None) -> int:
         print("torch_fit_rate: needs a CUDA device", file=sys.stderr)
         return 1
     from nemo_tpu_torch.ops import launch_counts, reset_launches
-    fitter = make_fitter(args.config)
-    fitter.warmup(10)
-    fitter.opt_cam(10)
-    timed_run(fitter, args.steps)
-    tag = {"config": args.config, "steps": args.steps}
+    fitters = make_fitters(args.config)
+    for fitter in fitters.values():
+        fitter.warmup(10)
+        fitter.opt_cam(10)
+        timed_run(fitter, args.steps)
     for rep in range(args.reps):
-        reset_launches()
-        s = timed_run(fitter, args.steps)
-        print(json.dumps({**tag, "rep": rep, "seconds": s,
-                          "steps_per_s": args.steps / s,
-                          "launches_per_step": {
-                              k: v / args.steps
-                              for k, v in launch_counts().items() if v}}),
-              flush=True)
+        for name, fitter in fitters.items():
+            reset_launches()
+            s = timed_run(fitter, args.steps)
+            print(json.dumps({"config": name, "steps": args.steps, "rep": rep,
+                              "seconds": s, "steps_per_s": args.steps / s,
+                              "launches_per_step": {
+                                  k: v / args.steps
+                                  for k, v in launch_counts().items() if v}}),
+                  flush=True)
     if args.profile_steps:
-        print(json.dumps({**tag, "profile": profile(fitter,
-                                                     args.profile_steps)}),
-              flush=True)
+        for name, fitter in fitters.items():
+            print(json.dumps({"config": name, "steps": args.steps,
+                              "profile": profile(fitter,
+                                                 args.profile_steps)}),
+                  flush=True)
     print(chip_smoke.nvidia_smi_line())
     return 0
 

@@ -134,7 +134,7 @@ def test_v2v_pair_mode_matches_plain(cuda, B, V):
             _close_scaled(a, b, 1e-5)
 
 
-def _tiny_fitter(cuda, v2v_vjp="fused", **over):
+def _tiny_fitter(cuda, v2v_vjp="fused", motion_mlp="plain", **over):
     from nemo_tpu_torch.body.assets import synthetic_smpl_model
     from nemo_tpu_torch.data.synthetic import synthetic_problem
     from nemo_tpu_torch.fit import NemoConfig, NemoFitter, build_assets
@@ -147,7 +147,8 @@ def _tiny_fitter(cuda, v2v_vjp="fused", **over):
     smpl = synthetic_smpl_model(300, device=cuda)
     bundle, _ = synthetic_problem(smpl, num_views=2, num_frames=12)
     assets = build_assets(bundle, smpl, cfg, gmm=synthetic_gmm_prior(4),
-                          vposer=init_vposer(), device=cuda, v2v_vjp=v2v_vjp)
+                          vposer=init_vposer(), device=cuda, v2v_vjp=v2v_vjp,
+                          motion_mlp=motion_mlp)
     return NemoFitter(cfg, assets)
 
 
@@ -167,6 +168,12 @@ FIT_CASES = {
            {"fk_fwd", "fk_bwd", "v2v_grad", "v2v_fwd"}),
     "v0": (dict(model_version=0), {"fk_fwd", "fk_bwd", "v2v_grad",
                                    "v2v_fwd"}),
+    "v2_fused_mlp": ({"motion_mlp": "fused"},
+                     {"fk_fwd", "fk_bwd", "v2v_grad", "v2v_fwd", "mlp_fwd",
+                      "mlp_bwd"}),
+    # model version 0 has no MotionNet: no K6, as in JAX
+    "v0_fused_mlp": (dict(model_version=0, motion_mlp="fused"),
+                     {"fk_fwd", "fk_bwd", "v2v_grad", "v2v_fwd"}),
 }
 
 
@@ -186,7 +193,7 @@ def test_fit_steps_launch_every_kernel(cuda, case):
 
 
 @pytest.mark.parametrize("case", ["v2_fused", "v3_subset_full_batch", "v4",
-                                  "v0"])
+                                  "v0", "v2_fused_mlp"])
 def test_stage_steps_never_synchronise(cuda, case):
     """No step of any stage waits for the device (no .item(), no host
     copies, no host-built index tensors)."""
@@ -356,3 +363,79 @@ def test_chamfer_distance_grads_card_vs_cpu(cuda, case):
     for k, c in zip(*outs):
         torch.testing.assert_close(k, c, rtol=0,
                                    atol=1e-5 * max(1.0, float(c.abs().max())))
+
+
+# K6 cases (B, D, H, O): ragged everywhere (none a multiple of the 64 x 64
+# tile or the 16-deep slice), the phase-0 anchor's batch of one at the
+# reference widths, and the reference batch
+MLP_CASES = {"ragged": (13, 19, 72, 147), "b1": (1, 105, 1000, 147),
+             "reference": (512, 105, 1000, 147)}
+
+
+def _mlp_inputs(case, device):
+    B, D, H, O = MLP_CASES[case]
+    gen = torch.Generator().manual_seed(B + H)
+    u = lambda *s, fan_in: ((torch.rand(s, generator=gen) * 2 - 1)
+                            / fan_in ** 0.5)
+    args = (torch.rand((B, D), generator=gen), u(D, H, fan_in=D),
+            u(H, fan_in=D), u(H, H, fan_in=H), u(H, fan_in=H),
+            u(H, H, fan_in=H), u(H, fan_in=H), u(H, O, fan_in=H),
+            u(O, fan_in=H))
+    return [a.to(device) for a in args], torch.randn((B, O),
+                                                     generator=gen).to(device)
+
+
+@pytest.mark.parametrize("case", sorted(MLP_CASES))
+def test_mlp_kernels_match_plain(cuda, case):
+    """K6f and K6b against their plain versions (f32, TF32 off): values
+    within 1e-5 and gradients within 1e-4 of each tensor's largest entry;
+    a second run bit-identical (fixed-order sums); one launch of each
+    through the public op."""
+    from nemo_tpu_torch.ops import mlp
+    args, gout = _mlp_inputs(case, cuda)
+    got = mlp.mlp_fwd_cuda(*args)
+    for a, b in zip(got, mlp.motion_net_mlp_plain(*args)):
+        _close_scaled(a, b, 1e-5)
+    saved = (args[0], *got[1:], args[1], args[3], args[5], args[7])
+    gk = mlp.mlp_bwd_cuda(gout, *saved)
+    for a, b in zip(gk, mlp.motion_net_mlp_bwd_plain(gout, *saved)):
+        assert a.shape == b.shape
+        _close_scaled(a, b, 1e-4)
+    again = mlp.mlp_fwd_cuda(*args) + mlp.mlp_bwd_cuda(gout, *saved)
+    assert all(torch.equal(a, b) for a, b in zip(again, got + gk))
+    leaves = [a.detach().requires_grad_() for a in args]
+    reset_launches()
+    out = mlp.MotionNetMLP.apply(*leaves)
+    (out * gout).sum().backward()
+    counts = launch_counts()
+    assert (counts["mlp_fwd"], counts["mlp_bwd"]) == (1, 1)
+    assert torch.equal(out.detach(), got[0])
+    for leaf, g in zip(leaves, gk):
+        assert torch.equal(leaf.grad, g)
+
+
+@pytest.mark.parametrize("case", ["ragged", "b1"])
+def test_motion_net_fused_card_vs_cpu(cuda, case):
+    """MotionNet(mlp="fused") on the card (K6) against the CPU (the plain
+    versions) from the same weights: outputs and every gradient within
+    1e-5 / 1e-4 of the largest entry."""
+    from nemo_tpu_torch.modules.networks import MotionNet
+    B, D, H, O = MLP_CASES[case]
+    net = MotionNet(D, H, 24, init_last_layer_zero=False,
+                    generator=torch.Generator().manual_seed(3))
+    gen = torch.Generator().manual_seed(4)
+    x = torch.rand((B, D), generator=gen)
+    w = torch.randn((B, 24 * 6), generator=gen)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        m = MotionNet(D, H, 24).to(dev)
+        m.load_state_dict(net.state_dict())
+        xd = x.to(dev).requires_grad_()
+        pose, orient, trans = m(xd, mlp="fused")
+        rot6d = torch.cat([orient["rot6d"], pose["rot6d"]], 1)
+        ((rot6d * w.to(dev)).sum() + trans.sum()).backward()
+        outs.append([t.detach().cpu() for t in
+                     (rot6d, trans, xd.grad,
+                      *(p.grad for p in m.parameters()))])
+    for i, (k, c) in enumerate(zip(*outs)):
+        _close_scaled(k, c, 1e-5 if i < 2 else 1e-4)
