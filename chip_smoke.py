@@ -12,7 +12,9 @@ Run from the repository root with no arguments:
 3. Kernels against their plain PyTorch versions on the card, at the shapes
    of the fit's paths: K1 forward and backward (B=512 and 960, random
    rotations); K2 in fused, forward-only and pair modes (B=512, the
-   6890-vertex synthetic SMPL's tables); K3f at (512, 6890) and (960,
+   6890-vertex synthetic SMPL's tables), the fused and forward-only modes
+   (the one-pass kernel) also at B=960, with the kernel's registers,
+   shared memory and spills; K3f at (512, 6890) and (960,
    1024); K3b with a random cotangent at (512, 6890), recomputing the posed
    vertices and reading stored ones, and at (960, 1024) recomputing them
    as path A does; K5s and K5g (the tile rasterizer's stream and gather
@@ -24,7 +26,10 @@ Run from the repository root with no arguments:
    prints its max error beside its tolerance; each kernel's median CUDA-event time beside its plain
    version's, one PyTorch call's (where one computes the whole function or
    its largest contraction) and its bound (the least time the card could
-   take: the larger of bytes over 3.35 TB/s and f32 FLOPs over 67 TFLOP/s).
+   take: the larger of bytes over 3.35 TB/s and f32 FLOPs over 67 TFLOP/s;
+   for K2's one-pass kernel the operations bound counts its posedirs
+   contractions as three TF32 products at 495 TFLOP/s on the tensor cores
+   and the rest as f32, and the f32 bound is printed beside it).
 4. The fit, one path after another, each with the launch counters zeroed
    just before and read just after, and each asserting that its own
    kernels ran:
@@ -73,6 +78,7 @@ import time
 BATCH = 512
 BATCH_A = 8 * 120       # path A's full batch: every view and frame
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores, 700 W
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores, 700 W
 PEAK_HBM_BYTES = 3.35e12
 
 # counter key -> (source, TPU kernel it replaces)
@@ -115,6 +121,11 @@ POSE_FLOP = 2 * 621 + 3
 BLEND_FLOP = 2 * 288
 BWD_BLEND_FLOP = 2 * 216
 SIDE_FLOP = POSE_FLOP + BLEND_FLOP + 2 * 9
+# K2's two posedirs contractions (the forward vph of both sides and the
+# backward gpf), which its one-pass kernel runs on the TF32 tensor cores as
+# three products each (3xTF32); the rest of its work stays on the CUDA cores
+K2_TC_FWD_FLOP = 2 * 2 * 621
+K2_TC_GRAD_FLOP = 2 * 621
 GRAD_FLOP = 2 * 9 + 2 * 621 + 9 + 2 * 288 + 3
 L1_FLOP = 9
 # per joint: forward R = R_p R_l (27 MACs), t = R_p t_l + t_p (9 MACs + 3);
@@ -183,6 +194,17 @@ def bound_ms(flop: float, bytes_: float):
     return 1e3 * max(t_op, t_mem), ("operations" if t_op >= t_mem else "bytes")
 
 
+def tc_bound_ms(flop: float, tc_flop: float, bytes_: float):
+    """K2's least time with its posedirs contractions (tc_flop of the
+    flop) on the tensor cores in 3xTF32 and the rest in f32 on the CUDA
+    cores: (ms, "tensor cores", "CUDA cores" or "bytes")."""
+    times = {"tensor cores": 3 * tc_flop / PEAK_TF32_FLOPS,
+             "CUDA cores": (flop - tc_flop) / PEAK_F32_FLOPS,
+             "bytes": bytes_ / PEAK_HBM_BYTES}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
 def check(name: str, got, want, atol: float, results: dict) -> float:
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
@@ -197,10 +219,16 @@ def check(name: str, got, want, atol: float, results: dict) -> float:
 
 
 def time_kernel(rec, key, shape, kernel, plain, flop, bytes_, library=None,
-                plain_reps: int = 20):
+                plain_reps: int = 20, tc_flop=None):
     """Median CUDA-event times of a kernel, its plain version and one
-    PyTorch call, beside the bound; the first record of a key is kept."""
-    b_ms, by = bound_ms(flop, bytes_)
+    PyTorch call, beside the bound; given the flop its tensor cores take,
+    the bound is the tensor-core one and the f32 bound is only printed.
+    The first record of a key is kept."""
+    f32_ms, by = bound_ms(flop, bytes_)
+    b_ms = f32_ms
+    if tc_flop is not None:
+        b_ms, tc_by = tc_bound_ms(flop, tc_flop, bytes_)
+        by = "bytes" if tc_by == "bytes" else "operations"
     r = {"ms": median_ms(kernel),
          "plain_ms": median_ms(plain, reps=plain_reps,
                                warm=min(3, plain_reps)),
@@ -213,6 +241,12 @@ def time_kernel(rec, key, shape, kernel, plain, flop, bytes_, library=None,
           f"{b_ms:.4f} ms ({by}; {flop / 1e9:.3f} GFLOP, "
           f"{bytes_ / 1e6:.3f} MB) (median of 20 CUDA-event timings, "
           f"{plain_reps} of the plain version)")
+    if tc_flop is not None:
+        print(f"[time] {key} {shape}: tensor-core bound {b_ms:.4f} ms "
+              f"({tc_by}; {3 * tc_flop / 1e9:.3f} GFLOP in 3xTF32 at 495 "
+              f"TFLOP/s, {(flop - tc_flop) / 1e9:.3f} GFLOP f32 at 67) "
+              f"beside the f32 bound {f32_ms:.4f} ms; kernel at "
+              f"{100 * b_ms / r['ms']:.1f}% of it ({nvidia_smi_line()})")
     rec.setdefault(key, r)
     return r
 
@@ -289,28 +323,68 @@ def kernel_phase(device, smpl):
     # orders and move a gradient entry by a whole term.
     vsh = smpl.v_template.t().contiguous()
     pd, W = smpl.posedirs_t, smpl.lbs_weights_t
-    pf_o, A_o = skin_side_inputs(smpl, B, gen, device)
-    pf_r, A_r = skin_side_inputs(smpl, B, gen, device, offset=10.0)
-    args = (pf_o, A_o, vsh, pd, W, pf_r, A_r)
+    print(f"[kernel] v2v_fused_kernel resources (cudaFuncGetAttributes): "
+          f"{json.dumps(lbs.v2v_fused_attributes())}")
+
+    def k2_inputs(Bk, g):
+        pf_o, A_o = skin_side_inputs(smpl, Bk, g, device)
+        pf_r, A_r = skin_side_inputs(smpl, Bk, g, device, offset=10.0)
+        return (pf_o, A_o, vsh, pd, W, pf_r, A_r)
+
+    def k2_fused_checks(args, tag):
+        """K2's one-pass kernel (fused and forward-only modes) against the
+        plain version; returns (total, grads) of each."""
+        tot_k, grads_k = lbs.v2v_l1_cuda(*args, grad=True)
+        tot_p, grads_p = lbs.v2v_l1_plain(*args, grad=True)
+        tot_f, _ = lbs.v2v_l1_cuda(*args, grad=False)
+        # total: B x 20670 |diff| terms summed in another order, rtol 1e-5
+        check(f"v2v_grad total{tag}", tot_k, tot_p,
+              1e-5 * float(tot_p.abs()), errs)
+        check(f"v2v_fwd total{tag}", tot_f, tot_p,
+              1e-5 * float(tot_p.abs()), errs)
+        if not torch.equal(tot_f, tot_k):
+            raise AssertionError(f"forward-only total differs from grad "
+                                 f"mode{tag}")
+        # gradients: sums of up to 3V = 20670 products (the posedirs ones
+        # in 3xTF32) in another order; atol 1e-4 x the tensor's largest
+        # entry
+        for name, gk, gp in zip(("gpf", "gA", "gvsh"), grads_k, grads_p):
+            check(f"v2v_grad {name}{tag}", gk, gp,
+                  1e-4 * float(gp.abs().max()), errs)
+        rerun = lbs.v2v_l1_cuda(*args, grad=True)
+        if not (torch.equal(rerun[0], tot_k) and all(
+                torch.equal(a, b) for a, b in zip(rerun[1], grads_k))):
+            raise AssertionError(f"K2 is not bit-stable run to run{tag}")
+        return (tot_k, grads_k), (tot_p, grads_p)
+
+    def k2_times(args, grads, tot, gvp):
+        """Times of K2's fused and forward-only modes; gvp (B, 3V) feeds
+        the one PyTorch call of the fused mode's largest contraction."""
+        Bk = args[0].shape[0]
+        bv = Bk * V
+        VV = 3 * V
+        pf2 = torch.cat([args[0], args[5]])
+        pd2 = pd.reshape(207, VV)
+        io = nbytes(*args[:2], *args[5:], tot) + nbytes(vsh, pd, W)
+        timed("v2v_grad", f"B={Bk}, V={V}",
+              lambda: lbs.v2v_l1_cuda(*args, grad=True),
+              lambda: lbs.v2v_l1_plain(*args, grad=True),
+              bv * (2 * SIDE_FLOP + L1_FLOP + GRAD_FLOP),
+              io + nbytes(*grads),
+              library=lambda: torch.matmul(gvp, pd2.t()),
+              tc_flop=bv * (K2_TC_FWD_FLOP + K2_TC_GRAD_FLOP))
+        timed("v2v_fwd", f"B={Bk}, V={V}",
+              lambda: lbs.v2v_l1_cuda(*args, grad=False),
+              lambda: lbs.v2v_l1_plain(*args, grad=False),
+              bv * (2 * SIDE_FLOP + L1_FLOP), io,
+              library=lambda: torch.matmul(pf2, pd2),
+              tc_flop=bv * K2_TC_FWD_FLOP)
+
+    args = k2_inputs(B, gen)
+    pf_o, A_o, _, _, _, pf_r, A_r = args
     side = (pf_o, A_o, vsh, pd, W)
-    tot_k, (gpf_k, gA_k, gvsh_k) = lbs.v2v_l1_cuda(*args, grad=True)
-    tot_p, (gpf_p, gA_p, gvsh_p) = lbs.v2v_l1_plain(*args, grad=True)
-    tot_f, _ = lbs.v2v_l1_cuda(*args, grad=False)
-    # total: 10.6M |diff| terms summed in another order, rtol 1e-5
-    check("v2v_grad total", tot_k, tot_p, 1e-5 * float(tot_p.abs()), errs)
-    check("v2v_fwd total", tot_f, tot_p, 1e-5 * float(tot_p.abs()), errs)
-    if not torch.equal(tot_f, tot_k):
-        raise AssertionError("forward-only total differs from grad mode")
-    # gradients: sums of up to 3V = 20670 f32 products in another order;
-    # atol 1e-4 x the tensor's largest entry
-    for name, gk, gp in (("v2v_grad gpf", gpf_k, gpf_p),
-                         ("v2v_grad gA", gA_k, gA_p),
-                         ("v2v_grad gvsh", gvsh_k, gvsh_p)):
-        check(name, gk, gp, 1e-4 * float(gp.abs().max()), errs)
-    rerun = lbs.v2v_l1_cuda(*args, grad=True)
-    if not (torch.equal(rerun[0], tot_k) and all(
-            torch.equal(a, b) for a, b in zip(rerun[1], (gpf_k, gA_k, gvsh_k)))):
-        raise AssertionError("K2 is not bit-stable run to run")
+    (tot_k, (gpf_k, gA_k, gvsh_k)), (tot_p, (gpf_p, gA_p, gvsh_p)) = \
+        k2_fused_checks(args, "")
 
     # K2 pair mode: sign exact (the offset keeps every difference far from
     # 0), vp to f32 ordering noise, and the gradients K3b computes from
@@ -369,24 +443,22 @@ def kernel_phase(device, smpl):
     pf2 = torch.cat([pf_o, pf_r])
     tables = nbytes(vsh, pd, W)
     bv = B * V
-    timed("v2v_grad", f"B={B}, V={V}",
-          lambda: lbs.v2v_l1_cuda(*args, grad=True),
-          lambda: lbs.v2v_l1_plain(*args, grad=True),
-          bv * (2 * SIDE_FLOP + L1_FLOP + GRAD_FLOP),
-          nbytes(pf_o, A_o, pf_r, A_r, tot_k, gpf_k, gA_k, gvsh_k) + tables,
-          library=lambda: torch.matmul(gvp, pd2.t()))
-    timed("v2v_fwd", f"B={B}, V={V}",
-          lambda: lbs.v2v_l1_cuda(*args, grad=False),
-          lambda: lbs.v2v_l1_plain(*args, grad=False),
-          bv * (2 * SIDE_FLOP + L1_FLOP),
-          nbytes(pf_o, A_o, pf_r, A_r, tot_k) + tables,
-          library=lambda: torch.matmul(pf2, pd2))
+    k2_times(args, (gpf_k, gA_k, gvsh_k), tot_k, gvp)
     timed("v2v_pair", f"B={B}, V={V}, vp stored",
           lambda: lbs.v2v_pair_cuda(*args, want_vp=True),
           lambda: lbs.v2v_pair_plain(*args, want_vp=True),
           bv * (2 * SIDE_FLOP + L1_FLOP),
           nbytes(pf_o, A_o, pf_r, A_r, tot_k, sign_k, vp_k) + tables,
           library=lambda: torch.matmul(pf2, pd2))
+    # K2's fused and forward-only modes at the custom-video recipe's full
+    # batch (8 views x 120 frames), checked and timed as at B=512
+    # (a generator of its own, so the later phases draw what they drew)
+    gen_a = torch.Generator().manual_seed(B_A)
+    args_a = k2_inputs(B_A, gen_a)
+    (tot_a, grads_a), _ = k2_fused_checks(args_a, f" B={B_A}")
+    k2_times(args_a, grads_a, tot_a,
+             torch.randn((B_A, 3 * V), generator=gen_a).to(device))
+    del args_a, grads_a
     timed("skin_bwd", f"B={B}, V={V}",
           lambda: lbs.skin_bwd_cuda(*side, g),
           lambda: lbs.skin_bwd_plain(*side, g),
@@ -429,7 +501,7 @@ def kernel_phase(device, smpl):
         "fk_fwd": max(errs[k] for k in errs if k.startswith("fk_fwd")),
         "fk_bwd": max(errs[k] for k in errs if k.startswith("fk_bwd")),
         "v2v_grad": max(errs[k] for k in errs if k.startswith("v2v_grad")),
-        "v2v_fwd": errs["v2v_fwd total"],
+        "v2v_fwd": max(errs[k] for k in errs if k.startswith("v2v_fwd")),
         "v2v_pair": max(errs[k] for k in errs if k.startswith("v2v_pair")),
         "skin_fwd": max(errs[k] for k in errs if k.startswith("skin_fwd")),
         "skin_bwd": max(errs[k] for k in errs if k.startswith("skin_bwd ")),

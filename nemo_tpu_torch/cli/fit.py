@@ -25,8 +25,10 @@ the mesh renders (mesh_rollout.mp4 or its .frames directory,
 rollout_figure.png, comparison_view0.png, vibe_rollout.png) and the
 matplotlib figures, under out_dir/<NNNNNN>/. The mesh renders need neither
 matplotlib nor PIL; where matplotlib is missing the CLI skips its figures
-and names each file it skipped. Real SMPL/VPoser/GMM assets, --dp and
---weight_humor_loss are still to port (ROADMAP.md Queue 1) and raise.
+and names each file it skipped. Every flag of the JAX CLI parses. Real
+SMPL/VPoser/GMM assets, --dp, --skin_bf16 and the HuMoR prior
+(--weight_humor_loss, --humor_fps, --humor_ckpt, --init-motion-prior) are
+still to port (ROADMAP.md Queue 1) and raise.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import torch
 from ..modules.networks import MLP_MODES
 
 _ROADMAP = "still to port: see ROADMAP.md, Queue 1"
+HUMOR_FPS = 30.0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,6 +60,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "through the K6 kernels (the JAX package's "
                         "NEMO_TPU_NET_FUSED=1)")
     p.add_argument("--bundle", type=str, default="")
+    p.add_argument("--nemo_cfg_path", type=str, default="",
+                   help="per-action YAML (exp_dir + video names); read by "
+                        "the preprocessing CLI, not by the fit")
     p.add_argument("--default_config", type=str, default="")
     p.add_argument("--out_dir", type=str, default="out/multi_view/default")
     p.add_argument("--load_ckpt_path", type=str, default="")
@@ -90,13 +96,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--loss", type=str, default="mse",
                    choices=["rmse", "rmse_resized", "mse", "rmse_robust",
                             "mse_robust", "mse_robust_resized"])
+    # V0's per-network learning rates (neural_motion_model.py:3180-3199)
+    p.add_argument("--lr_pose", type=float, default=1e-2)
+    p.add_argument("--lr_orient", type=float, default=1e-2)
+    p.add_argument("--lr_trans", type=float, default=1e-2)
     p.add_argument("--weight_vp_loss", type=float, default=0)
     p.add_argument("--weight_vp_z_loss", type=float, default=0)
     p.add_argument("--vp_v2v_n_verts", type=int, default=0)
+    p.add_argument("--skin_bf16", action="store_true", default=False,
+                   help="bf16 skinning tables: refused, still to port")
     p.add_argument("--weight_gmm_loss", type=float, default=1e-2)
     p.add_argument("--weight_instance_loss", type=float, default=0)
     p.add_argument("--weight_3d_loss", type=float, default=0)
     p.add_argument("--weight_humor_loss", type=float, default=0)
+    p.add_argument("--humor_fps", type=float, default=HUMOR_FPS)
+    p.add_argument("--humor_ckpt", type=str, default="")
+    p.add_argument("--init-motion-prior", dest="init_motion_prior",
+                   type=str, default="")
     p.add_argument("--full_batch", action="store_true", default=False)
     p.add_argument("--eval_full_batch", type=int, default=1)
     p.add_argument("--dp", type=int, default=0)
@@ -107,6 +123,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--render_video", type=int, default=0)
     p.add_argument("--render_rollout_figure", action="store_true",
                    default=False)
+    # accepted and ignored, as the JAX CLI does, for drop-in compatibility
+    # with the reference entry's command lines: the data-layer flags belong
+    # to the preprocessing CLI, the others are dead in the reference too
+    for flag, kw in (("--data_loader_type", dict(type=str, default="")),
+                     ("--db", dict(action="store_true", default=False)),
+                     ("--n_frames", dict(type=int, default=-1)),
+                     ("--start_phase", dict(type=float, default=0.0)),
+                     ("--sequence_ids", dict(type=str, default="")),
+                     ("--run_hmr", dict(action="store_true", default=False)),
+                     ("--use_adam", dict(action="store_true", default=False)),
+                     ("--optimize_flip", dict(action="store_true",
+                                              default=False)),
+                     ("--render_each_frame", dict(action="store_true",
+                                                  default=False)),
+                     ("--user", dict(type=str, default=""))):
+        p.add_argument(flag, help=argparse.SUPPRESS, **kw)
     p.add_argument("--save_every", type=int, default=500)
     p.add_argument("--render_every", type=int, default=0)
     return p
@@ -118,6 +150,11 @@ def _reject_unported(args) -> None:
         "(real assets)": (args.smpl_path or args.vposer_path or args.gmm_path
                           or args.j_regressor_extra),
         "--dp": args.dp,
+        "--skin_bf16": args.skin_bf16,
+        "--weight_humor_loss / --humor_fps / --humor_ckpt / "
+        "--init-motion-prior (the HuMoR prior)": (
+            args.weight_humor_loss > 0 or args.humor_fps != HUMOR_FPS
+            or args.humor_ckpt or args.init_motion_prior),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:

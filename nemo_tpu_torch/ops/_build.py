@@ -41,11 +41,14 @@ _SIGNATURES = {
     # R_l, t_l, R_g, gR_g, gt_g, parents, order, B, J, acc, gR_l, gt_l, stream
     "nemo_fk_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     # B, V, pf_o, A_o, pf_r, A_r, vsh_t, posedirs_t, W_t, mode,
-    # partial, sign, vp, gvp, total, gpf, gA, gvsh, stream
+    # scratch, sign, vp, total, gpf, gA, gvsh, stream
     "nemo_v2v_l1": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                    _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    # number of per-block partial sums nemo_v2v_l1 writes for (B, V)
-    "nemo_v2v_num_partials": [_I, _I],
+                    _P, _P, _P, _P, _P, _P, _P, _P],
+    # floats of scratch nemo_v2v_l1 needs at (B, V, mode), -1 if refused
+    "nemo_v2v_scratch_floats": [_I, _I, _I],
+    # out int[4]: the fused K2 kernel's registers a thread, static and
+    # dynamic shared memory bytes, local (spill) bytes
+    "nemo_v2v_fused_attributes": [_P],
     # B, V, pf, A, vsh_t, posedirs_t, W_t, verts, stream
     "nemo_skin_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P],
     # B, V, pf, A, vsh_t, posedirs_t, W_t, g, vp_in, vp_scratch, gvp,

@@ -22,14 +22,17 @@ gradients.
 
 Layouts are the logical vertex-major tables: posedirs_t (207, 3, V),
 W_t (24, V), v_shaped_t (3, V), verts (B, 3, V). On a CUDA tensor a wrapper
-launches its kernel; f32 arithmetic on the CUDA cores bounds both files on
-the H100 (the source notes there have the counts and the designs). On a CPU
-tensor it runs the plain versions below, which mirror ``_skin_verts_t_xla``
-and ``_bwd_xla``.
+launches its kernel: K2's fused and forward-only modes one pass with the
+posedirs contractions on the tensor cores in 3xTF32, its pair mode and K3
+f32 on the CUDA cores (the source notes have the counts and the designs).
+On a CPU tensor it runs the plain versions below, which mirror
+``_skin_verts_t_xla`` and ``_bwd_xla``; ``v2v_l1_split_emulation`` repeats
+the one-pass kernel's arithmetic for the tests.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -110,6 +113,79 @@ def v2v_pair_plain(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
 
 
 # ---------------------------------------------------------------------------
+# the fused K2 kernel's arithmetic, emulated (tests only)
+# ---------------------------------------------------------------------------
+
+FUSED_ROWS, FUSED_VERTS = 32, 16   # csrc/v2v.cu's kFB and kFV
+
+
+def fused_ranges(B: int, V: int, num_sms: int) -> int:
+    """The fused K2 kernel's vertex ranges (csrc/v2v.cu:fused_ranges)."""
+    n_bt = -(-B // FUSED_ROWS)
+    return min(2 * max(1, num_sms // n_bt), -(-V // FUSED_VERTS))
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to the nearest TF32, ties away from zero, by masking the
+    low 13 mantissa bits (csrc/v2v.cu:tf32_bits)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as three TF32 products accumulated in f32: small . big, then
+    big . small, then big . big."""
+    ab, bb = _tf32(a), _tf32(b)
+    a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+    return (a_s @ bb + ab @ b_s) + ab @ bb
+
+
+def v2v_l1_split_emulation(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r,
+                           A_r, num_sms: int = 132
+                           ) -> Tuple[torch.Tensor, Grads]:
+    """(total, (gpf, gA, gvsh)) in the fused K2 kernel's arithmetic: both
+    posedirs contractions in 3xTF32, and the per-block partials (|diff| a
+    batch tile and vertex range; gpf and gA a range; gvsh a batch tile)
+    summed in the kernel's fixed order. Nothing on the main path calls it:
+    the tests hold it against the JAX kernel and v2v_l1_plain to show that
+    the split and the reduction order stay inside the tolerances."""
+    B, V = pf_o.shape[0], v_shaped_t.shape[-1]
+    R = fused_ranges(B, V, num_sms)
+    n_t = -(-V // FUSED_VERTS)
+    cut = [min(V, r * n_t // R * FUSED_VERTS) for r in range(R + 1)]
+    ranges = list(zip(cut[:-1], cut[1:]))
+    rows = [(b, min(B, b + FUSED_ROWS)) for b in range(0, B, FUSED_ROWS)]
+    pd2 = posedirs_t.reshape(NUM_POSE_FEATURES, 3 * V)
+    posed = lambda pf: _mm_3xtf32(pf, pd2).reshape(B, 3, V) + v_shaped_t
+    vp_o, M_o = posed(pf_o), _blend(A_o, W_t)
+    o = torch.einsum('bikv,bkv->biv', M_o, _homogeneous(vp_o))
+    r = torch.einsum('bikv,bkv->biv', _blend(A_r, W_t),
+                     _homogeneous(posed(pf_r)))
+    diff = r - o
+    g = torch.sign(diff)
+    gvp = torch.einsum('bikv,biv->bkv', M_o[:, :, :3], g)
+    gM4 = torch.einsum('biv,bkv->bikv', g, _homogeneous(vp_o))
+
+    def in_order(parts):
+        acc = parts[0]
+        for part in parts[1:]:
+            acc = acc + part
+        return acc
+
+    total = in_order([diff[b0:b1, :, lo:hi].abs().sum()
+                      for b0, b1 in rows for lo, hi in ranges])
+    gpf = in_order([_mm_3xtf32(gvp[:, :, lo:hi].reshape(B, -1),
+                               posedirs_t[:, :, lo:hi].reshape(
+                                   NUM_POSE_FEATURES, -1).t())
+                    for lo, hi in ranges])
+    gA = in_order([torch.einsum('bikv,jv->bjik', gM4[..., lo:hi],
+                                W_t[:, lo:hi]).reshape(B, NUM_JOINTS, 12)
+                   for lo, hi in ranges])
+    gvsh = in_order([gvp[b0:b1].sum(0) for b0, b1 in rows])
+    return total, (gpf, gA, gvsh)
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels (csrc/skin.cu, csrc/v2v.cu)
 # ---------------------------------------------------------------------------
 
@@ -170,33 +246,63 @@ def skin_bwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t, g,
     return gpf, gA, gvsh
 
 
+def _check_v2v_alignment(V: int, **tensors):
+    """The fused kernel reads A as float4 and, where V is even, copies the
+    tables 8 bytes at a time: a misaligned address would end the CUDA
+    context, so refuse such views (a contiguous slice whose offset is not a
+    multiple of 4 floats for A, of 2 floats for the tables)."""
+    for name, t in tensors.items():
+        align = 16 if name.startswith("A_") else 8 if V % 2 == 0 else 4
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must start on a {align}-byte boundary "
+                             f"for the fused K2 kernel")
+
+
 def _v2v_launch(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
                 mode: int, want_vp: bool):
     """One nemo_v2v_l1 call: mode 0 total, 1 fused grads, 2 pair. Returns
-    (total, sign, vp, (gpf, gA, gvsh)), with None for what the mode skips."""
+    (total, sign, vp, (gpf, gA, gvsh)), with None for what the mode skips.
+    Modes 0 and 1 take only the per-block partials as scratch (mode 1:
+    about 17.5 MB at B=512 on 132 SMs); no (B, 3, V) tensor."""
     B, V, dev = _check_skin_inputs(pf_o, A_o, v_shaped_t, posedirs_t, W_t)
     _check_skin_inputs(pf_r, A_r, v_shaped_t, posedirs_t, W_t)
     lib = _build.library()
+    if mode != 2:
+        _check_v2v_alignment(V, A_o=A_o, A_r=A_r, v_shaped_t=v_shaped_t,
+                             posedirs_t=posedirs_t, W_t=W_t)
     f32 = dict(dtype=torch.float32, device=dev)
     empty = lambda *shape, on=True: torch.empty(shape, **f32) if on else None
-    partial = empty(lib.nemo_v2v_num_partials(B, V))
+    n_scratch = lib.nemo_v2v_scratch_floats(B, V, mode)
+    if n_scratch < 0:
+        raise ValueError(f"nemo_v2v_l1 refuses B={B}, V={V}")
+    scratch = empty(n_scratch)
     total = empty()
-    sign = empty(B, 3, V, on=mode != 0)
-    vp = empty(B, 3, V, on=mode == 1 or want_vp)
-    gvp = empty(B, 3, V, on=mode == 1)
+    sign = empty(B, 3, V, on=mode == 2)
+    vp = empty(B, 3, V, on=mode == 2 and want_vp)
     grads = (empty(B, NUM_POSE_FEATURES), empty(B, NUM_JOINTS, 12),
              empty(3, V)) if mode == 1 else None
     ptr = lambda t: None if t is None else t.data_ptr()
     err = lib.nemo_v2v_l1(B, V, pf_o.data_ptr(), A_o.data_ptr(),
                           pf_r.data_ptr(), A_r.data_ptr(),
                           v_shaped_t.data_ptr(), posedirs_t.data_ptr(),
-                          W_t.data_ptr(), mode, partial.data_ptr(),
-                          ptr(sign), ptr(vp), ptr(gvp), total.data_ptr(),
+                          W_t.data_ptr(), mode, scratch.data_ptr(),
+                          ptr(sign), ptr(vp), total.data_ptr(),
                           *(ptr(t) for t in (grads or (None,) * 3)),
                           _build.stream_handle(dev))
     _build.check(err, "nemo_v2v_l1")
     LAUNCHES[("v2v_fwd", "v2v_grad", "v2v_pair")[mode]] += 1
     return total, sign, vp, grads
+
+
+def v2v_fused_attributes() -> dict:
+    """The fused K2 kernel's registers a thread, shared memory and spills
+    (local memory), as the CUDA runtime reports them for the built
+    library."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.library().nemo_v2v_fused_attributes(out),
+                 "nemo_v2v_fused_attributes")
+    return dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
+                     "local_bytes"), out))
 
 
 def v2v_l1_cuda(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,

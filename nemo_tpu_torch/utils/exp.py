@@ -59,8 +59,11 @@ class MetricWriter:
 
 
 def explicit_cli_keys(argv: Optional[List[str]] = None) -> List[str]:
+    """The argparse destinations of the --flags the user typed
+    (--init-motion-prior -> init_motion_prior)."""
     argv = sys.argv[1:] if argv is None else argv
-    return [a[2:].split("=")[0] for a in argv if a.startswith("--")]
+    return [a[2:].split("=")[0].replace("-", "_") for a in argv
+            if a.startswith("--")]
 
 
 def merge_config(parser: argparse.ArgumentParser,

@@ -72,7 +72,9 @@ def test_cli_outputs_match_jax_cli(tmp_path):
 
 @pytest.mark.parametrize("extra", [
     ["--vposer_path", "vposer"], ["--dp", "2"], ["--gmm_path", "gmm"],
-    ["--smpl_path", "smpl"], ["--weight_humor_loss", "1"]])
+    ["--smpl_path", "smpl"], ["--weight_humor_loss", "1"], ["--skin_bf16"],
+    ["--humor_fps", "25"], ["--humor_ckpt", "humor.pt"],
+    ["--init-motion-prior", "gmm.npz"]])
 def test_unported_flags_raise(tmp_path, extra):
     from nemo_tpu_torch.cli.fit import main
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -102,3 +104,85 @@ def test_cuda_device_without_a_card_raises(tmp_path):
     from nemo_tpu_torch.cli.fit import main
     with pytest.raises(RuntimeError, match="cuda"):
         main(FLAGS + ["--out_dir", str(tmp_path)])
+
+
+def _recipe_flags():
+    """The flag list of run_examples/custom-video-example.sh's fit command,
+    with its shell variables filled in."""
+    with open(os.path.join(REPO, "run_examples",
+                           "custom-video-example.sh")) as f:
+        lines = f.read().splitlines()
+    start = lines.index("python -m nemo_tpu.cli.fit \\") + 1
+    words = []
+    for line in lines[start:]:
+        if line.strip() == "done":
+            break
+        words += line.strip().rstrip("\\").split()
+    subst = {'"$EXPS/bundle.npz"': "bundle.npz", '"$CFG"': "action.yml",
+             '"$DATA/out/custom-${lr_human}"': "out/custom",
+             '"${lr_human}"': "1e-3",
+             "configs/default-v1.yml": os.path.join(REPO, "configs",
+                                                    "default-v1.yml")}
+    return [subst.get(w, w) for w in words]
+
+
+def test_recipe_flags_parse_and_stop_at_real_assets(tmp_path):
+    """The custom-video recipe's command line passes the port's argparse
+    (as it passes the JAX CLI's) and stops only at the refusal of the real
+    SMPL/VPoser/GMM assets, before any data is read."""
+    from nemo_tpu.cli.fit import build_parser as jax_parser
+    from nemo_tpu_torch.cli.fit import build_parser, main
+    flags = _recipe_flags()
+    assert "--db" in flags and "--nemo_cfg_path" in flags
+    assert "--data_loader_type" in flags and "--full_batch" in flags
+    jax_args = vars(jax_parser().parse_args(flags))
+    args = vars(build_parser().parse_args(flags))
+    assert set(jax_args) <= set(args)
+    assert {k: args[k] for k in jax_args} == jax_args
+    out = flags[flags.index("--out_dir") + 1]
+    flags[flags.index("--out_dir") + 1] = str(tmp_path / out)
+    with pytest.raises(NotImplementedError) as err:
+        main(flags + ["--device", "cpu"])
+    msg = str(err.value)
+    assert "real assets" in msg and "ROADMAP" in msg
+    assert "--dp" not in msg and "HuMoR" not in msg
+    assert not (tmp_path / "out").exists()
+
+
+V0_RATES = ["--model_version", "0", "--lr_pose", "3e-3", "--lr_orient",
+            "2e-3", "--lr_trans", "4e-3"]
+
+
+def test_v0_rates_reach_the_optimizer_groups():
+    """--lr_pose/--lr_orient/--lr_trans give the port's NemoConfig and V0's
+    pose, orient and trans optimizers the rates the JAX CLI gives its
+    groups from the same command line."""
+    from nemo_tpu.cli.fit import build_parser as jax_parser
+    from nemo_tpu.fit import NemoConfig as JaxConfig
+    from nemo_tpu.fit.optimizer import group_lrs as jax_group_lrs
+    from nemo_tpu.utils import dataclass_from_namespace as jax_from_ns
+    from nemo_tpu.utils import merge_config as jax_merge
+    from nemo_tpu_torch.body.assets import synthetic_smpl_model
+    from nemo_tpu_torch.cli.fit import build_parser
+    from nemo_tpu_torch.data.synthetic import synthetic_problem
+    from nemo_tpu_torch.fit import NemoConfig, NemoFitter, build_assets
+    from nemo_tpu_torch.utils.exp import (dataclass_from_namespace,
+                                          merge_config)
+    argv = FLAGS + V0_RATES
+    cfg_j = jax_from_ns(JaxConfig, jax_merge(jax_parser(), argv))
+    cfg = dataclass_from_namespace(NemoConfig, merge_config(build_parser(),
+                                                            argv))
+    want = {"poses": 3e-3, "orient": 2e-3, "trans": 4e-3}
+    lrs_j = jax_group_lrs(cfg_j)
+    assert {g: lrs_j[g] for g in want} == want
+    smpl = synthetic_smpl_model(300, device="cpu")
+    bundle, _ = synthetic_problem(smpl, num_views=2, num_frames=8)
+    from nemo_tpu_torch.priors.gmm import synthetic_gmm_prior
+    from nemo_tpu_torch.priors.vposer import init_vposer
+    fitter = NemoFitter(cfg, build_assets(
+        bundle, smpl, cfg, gmm=synthetic_gmm_prior(4), vposer=init_vposer(),
+        device="cpu"))
+    groups = fitter.optimizer.groups
+    assert {g: groups[g].lr for g in want} == want
+    assert {g: groups[g].lr for g in groups} == {
+        g: lrs_j[g] for g in groups}

@@ -56,8 +56,14 @@ def test_fk_kernels_match_plain(cuda, B):
     torch.testing.assert_close(gtk, gtp, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("B,V", [(1, 5), (37, 300), (70, 1000)])
+@pytest.mark.parametrize("V", [5, 300, 1000, 6890])
+@pytest.mark.parametrize("B", [1, 37, 70, 300, 960])
 def test_v2v_kernel_matches_plain(cuda, B, V):
+    """K2's one-pass kernel (modes 0 and 1) against the plain version at
+    ragged shapes: B not a multiple of the 32-row batch tile, V leaving the
+    last 16-vertex tile and the last vertex range partial; a second run
+    bit-identical (fixed-order partials, no atomics); the forward-only
+    total equal to the fused one bit for bit."""
     gen = torch.Generator().manual_seed(V)
     f = lambda *s: torch.randn(s, generator=gen)
     pf_o, pf_r = 0.1 * f(B, 207), 0.1 * f(B, 207)
@@ -76,6 +82,79 @@ def test_v2v_kernel_matches_plain(cuda, B, V):
     for a, b in zip(gk, gp):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=1e-4 * float(b.abs().max()))
+    tot_2, g2 = lbs.v2v_l1_cuda(*args, grad=True)
+    assert torch.equal(tot_2, tot_k)
+    assert all(torch.equal(a, b) for a, b in zip(g2, gk))
+
+
+def test_v2v_fused_kernel_scratch_and_resources(cuda):
+    """K2's fused mode at B=512, V=6890 allocates only its per-block
+    partials (well under one (B, 3, V) f32 tensor's 42 MB, and under
+    32 MB), and the one-pass kernel spills nothing."""
+    B, V = 512, 6890
+    gen = torch.Generator().manual_seed(0)
+    f = lambda *s: torch.randn(s, generator=gen).to(cuda)
+    W = torch.rand((24, V), generator=gen)
+    args = (0.1 * f(B, 207), f(B, 24, 12), f(3, V), 0.01 * f(207, 3, V),
+            (W / W.sum(0, keepdim=True)).to(cuda), 0.1 * f(B, 207),
+            f(B, 24, 12))
+    lbs.v2v_l1_cuda(*args, grad=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    total, grads = lbs.v2v_l1_cuda(*args, grad=True)
+    torch.cuda.synchronize()
+    outputs = 4 * (1 + B * 207 + B * 288 + 3 * V)
+    scratch = torch.cuda.max_memory_allocated() - base - outputs
+    assert scratch < 32e6 and scratch < 4 * B * 3 * V
+    res = lbs.v2v_fused_attributes()
+    assert res["local_bytes"] == 0, res
+    assert res["dynamic_smem_bytes"] <= 232448, res
+
+
+@pytest.mark.parametrize("B,V", [(1, 5), (37, 300), (512, 6890), (960, 6890),
+                                 (4096, 100)])
+def test_v2v_fused_ranges_match_kernel(cuda, B, V):
+    """lbs.fused_ranges, which the CPU emulation of K2's reduction order
+    uses, gives the kernel's own ranges: the scratch the library asks for
+    in modes 0 and 1 follows from it."""
+    from nemo_tpu_torch.ops import _build
+    lib = _build.library()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    R = lbs.fused_ranges(B, V, sms)
+    n_bt = -(-B // lbs.FUSED_ROWS)
+    assert lib.nemo_v2v_scratch_floats(B, V, 0) == n_bt * R
+    assert lib.nemo_v2v_scratch_floats(B, V, 1) == \
+        n_bt * R + R * B * (207 + 24 * 12) + n_bt * 3 * V
+
+
+@pytest.mark.parametrize("name", ["A_o", "A_r", "posedirs_t", "W_t",
+                                  "v_shaped_t"])
+def test_v2v_fused_kernel_refuses_misaligned_views(cuda, name):
+    """A contiguous view of A off a 16-byte boundary, or of a table off an
+    8-byte one (V even), raises ValueError instead of reaching the kernel's
+    vector loads; the context stays usable."""
+    B, V = 37, 300
+    gen = torch.Generator().manual_seed(1)
+    W = torch.rand((24, V), generator=gen)
+    args = dict(pf_o=0.1 * torch.randn((B, 207), generator=gen),
+                A_o=torch.randn((B, 24, 12), generator=gen),
+                v_shaped_t=torch.randn((3, V), generator=gen),
+                posedirs_t=0.01 * torch.randn((207, 3, V), generator=gen),
+                W_t=W / W.sum(0, keepdim=True),
+                pf_r=0.1 * torch.randn((B, 207), generator=gen),
+                A_r=torch.randn((B, 24, 12), generator=gen))
+    args = {k: v.to(cuda) for k, v in args.items()}
+    t = args[name]
+    shifted = torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
+    shifted.copy_(t)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 8 == 4
+    for grad in (False, True):
+        with pytest.raises(ValueError, match="boundary"):
+            lbs.v2v_l1_cuda(**{**args, name: shifted}, grad=grad)
+    total, _ = lbs.v2v_l1_cuda(**args, grad=False)
+    torch.testing.assert_close(total, lbs.v2v_l1_plain(**args, grad=False)[0],
+                               rtol=1e-5, atol=0)
 
 
 def _skin_args(B, V, cuda, seed):
