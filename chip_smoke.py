@@ -15,9 +15,12 @@ Run from the repository root with no arguments:
    6890-vertex synthetic SMPL's tables), the fused and forward-only modes
    (the one-pass kernel) also at B=960, with the kernel's registers,
    shared memory and spills; K3f at (512, 6890) and (960,
-   1024); K3b with a random cotangent at (512, 6890), recomputing the posed
-   vertices and reading stored ones, and at (960, 1024) recomputing them
-   as path A does; K5s and K5g (the tile rasterizer's stream and gather
+   1024); K3b (the one-pass backward) recomputing the posed vertices and
+   reading stored ones, under a random cotangent and a sign, at (512,
+   6890) (the stored vertices and the sign from K2's pair mode), at path
+   A's (960, 1024), at (1, 5) and at (37, 300), each run twice for
+   bit-stability, with the kernel's registers, shared memory and spills;
+   K5s and K5g (the tile rasterizer's stream and gather
    modes) on the synthetic problem's posed mesh at 1000 x 1900, one panel
    and a batch of four; K4 (the one-way nearest-neighbour chamfer) at
    (60, 512, 6890) and (60, 6890, 512); K6f and K6b (the fused MotionNet
@@ -27,9 +30,10 @@ Run from the repository root with no arguments:
    version's, one PyTorch call's (where one computes the whole function or
    its largest contraction) and its bound (the least time the card could
    take: the larger of bytes over 3.35 TB/s and f32 FLOPs over 67 TFLOP/s;
-   for K2's one-pass kernel the operations bound counts its posedirs
-   contractions as three TF32 products at 495 TFLOP/s on the tensor cores
-   and the rest as f32, and the f32 bound is printed beside it).
+   for the one-pass kernels (K2's fused and forward-only modes, K3b) the
+   operations bound counts their posedirs contractions as three TF32
+   products at 495 TFLOP/s on the tensor cores and the rest as f32, and
+   the f32 bound is printed beside it).
 4. The fit, one path after another, each with the launch counters zeroed
    just before and read just after, and each asserting that its own
    kernels ran:
@@ -121,11 +125,14 @@ POSE_FLOP = 2 * 621 + 3
 BLEND_FLOP = 2 * 288
 BWD_BLEND_FLOP = 2 * 216
 SIDE_FLOP = POSE_FLOP + BLEND_FLOP + 2 * 9
-# K2's two posedirs contractions (the forward vph of both sides and the
-# backward gpf), which its one-pass kernel runs on the TF32 tensor cores as
-# three products each (3xTF32); the rest of its work stays on the CUDA cores
-K2_TC_FWD_FLOP = 2 * 2 * 621
-K2_TC_GRAD_FLOP = 2 * 621
+# one posedirs contraction per (batch row, vertex): a side's forward vph or
+# the backward gpf. The one-pass kernels run them on the TF32 tensor cores
+# as three products each (3xTF32): K2 the forward of both sides and gpf,
+# K3b gpf and, recomputing the posed vertices, the forward of its one side;
+# the rest of their work stays on the CUDA cores
+POSE_TC_FLOP = 2 * 621
+K2_TC_FWD_FLOP = 2 * POSE_TC_FLOP
+K2_TC_GRAD_FLOP = POSE_TC_FLOP
 GRAD_FLOP = 2 * 9 + 2 * 621 + 9 + 2 * 288 + 3
 L1_FLOP = 9
 # per joint: forward R = R_p R_l (27 MACs), t = R_p t_l + t_p (9 MACs + 3);
@@ -195,9 +202,10 @@ def bound_ms(flop: float, bytes_: float):
 
 
 def tc_bound_ms(flop: float, tc_flop: float, bytes_: float):
-    """K2's least time with its posedirs contractions (tc_flop of the
-    flop) on the tensor cores in 3xTF32 and the rest in f32 on the CUDA
-    cores: (ms, "tensor cores", "CUDA cores" or "bytes")."""
+    """A one-pass kernel's least time with its posedirs contractions
+    (tc_flop of the flop) on the tensor cores in 3xTF32 and the rest in
+    f32 on the CUDA cores: (ms, "tensor cores", "CUDA cores" or
+    "bytes")."""
     times = {"tensor cores": 3 * tc_flop / PEAK_TF32_FLOPS,
              "CUDA cores": (flop - tc_flop) / PEAK_F32_FLOPS,
              "bytes": bytes_ / PEAK_HBM_BYTES}
@@ -273,6 +281,28 @@ def skin_side_inputs(smpl, B, gen, device, offset=0.0):
         A[..., 3] += offset * torch.sign(torch.randn((B, 1, 3),
                                                      generator=gen)).to(device)
     return pf.contiguous(), A.reshape(B, 24, 12).contiguous()
+
+
+def k3b_checks(a, g, vp, tag, errs):
+    """K3b recomputing the posed vertices and reading the stored vp against
+    the plain version under the cotangent g, each rerun bit-identical
+    (fixed-order partials, no atomics). Tolerance: sums over V (gpf, gA) or
+    B (gvsh) products, the posedirs ones in 3xTF32, in another order; atol
+    1e-4 x the tensor's largest entry. Returns both modes' gradients."""
+    import torch
+    from nemo_tpu_torch.ops import lbs
+    out = []
+    for key, stored in (("skin_bwd", None), ("skin_bwd_vp", vp)):
+        got = lbs.skin_bwd_cuda(*a, g, vp=stored)
+        for name, gk, gp in zip(("gpf", "gA", "gvsh"), got,
+                                lbs.skin_bwd_plain(*a, g, vp=stored)):
+            check(f"{key} {name} {tag}", gk, gp, 1e-4 * float(gp.abs().max()),
+                  errs)
+        if not all(torch.equal(x, y) for x, y in
+                   zip(lbs.skin_bwd_cuda(*a, g, vp=stored), got)):
+            raise AssertionError(f"{key} is not bit-stable run to run ({tag})")
+        out.append(got)
+    return out
 
 
 def kernel_phase(device, smpl):
@@ -399,6 +429,9 @@ def kernel_phase(device, smpl):
     for name, gk, gp in zip(("gpf", "gA", "gvsh"), pair, (gpf_p, gA_p, gvsh_p)):
         check(f"v2v_pair grad {name}", gk, gp, 1e-4 * float(gp.abs().max()),
               errs)
+    # Not bit-identical by design, so only printed: K3b recomputes vp in
+    # 3xTF32 on the tensor cores, K2's pair mode stores a vp summed in f32
+    # on the CUDA cores; the 1e-5 checks below hold them together.
     ident = {
         "pair_vp vs pair": all(torch.equal(a, b) for a, b in zip(pair_vp, pair)),
         "pair vs fused": all(torch.equal(a, b) for a, b in
@@ -408,20 +441,27 @@ def kernel_phase(device, smpl):
         check(f"skin_bwd_vp vs skin_bwd (pair) {name}", a, b,
               1e-5 * float(b.abs().max()), errs)
 
-    # K3b under a random cotangent at (512, 6890): recompute vs plain, and
-    # the stored-vp variant reading the K2 pair mode's vp.
+    # K3b under a random cotangent at (512, 6890), both modes, the stored
+    # posed vertices the K2 pair mode's vp; then at the small shapes
+    res = {m: lbs.skin_bwd_attributes(m == "stored_vp")
+           for m in ("recompute", "stored_vp")}
+    print(f"[kernel] skin_bwd_kernel resources (cudaFuncGetAttributes): "
+          f"{json.dumps(res)}")
     g = torch.randn((B, 3, V), generator=gen).to(device)
-    want = lbs.skin_bwd_plain(*side, g)
-    got = lbs.skin_bwd_cuda(*side, g)
-    got_vp = lbs.skin_bwd_cuda(*side, g, vp=vp_k)
-    # sums over V=6890 (gpf, gA) or B=512 (gvsh) products of N(0,1)
-    # cotangents; atol 1e-4 x the tensor's largest entry
-    for name, a, b, c in zip(("gpf", "gA", "gvsh"), got, got_vp, want):
-        check(f"skin_bwd {name}", a, c, 1e-4 * float(c.abs().max()), errs)
-        check(f"skin_bwd_vp {name}", b, c, 1e-4 * float(c.abs().max()), errs)
+    got, got_vp = k3b_checks(side, g, vp_k, f"B={B}, V={V}", errs)
     ident["skin_bwd_vp vs skin_bwd (random g)"] = all(
         torch.equal(a, b) for a, b in zip(got_vp, got))
     print(f"[kernel] bit-identical gradients: {json.dumps(ident)}")
+    posed = lambda a: (torch.einsum('bp,pkv->bkv', a[0], a[3])
+                       + a[2]).contiguous()
+    gen_s = torch.Generator().manual_seed(1)
+    for Bk, Vk in ((1, 5), (37, 300)):
+        vidx, pd_s, W_s = subset_skin_tables(smpl, Vk)
+        a = (*skin_side_inputs(smpl, Bk, gen_s, device),
+             vsh[:, vidx].contiguous(), pd_s, W_s)
+        gk = torch.randn((Bk, 3, Vk), generator=gen_s).to(device)
+        for gname, gg in (("random g", gk), ("sign g", torch.sign(gk))):
+            k3b_checks(a, gg, posed(a), f"B={Bk}, V={Vk}, {gname}", errs)
 
     # K3f at the slice-1 shape and at path A's (B=960, V=1024 subset)
     vidx, pd_s, W_s = subset_skin_tables(smpl, 1024)
@@ -463,13 +503,15 @@ def kernel_phase(device, smpl):
           lambda: lbs.skin_bwd_cuda(*side, g),
           lambda: lbs.skin_bwd_plain(*side, g),
           bv * (POSE_FLOP + BWD_BLEND_FLOP + GRAD_FLOP),
-          nbytes(*side, g, *got), library=lambda: torch.matmul(gvp, pd2.t()))
+          nbytes(*side, g, *got), library=lambda: torch.matmul(gvp, pd2.t()),
+          tc_flop=bv * 2 * POSE_TC_FLOP)
     timed("skin_bwd_vp", f"B={B}, V={V}",
           lambda: lbs.skin_bwd_cuda(*side, g, vp=vp_k),
           lambda: lbs.skin_bwd_plain(*side, g, vp=vp_k),
           bv * (BWD_BLEND_FLOP + GRAD_FLOP),
           nbytes(A_o, pd, W, g, vp_k, *got),
-          library=lambda: torch.matmul(gvp, pd2.t()))
+          library=lambda: torch.matmul(gvp, pd2.t()),
+          tc_flop=bv * POSE_TC_FLOP)
     for a, shape in reversed(fwd_cases):     # path A's shape is the record
         Bk, Vk = a[0].shape[0], a[2].shape[1]
         pdk = a[3].reshape(207, 3 * Vk)
@@ -477,25 +519,30 @@ def kernel_phase(device, smpl):
               lambda: lbs.skin_verts_t_plain(*a),
               Bk * Vk * SIDE_FLOP, nbytes(*a) + 4 * Bk * 3 * Vk,
               library=lambda: torch.matmul(a[0], pdk))
-    # K3b at path A's shape (recomputing vp, as the subset loss runs it)
-    # under a random cotangent; timed in the log beside the (512, 6890) one
+    # K3b at path A's shape under a random cotangent and a sign: recomputing
+    # vp, as the subset loss runs it, and reading it stored; timed in the
+    # log beside the (512, 6890) one
     Bk, Vk = B_A, len(vidx)
     a = fwd_cases[1][0]
     ga = torch.randn((Bk, 3, Vk), generator=gen).to(device)
-    got_a = lbs.skin_bwd_cuda(*a, ga)
-    # sums over V=1024 (gpf, gA) or B=960 (gvsh) products of N(0,1)
-    # cotangents; atol 1e-4 x the tensor's largest entry
-    for name, gk, gp in zip(("gpf", "gA", "gvsh"), got_a,
-                            lbs.skin_bwd_plain(*a, ga)):
-        check(f"skin_bwd {name} B={Bk}, V={Vk}", gk, gp,
-              1e-4 * float(gp.abs().max()), errs)
+    vp_a = posed(a)
+    got_a, _ = k3b_checks(a, ga, vp_a, f"B={Bk}, V={Vk}", errs)
+    k3b_checks(a, torch.sign(ga), vp_a, f"B={Bk}, V={Vk}, sign g", errs)
     pdk = a[3].reshape(207, 3 * Vk)
     gvpa = torch.randn((Bk, 3 * Vk), generator=gen).to(device)
     timed("skin_bwd path A", f"B={Bk}, V={Vk}",
           lambda: lbs.skin_bwd_cuda(*a, ga),
           lambda: lbs.skin_bwd_plain(*a, ga),
           Bk * Vk * (POSE_FLOP + BWD_BLEND_FLOP + GRAD_FLOP),
-          nbytes(*a, ga, *got_a), library=lambda: torch.matmul(gvpa, pdk.t()))
+          nbytes(*a, ga, *got_a), library=lambda: torch.matmul(gvpa, pdk.t()),
+          tc_flop=Bk * Vk * 2 * POSE_TC_FLOP)
+    timed("skin_bwd_vp path A", f"B={Bk}, V={Vk}",
+          lambda: lbs.skin_bwd_cuda(*a, ga, vp=vp_a),
+          lambda: lbs.skin_bwd_plain(*a, ga, vp=vp_a),
+          Bk * Vk * (BWD_BLEND_FLOP + GRAD_FLOP),
+          nbytes(a[1], a[3], a[4], ga, vp_a, *got_a),
+          library=lambda: torch.matmul(gvpa, pdk.t()),
+          tc_flop=Bk * Vk * POSE_TC_FLOP)
 
     kernel_err = {
         "fk_fwd": max(errs[k] for k in errs if k.startswith("fk_fwd")),
@@ -937,12 +984,22 @@ def path_a(device, smpl, bundle):
 
 def path_b(device, smpl, bundle):
     """Slice 1's workload with the K2 pair modes: 10 main steps each, from
-    the same fresh parameters, so the two loss curves must agree."""
-    import numpy as np
-    out, curves = {}, {}
+    the same fresh parameters. The modes share K2's pair-mode forward;
+    their gradients agree, by design not bit for bit: pair has K3b
+    recompute the posed vertices in 3xTF32, pair_vp reads the f32 ones K2
+    stored. So fit_loss and every parameter gradient of the two modes are
+    held together from the same parameters and batch (the loss within
+    1e-5 relative, gradients within 1e-5 of each tensor's largest entry,
+    as the kernel phase holds K3b's), and not the two 10-step curves,
+    which Adam parts from the first step wherever a gradient entry is
+    near 0."""
+    out = {}
     for vjp, bwd in (("pair", "skin_bwd"), ("pair_vp", "skin_bwd_vp")):
         fitter = make_fitter(device, smpl, bundle, reference_config(),
                              v2v_vjp=vjp)
+        if vjp == "pair":
+            modes_agree("path B", fitter, "v2v_vjp", ("pair", "pair_vp"),
+                        1e-5, 1e-5)
         counts, fm = run_path(f"path B {vjp}", ("v2v_pair", bwd),
                               lambda: fitter.fit(10, chunk=10))
         if counts["v2v_grad"]:
@@ -950,11 +1007,7 @@ def path_b(device, smpl, bundle):
         check_finite(f"path B {vjp}", [fm])
         print(f"[path B {vjp}] total_loss {fm['total_loss'][0]:.3f} -> "
               f"{fm['total_loss'][-1]:.3f}")
-        out[vjp], curves[vjp] = counts, fm["total_loss"]
-    # the kernel phase shows the two modes' gradients bit-identical; allow
-    # f32 reassociation elsewhere in the step
-    if not np.allclose(curves["pair"], curves["pair_vp"], rtol=1e-4, atol=0):
-        raise AssertionError("path B: pair and pair_vp losses disagree")
+        out[vjp] = counts
     return out
 
 
@@ -1264,14 +1317,14 @@ def path_e(device, smpl):
     return counts
 
 
-def fused_vs_plain(name, fitter):
-    """fit_loss and its parameter gradients with the MotionNet through K6
-    against the plain MotionNet (cuBLAS, TF32 off), on the card, from the
-    same parameters and batch. Loss within 1e-5 relative, gradients within
-    1e-4 of each tensor's largest entry. b_lin's gradient is 0 (trans -
-    trans0 cancels it): what each mode computes there is the difference of
-    two equal column sums taken in different orders, held to the scale of
-    W_lin's gradient."""
+def modes_agree(name, fitter, field, modes, loss_rtol, grad_rel):
+    """fit_loss and its parameter gradients with the assets' ``field`` set
+    to each of two ``modes``, on the card, from the same parameters and
+    batch: the loss within loss_rtol relative, each gradient
+    within grad_rel of its tensor's largest entry. b_lin's gradient is 0
+    (trans - trans0 cancels it): what each mode computes there is the
+    difference of two equal column sums taken in different orders, held to
+    the scale of W_lin's gradient."""
     import dataclasses
     import torch
     from nemo_tpu_torch.fit import fit_loss
@@ -1281,8 +1334,8 @@ def fused_vs_plain(name, fitter):
     vi = torch.randint(0, V, (cfg.batch_size,), generator=g).to(fitter.device)
     fi = torch.randint(0, F, (cfg.batch_size,), generator=g).to(fitter.device)
     res = {}
-    for mode in ("plain", "fused"):
-        assets = dataclasses.replace(fitter.assets, motion_mlp=mode)
+    for mode in modes:
+        assets = dataclasses.replace(fitter.assets, **{field: mode})
         params.zero_grad(set_to_none=True)
         loss, _ = fit_loss(params, cfg, assets, vi, fi)
         loss.backward()
@@ -1290,25 +1343,26 @@ def fused_vs_plain(name, fitter):
                                    for n, p in params.named_parameters()
                                    if p.grad is not None})
     params.zero_grad(set_to_none=True)
-    (lp, gp), (lf, gf) = res["plain"], res["fused"]
-    print(f"[{name}] fit_loss fused {lf:.6f} plain {lp:.6f} (relative "
-          f"{abs(lf - lp) / abs(lp):.3e}, tolerance 1e-5)")
-    if not abs(lf - lp) <= 1e-5 * abs(lp):
-        raise AssertionError(f"{name}: fused and plain fit_loss disagree")
-    if sorted(gp) != sorted(gf):
+    (la, ga), (lb, gb) = (res[m] for m in modes)
+    a, b = modes
+    print(f"[{name}] fit_loss {b} {lb:.6f} {a} {la:.6f} (relative "
+          f"{abs(lb - la) / abs(la):.3e}, tolerance {loss_rtol:g})")
+    if not abs(lb - la) <= loss_rtol * abs(la):
+        raise AssertionError(f"{name}: {b} and {a} fit_loss disagree")
+    if sorted(ga) != sorted(gb):
         raise AssertionError(f"{name}: the modes reach different parameters")
     worst = 0.0
-    for k, b in gp.items():
-        scale = gp["motion.W_lin"] if k == "motion.b_lin" else b
-        err = float((gf[k] - b).abs().max())
-        tol = 1e-4 * float(scale.abs().max())
+    for k, want in ga.items():
+        scale = ga["motion.W_lin"] if k == "motion.b_lin" else want
+        err = float((gb[k] - want).abs().max())
+        tol = grad_rel * float(scale.abs().max())
         worst = max(worst, err / max(tol, 1e-30))
         if not err <= tol:
             raise AssertionError(f"{name}: gradient {k} differs by {err:.3e} "
                                  f"(tolerance {tol:.3e})")
-    print(f"[{name}] gradients of {len(gp)} tensors, fused vs plain: the "
-          f"largest error is {worst:.3f} of its tolerance (1e-4 of the "
-          "tensor's largest entry)")
+    print(f"[{name}] gradients of {len(ga)} tensors, {b} vs {a}: the "
+          f"largest error is {worst:.3f} of its tolerance ({grad_rel:g} of "
+          "the tensor's largest entry)")
 
 
 def path_f(device, smpl, bundle):
@@ -1357,7 +1411,8 @@ def path_f(device, smpl, bundle):
                              "(the batch and the phase-0 anchor)")
     no_sync_steps("path F", fitter)
     card_vs_cpu("path F", fitter, bundle, smpl)
-    fused_vs_plain("path F", fitter)
+    modes_agree("path F", fitter, "motion_mlp", ("plain", "fused"), 1e-5,
+                1e-4)
     return counts, steady
 
 

@@ -8,37 +8,72 @@
 //   vert[i] = M[4i+3] + sum_k M[4i+k] vph[k]
 // written as verts_t (B,3,V). K3b: for any f32 cotangent g (B,3,V), the
 // gradients gpf (B,207), gA (B,24,12) and gvsh (3,V) of skin_common.cuh,
-// with vp either recomputed from pf or read from a stored (B,3,V) copy.
+// with vp either recomputed from pf (mode 1) or read from a stored (B,3,V)
+// copy (mode 2).
 //
-// What bounds it on the H100: arithmetic on the CUDA cores in f32. K3f is
-// 2*B*V*921 FLOP (1.81 GFLOP at B=960, V=1024), K3b 2*B*V*(621 + 216 + 9 +
-// 621 + 297) with vp recomputed and 621 MACs fewer per (b, v) with vp
-// stored: the backward blends only the rotation part of M (gvp reads it,
-// gA reads [vp; 1]), 9 of the 12 components. The posedirs table (2.5 KB a vertex) sits in L2 at these sizes.
-// The design is one side of v2v_tile_kernel (csrc/v2v.cu): a 32-row x
-// 32-vertex tile per block, pf and a 16-feature slice of posedirs staged in
-// shared memory, 4 rows x 3 coordinates of vph in registers a thread, the
-// blend M from warp-uniform A loads and W coalesced along v, so the (B,V,12)
-// blended transforms never reach memory. In the backward the same tile
-// writes gvp (and vp, when it recomputes it) to scratch, and the
-// second-pass kernels of skin_common.cuh reduce across tiles in a fixed
-// order (no atomics, bit-stable). The ragged vertex edge is masked: there
-// are no padded tables, and outputs have exactly V columns.
+// K3f: a 32-row x 32-vertex tile per block on the CUDA cores, pf and a
+// 16-feature slice of posedirs staged in shared memory, 4 rows x 3
+// coordinates of vph in registers a thread, the blend M from warp-uniform
+// A loads and W coalesced along v, so the (B,V,12) blended transforms never
+// reach memory. 2*B*V*921 FLOP (1.81 GFLOP at B=960, V=1024), bound by f32
+// arithmetic on the CUDA cores.
+//
+// K3b: skin_bwd_kernel, one pass, as the TPU kernel does it, with K2's
+// one-pass design (csrc/v2v.cu) on one side.
+//   - Work: 2*B*V*(621 + 216 + 9 + 621 + 297) FLOP with vp recomputed (12.4
+//     GFLOP at B=512, V=6890), 621 MACs fewer per (b, v) with vp stored.
+//     The backward blends only the rotation part of M (gvp reads it, gA
+//     reads [vp; 1]), 9 of the 12 components. The two posedirs
+//     contractions (mode 1's vp, and gpf) run on the tensor cores in
+//     3xTF32, so with them at 495 TFLOP/s (three products each) and the
+//     rest in f32 at 67 TFLOP/s the SIMT part bounds it: 0.055 ms at
+//     (512, 6890) in either mode. Device bytes (g, vp, the 17 MB posedirs
+//     table, which stays in the 50 MB L2) take less.
+//   - Grid: batch tiles of kFB = 32 rows x R vertex ranges, R from
+//     fused_ranges (skin_common.cuh). A block loops over the 16-vertex
+//     tiles of its range, which takes the place of the TPU kernel's
+//     sequential vertex grid.
+//   - Staging: each tile's posedirs slice (207 x 3 x 16), W slice, v_shaped
+//     slice, cotangent tile (32 x 3 x 16) and, in mode 2, vp tile are
+//     copied into shared memory by cp.async, double-buffered against the
+//     previous tile's compute. The tables go 8 bytes a copy where V is even
+//     (the caller aligns them); g and vp 8 bytes where V is even and their
+//     own address allows it, else 4, so any contiguous cotangent is taken.
+//   - For the whole range, shared memory holds pf (mode 1) and the rotation
+//     part of A for the block's rows, [row][component][joint], so the blend
+//     reads A as float4 over 4 joints from shared memory, not from L2.
+//     About 185 KB in all: one block an SM.
+//   - Tensor cores (skin_common.cuh): mode 1's vp (32 x 48) = pf (32 x 208)
+//     . pd (208 x 48), the feature axis split between the two halves of
+//     the block's warps, each half writing its own partial product; and
+//     gpf (32 x 208) += gvp (32 x 48) . pd^T, the accumulators in
+//     registers across the range. Mode 2 skips the forward contraction.
+//   - On the CUDA cores: the blend M = A . W of the rotation part (a
+//     thread one row, two vertices), gvp = M^T g, gA (32 x 288) in
+//     registers across the range, the tile's gvsh summed over the block's
+//     rows. Neither gvp nor vp reaches device memory.
+//   - Partials: each block writes its gpf and gA for its range and its
+//     gvsh for its batch tile (17.5 MB of scratch at (512, 6890) on 132
+//     SMs); range_reduce_kernel sums them in index order, with no atomics,
+//     so repeated runs are bit-identical. Two launches a call.
+//   - Alignment: A is read as float4, so the caller passes it on a 16-byte
+//     boundary (ops/lbs.py checks it, and the tables' 8 bytes).
+// Ragged B and V are masked everywhere: there are no padded tables, and
+// outputs have exactly V columns.
 
 #include "skin_common.cuh"
 
 namespace {
 
-// kMode 0: forward, out = verts. 1: backward first pass recomputing vp,
-// out = gvp and vp_out = vp. 2: backward first pass from a stored vp_in,
-// out = gvp.
-template <int kMode>
+// ---------------------------------------------------------------------------
+// K3f: the forward tile kernel
+// ---------------------------------------------------------------------------
+
 __global__ void __launch_bounds__(kTV * kTY)
 skin_tile_kernel(int B, int V, const float* __restrict__ pf,
                  const float* __restrict__ A, const float* __restrict__ vsh,
                  const float* __restrict__ pd, const float* __restrict__ W,
-                 const float* __restrict__ g, const float* __restrict__ vp_in,
-                 float* __restrict__ out, float* __restrict__ vp_out) {
+                 float* __restrict__ out) {
   __shared__ float s_pf[kTB][kPK];
   __shared__ float s_pd[kPK][3][kTV];
 
@@ -54,39 +89,34 @@ skin_tile_kernel(int B, int V, const float* __restrict__ pf,
 #pragma unroll
     for (int k = 0; k < 3; ++k) a[r][k] = 0.f;
 
-  if (kMode != 2) {
-    for (int p0 = 0; p0 < kP; p0 += kPK) {
-      for (int e = tid; e < kTB * kPK; e += kTV * kTY) {
-        const int r = e / kPK, q = e % kPK, b = b0 + r, p = p0 + q;
-        s_pf[r][q] = (b < B && p < kP) ? pf[(size_t)b * kP + p] : 0.f;
-      }
-      for (int e = tid; e < kPK * 3 * kTV; e += kTV * kTY) {
-        const int x = e % kTV, k = (e / kTV) % 3, q = e / (3 * kTV);
-        const int p = p0 + q, vv = v0 + x;
-        s_pd[q][k][x] = (p < kP && vv < V) ? pd[(size_t)p * V3 + (size_t)k * V + vv] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int q = 0; q < kPK; ++q) {
-        const float d0 = s_pd[q][0][tx], d1 = s_pd[q][1][tx], d2 = s_pd[q][2][tx];
-#pragma unroll
-        for (int r = 0; r < kRB; ++r) {
-          const float f = s_pf[ty * kRB + r][q];
-          a[r][0] += f * d0; a[r][1] += f * d1; a[r][2] += f * d2;
-        }
-      }
-      __syncthreads();
+  for (int p0 = 0; p0 < kP; p0 += kPK) {
+    for (int e = tid; e < kTB * kPK; e += kTV * kTY) {
+      const int r = e / kPK, q = e % kPK, b = b0 + r, p = p0 + q;
+      s_pf[r][q] = (b < B && p < kP) ? pf[(size_t)b * kP + p] : 0.f;
     }
+    for (int e = tid; e < kPK * 3 * kTV; e += kTV * kTY) {
+      const int x = e % kTV, k = (e / kTV) % 3, q = e / (3 * kTV);
+      const int p = p0 + q, vv = v0 + x;
+      s_pd[q][k][x] = (p < kP && vv < V) ? pd[(size_t)p * V3 + (size_t)k * V + vv] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kPK; ++q) {
+      const float d0 = s_pd[q][0][tx], d1 = s_pd[q][1][tx], d2 = s_pd[q][2][tx];
+#pragma unroll
+      for (int r = 0; r < kRB; ++r) {
+        const float f = s_pf[ty * kRB + r][q];
+        a[r][0] += f * d0; a[r][1] += f * d1; a[r][2] += f * d2;
+      }
+    }
+    __syncthreads();
   }
 
   if (v >= V) return;
   float w[kJ];
 #pragma unroll
   for (int j = 0; j < kJ; ++j) w[j] = W[(size_t)j * V + v];
-  float vs[3] = {0.f, 0.f, 0.f};
-  if (kMode != 2) {
-    vs[0] = vsh[v]; vs[1] = vsh[(size_t)V + v]; vs[2] = vsh[2 * (size_t)V + v];
-  }
+  const float vs[3] = {vsh[v], vsh[(size_t)V + v], vsh[2 * (size_t)V + v]};
 #pragma unroll
   for (int r = 0; r < kRB; ++r) {
     const int b = b0 + ty * kRB + r;
@@ -98,37 +128,231 @@ skin_tile_kernel(int B, int V, const float* __restrict__ pf,
 #pragma unroll 4
     for (int j = 0; j < kJ; ++j) {
 #pragma unroll
-      for (int l = 0; l < kL; ++l) {
-        if (kMode != 0 && l % 4 == 3) continue;  // translation: unused
-        M[l] += a_row[j * kL + l] * w[j];
-      }
+      for (int l = 0; l < kL; ++l) M[l] += a_row[j * kL + l] * w[j];
     }
     const size_t base = (size_t)b * V3 + v;
     float vo[3];
 #pragma unroll
-    for (int k = 0; k < 3; ++k)
-      vo[k] = kMode == 2 ? vp_in[base + (size_t)k * V] : a[r][k] + vs[k];
-    if (kMode == 0) {
+    for (int k = 0; k < 3; ++k) vo[k] = a[r][k] + vs[k];
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        float o = M[4 * i + 3];
+    for (int i = 0; i < 3; ++i) {
+      float o = M[4 * i + 3];
 #pragma unroll
-        for (int k = 0; k < 3; ++k) o += M[4 * i + k] * vo[k];
-        out[base + (size_t)i * V] = o;
-      }
-    } else {
-      const float g0 = g[base], g1 = g[base + V], g2 = g[base + 2 * (size_t)V];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        out[base + (size_t)k * V] = M[k] * g0 + M[4 + k] * g1 + M[8 + k] * g2;
-        if (kMode == 1) vp_out[base + (size_t)k * V] = vo[k];
-      }
+      for (int k = 0; k < 3; ++k) o += M[4 * i + k] * vo[k];
+      out[base + (size_t)i * V] = o;
     }
   }
 }
 
 bool bad_shape(int B, int V) {
   return B <= 0 || V <= 0 || cdiv(B, kTB) > 65535;
+}
+
+// ---------------------------------------------------------------------------
+// K3b: the one-pass backward kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kSA = 9 * kJ;      // a row of A's rotation part, [c][j]
+constexpr int kPH = kPP / 2;     // the features of each half of the warps
+
+// shared memory, in floats
+constexpr int kBOffPd = 0;                        // [2][kPP][kSD]
+constexpr int kBOffPf = kBOffPd + 2 * kPP * kSD;  // [kFB][kSF] (mode 1)
+constexpr int kBOffA = kBOffPf + kFB * kSF;       // [kFB][kSA]
+constexpr int kBOffW = kBOffA + kFB * kSA;        // [2][kJ][kSW]
+constexpr int kBOffVs = kBOffW + 2 * kJ * kSW;    // [2][3][kFV]
+constexpr int kBOffG = kBOffVs + 2 * 3 * kFV;     // [2][kFB][kSX]
+// mode 1: the two halves' partial vph, then vp in the first; mode 2: the
+// double-buffered vp tiles
+constexpr int kBOffX = kBOffG + 2 * kFB * kSX;    // [2][kFB][kSX]
+constexpr int kBOffGvp = kBOffX + 2 * kFB * kSX;  // [kFB][kSX]
+constexpr int kBSmemFloats = kBOffGvp + kFB * kSX;
+constexpr size_t kBSmemBytes = sizeof(float) * kBSmemFloats;
+static_assert(kBOffA % 4 == 0 && kBOffG % 4 == 0 && kBOffX % 4 == 0,
+              "float4 and float2 views of shared memory need 16-byte rows");
+
+// Queue the copies of vertex tile v0 of rows b0 .. b0 + 31 of a (B,3,V)
+// tensor into dst [kFB][kSX] (coordinate k at k * kFV), CW floats a copy;
+// rows past B and vertices past V are zero-filled.
+template <int CW>
+__device__ __forceinline__ void load_rows(float* dst,
+                                          const float* __restrict__ src,
+                                          int B, int V, int b0, int v0) {
+  constexpr int kCh = kFV / CW;
+  for (int e = threadIdx.x; e < kFB * 3 * kCh; e += kFT) {
+    const int x = e % kCh * CW, rk = e / kCh, row = rk / 3, k = rk % 3;
+    const int b = b0 + row;
+    const int n = b < B ? V - (v0 + x) : 0;
+    cp_async<CW>(dst + row * kSX + k * kFV + x,
+                 n > 0 ? src + ((size_t)b * 3 + k) * V + v0 + x : src, n);
+  }
+}
+
+__device__ __forceinline__ void load_rows_cw(int cw, float* dst,
+                                             const float* __restrict__ src,
+                                             int B, int V, int b0, int v0) {
+  if (cw == 2) load_rows<2>(dst, src, B, V, b0, v0);
+  else         load_rows<1>(dst, src, B, V, b0, v0);
+}
+
+// kMode 1: vp recomputed from pf; 2: vp read from vp_in. g_cw, vp_cw: the
+// copy width (floats) of the cotangent and of vp_in.
+template <int kMode>
+__global__ void __launch_bounds__(kFT, 1)
+skin_bwd_kernel(int B, int V, int R, int g_cw, int vp_cw,
+                const float* __restrict__ pf, const float* __restrict__ A,
+                const float* __restrict__ vsh, const float* __restrict__ pd,
+                const float* __restrict__ W, const float* __restrict__ g,
+                const float* __restrict__ vp_in,
+                float* __restrict__ gpf_part, float* __restrict__ ga_part,
+                float* __restrict__ gvsh_part) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const GradRoles q(tid);
+  const int r = blockIdx.x, bt = blockIdx.y, b0 = bt * kFB;
+  int t_begin, t_end;
+  range_tiles(r, R, V, t_begin, t_end);
+
+  float* s_pf = smem + kBOffPf;
+  float* s_A = smem + kBOffA;
+  float* s_x = smem + kBOffX;
+  float* s_gvp = smem + kBOffGvp;
+
+  const auto load = [&](int buf, int t) {
+    float* s_pd = smem + kBOffPd + buf * kPP * kSD;
+    float* s_w = smem + kBOffW + buf * kJ * kSW;
+    float* s_vs = smem + kBOffVs + buf * 3 * kFV;
+    if (V & 1) load_tile<1>(s_pd, s_w, s_vs, t, V, vsh, pd, W);
+    else       load_tile<2>(s_pd, s_w, s_vs, t, V, vsh, pd, W);
+    load_rows_cw(g_cw, smem + kBOffG + buf * kFB * kSX, g, B, V, b0, t * kFV);
+    if (kMode == 2)
+      load_rows_cw(vp_cw, s_x + buf * kFB * kSX, vp_in, B, V, b0, t * kFV);
+  };
+  load(0, t_begin);
+  cp_async_commit();
+  // A's rotation part for the block's rows: s_A[row][3i + k][j] = A[b,j,4i+k]
+  for (int e = tid; e < kFB * kJ * 3; e += kFT) {
+    const int row = e / (3 * kJ), c4 = e % (3 * kJ), j = c4 / 3, i = c4 % 3;
+    const int b = b0 + row;
+    const float4 x = b < B ? __ldg(reinterpret_cast<const float4*>(
+                                 A + (size_t)b * kGL) + c4)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    float* d = s_A + row * kSA + 3 * i * kJ + j;
+    d[0] = x.x; d[kJ] = x.y; d[2 * kJ] = x.z;
+  }
+  if (kMode == 1) {
+    for (int e = tid; e < kFB * kPP; e += kFT) {
+      const int row = e / kPP, p = e % kPP, b = b0 + row;
+      s_pf[row * kSF + p] = (b < B && p < kP) ? pf[(size_t)b * kP + p] : 0.f;
+    }
+  }
+
+  // forward MMA (mode 1): warp -> m-tile (16 of the 32 rows), 3 of the 6
+  // n-tiles, one half of the feature axis
+  const int fm = warp & 1, fn0 = 3 * ((warp >> 1) & 1), kh = warp >> 2;
+  float gpf_acc[7][4];
+#pragma unroll
+  for (int t = 0; t < 7; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) gpf_acc[t][i] = 0.f;
+  float ga_acc[6][6];
+#pragma unroll
+  for (int l = 0; l < 6; ++l)
+#pragma unroll
+    for (int jj = 0; jj < 6; ++jj) ga_acc[l][jj] = 0.f;
+  // blend: a thread one row, two neighbouring vertices
+  const int sb = tid >> 3, sv = (tid & 7) * 2;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) & 1, v0 = t * kFV;
+    if (t + 1 < t_end) {
+      load(buf ^ 1, t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* s_pd = smem + kBOffPd + buf * kPP * kSD;
+    const float* s_w = smem + kBOffW + buf * kJ * kSW;
+    const float* s_vs = smem + kBOffVs + buf * 3 * kFV;
+    const float* s_g = smem + kBOffG + buf * kFB * kSX;
+    float* s_vo = kMode == 1 ? s_x : s_x + buf * kFB * kSX;
+
+    // 1. mode 1: the two halves of vph (32 x 48) = pf (32 x 208) . pd
+    //    (208 x 48) on the tensor cores
+    if (kMode == 1) {
+      vph_mma(s_pf, s_pd, s_x + kh * kFB * kSX, fm, fn0, kh * kPH,
+              (kh + 1) * kPH, q.gid, q.tig);
+      __syncthreads();
+    }
+
+    // 2. the blend of A's rotation part (SIMT), vp and gvp = M^T g
+    {
+      float m[2][9];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int c = 0; c < 9; ++c) m[e][c] = 0.f;
+      const float* a = s_A + sb * kSA;
+#pragma unroll 2
+      for (int j0 = 0; j0 < kJ; j0 += 4) {
+        float2 w[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          w[jj] = *reinterpret_cast<const float2*>(s_w + (j0 + jj) * kSW + sv);
+#pragma unroll
+        for (int c = 0; c < 9; ++c) {
+          const float4 x = *reinterpret_cast<const float4*>(a + c * kJ + j0);
+          m[0][c] += x.x * w[0].x; m[1][c] += x.x * w[0].y;
+          m[0][c] += x.y * w[1].x; m[1][c] += x.y * w[1].y;
+          m[0][c] += x.z * w[2].x; m[1][c] += x.z * w[2].y;
+          m[0][c] += x.w * w[3].x; m[1][c] += x.w * w[3].y;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int o = sb * kSX + sv + e;
+        const float g0 = s_g[o], g1 = s_g[o + kFV], g2 = s_g[o + 2 * kFV];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          s_gvp[o + k * kFV] = m[e][k] * g0 + m[e][3 + k] * g1 + m[e][6 + k] * g2;
+          if (kMode == 1)
+            s_x[o + k * kFV] = s_x[o + k * kFV] + s_x[kFB * kSX + o + k * kFV] +
+                               s_vs[k * kFV + sv + e];
+        }
+      }
+    }
+    __syncthreads();
+
+    // 3-5. gpf, gA and the tile's gvsh (skin_common.cuh)
+    tile_grads(q, gpf_acc, ga_acc, s_gvp, s_g, s_vo, s_pd, s_w, V, v0, bt,
+               gvsh_part);
+    __syncthreads();
+  }
+
+  store_grad_parts(q, B, b0, r, gpf_acc, ga_acc, gpf_part, ga_part);
+}
+
+// Copy width (floats) for a (B,3,V) operand: 8 bytes where V is even and
+// its address is 8-byte aligned, else 4.
+int copy_width(const float* p, int V) {
+  return V % 2 == 0 && reinterpret_cast<uintptr_t>(p) % 8 == 0 ? 2 : 1;
+}
+
+template <int kMode>
+cudaError_t launch_bwd(int B, int V, int R, const float* pf, const float* A,
+                       const float* vsh, const float* pd, const float* W,
+                       const float* g, const float* vp_in, float* gpf_part,
+                       float* ga_part, float* gvsh_part, cudaStream_t stream) {
+  if (cudaError_t err = cudaFuncSetAttribute(
+          skin_bwd_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)kBSmemBytes))
+    return err;
+  skin_bwd_kernel<kMode><<<dim3(R, cdiv(B, kFB)), kFT, kBSmemBytes, stream>>>(
+      B, V, R, copy_width(g, V), vp_in ? copy_width(vp_in, V) : 1, pf, A, vsh,
+      pd, W, g, vp_in, gpf_part, ga_part, gvsh_part);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -139,32 +363,60 @@ extern "C" int nemo_skin_fwd(int B, int V, const float* pf, const float* A,
                              const float* vsh, const float* pd, const float* W,
                              float* verts, cudaStream_t stream) {
   if (bad_shape(B, V)) return (int)cudaErrorInvalidValue;
-  skin_tile_kernel<0><<<dim3(cdiv(V, kTV), cdiv(B, kTB)), dim3(kTV, kTY), 0,
-                        stream>>>(B, V, pf, A, vsh, pd, W, nullptr, nullptr,
-                                  verts, nullptr);
+  skin_tile_kernel<<<dim3(cdiv(V, kTV), cdiv(B, kTB)), dim3(kTV, kTY), 0,
+                     stream>>>(B, V, pf, A, vsh, pd, W, verts);
   return (int)cudaGetLastError();
 }
 
-// Inputs as nemo_skin_fwd plus the cotangent g (B,3,V). vp_in: the stored
-// posed vertices (B,3,V), or null to recompute them into vp_scratch
-// (B,3,V). gvp: scratch (B,3,V). Outputs gpf (B,207), gA (B,24,12),
-// gvsh (3,V).
+// Floats of scratch nemo_skin_bwd needs at (B, V): the per-block gpf, gA
+// and gvsh partials. -1 for a shape it refuses.
+extern "C" int nemo_skin_bwd_scratch_floats(int B, int V) {
+  if (bad_shape(B, V)) return -1;
+  const long long n = grad_partial_floats(B, V, fused_ranges(B, V));
+  return n < (1LL << 31) ? (int)n : -1;
+}
+
+// Registers, shared memory and local memory (spills) of the one-pass
+// backward kernel (mode 1: vp recomputed, 2: stored), as the CUDA runtime
+// reports them: out[0..3] = registers, static and dynamic shared memory
+// bytes, local bytes.
+extern "C" int nemo_skin_bwd_attributes(int mode, int* out) {
+  if (mode != 1 && mode != 2) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err =
+      mode == 1 ? cudaFuncGetAttributes(&a, skin_bwd_kernel<1>)
+                : cudaFuncGetAttributes(&a, skin_bwd_kernel<2>);
+  if (err) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)kBSmemBytes;
+  out[3] = (int)a.localSizeBytes;
+  return 0;
+}
+
+// Inputs as nemo_skin_fwd (A on a 16-byte boundary) plus the cotangent g
+// (B,3,V). vp_in: the stored posed vertices (B,3,V), or null to recompute
+// them. scratch: nemo_skin_bwd_scratch_floats(B, V) floats. Outputs gpf
+// (B,207), gA (B,24,12), gvsh (3,V).
 extern "C" int nemo_skin_bwd(int B, int V, const float* pf, const float* A,
                              const float* vsh, const float* pd, const float* W,
                              const float* g, const float* vp_in,
-                             float* vp_scratch, float* gvp, float* gpf,
-                             float* gA, float* gvsh, cudaStream_t stream) {
-  if (bad_shape(B, V) || (!vp_in && !vp_scratch))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(cdiv(V, kTV), cdiv(B, kTB)), block(kTV, kTY);
-  if (vp_in) {
-    skin_tile_kernel<2><<<grid, block, 0, stream>>>(
-        B, V, pf, A, vsh, pd, W, g, vp_in, gvp, nullptr);
-  } else {
-    skin_tile_kernel<1><<<grid, block, 0, stream>>>(
-        B, V, pf, A, vsh, pd, W, g, nullptr, gvp, vp_scratch);
-  }
-  if (cudaError_t err = cudaGetLastError()) return (int)err;
-  return (int)launch_skin_grads(B, V, g, vp_in ? vp_in : vp_scratch, gvp, pd,
-                                W, gpf, gA, gvsh, stream);
+                             float* scratch, float* gpf, float* gA,
+                             float* gvsh, cudaStream_t stream) {
+  if (bad_shape(B, V)) return (int)cudaErrorInvalidValue;
+  const int R = fused_ranges(B, V), n_bt = cdiv(B, kFB);
+  float* gpf_part = scratch;
+  float* ga_part = gpf_part + (size_t)R * B * kP;
+  float* gvsh_part = ga_part + (size_t)R * B * kGL;
+  const cudaError_t err =
+      vp_in ? launch_bwd<2>(B, V, R, pf, A, vsh, pd, W, g, vp_in, gpf_part,
+                            ga_part, gvsh_part, stream)
+            : launch_bwd<1>(B, V, R, pf, A, vsh, pd, W, g, nullptr, gpf_part,
+                            ga_part, gvsh_part, stream);
+  if (err) return (int)err;
+  const int n_gpf = B * kP, n_ga = B * kGL, n_gvsh = 3 * V;
+  range_reduce_kernel<<<cdiv(n_gpf + n_ga + n_gvsh, 256), 256, 0, stream>>>(
+      n_gpf, n_ga, n_gvsh, R, n_bt, gpf_part, ga_part, gvsh_part, gpf, gA,
+      gvsh);
+  return (int)cudaGetLastError();
 }

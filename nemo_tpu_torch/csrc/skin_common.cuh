@@ -1,19 +1,31 @@
 // Shared pieces of the skinning kernels (csrc/skin.cu, csrc/v2v.cu): the
-// table sizes and the second-pass reductions that turn a cotangent on the
-// vertices into the gradients of the skinning inputs.
+// table sizes, the tile constants, and the building blocks of the one-pass
+// gradient kernels (K2's fused mode, K3b).
 //
 // With vph = [vp; 1] the posed vertices, M = A . W the blended transforms
 // and g (B,3,V) any f32 cotangent on the skinned vertices,
-//   gvp[b,k,v]     = sum_i M[b,4i+k,v] g[b,i,v]          (the first pass)
+//   gvp[b,k,v]     = sum_i M[b,4i+k,v] g[b,i,v]
 //   gpf[b,p]       = sum_v sum_k gvp[b,k,v] posedirs_t[p,k,v]
 //   gA[b,j,i*4+k]  = sum_v g[b,i,v] vph[b,k,v] W_t[j,v]
 //   gvsh[k,v]      = sum_b gvp[b,k,v]
 // The TPU kernels accumulate gpf/gA along a sequential vertex grid. On
-// Hopper, blocks run in parallel in no order, so the first pass writes gvp
-// (and vp) to scratch and these kernels reduce across tiles. Every sum runs
-// in a fixed order with no atomics, so repeated runs are bit-identical.
+// Hopper, blocks run in parallel in no order, so a one-pass kernel gives
+// each block a batch tile of kFB rows and a range of 16-vertex tiles: the
+// block keeps gpf and gA in registers across its range, writes them (and
+// its gvsh, summed over its rows) as partials, and range_reduce_kernel sums
+// the partials in index order. No atomics: repeated runs are bit-identical.
+//
+// The posedirs contractions run on the tensor cores, mma.sync m16n8k8 TF32
+// with a 3xTF32 split: x = big + small, big = tf32(x), small = tf32(x -
+// big) (rounded to nearest, ties away, by masking the low 13 mantissa
+// bits), and a.b = (a_s.b_b + a_b.b_s) + a_b.b_b accumulated in f32. The
+// dropped a_s.b_s term is below 2^-22 of each product, so the contractions
+// keep f32-level accuracy; this is the kernels' arithmetic, not an option,
+// and TF32 stays off everywhere else.
 
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -22,13 +34,31 @@ namespace {
 constexpr int kP = 207;   // pose features (23 joints x 9)
 constexpr int kJ = 24;    // joints
 constexpr int kL = 12;    // 3x4 transform components
+constexpr int kGL = kJ * kL;  // 288 gA entries a row
+
+// the 32 x 32 tile kernels (K3f, K2's pair mode)
 constexpr int kTV = 32;   // vertices per tile (one per lane)
 constexpr int kTY = 8;    // warps per tile
 constexpr int kRB = 4;    // batch rows per thread
 constexpr int kTB = kTY * kRB;  // batch rows per tile
 constexpr int kPK = 16;   // pose-feature slice staged per step
 
-inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+// the one-pass kernels (K2's fused and forward-only modes, K3b)
+constexpr int kFB = 32;          // batch rows a block
+constexpr int kFV = 16;          // vertices a tile
+constexpr int kFN = 3 * kFV;     // (k, v) columns a tile
+constexpr int kPP = 208;         // pose features padded to the MMA depth
+constexpr int kFT = 256;         // threads a block (8 warps)
+// shared-memory row strides (floats), chosen so the MMA fragment loads hit
+// 32 distinct banks: pd rows by k (stride = 24 mod 32), pf and gvp rows by
+// m (stride = 20 mod 32)
+constexpr int kSD = 56;
+constexpr int kSF = 212;
+constexpr int kSX = 52;
+// W rows (18: the gA loop's 4 joint groups fall on distinct banks)
+constexpr int kSW = 18;
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // total = sum of the tile partials, in a fixed order.
 __global__ void __launch_bounds__(256)
@@ -46,100 +76,296 @@ total_kernel(int n, const float* __restrict__ partial, float* __restrict__ total
   if (t == 0) *total = s[0];
 }
 
-// gpf[b,p] = sum_c gvp[b,c] pd[p,c] over c < K = 3V: a 32 x 32 output tile
-// per block, 32-wide K slices staged in shared memory, 4 outputs a thread.
-constexpr int kGT = 32, kGK = 32;
-
-__global__ void __launch_bounds__(kGT * 8)
-gpf_kernel(int B, int K, const float* __restrict__ gvp,
-           const float* __restrict__ pd, float* __restrict__ gpf) {
-  __shared__ float s_a[kGT][kGK + 1];
-  __shared__ float s_b[kGT][kGK + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * kGT + tx;
-  const int p0 = blockIdx.x * kGT, b0 = blockIdx.y * kGT;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < K; k0 += kGK) {
-    for (int e = tid; e < kGT * kGK; e += kGT * 8) {
-      const int r = e / kGK, c = e % kGK, kk = k0 + c;
-      s_a[r][c] = (b0 + r < B && kk < K) ? gvp[(size_t)(b0 + r) * K + kk] : 0.f;
-      s_b[r][c] = (p0 + r < kP && kk < K) ? pd[(size_t)(p0 + r) * K + kk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < kGK; ++c) {
-      const float bv = s_b[tx][c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[r] += s_a[ty * 4 + r][c] * bv;
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int b = b0 + ty * 4 + r, p = p0 + tx;
-    if (b < B && p < kP) gpf[(size_t)b * kP + p] = acc[r];
-  }
-}
-
-// gA[b,j,i*4+k] = sum_v g[b,i,v] vph[b,k,v] W[j,v] for any f32 cotangent g:
-// one block per batch row, one thread per (j, l) output, vertex slices
-// staged in shared memory.
-constexpr int kVC = 64;
-
-__global__ void __launch_bounds__(kJ * kL)
-ga_kernel(int V, const float* __restrict__ g, const float* __restrict__ vp,
-          const float* __restrict__ W, float* __restrict__ gA) {
-  __shared__ float s_g[3][kVC + 1];
-  __shared__ float s_v[3][kVC + 1];
-  __shared__ float s_w[kJ][kVC + 1];
-  const int b = blockIdx.x, t = threadIdx.x;
-  const int j = t / kL, l = t % kL, i = l / 4, k = l % 4;
-  const size_t base = (size_t)b * 3 * V;
-  float acc = 0.f;
-  for (int v0 = 0; v0 < V; v0 += kVC) {
-    for (int e = t; e < 3 * kVC; e += kJ * kL) {
-      const int c = e / kVC, x = e % kVC, vv = v0 + x;
-      const bool ok = vv < V;
-      s_g[c][x] = ok ? g[base + (size_t)c * V + vv] : 0.f;
-      s_v[c][x] = ok ? vp[base + (size_t)c * V + vv] : 0.f;
-    }
-    for (int e = t; e < kJ * kVC; e += kJ * kL) {
-      const int jj = e / kVC, x = e % kVC, vv = v0 + x;
-      s_w[jj][x] = vv < V ? W[(size_t)jj * V + vv] : 0.f;
-    }
-    __syncthreads();
-    for (int x = 0; x < kVC; ++x) {
-      const float gm = k < 3 ? s_g[i][x] * s_v[k][x] : s_g[i][x];
-      acc += gm * s_w[j][x];
-    }
-    __syncthreads();
-  }
-  gA[((size_t)b * kJ + j) * kL + l] = acc;
-}
-
-// gvsh[c] = sum_b gvp[b,c] for c < K = 3V, batch rows summed in order.
+// The second pass of the one-pass kernels: gpf and gA summed over the R
+// vertex ranges, gvsh over the n_bt batch tiles, each in index order.
 __global__ void __launch_bounds__(256)
-gvsh_kernel(int B, int K, const float* __restrict__ gvp, float* __restrict__ gvsh) {
-  const int c = blockIdx.x * 256 + threadIdx.x;
-  if (c >= K) return;
+range_reduce_kernel(int n_gpf, int n_ga, int n_gvsh, int R, int n_bt,
+                    const float* __restrict__ gpf_part,
+                    const float* __restrict__ ga_part,
+                    const float* __restrict__ gvsh_part,
+                    float* __restrict__ gpf, float* __restrict__ gA,
+                    float* __restrict__ gvsh) {
+  int i = blockIdx.x * 256 + threadIdx.x;
+  const float* src;
+  float* dst;
+  int n, stride;
+  if (i < n_gpf) {
+    src = gpf_part; dst = gpf; n = R; stride = n_gpf;
+  } else if ((i -= n_gpf) < n_ga) {
+    src = ga_part; dst = gA; n = R; stride = n_ga;
+  } else if ((i -= n_ga) < n_gvsh) {
+    src = gvsh_part; dst = gvsh; n = n_bt; stride = n_gvsh;
+  } else {
+    return;
+  }
   float s = 0.f;
-  for (int b = 0; b < B; ++b) s += gvp[(size_t)b * K + c];
-  gvsh[c] = s;
+  for (int q = 0; q < n; ++q) s += src[(size_t)q * stride + i];
+  dst[i] = s;
 }
 
-// The second pass: gpf, gA and gvsh from the scratch the first pass wrote.
-inline cudaError_t launch_skin_grads(int B, int V, const float* g,
-                                     const float* vp, const float* gvp,
-                                     const float* pd, const float* W,
-                                     float* gpf, float* gA, float* gvsh,
-                                     cudaStream_t stream) {
-  const int K = 3 * V;
-  gpf_kernel<<<dim3(cdiv(kP, kGT), cdiv(B, kGT)), dim3(kGT, 8), 0, stream>>>(
-      B, K, gvp, pd, gpf);
-  if (cudaError_t err = cudaGetLastError()) return err;
-  ga_kernel<<<B, kJ * kL, 0, stream>>>(V, g, vp, W, gA);
-  if (cudaError_t err = cudaGetLastError()) return err;
-  gvsh_kernel<<<cdiv(K, 256), 256, 0, stream>>>(B, K, gvp, gvsh);
-  return cudaGetLastError();
+// The one-pass kernels' vertex ranges R for B rows: two even waves at one
+// block an SM, and no more ranges than vertex tiles.
+inline int fused_ranges(int B, int V) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int n_bt = cdiv(B, kFB);
+  const int R = 2 * (sms / n_bt > 1 ? sms / n_bt : 1);
+  return R < cdiv(V, kFV) ? R : cdiv(V, kFV);
+}
+
+// Floats of per-block partials of the one-pass kernels' gradients: gpf and
+// gA a range, gvsh a batch tile.
+inline long long grad_partial_floats(int B, int V, int R) {
+  return (long long)R * B * (kP + kGL) + (long long)cdiv(B, kFB) * 3 * V;
+}
+
+// The vertex tiles [t_begin, t_end) of range r of R.
+__device__ __forceinline__ void range_tiles(int r, int R, int V, int& t_begin,
+                                            int& t_end) {
+  const int n_tiles = cdiv(V, kFV);
+  t_begin = (int)((long long)r * n_tiles / R);
+  t_end = (int)((long long)(r + 1) * n_tiles / R);
+}
+
+// ---------------------------------------------------------------------------
+// the 3xTF32 split
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  // round to the nearest TF32 (10 mantissa bits), ties away from zero
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_bits(x);
+  small = tf32_bits(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 3xTF32 with b already split: lo += a_s . b_b + a_b . b_s, hi += a_b . b_b
+// (lo and hi may be the same accumulator).
+__device__ __forceinline__ void mma_3xtf32(float lo[4], float hi[4],
+                                           const float a[4],
+                                           const uint32_t bb[2],
+                                           const uint32_t bs[2]) {
+  uint32_t ab[4], as[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(a[i], ab[i], as[i]);
+  mma_tf32(lo, as, bb);
+  mma_tf32(lo, ab, bs);
+  mma_tf32(hi, ab, bb);
+}
+
+// ---------------------------------------------------------------------------
+// cp.async staging
+// ---------------------------------------------------------------------------
+
+// Copy CW floats (CW = 1 or 2) from global to shared memory; only the first
+// n of them are read (n <= 0: none), the rest are zero-filled.
+template <int CW>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, int n) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const int bytes = n > 0 ? 4 * (n < CW ? n : CW) : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               :: "r"(d), "l"(src), "n"(4 * CW), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Queue the copies of vertex tile t of the tables (posedirs into s_pd
+// [kPP][kSD], W into s_w [kJ][kSW], v_shaped into s_vs [3][kFV]), CW floats
+// a copy (2 where V is even, so every row is 8-byte aligned); rows past the
+// 207 features and vertices past V are zero-filled.
+template <int CW>
+__device__ __forceinline__ void load_tile(float* s_pd, float* s_w, float* s_vs,
+                                          int t, int V,
+                                          const float* __restrict__ vsh,
+                                          const float* __restrict__ pd,
+                                          const float* __restrict__ W) {
+  constexpr int kCh = kFV / CW;  // copies a row of the tile
+  const int v0 = t * kFV;
+  const size_t V3 = 3 * (size_t)V;
+  for (int e = threadIdx.x; e < kPP * 3 * kCh; e += kFT) {
+    const int x = e % kCh * CW, pk = e / kCh, p = pk / 3, k = pk % 3;
+    const int n = p < kP ? V - (v0 + x) : 0;
+    cp_async<CW>(s_pd + p * kSD + k * kFV + x,
+                 n > 0 ? pd + (size_t)p * V3 + (size_t)k * V + v0 + x : pd, n);
+  }
+  for (int e = threadIdx.x; e < kJ * kCh; e += kFT) {
+    const int x = e % kCh * CW, j = e / kCh, n = V - (v0 + x);
+    cp_async<CW>(s_w + j * kSW + x, n > 0 ? W + (size_t)j * V + v0 + x : W, n);
+  }
+  for (int e = threadIdx.x; e < 3 * kCh; e += kFT) {
+    const int x = e % kCh * CW, k = e / kCh, n = V - (v0 + x);
+    cp_async<CW>(s_vs + k * kFV + x, n > 0 ? vsh + (size_t)k * V + v0 + x : vsh,
+                 n);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// a vertex tile's work
+// ---------------------------------------------------------------------------
+
+// vph (16 rows from m-tile fm, 3 n-tiles from fn0) = pf . pd over the
+// features [k_begin, k_end) on the tensor cores, written to out (rows of
+// kSX); the cross terms and big . big in separate accumulators (shorter
+// dependency chains), added at the end.
+__device__ __forceinline__ void vph_mma(const float* s_pf, const float* s_pd,
+                                        float* out, int fm, int fn0,
+                                        int k_begin, int k_end, int gid,
+                                        int tig) {
+  float lo[3][4], hi[3][4];
+#pragma unroll
+  for (int n = 0; n < 3; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) { lo[n][i] = 0.f; hi[n][i] = 0.f; }
+#pragma unroll 2
+  for (int k0 = k_begin; k0 < k_end; k0 += 8) {
+    const float* pa = s_pf + (16 * fm + gid) * kSF + k0 + tig;
+    const float a[4] = {pa[0], pa[8 * kSF], pa[4], pa[8 * kSF + 4]};
+#pragma unroll
+    for (int n = 0; n < 3; ++n) {
+      const int o = (k0 + tig) * kSD + 8 * (fn0 + n) + gid;
+      uint32_t bb[2], bs[2];
+      split_tf32(s_pd[o], bb[0], bs[0]);
+      split_tf32(s_pd[o + 4 * kSD], bb[1], bs[1]);
+      mma_3xtf32(lo[n], hi[n], a, bb, bs);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 3; ++n) {
+    float* o = out + (16 * fm + gid) * kSX + 8 * (fn0 + n) + 2 * tig;
+    *reinterpret_cast<float2*>(o) =
+        make_float2(lo[n][0] + hi[n][0], lo[n][1] + hi[n][1]);
+    *reinterpret_cast<float2*>(o + 8 * kSX) =
+        make_float2(lo[n][2] + hi[n][2], lo[n][3] + hi[n][3]);
+  }
+}
+
+// What each of a block's 256 threads holds of the gradients.
+struct GradRoles {
+  int gid, tig;         // the lane's MMA fragment coordinates
+  int gm, gn0;          // gpf: m-tile (16 of the 32 rows), n-tiles gn0 + 4n
+  int lh, ga_row, ga_j0;  // gA: components 6 lh..6 lh + 5, a row, 6 joints
+  __device__ explicit GradRoles(int tid)
+      : gid((tid & 31) >> 2), tig(tid & 3), gm((tid >> 5) & 1),
+        gn0(tid >> 6), lh(tid >> 7), ga_row((tid & 127) >> 2),
+        ga_j0((tid & 3) * 6) {}
+};
+
+// gA for one half of the 12 components (LH = 0: l 0..5, 1: l 6..11) of one
+// row and 6 joints, over the tile's vertices two at a time.
+template <int LH>
+__device__ __forceinline__ void ga_tile(float acc[6][6], const float* s_g,
+                                        const float* s_vo, const float* s_w,
+                                        int row, int j0) {
+#pragma unroll
+  for (int v = 0; v < kFV; v += 2) {
+    float2 g[3], vo[3], w[6];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      g[i] = *reinterpret_cast<const float2*>(s_g + row * kSX + i * kFV + v);
+      vo[i] = *reinterpret_cast<const float2*>(s_vo + row * kSX + i * kFV + v);
+    }
+#pragma unroll
+    for (int jj = 0; jj < 6; ++jj)
+      w[jj] = *reinterpret_cast<const float2*>(s_w + (j0 + jj) * kSW + v);
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      const int l = 6 * LH + q, i = l / 4, k = l % 4;
+      const float2 G = k < 3 ? make_float2(g[i].x * vo[k % 3].x, g[i].y * vo[k % 3].y)
+                             : g[i];
+#pragma unroll
+      for (int jj = 0; jj < 6; ++jj) {
+        acc[q][jj] += G.x * w[jj].x;
+        acc[q][jj] += G.y * w[jj].y;
+      }
+    }
+  }
+}
+
+// A tile's gradients from its gvp (s_gvp [kFB][kSX]), cotangent (s_g) and
+// posed vertices (s_vo), both [kFB][kSX]:
+//   gpf (32 x 208) += gvp (32 x 48) . pd^T (48 x 208) on the tensor cores;
+//   gA += (g x [vo; 1]) . W^T (SIMT);
+//   gvsh: the tile's gvp summed over the block's rows, in order, written to
+//   the batch tile's partial.
+__device__ __forceinline__ void tile_grads(const GradRoles& q,
+                                           float gpf_acc[7][4],
+                                           float ga_acc[6][6],
+                                           const float* s_gvp, const float* s_g,
+                                           const float* s_vo, const float* s_pd,
+                                           const float* s_w, int V, int v0,
+                                           int bt, float* __restrict__ gvsh_part) {
+#pragma unroll
+  for (int k0 = 0; k0 < kFN; k0 += 8) {
+    const float* pa = s_gvp + (16 * q.gm + q.gid) * kSX + k0 + q.tig;
+    const float a[4] = {pa[0], pa[8 * kSX], pa[4], pa[8 * kSX + 4]};
+#pragma unroll
+    for (int n = 0; n < 7; ++n) {
+      const int nt = q.gn0 + 4 * n;
+      if (nt < kPP / 8) {
+        const int o = (8 * nt + q.gid) * kSD + k0 + q.tig;
+        uint32_t bb[2], bs[2];
+        split_tf32(s_pd[o], bb[0], bs[0]);
+        split_tf32(s_pd[o + 4], bb[1], bs[1]);
+        mma_3xtf32(gpf_acc[n], gpf_acc[n], a, bb, bs);
+      }
+    }
+  }
+  if (q.lh == 0) ga_tile<0>(ga_acc, s_g, s_vo, s_w, q.ga_row, q.ga_j0);
+  else           ga_tile<1>(ga_acc, s_g, s_vo, s_w, q.ga_row, q.ga_j0);
+  const int tid = threadIdx.x;
+  if (tid < kFN) {
+    const int k = tid / kFV, v = v0 + tid % kFV;
+    float s = 0.f;
+    for (int row = 0; row < kFB; ++row) s += s_gvp[row * kSX + tid];
+    if (v < V) gvsh_part[((size_t)bt * 3 + k) * V + v] = s;
+  }
+}
+
+// The block's gpf and gA for range r: gpf_part [R][B][207], ga_part
+// [R][B][288].
+__device__ __forceinline__ void store_grad_parts(const GradRoles& q, int B,
+                                                 int b0, int r,
+                                                 const float gpf_acc[7][4],
+                                                 const float ga_acc[6][6],
+                                                 float* __restrict__ gpf_part,
+                                                 float* __restrict__ ga_part) {
+  float* gpf_r = gpf_part + (size_t)r * B * kP;
+#pragma unroll
+  for (int n = 0; n < 7; ++n) {
+    const int nt = q.gn0 + 4 * n;
+    if (nt >= kPP / 8) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int b = b0 + 16 * q.gm + q.gid + (i >> 1) * 8;
+      const int p = 8 * nt + 2 * q.tig + (i & 1);
+      if (b < B && p < kP) gpf_r[(size_t)b * kP + p] = gpf_acc[n][i];
+    }
+  }
+  const int b = b0 + q.ga_row;
+  if (b < B) {
+    float* ga_r = ga_part + ((size_t)r * B + b) * kGL;
+#pragma unroll
+    for (int qq = 0; qq < 6; ++qq)
+#pragma unroll
+      for (int jj = 0; jj < 6; ++jj)
+        ga_r[(q.ga_j0 + jj) * kL + 6 * q.lh + qq] = ga_acc[qq][jj];
+  }
 }
 
 }  // namespace

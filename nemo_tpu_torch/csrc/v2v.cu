@@ -39,12 +39,7 @@
 //     compute. That one copy feeds both posedirs contractions. pf of both
 //     sides stays in shared memory for the whole range.
 //   - Tensor cores for the two posedirs contractions: mma.sync m16n8k8 TF32
-//     with a 3xTF32 split, x = big + small, big = tf32(x), small =
-//     tf32(x - big) (rounded to nearest, ties away, by masking the low 13
-//     mantissa bits), and a.b = (a_s.b_b + a_b.b_s) + a_b.b_b accumulated in
-//     f32. The dropped a_s.b_s term is below 2^-22 of each product, so the
-//     contractions keep f32-level accuracy; this is the kernel's arithmetic,
-//     not an option, and TF32 stays off everywhere else.
+//     in 3xTF32 (skin_common.cuh has the split and its accuracy):
 //       forward:  vph (64 rows = 32 orig + 32 rec, 48 = 3 x 16 columns)
 //                 = pf (64 x 208) . pd (208 x 48), the feature axis padded
 //                 to 208 with a zero row; the cross terms and big . big in
@@ -60,8 +55,10 @@
 //     its range, its gvsh (3 x its vertices) summed over its 32 rows, and
 //     its |diff| sum (17.5 MB of scratch at B=512 on 132 SMs). The second
 //     pass sums them in a fixed order, with no atomics, so repeated runs
-//     are bit-identical: v2v_reduce_kernel the gradients, total_kernel
-//     (skin_common.cuh) the |diff| partials. Mode 0 runs the same kernel
+//     are bit-identical: range_reduce_kernel the gradients, total_kernel
+//     the |diff| partials (both skin_common.cuh, with the split, the
+//     cp.async staging, the range rule and a tile's gradient work, which
+//     K3b's one-pass kernel in csrc/skin.cu shares). Mode 0 runs the same kernel
 //     with the gradient work off and the same total_kernel, so its total
 //     equals mode 1's bit for bit.
 //   - What holds it back: the SIMT blend, which reads A (72 KB a block,
@@ -76,8 +73,6 @@
 // cores: pf and a 16-feature slice of posedirs staged in shared memory,
 // each thread keeping 4 rows x 2 sides x 3 coordinates of vph in registers.
 // Ragged B and V are masked everywhere (no padded tables).
-
-#include <cstdint>
 
 #include "skin_common.cuh"
 
@@ -193,22 +188,7 @@ int num_tile_partials(int B, int V) { return cdiv(V, kTV) * cdiv(B, kTB); }
 // modes 0 and 1: the one-pass kernel
 // ---------------------------------------------------------------------------
 
-constexpr int kFB = 32;          // batch rows a block
-constexpr int kFV = 16;          // vertices a tile
-constexpr int kFN = 3 * kFV;     // (k, v) columns a tile
-constexpr int kPP = 208;         // pose features padded to the MMA depth
-constexpr int kFT = 256;         // threads a block (8 warps)
-// shared-memory row strides (floats), chosen so the MMA fragment loads hit
-// 32 distinct banks: pd rows by k (stride = 24 mod 32), pf and gvp rows by
-// m (stride = 20 mod 32)
-constexpr int kSD = 56;
-constexpr int kSF = 212;
-constexpr int kSX = 52;
-// W rows (18: the gA loop's 4 joint groups fall on distinct banks)
-constexpr int kSW = 18;
-constexpr int kGL = kJ * kL;     // 288 gA entries a row
-
-// shared memory, in floats
+// shared memory, in floats (the tile constants are skin_common.cuh's)
 constexpr int kOffPd = 0;                             // [2][kPP][kSD]
 constexpr int kOffPf = kOffPd + 2 * kPP * kSD;        // [2 * kFB][kSF]
 constexpr int kOffW = kOffPf + 2 * kFB * kSF;         // [2][kJ][kSW]
@@ -220,117 +200,6 @@ constexpr int kOffRed = kOffG + kFB * kSX;            // [kFT]
 constexpr int kSmemFloats = kOffRed + kFT;
 constexpr size_t kSmemBytes = sizeof(float) * kSmemFloats;
 
-__device__ __forceinline__ uint32_t tf32_bits(float x) {
-  // round to the nearest TF32 (10 mantissa bits), ties away from zero
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = tf32_bits(x);
-  small = tf32_bits(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 3xTF32 with b already split: lo += a_s . b_b + a_b . b_s, hi += a_b . b_b
-// (lo and hi may be the same accumulator).
-__device__ __forceinline__ void mma_3xtf32(float lo[4], float hi[4],
-                                           const float a[4],
-                                           const uint32_t bb[2],
-                                           const uint32_t bs[2]) {
-  uint32_t ab[4], as[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(a[i], ab[i], as[i]);
-  mma_tf32(lo, as, bb);
-  mma_tf32(lo, ab, bs);
-  mma_tf32(hi, ab, bb);
-}
-
-// Copy CW floats (CW = 1 or 2) from global to shared memory; only the first
-// n of them are read (n <= 0: none), the rest are zero-filled.
-template <int CW>
-__device__ __forceinline__ void cp_async(float* dst, const float* src, int n) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  const int bytes = n > 0 ? 4 * (n < CW ? n : CW) : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
-               :: "r"(d), "l"(src), "n"(4 * CW), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// Queue the copies of vertex tile t (posedirs, W, v_shaped) into buffer buf,
-// CW floats a copy (2 where V is even, so every row is 8-byte aligned);
-// rows past the 207 features and vertices past V are zero-filled.
-template <int CW>
-__device__ __forceinline__ void load_tile(float* smem, int buf, int t, int V,
-                                          const float* __restrict__ vsh,
-                                          const float* __restrict__ pd,
-                                          const float* __restrict__ W) {
-  constexpr int kCh = kFV / CW;  // copies a row of the tile
-  const int v0 = t * kFV;
-  const size_t V3 = 3 * (size_t)V;
-  float* s_pd = smem + kOffPd + buf * kPP * kSD;
-  for (int e = threadIdx.x; e < kPP * 3 * kCh; e += kFT) {
-    const int x = e % kCh * CW, pk = e / kCh, p = pk / 3, k = pk % 3;
-    const int n = p < kP ? V - (v0 + x) : 0;
-    cp_async<CW>(s_pd + p * kSD + k * kFV + x,
-                 n > 0 ? pd + (size_t)p * V3 + (size_t)k * V + v0 + x : pd, n);
-  }
-  float* s_w = smem + kOffW + buf * kJ * kSW;
-  for (int e = threadIdx.x; e < kJ * kCh; e += kFT) {
-    const int x = e % kCh * CW, j = e / kCh, n = V - (v0 + x);
-    cp_async<CW>(s_w + j * kSW + x, n > 0 ? W + (size_t)j * V + v0 + x : W, n);
-  }
-  float* s_vs = smem + kOffVs + buf * 3 * kFV;
-  for (int e = threadIdx.x; e < 3 * kCh; e += kFT) {
-    const int x = e % kCh * CW, k = e / kCh, n = V - (v0 + x);
-    cp_async<CW>(s_vs + k * kFV + x, n > 0 ? vsh + (size_t)k * V + v0 + x : vsh,
-                 n);
-  }
-}
-
-// gA for one half of the 12 components (LH = 0: l 0..5, 1: l 6..11) of one
-// row and 6 joints, over the tile's vertices two at a time.
-template <int LH>
-__device__ __forceinline__ void ga_tile(float acc[6][6], const float* s_g,
-                                        const float* s_vo, const float* s_w,
-                                        int row, int j0) {
-#pragma unroll
-  for (int v = 0; v < kFV; v += 2) {
-    float2 g[3], vo[3], w[6];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      g[i] = *reinterpret_cast<const float2*>(s_g + row * kSX + i * kFV + v);
-      vo[i] = *reinterpret_cast<const float2*>(s_vo + row * kSX + i * kFV + v);
-    }
-#pragma unroll
-    for (int jj = 0; jj < 6; ++jj)
-      w[jj] = *reinterpret_cast<const float2*>(s_w + (j0 + jj) * kSW + v);
-#pragma unroll
-    for (int q = 0; q < 6; ++q) {
-      const int l = 6 * LH + q, i = l / 4, k = l % 4;
-      const float2 G = k < 3 ? make_float2(g[i].x * vo[k % 3].x, g[i].y * vo[k % 3].y)
-                             : g[i];
-#pragma unroll
-      for (int jj = 0; jj < 6; ++jj) {
-        acc[q][jj] += G.x * w[jj].x;
-        acc[q][jj] += G.y * w[jj].y;
-      }
-    }
-  }
-}
-
 __global__ void __launch_bounds__(kFT, 1)
 v2v_fused_kernel(int B, int V, int R, const float* __restrict__ pf_o,
                  const float* __restrict__ A_o, const float* __restrict__ pf_r,
@@ -340,12 +209,11 @@ v2v_fused_kernel(int B, int V, int R, const float* __restrict__ pf_o,
                  float* __restrict__ gpf_part, float* __restrict__ ga_part,
                  float* __restrict__ gvsh_part) {
   extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const GradRoles q(tid);
   const int r = blockIdx.x, bt = blockIdx.y, b0 = bt * kFB;
-  const int n_tiles = (V + kFV - 1) / kFV;
-  const int t_begin = (int)((long long)r * n_tiles / R);
-  const int t_end = (int)((long long)(r + 1) * n_tiles / R);
+  int t_begin, t_end;
+  range_tiles(r, R, V, t_begin, t_end);
 
   float* s_pf = smem + kOffPf;
   float* s_vph = smem + kOffVph;
@@ -353,8 +221,11 @@ v2v_fused_kernel(int B, int V, int R, const float* __restrict__ pf_o,
   float* s_g = smem + kOffG;
 
   const auto load = [&](int buf, int t) {
-    if (V & 1) load_tile<1>(smem, buf, t, V, vsh, pd, W);
-    else       load_tile<2>(smem, buf, t, V, vsh, pd, W);
+    float* s_pd = smem + kOffPd + buf * kPP * kSD;
+    float* s_w = smem + kOffW + buf * kJ * kSW;
+    float* s_vs = smem + kOffVs + buf * 3 * kFV;
+    if (V & 1) load_tile<1>(s_pd, s_w, s_vs, t, V, vsh, pd, W);
+    else       load_tile<2>(s_pd, s_w, s_vs, t, V, vsh, pd, W);
   };
   load(0, t_begin);
   cp_async_commit();
@@ -367,20 +238,17 @@ v2v_fused_kernel(int B, int V, int R, const float* __restrict__ pf_o,
 
   // forward MMA: warp -> m-tile (16 of the 64 rows), 3 of the 6 n-tiles
   const int fm = warp & 3, fn0 = (warp >> 2) * 3;
-  // backward MMA: warp -> m-tile (16 of the 32 rows), n-tiles w/2 + 4t
-  const int gm = warp & 1, gn0 = warp >> 1;
+  // gpf (backward MMA) and gA accumulate across the range: GradRoles
   float gpf_acc[7][4];
 #pragma unroll
   for (int t = 0; t < 7; ++t)
 #pragma unroll
     for (int i = 0; i < 4; ++i) gpf_acc[t][i] = 0.f;
-  // gA: warps 0-3 hold l 0..5, warps 4-7 l 6..11; a thread one row, 6 joints
-  const int lh = tid >> 7, ga_row = (tid & 127) >> 2, ga_j0 = (tid & 3) * 6;
   float ga_acc[6][6];
 #pragma unroll
-  for (int q = 0; q < 6; ++q)
+  for (int l = 0; l < 6; ++l)
 #pragma unroll
-    for (int jj = 0; jj < 6; ++jj) ga_acc[q][jj] = 0.f;
+    for (int jj = 0; jj < 6; ++jj) ga_acc[l][jj] = 0.f;
   // blend: a thread one row, two neighbouring vertices
   const int sb = tid >> 3, sv = (tid & 7) * 2, b_s = b0 + sb;
   float local = 0.f;
@@ -395,41 +263,12 @@ v2v_fused_kernel(int B, int V, int R, const float* __restrict__ pf_o,
       cp_async_wait<0>();
     }
     __syncthreads();
-    float* s_pd = smem + kOffPd + buf * kPP * kSD;
+    const float* s_pd = smem + kOffPd + buf * kPP * kSD;
     const float* s_w = smem + kOffW + buf * kJ * kSW;
     const float* s_vs = smem + kOffVs + buf * 3 * kFV;
 
-    // 1. vph (64 x 48) = pf (64 x 208) . pd (208 x 48) on the tensor cores,
-    //    the cross terms and big . big in separate accumulators (shorter
-    //    dependency chains), added at the end
-    {
-      float lo[3][4], hi[3][4];
-#pragma unroll
-      for (int n = 0; n < 3; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) { lo[n][i] = 0.f; hi[n][i] = 0.f; }
-#pragma unroll 2
-      for (int k0 = 0; k0 < kPP; k0 += 8) {
-        const float* pa = s_pf + (16 * fm + gid) * kSF + k0 + tig;
-        const float a[4] = {pa[0], pa[8 * kSF], pa[4], pa[8 * kSF + 4]};
-#pragma unroll
-        for (int n = 0; n < 3; ++n) {
-          const int o = (k0 + tig) * kSD + 8 * (fn0 + n) + gid;
-          uint32_t bb[2], bs[2];
-          split_tf32(s_pd[o], bb[0], bs[0]);
-          split_tf32(s_pd[o + 4 * kSD], bb[1], bs[1]);
-          mma_3xtf32(lo[n], hi[n], a, bb, bs);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < 3; ++n) {
-        float* out = s_vph + (16 * fm + gid) * kSX + 8 * (fn0 + n) + 2 * tig;
-        *reinterpret_cast<float2*>(out) =
-            make_float2(lo[n][0] + hi[n][0], lo[n][1] + hi[n][1]);
-        *reinterpret_cast<float2*>(out + 8 * kSX) =
-            make_float2(lo[n][2] + hi[n][2], lo[n][3] + hi[n][3]);
-      }
-    }
+    // 1. vph (64 x 48) = pf (64 x 208) . pd (208 x 48) on the tensor cores
+    vph_mma(s_pf, s_pd, s_vph, fm, fn0, 0, kPP, q.gid, q.tig);
     __syncthreads();
 
     // 2. the blend, the vertices, |rec - orig|, the sign and gvp (SIMT)
@@ -447,10 +286,10 @@ v2v_fused_kernel(int B, int V, int R, const float* __restrict__ pf_o,
           const float2 w = *reinterpret_cast<const float2*>(s_w + j * kSW + sv);
           float a_o[kL], a_r[kL];
 #pragma unroll
-          for (int q = 0; q < 3; ++q) {
-            const float4 x = __ldg(ao + 3 * j + q), y = __ldg(ar + 3 * j + q);
-            a_o[4 * q] = x.x; a_o[4 * q + 1] = x.y; a_o[4 * q + 2] = x.z; a_o[4 * q + 3] = x.w;
-            a_r[4 * q] = y.x; a_r[4 * q + 1] = y.y; a_r[4 * q + 2] = y.z; a_r[4 * q + 3] = y.w;
+          for (int c = 0; c < 3; ++c) {
+            const float4 x = __ldg(ao + 3 * j + c), y = __ldg(ar + 3 * j + c);
+            a_o[4 * c] = x.x; a_o[4 * c + 1] = x.y; a_o[4 * c + 2] = x.z; a_o[4 * c + 3] = x.w;
+            a_r[4 * c] = y.x; a_r[4 * c + 1] = y.y; a_r[4 * c + 2] = y.z; a_r[4 * c + 3] = y.w;
           }
 #pragma unroll
           for (int l = 0; l < kL; ++l) {
@@ -473,10 +312,10 @@ v2v_fused_kernel(int B, int V, int R, const float* __restrict__ pf_o,
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
           float o = mo[e][4 * i + 3];
-          float q = mr[e][4 * i + 3];
+          float x = mr[e][4 * i + 3];
 #pragma unroll
-          for (int k = 0; k < 3; ++k) { o += mo[e][4 * i + k] * vo[k]; q += mr[e][4 * i + k] * vr[k]; }
-          const float diff = q - o;
+          for (int k = 0; k < 3; ++k) { o += mo[e][4 * i + k] * vo[k]; x += mr[e][4 * i + k] * vr[k]; }
+          const float diff = x - o;
           if (valid) local += fabsf(diff);
           g[i] = valid ? (float)(diff > 0.f) - (float)(diff < 0.f) : 0.f;
         }
@@ -493,35 +332,10 @@ v2v_fused_kernel(int B, int V, int R, const float* __restrict__ pf_o,
     }
     __syncthreads();
 
-    if (grad) {
-      // 3. gpf (32 x 208) += gvp (32 x 48) . pd^T (48 x 208) on the tensor cores
-#pragma unroll
-      for (int k0 = 0; k0 < kFN; k0 += 8) {
-        const float* pa = s_gvp + (16 * gm + gid) * kSX + k0 + tig;
-        const float a[4] = {pa[0], pa[8 * kSX], pa[4], pa[8 * kSX + 4]};
-#pragma unroll
-        for (int n = 0; n < 7; ++n) {
-          const int nt = gn0 + 4 * n;
-          if (nt < kPP / 8) {
-            const int o = (8 * nt + gid) * kSD + k0 + tig;
-            uint32_t bb[2], bs[2];
-            split_tf32(s_pd[o], bb[0], bs[0]);
-            split_tf32(s_pd[o + 4], bb[1], bs[1]);
-            mma_3xtf32(gpf_acc[n], gpf_acc[n], a, bb, bs);
-          }
-        }
-      }
-      // 4. gA += (g x [vph_o; 1]) . W^T over the tile (SIMT)
-      if (lh == 0) ga_tile<0>(ga_acc, s_g, s_vph, s_w, ga_row, ga_j0);
-      else         ga_tile<1>(ga_acc, s_g, s_vph, s_w, ga_row, ga_j0);
-      // 5. gvsh: the tile's gvp summed over the block's rows, in order
-      if (tid < kFN) {
-        const int k = tid / kFV, v = v0 + tid % kFV;
-        float s = 0.f;
-        for (int row = 0; row < kFB; ++row) s += s_gvp[row * kSX + tid];
-        if (v < V) gvsh_part[((size_t)bt * 3 + k) * V + v] = s;
-      }
-    }
+    // 3-5. gpf, gA and the tile's gvsh (skin_common.cuh)
+    if (grad)
+      tile_grads(q, gpf_acc, ga_acc, s_gvp, s_g, s_vph, s_pd, s_w, V, v0, bt,
+                 gvsh_part);
     __syncthreads();
   }
 
@@ -534,66 +348,7 @@ v2v_fused_kernel(int B, int V, int R, const float* __restrict__ pf_o,
     __syncthreads();
   }
   if (tid == 0) tot_part[(size_t)bt * R + r] = s_red[0];
-  if (!grad) return;
-  float* gpf_r = gpf_part + (size_t)r * B * kP;
-#pragma unroll
-  for (int n = 0; n < 7; ++n) {
-    const int nt = gn0 + 4 * n;
-    if (nt >= kPP / 8) continue;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int b = b0 + 16 * gm + gid + (i >> 1) * 8;
-      const int p = 8 * nt + 2 * tig + (i & 1);
-      if (b < B && p < kP) gpf_r[(size_t)b * kP + p] = gpf_acc[n][i];
-    }
-  }
-  const int b = b0 + ga_row;
-  if (b < B) {
-    float* ga_r = ga_part + ((size_t)r * B + b) * kGL;
-#pragma unroll
-    for (int q = 0; q < 6; ++q)
-#pragma unroll
-      for (int jj = 0; jj < 6; ++jj)
-        ga_r[(ga_j0 + jj) * kL + 6 * lh + q] = ga_acc[q][jj];
-  }
-}
-
-// The second pass of mode 1: gpf and gA summed over the R ranges, gvsh over
-// the batch tiles, each in index order (total_kernel sums the |diff|
-// partials).
-__global__ void __launch_bounds__(256)
-v2v_reduce_kernel(int n_gpf, int n_ga, int n_gvsh, int R, int n_bt,
-                  const float* __restrict__ gpf_part,
-                  const float* __restrict__ ga_part,
-                  const float* __restrict__ gvsh_part, float* __restrict__ gpf,
-                  float* __restrict__ gA, float* __restrict__ gvsh) {
-  int i = blockIdx.x * 256 + threadIdx.x;
-  const float* src;
-  float* dst;
-  int n, stride;
-  if (i < n_gpf) {
-    src = gpf_part; dst = gpf; n = R; stride = n_gpf;
-  } else if ((i -= n_gpf) < n_ga) {
-    src = ga_part; dst = gA; n = R; stride = n_ga;
-  } else if ((i -= n_ga) < n_gvsh) {
-    src = gvsh_part; dst = gvsh; n = n_bt; stride = n_gvsh;
-  } else {
-    return;
-  }
-  float s = 0.f;
-  for (int q = 0; q < n; ++q) s += src[(size_t)q * stride + i];
-  dst[i] = s;
-}
-
-// The fused kernel's vertex ranges R for B rows: two even waves at one
-// block an SM, and no more ranges than vertex tiles.
-int fused_ranges(int B, int V) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int n_bt = cdiv(B, kFB);
-  const int R = 2 * (sms / n_bt > 1 ? sms / n_bt : 1);
-  return R < cdiv(V, kFV) ? R : cdiv(V, kFV);
+  if (grad) store_grad_parts(q, B, b0, r, gpf_acc, ga_acc, gpf_part, ga_part);
 }
 
 }  // namespace
@@ -606,7 +361,7 @@ extern "C" int nemo_v2v_scratch_floats(int B, int V, int mode) {
   if (mode == 2) return num_tile_partials(B, V);
   const long long R = fused_ranges(B, V), n_bt = cdiv(B, kFB);
   long long n = n_bt * R;
-  if (mode == 1) n += R * B * (kP + kGL) + n_bt * 3LL * V;
+  if (mode == 1) n += grad_partial_floats(B, V, R);
   return n < (1LL << 31) ? (int)n : -1;
 }
 
@@ -665,7 +420,7 @@ extern "C" int nemo_v2v_l1(int B, int V, const float* pf_o, const float* A_o,
   if (cudaError_t err = cudaGetLastError()) return (int)err;
   if (!grad) return 0;
   const int n_gpf = B * kP, n_ga = B * kGL, n_gvsh = 3 * V;
-  v2v_reduce_kernel<<<cdiv(n_gpf + n_ga + n_gvsh, 256), 256, 0, stream>>>(
+  range_reduce_kernel<<<cdiv(n_gpf + n_ga + n_gvsh, 256), 256, 0, stream>>>(
       n_gpf, n_ga, n_gvsh, R, n_bt, gpf_part, ga_part, gvsh_part, gpf, gA,
       gvsh);
   return (int)cudaGetLastError();

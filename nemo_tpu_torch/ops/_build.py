@@ -51,10 +51,16 @@ _SIGNATURES = {
     "nemo_v2v_fused_attributes": [_P],
     # B, V, pf, A, vsh_t, posedirs_t, W_t, verts, stream
     "nemo_skin_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P],
-    # B, V, pf, A, vsh_t, posedirs_t, W_t, g, vp_in, vp_scratch, gvp,
-    # gpf, gA, gvsh, stream
-    "nemo_skin_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _P, _P, _P, _P],
+    # B, V, pf, A, vsh_t, posedirs_t, W_t, g, vp_in, scratch, gpf, gA,
+    # gvsh, stream
+    "nemo_skin_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _P],
+    # floats of scratch nemo_skin_bwd needs at (B, V), -1 if refused
+    "nemo_skin_bwd_scratch_floats": [_I, _I],
+    # mode (1 recompute vp, 2 stored vp), out int[4]: the one-pass K3b
+    # kernel's registers a thread, static and dynamic shared memory bytes,
+    # local (spill) bytes
+    "nemo_skin_bwd_attributes": [_I, _P],
     # N, T, H, W, th, tw, ntx, attr, efid, starts, counts, z, fid, bary,
     # stream
     "nemo_raster_stream": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,

@@ -22,12 +22,13 @@ gradients.
 
 Layouts are the logical vertex-major tables: posedirs_t (207, 3, V),
 W_t (24, V), v_shaped_t (3, V), verts (B, 3, V). On a CUDA tensor a wrapper
-launches its kernel: K2's fused and forward-only modes one pass with the
-posedirs contractions on the tensor cores in 3xTF32, its pair mode and K3
-f32 on the CUDA cores (the source notes have the counts and the designs).
-On a CPU tensor it runs the plain versions below, which mirror
-``_skin_verts_t_xla`` and ``_bwd_xla``; ``v2v_l1_split_emulation`` repeats
-the one-pass kernel's arithmetic for the tests.
+launches its kernel: K2's fused and forward-only modes and K3b one pass
+each, with the posedirs contractions on the tensor cores in 3xTF32; K2's
+pair mode and K3f f32 on the CUDA cores (the source notes have the counts
+and the designs). On a CPU tensor it runs the plain versions below, which
+mirror ``_skin_verts_t_xla`` and ``_bwd_xla``; ``v2v_l1_split_emulation``
+and ``skin_bwd_split_emulation`` repeat the one-pass kernels' arithmetic
+for the tests.
 """
 
 from __future__ import annotations
@@ -113,21 +114,22 @@ def v2v_pair_plain(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
 
 
 # ---------------------------------------------------------------------------
-# the fused K2 kernel's arithmetic, emulated (tests only)
+# the one-pass kernels' arithmetic, emulated (tests only)
 # ---------------------------------------------------------------------------
 
-FUSED_ROWS, FUSED_VERTS = 32, 16   # csrc/v2v.cu's kFB and kFV
+FUSED_ROWS, FUSED_VERTS = 32, 16   # csrc/skin_common.cuh's kFB and kFV
 
 
 def fused_ranges(B: int, V: int, num_sms: int) -> int:
-    """The fused K2 kernel's vertex ranges (csrc/v2v.cu:fused_ranges)."""
+    """The one-pass kernels' vertex ranges (csrc/skin_common.cuh:
+    fused_ranges)."""
     n_bt = -(-B // FUSED_ROWS)
     return min(2 * max(1, num_sms // n_bt), -(-V // FUSED_VERTS))
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
     """f32 rounded to the nearest TF32, ties away from zero, by masking the
-    low 13 mantissa bits (csrc/v2v.cu:tf32_bits)."""
+    low 13 mantissa bits (csrc/skin_common.cuh:tf32_bits)."""
     bits = x.contiguous().view(torch.int32)
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
@@ -140,6 +142,49 @@ def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a_s @ bb + ab @ b_s) + ab @ bb
 
 
+def _blocks(B: int, V: int, num_sms: int):
+    """The one-pass kernels' (batch tiles, vertex ranges) as index pairs."""
+    R = fused_ranges(B, V, num_sms)
+    n_t = -(-V // FUSED_VERTS)
+    cut = [min(V, r * n_t // R * FUSED_VERTS) for r in range(R + 1)]
+    rows = [(b, min(B, b + FUSED_ROWS)) for b in range(0, B, FUSED_ROWS)]
+    return rows, list(zip(cut[:-1], cut[1:]))
+
+
+def _in_order(parts):
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part
+    return acc
+
+
+def _posed_3xtf32(pf, posedirs_t, v_shaped_t) -> torch.Tensor:
+    """vp (B, 3, V) with the posedirs contraction in 3xTF32."""
+    B, V = pf.shape[0], v_shaped_t.shape[-1]
+    pd2 = posedirs_t.reshape(NUM_POSE_FEATURES, 3 * V)
+    return _mm_3xtf32(pf, pd2).reshape(B, 3, V) + v_shaped_t
+
+
+def _split_grads(M4, vp, g, posedirs_t, W_t, num_sms: int) -> Grads:
+    """(gpf, gA, gvsh) as the one-pass kernels form them from the blend M4
+    (B, 3, 4, V), the posed vertices vp and the cotangent g: gvp in f32,
+    gpf in 3xTF32, and the per-block partials (gpf and gA a vertex range,
+    gvsh a batch tile) summed in the kernels' fixed order."""
+    B, V = g.shape[0], g.shape[-1]
+    rows, ranges = _blocks(B, V, num_sms)
+    gvp = torch.einsum('bikv,biv->bkv', M4[:, :, :3], g)
+    gM4 = torch.einsum('biv,bkv->bikv', g, _homogeneous(vp))
+    gpf = _in_order([_mm_3xtf32(gvp[:, :, lo:hi].reshape(B, -1),
+                                posedirs_t[:, :, lo:hi].reshape(
+                                    NUM_POSE_FEATURES, -1).t())
+                     for lo, hi in ranges])
+    gA = _in_order([torch.einsum('bikv,jv->bjik', gM4[..., lo:hi],
+                                 W_t[:, lo:hi]).reshape(B, NUM_JOINTS, 12)
+                    for lo, hi in ranges])
+    gvsh = _in_order([gvp[b0:b1].sum(0) for b0, b1 in rows])
+    return gpf, gA, gvsh
+
+
 def v2v_l1_split_emulation(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r,
                            A_r, num_sms: int = 132
                            ) -> Tuple[torch.Tensor, Grads]:
@@ -150,39 +195,31 @@ def v2v_l1_split_emulation(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r,
     the tests hold it against the JAX kernel and v2v_l1_plain to show that
     the split and the reduction order stay inside the tolerances."""
     B, V = pf_o.shape[0], v_shaped_t.shape[-1]
-    R = fused_ranges(B, V, num_sms)
-    n_t = -(-V // FUSED_VERTS)
-    cut = [min(V, r * n_t // R * FUSED_VERTS) for r in range(R + 1)]
-    ranges = list(zip(cut[:-1], cut[1:]))
-    rows = [(b, min(B, b + FUSED_ROWS)) for b in range(0, B, FUSED_ROWS)]
-    pd2 = posedirs_t.reshape(NUM_POSE_FEATURES, 3 * V)
-    posed = lambda pf: _mm_3xtf32(pf, pd2).reshape(B, 3, V) + v_shaped_t
-    vp_o, M_o = posed(pf_o), _blend(A_o, W_t)
+    rows, ranges = _blocks(B, V, num_sms)
+    vp_o, M_o = _posed_3xtf32(pf_o, posedirs_t, v_shaped_t), _blend(A_o, W_t)
     o = torch.einsum('bikv,bkv->biv', M_o, _homogeneous(vp_o))
     r = torch.einsum('bikv,bkv->biv', _blend(A_r, W_t),
-                     _homogeneous(posed(pf_r)))
+                     _homogeneous(_posed_3xtf32(pf_r, posedirs_t,
+                                                v_shaped_t)))
     diff = r - o
-    g = torch.sign(diff)
-    gvp = torch.einsum('bikv,biv->bkv', M_o[:, :, :3], g)
-    gM4 = torch.einsum('biv,bkv->bikv', g, _homogeneous(vp_o))
+    total = _in_order([diff[b0:b1, :, lo:hi].abs().sum()
+                       for b0, b1 in rows for lo, hi in ranges])
+    return total, _split_grads(M_o, vp_o, torch.sign(diff), posedirs_t, W_t,
+                               num_sms)
 
-    def in_order(parts):
-        acc = parts[0]
-        for part in parts[1:]:
-            acc = acc + part
-        return acc
 
-    total = in_order([diff[b0:b1, :, lo:hi].abs().sum()
-                      for b0, b1 in rows for lo, hi in ranges])
-    gpf = in_order([_mm_3xtf32(gvp[:, :, lo:hi].reshape(B, -1),
-                               posedirs_t[:, :, lo:hi].reshape(
-                                   NUM_POSE_FEATURES, -1).t())
-                    for lo, hi in ranges])
-    gA = in_order([torch.einsum('bikv,jv->bjik', gM4[..., lo:hi],
-                                W_t[:, lo:hi]).reshape(B, NUM_JOINTS, 12)
-                   for lo, hi in ranges])
-    gvsh = in_order([gvp[b0:b1].sum(0) for b0, b1 in rows])
-    return total, (gpf, gA, gvsh)
+def skin_bwd_split_emulation(pf, A34, v_shaped_t, posedirs_t, W_t, g,
+                             vp: Optional[torch.Tensor] = None,
+                             num_sms: int = 132) -> Grads:
+    """(gpf, gA, gvsh) under the cotangent g (B, 3, V) in the one-pass K3b
+    kernel's arithmetic: the posed vertices recomputed in 3xTF32 (or the
+    stored ``vp`` read), gpf in 3xTF32, and the per-block partials summed in
+    the kernel's fixed order. Nothing on the main path calls it: the tests
+    hold it against the JAX kernel and skin_bwd_plain to show that the
+    split and the reduction order stay inside the tolerances."""
+    if vp is None:
+        vp = _posed_3xtf32(pf, posedirs_t, v_shaped_t)
+    return _split_grads(_blend(A34, W_t), vp, g, posedirs_t, W_t, num_sms)
 
 
 # ---------------------------------------------------------------------------
@@ -219,26 +256,55 @@ def skin_fwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t) -> torch.Tensor:
     return verts
 
 
+def _check_alignment(kernel: str, V: int, **tensors):
+    """The one-pass kernels read A as float4 and, where V is even, copy the
+    tables 8 bytes at a time: a misaligned address would end the CUDA
+    context, so refuse such views (a contiguous slice whose offset is not a
+    multiple of 4 floats for A, of 2 floats for the tables)."""
+    for name, t in tensors.items():
+        align = 16 if name.startswith("A") else 8 if V % 2 == 0 else 4
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must start on a {align}-byte boundary "
+                             f"for the {kernel} kernel")
+
+
+def _attributes(fn, *args) -> dict:
+    """A kernel's registers a thread, shared memory and spills (local
+    memory), as the CUDA runtime reports them for the built library."""
+    out = (ctypes.c_int * 4)()
+    _build.check(getattr(_build.library(), fn)(*args, out), fn)
+    return dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
+                     "local_bytes"), out))
+
+
 def skin_bwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t, g,
                   vp: Optional[torch.Tensor] = None) -> Grads:
     """Launch K3b (CUDA tensors only): (gpf, gA, gvsh) under the f32
     cotangent g (B, 3, V), recomputing the posed vertices or reading the
-    stored ``vp`` (B, 3, V)."""
+    stored ``vp`` (B, 3, V). One pass and a fixed-order reduction of its
+    per-block partials (about 17.5 MB of scratch at (512, 6890) on 132
+    SMs); no (B, 3, V) tensor. g and vp may start on any 4-byte boundary;
+    A34 must start on a 16-byte one and the tables, where V is even, on an
+    8-byte one."""
     extra = {"g": g} if vp is None else {"g": g, "vp": vp}
     B, V, dev = _check_skin_inputs(pf, A34, v_shaped_t, posedirs_t, W_t,
                                    **extra)
+    _check_alignment("K3b", V, A34=A34, v_shaped_t=v_shaped_t,
+                     posedirs_t=posedirs_t, W_t=W_t)
     lib = _build.library()
+    n_scratch = lib.nemo_skin_bwd_scratch_floats(B, V)
+    if n_scratch < 0:
+        raise ValueError(f"nemo_skin_bwd refuses B={B}, V={V}")
     f32 = dict(dtype=torch.float32, device=dev)
-    gvp = torch.empty((B, 3, V), **f32)
-    vp_scratch = torch.empty((B, 3, V), **f32) if vp is None else None
+    scratch = torch.empty((n_scratch,), **f32)
     gpf = torch.empty((B, NUM_POSE_FEATURES), **f32)
     gA = torch.empty((B, NUM_JOINTS, 12), **f32)
     gvsh = torch.empty((3, V), **f32)
-    ptr = lambda t: None if t is None else t.data_ptr()
     err = lib.nemo_skin_bwd(B, V, pf.data_ptr(), A34.data_ptr(),
                             v_shaped_t.data_ptr(), posedirs_t.data_ptr(),
-                            W_t.data_ptr(), g.data_ptr(), ptr(vp),
-                            ptr(vp_scratch), gvp.data_ptr(), gpf.data_ptr(),
+                            W_t.data_ptr(), g.data_ptr(),
+                            None if vp is None else vp.data_ptr(),
+                            scratch.data_ptr(), gpf.data_ptr(),
                             gA.data_ptr(), gvsh.data_ptr(),
                             _build.stream_handle(dev))
     _build.check(err, "nemo_skin_bwd")
@@ -246,16 +312,10 @@ def skin_bwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t, g,
     return gpf, gA, gvsh
 
 
-def _check_v2v_alignment(V: int, **tensors):
-    """The fused kernel reads A as float4 and, where V is even, copies the
-    tables 8 bytes at a time: a misaligned address would end the CUDA
-    context, so refuse such views (a contiguous slice whose offset is not a
-    multiple of 4 floats for A, of 2 floats for the tables)."""
-    for name, t in tensors.items():
-        align = 16 if name.startswith("A_") else 8 if V % 2 == 0 else 4
-        if t.data_ptr() % align:
-            raise ValueError(f"{name} must start on a {align}-byte boundary "
-                             f"for the fused K2 kernel")
+def skin_bwd_attributes(stored_vp: bool = False) -> dict:
+    """The one-pass K3b kernel's registers a thread, shared memory and
+    spills, recomputing vp or (stored_vp) reading it."""
+    return _attributes("nemo_skin_bwd_attributes", 2 if stored_vp else 1)
 
 
 def _v2v_launch(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
@@ -268,8 +328,9 @@ def _v2v_launch(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
     _check_skin_inputs(pf_r, A_r, v_shaped_t, posedirs_t, W_t)
     lib = _build.library()
     if mode != 2:
-        _check_v2v_alignment(V, A_o=A_o, A_r=A_r, v_shaped_t=v_shaped_t,
-                             posedirs_t=posedirs_t, W_t=W_t)
+        _check_alignment("fused K2", V, A_o=A_o, A_r=A_r,
+                         v_shaped_t=v_shaped_t, posedirs_t=posedirs_t,
+                         W_t=W_t)
     f32 = dict(dtype=torch.float32, device=dev)
     empty = lambda *shape, on=True: torch.empty(shape, **f32) if on else None
     n_scratch = lib.nemo_v2v_scratch_floats(B, V, mode)
@@ -295,14 +356,9 @@ def _v2v_launch(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
 
 
 def v2v_fused_attributes() -> dict:
-    """The fused K2 kernel's registers a thread, shared memory and spills
-    (local memory), as the CUDA runtime reports them for the built
-    library."""
-    out = (ctypes.c_int * 4)()
-    _build.check(_build.library().nemo_v2v_fused_attributes(out),
-                 "nemo_v2v_fused_attributes")
-    return dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
-                     "local_bytes"), out))
+    """The fused K2 kernel's registers a thread, shared memory and
+    spills."""
+    return _attributes("nemo_v2v_fused_attributes")
 
 
 def v2v_l1_cuda(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,

@@ -172,17 +172,101 @@ def _close_scaled(a, b, rel):
                                atol=rel * max(1.0, float(b.abs().max())))
 
 
-@pytest.mark.parametrize("B,V", [(1, 5), (37, 300), (300, 1000)])
+@pytest.mark.parametrize("B,V", [(1, 5), (37, 300), (300, 1000), (512, 6890),
+                                 (960, 1024)])
 def test_skin_kernels_match_plain(cuda, B, V):
     """K3f, and K3b recomputing vp and reading a stored vp, under a random
-    (not +-1) cotangent."""
+    (not +-1) cotangent, at ragged shapes and at the paths' (512, 6890) and
+    (960, 1024); K3b's second run bit-identical (fixed-order partials, no
+    atomics)."""
     args, g = _skin_args(B, V, cuda, seed=B + V)
     _close_scaled(lbs.skin_fwd_cuda(*args), lbs.skin_verts_t_plain(*args),
                   1e-5)
     want = lbs.skin_bwd_plain(*args, g)
+    vp = (torch.einsum('bp,pkv->bkv', args[0], args[3]) + args[2]).contiguous()
+    for stored in (None, vp):
+        got = lbs.skin_bwd_cuda(*args, g, vp=stored)
+        for a, b in zip(got, want):
+            _close_scaled(a, b, 1e-4)
+        again = lbs.skin_bwd_cuda(*args, g, vp=stored)
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def test_skin_bwd_scratch_and_resources(cuda):
+    """K3b at (512, 6890) allocates only its per-block partials (under
+    32 MB, well under one (B, 3, V) f32 tensor's 42 MB), and the one-pass
+    kernel fits one block an SM in both modes without spilling."""
+    B, V = 512, 6890
+    args, g = _skin_args(B, V, cuda, seed=0)
+    vp = (torch.einsum('bp,pkv->bkv', args[0], args[3]) + args[2]).contiguous()
+    for stored in (None, vp):
+        lbs.skin_bwd_cuda(*args, g, vp=stored)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        lbs.skin_bwd_cuda(*args, g, vp=stored)
+        torch.cuda.synchronize()
+        outputs = 4 * (B * 207 + B * 288 + 3 * V)
+        scratch = torch.cuda.max_memory_allocated() - base - outputs
+        assert scratch < 32e6 and scratch < 4 * B * 3 * V
+    for stored_vp in (False, True):
+        res = lbs.skin_bwd_attributes(stored_vp)
+        assert res["local_bytes"] == 0, res
+        assert 0 < res["registers"] <= 255, res
+        smem = res["static_smem_bytes"] + res["dynamic_smem_bytes"]
+        assert smem <= 232448, res
+
+
+@pytest.mark.parametrize("B,V", [(1, 5), (37, 300), (512, 6890), (960, 1024),
+                                 (4096, 100)])
+def test_skin_bwd_scratch_follows_fused_ranges(cuda, B, V):
+    """K3b's scratch is the per-block partials of lbs.fused_ranges' vertex
+    ranges, the rule its CPU emulation uses."""
+    from nemo_tpu_torch.ops import _build
+    lib = _build.library()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    R = lbs.fused_ranges(B, V, sms)
+    n_bt = -(-B // lbs.FUSED_ROWS)
+    assert lib.nemo_skin_bwd_scratch_floats(B, V) == \
+        R * B * (207 + 24 * 12) + n_bt * 3 * V
+
+
+@pytest.mark.parametrize("name", ["A34", "posedirs_t", "W_t", "v_shaped_t"])
+def test_skin_bwd_refuses_misaligned_views(cuda, name):
+    """A contiguous view of A34 off a 16-byte boundary, or of a table off an
+    8-byte one (V even), raises ValueError instead of reaching the
+    kernel's vector loads; the context stays usable."""
+    args, g = _skin_args(37, 300, cuda, seed=2)
+    names = ("pf", "A34", "v_shaped_t", "posedirs_t", "W_t")
+    kw = dict(zip(names, args))
+    t = kw[name]
+    shifted = torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
+    shifted.copy_(t)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 8 == 4
+    for vp in (None, torch.zeros_like(g)):
+        with pytest.raises(ValueError, match="boundary"):
+            lbs.skin_bwd_cuda(**{**kw, name: shifted}, g=g, vp=vp)
+    for a, b in zip(lbs.skin_bwd_cuda(*args, g), lbs.skin_bwd_plain(*args, g)):
+        _close_scaled(a, b, 1e-4)
+
+
+@pytest.mark.parametrize("V", [300, 301])
+def test_skin_bwd_takes_offset_cotangent(cuda, V):
+    """A cotangent (and a stored vp) starting 4 bytes off an 8-byte
+    boundary is taken, copied 4 bytes at a time, and matches the plain
+    version."""
+    args, g = _skin_args(37, V, cuda, seed=V)
     vp = torch.einsum('bp,pkv->bkv', args[0], args[3]) + args[2]
-    for got in (lbs.skin_bwd_cuda(*args, g),
-                lbs.skin_bwd_cuda(*args, g, vp=vp.contiguous())):
+
+    def offset(t):
+        out = torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 8 == 4
+        return out
+    for stored in (None, vp):
+        want = lbs.skin_bwd_plain(*args, g, vp=stored)
+        got = lbs.skin_bwd_cuda(*args, offset(g),
+                                vp=None if stored is None else offset(stored))
         for a, b in zip(got, want):
             _close_scaled(a, b, 1e-4)
 
