@@ -25,15 +25,18 @@ Run from the repository root with no arguments:
    and a batch of four; K4 (the one-way nearest-neighbour chamfer) at
    (60, 512, 6890) and (60, 6890, 512); K6f and K6b (the fused MotionNet
    MLP, forward and backward) at (B, D, H, O) = (512, 105, 1000, 147),
-   (960, ...) and (1, ...), each run twice for bit-stability. Each check
+   (960, ...) and (1, ...), each run twice for bit-stability, with the
+   GEMM kernel's registers, shared memory and spills, its distance from
+   its CPU emulation at B=512 and the same products as a chain of cuBLAS
+   calls timed beside it. Each check
    prints its max error beside its tolerance; each kernel's median CUDA-event time beside its plain
    version's, one PyTorch call's (where one computes the whole function or
    its largest contraction) and its bound (the least time the card could
    take: the larger of bytes over 3.35 TB/s and f32 FLOPs over 67 TFLOP/s;
    for the one-pass kernels (K2's fused and forward-only modes, K3b) the
    operations bound counts their posedirs contractions as three TF32
-   products at 495 TFLOP/s on the tensor cores and the rest as f32, and
-   the f32 bound is printed beside it).
+   products at 495 TFLOP/s on the tensor cores and the rest as f32, for
+   K6 every product so, and the f32 bound is printed beside it).
 4. The fit, one path after another, each with the launch counters zeroed
    just before and read just after, and each asserting that its own
    kernels ran:
@@ -708,8 +711,14 @@ def mlp_phase(device, rec):
     are the same. Tolerances: sums of up to 1000 f32 products in another
     order than cuBLAS's (the plain version, TF32 off), 1e-5 (forward) and
     1e-4 (gradients) of each tensor's largest entry. A second run of each
-    kernel must be bit-identical (fixed-order sums, no atomics). Returns
-    {kernel: max_abs_err} and adds the times to rec (B = 512 first)."""
+    kernel must be bit-identical (fixed-order sums, no atomics). Every
+    product runs on the tensor cores in 3xTF32, so the bound is the
+    tensor-core one; beside one PyTorch call (the largest product) the
+    same products as a chain of cuBLAS calls are timed, and at B = 512 the
+    kernels' distance from their CPU emulation (run here on the card) is
+    printed as a record, not a gate: mma.sync sums in its own order.
+    Returns {kernel: max_abs_err} and adds the times to rec (B = 512
+    first)."""
     import torch
     from nemo_tpu_torch.ops import mlp
     gen = torch.Generator().manual_seed(6)
@@ -724,6 +733,8 @@ def mlp_phase(device, rec):
          init(H, O, fan_in=H), init(O, fan_in=H))
     errs = {}
     print(f"[kernel] TF32 in matmuls: {torch.backends.cuda.matmul.allow_tf32}")
+    print(f"[kernel] mlp_gemm_kernel resources (cudaFuncGetAttributes): "
+          f"{json.dumps({k: mlp.gemm_attributes(k == 'backward pair') for k in ('forward', 'backward pair')})}")
     for B in (BATCH, BATCH_A, 1):
         x = torch.rand((B, D), generator=gen).to(device)
         gout = torch.randn((B, O), generator=gen).to(device)
@@ -743,20 +754,54 @@ def mlp_phase(device, rec):
         again = mlp.mlp_fwd_cuda(*args) + mlp.mlp_bwd_cuda(*bwd_args)
         if not all(torch.equal(a, b) for a, b in zip(again, got + gk)):
             raise AssertionError(f"K6 is not bit-stable run to run (B={B})")
+        if B == BATCH:
+            em = (mlp.motion_net_mlp_split_emulation(*args),
+                  mlp.motion_net_mlp_bwd_split_emulation(*bwd_args))
+            diff = {name: float((a - b).abs().max() / b.abs().max())
+                    for name, a, b in zip(
+                        ("out", "h1", "h2", "z", "gx", "gW1", "gb1", "gW2",
+                         "gb2", "gW3", "gb3", "gWo", "gbo"),
+                        got + gk, em[0] + em[1])}
+            print(f"[kernel] K6 vs its 3xTF32 emulation on the card (B={B}; "
+                  f"largest difference / the tensor's largest entry; a "
+                  f"record, no gate): {json.dumps(diff)}")
         flop = 2 * B * (D * H + 2 * H * H + H * O)
         shape = f"B={B}, D={D}, H={H}, O={O}"
-        h1, h2 = got[1], got[2]
+        x_, h1, h2, z = args[0], got[1], got[2], got[3]
+        def fwd_chain():   # K6f's products, one cuBLAS call each
+            for a, w, b in ((x_, W[0], W[1]), (h1, W[2], W[3]),
+                            (h2, W[4], W[5]), (z, W[6], W[7])):
+                torch.addmm(b, a, w)
+
+        def bwd_chain():   # K6b's products, one cuBLAS call each (any (B, H)
+            # tensor stands in for gz, gh2 and gh1)
+            for act, w, g in ((z, W[6], gout), (h2, W[4], z),
+                              (h1, W[2], h2), (x_, W[0], h1)):
+                torch.mm(act.t(), g)
+                torch.mm(g, w.t())
+
+        chain = {"mlp_fwd": median_ms(fwd_chain),
+                 "mlp_bwd": median_ms(bwd_chain)}
         # one call: the largest contraction, (B, 1000).(1000, 1000) forward
         # and (1000, B).(B, 1000) backward, f32 with TF32 off
-        time_kernel(rec, "mlp_fwd", shape, lambda: mlp.mlp_fwd_cuda(*args),
+        for key, r in (
+                ("mlp_fwd", time_kernel(
+                    rec, "mlp_fwd", shape, lambda: mlp.mlp_fwd_cuda(*args),
                     lambda: mlp.motion_net_mlp_plain(*args), flop,
                     nbytes(*args, *got),
-                    library=lambda: torch.addmm(W[3], h1, W[2]))
-        time_kernel(rec, "mlp_bwd", shape,
+                    library=lambda: torch.addmm(W[3], h1, W[2]),
+                    tc_flop=flop)),
+                ("mlp_bwd", time_kernel(
+                    rec, "mlp_bwd", shape,
                     lambda: mlp.mlp_bwd_cuda(*bwd_args),
                     lambda: mlp.motion_net_mlp_bwd_plain(*bwd_args),
                     2 * flop, nbytes(*bwd_args, *gk),
-                    library=lambda: torch.mm(h1.t(), h2))
+                    library=lambda: torch.mm(h1.t(), h2),
+                    tc_flop=2 * flop))):
+            print(f"[time] {key} {shape}: cuBLAS chain {chain[key]:.4f} ms "
+                  f"(the kernel's products, one torch.addmm/mm each, TF32 "
+                  f"off; median of 20) against the kernel's {r['ms']:.4f}")
+            rec[key].setdefault("chain_ms", chain[key])
     print(f"[kernel] K6f and K6b bit-identical on a second run at B = "
           f"{BATCH}, {BATCH_A} and 1")
     return {k: max(v for name, v in errs.items() if name.startswith(k + " "))

@@ -10,58 +10,109 @@
 //   gW3 = h2^T gz,  gb3 = colsum(gz),   gh2 = (gz W3^T) * (h2 > 0),
 //   gW2 = h1^T gh2, gb2 = colsum(gh2),  gh1 = (gh2 W2^T) * (h1 > 0),
 //   gW1 = x^T gh1,  gb1 = colsum(gh1),  gx  = gh1 W1^T.
-// Every product is f32 FMA on the CUDA cores (no TF32: the JAX package pins
-// "highest" precision), and the ragged edges (B = 1, D = 105, H = 1000,
-// O = 147 at the reference) are masked: nothing is padded.
+// The ragged edges (B = 1, D = 105, H = 1000, O = 147 at the reference) are
+// masked: nothing is padded in device memory.
+//
+// What bounds it: 2 B (D H + 2 H^2 + H O) f32 products forward and twice
+// that backward (2.31 and 4.61 GFLOP at B = 512) against ~15.7 MB moved.
+// Every product runs on the tensor cores, mma.sync m16n8k8 TF32 in 3xTF32
+// (csrc/tf32_mma.cuh: three TF32 products a product, f32 accumulation), so
+// the card's least time is 3x the flop at 495 TFLOP/s (0.014 ms forward and
+// 0.028 backward at B = 512) while the bytes take 0.005: operations-bound at
+// B = 512 and 960, bytes-bound (the 9 MB of weights) at B = 1. The JAX
+// package pins "highest" precision, so one TF32 pass would not do.
 //
 // Why several launches. The TPU kernel is one launch each way because the
 // weights and activations (17-20 MB at the reference) stay in VMEM for the
 // whole call. A Hopper block has at most 227 KB of shared memory, and a
 // layer needs the whole of the previous layer's output before it starts,
 // which only a grid-wide barrier could give inside one launch. So each
-// product is its own launch of one tiled GEMM routine, in stream order: 4
-// forward and 8 backward, each followed by a reduction launch where its K
-// range was split (below). Intermediates (gz, gh2, gh1) go through scratch
-// in device memory; at these sizes they stay in the 50 MB L2.
+// layer is a launch of one tiled GEMM routine, in stream order: 4 forward
+// (one product each) and 4 backward (gW_l = act^T g_l and gact_l = g_l
+// W_l^T both read only g_l, so one grid covers both products' tiles, and
+// the block index picks the product), each followed by a reduction launch
+// where a contraction was split (below). Intermediates (gz, gh2, gh1) go
+// through scratch in device memory; at these sizes they stay in the 50 MB
+// L2.
 //
-// What bounds it: f32 operations, 2 B (D H + 2 H^2 + H O) forward and twice
-// that backward (2.31 and 4.61 GFLOP at B = 512) against ~15.7 MB moved:
-// operations-bound at B = 512 and 960, bytes-bound (the 9 MB of weights) at
-// B = 1. The GEMM routine: a 64 x 64 output tile per block of 256 threads,
-// 16-deep slices of both operands staged in shared memory (the next slice
-// loaded into registers while the current one is consumed), a 4 x 4 register
-// block a thread read with float4 loads. Three operand layouts cover every
-// product without a transposed copy: A (M,K) row-major or A stored (K,M)
-// (act^T g contracts the batch straight from the row-major (B,H)
-// activations, as _bwd_kernel's dot_general over axis 0 does), B (K,N) or
-// B stored (N,K) (g W^T). The epilogue fuses the bias add and the ReLU
-// (forward) or the ReLU mask of the saved activation (backward). The bias
-// gradient is a column sum, computed as one more output row of the gW
-// product against a virtual row of ones in act^T.
+// The GEMM routine: a 128 x 64 output tile a block of 8 warps, each warp a
+// 32 x 32 sub-tile of 2 x 4 m16n8 fragments. 32-deep slices of both
+// operands are staged by cp.async in a ring of 3 in dynamic shared memory
+// (82,944 B, two blocks an SM), so the copies of the next two slices fly
+// while a slice is consumed; a fragment is split into big and small in
+// registers as it is read. The products of each 16 of the contraction
+// accumulate in fresh registers on the tensor cores, and those sums are
+// added to the tile's in f32 on the CUDA cores: mma.sync's own
+// accumulation drifts over a long contraction. One accumulator for the
+// whole contraction ended an order of magnitude further from f64 than the
+// plain version (cuBLAS, f32), and then a pre-activation near a ReLU's
+// kink can fall on the other side in the kernel and in the plain version;
+// with 16-deep sums the kernel is the closer of the two (5.4e-7 of a
+// tensor's largest entry against 1.1e-6 at B = 960). Three operand layouts
+// cover every product
+// without a transposed copy: A (M,K) row-major or A stored (K,M) (act^T g
+// contracts the batch straight from the row-major (B,H) activations, as
+// _bwd_kernel's dot_general over axis 0 does), B (K,N) or B stored (N,K)
+// (g W^T). Each slice is staged in the operand's own layout, so a copy
+// follows its contiguous axis (16 bytes a copy where the rows are 16-byte
+// aligned, else 4): rows of the slice along m or n are 36 floats (4 mod
+// 32), rows along k are 136 or 72 (8 mod 32), and the (lane / 4, lane % 4)
+// fragment reads of a warp hit 32 distinct banks either way. The epilogue
+// fuses the bias add and the ReLU (forward) or the ReLU mask of the saved
+// activation (backward). The bias gradient is a column sum, computed as
+// one more output row of the gW product against a virtual row of ones in
+// act^T, whose split is exact (big 1, small 0): it is set once in every
+// stage of the ring and never copied. Other entries past the matrices'
+// edges are left as they are (they reach only outputs that are not
+// stored); contraction entries past the end are zero-filled by the copies.
+// The copies have one call site and the loops that set up a
+// tile stay rolled: the routine's machine code has to fit the SM's
+// instruction cache.
 //
-// A product with fewer output tiles than the card has SMs (the heads, gW1,
-// gx, every B = 1 product) splits its contraction into S ranges, one grid
-// slice each, written to scratch; a second launch sums the S partials in
-// order s = 0..S-1 and applies the epilogue. No atomics: S depends on the
-// shapes only, every sum runs in a fixed order, and repeated runs are
-// bit-identical.
+// A launch with fewer tiles than two blocks an SM (the heads, gW1, gx,
+// every B = 1 product) splits a product's contraction into S ranges of at
+// least two slices, one block each a tile, written to scratch; a second
+// launch sums the S partials in order s = 0..S-1 and applies the epilogue.
+// No atomics: S depends on the shapes only, every sum runs in a fixed
+// order, and repeated runs are bit-identical.
 
 #include <algorithm>
 #include <climits>
+#include <cstdint>
+
 #include <cuda_runtime.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kBM = 64;         // output rows a block
-constexpr int kBN = 64;         // output columns a block
-constexpr int kBK = 16;         // contraction slice staged a step
-constexpr int kThreads = 256;   // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kPerThread = kBM * kBK / kThreads;  // staged loads a thread
-constexpr int kSMs = 132;       // H100 SXM
+constexpr int kBM = 128;         // output rows a block
+constexpr int kBN = 64;          // output columns a block
+constexpr int kBK = 32;          // contraction slice staged a step
+constexpr int kWM = 32;          // a warp's sub-tile: 2 x 4 m16n8 fragments
+constexpr int kWN = 32;
+constexpr int kWarpsN = kBN / kWN;
+constexpr int kThreads = 32 * (kBM / kWM) * kWarpsN;
+constexpr int kFM = kWM / 16;    // m16 fragments a warp
+constexpr int kFN = kWN / 8;     // n8 fragments a warp
+constexpr int kStages = 3;       // slices in the cp.async ring
+constexpr int kChain = 16;       // contraction depth a tensor-core sum takes
+// shared-memory row strides (floats): rows along m or n (kSK = 4 mod 32)
+// and rows along k (kSM, kSN = 8 mod 32)
+constexpr int kSK = kBK + 4;
+constexpr int kSM = kBM + 8;
+constexpr int kSN = kBN + 8;
+constexpr int kAFloats = kBK * kSM > kBM * kSK ? kBK * kSM : kBM * kSK;
+constexpr int kBFloats = kBK * kSN > kBN * kSK ? kBK * kSN : kBN * kSK;
+constexpr int kStageFloats = kAFloats + kBFloats;  // A, then B
+constexpr int kSmemBytes = kStages * kStageFloats * (int)sizeof(float);
+constexpr int kBlocksPerSM = 2;  // by shared memory (2 x 82,944 B)
+constexpr int kSMs = 132;        // H100 SXM
+constexpr int kTargetBlocks = kBlocksPerSM * kSMs;  // one wave
 constexpr int kMaxSplit = 16;
-constexpr int kMinSplitTiles = 4;  // contraction slices a split at least
+constexpr int kMinSplitSlices = 2;  // contraction slices a range at least
 
-inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // C (M,N) = epilogue(A . B). A is A[m*lda + k], or A[k*lda + m] when
 // kAT; B is B[k*ldb + n], or B[n*ldb + k] when kBT. With gbias set the
@@ -85,32 +136,15 @@ __host__ __device__ inline int out_rows(const Gemm& g) {
   return g.M + (g.gbias ? 1 : 0);
 }
 
-template <bool kAT>
-__device__ __forceinline__ float load_a(const Gemm& g, int m, int k, int ke) {
-  if (k >= ke) return 0.f;
-  if (m < g.M)
-    return kAT ? __ldg(g.A + (size_t)k * g.lda + m)
-               : __ldg(g.A + (size_t)m * g.lda + k);
-  return (g.gbias && m == g.M) ? 1.f : 0.f;
-}
-
-template <bool kBT>
-__device__ __forceinline__ float load_b(const Gemm& g, int k, int n, int ke) {
-  if (k >= ke || n >= g.N) return 0.f;
-  return kBT ? __ldg(g.B + (size_t)n * g.ldb + k)
-             : __ldg(g.B + (size_t)k * g.ldb + n);
-}
-
-// (row, column) in the staged slice of the i-th load of a thread: the
-// fastest index follows the operand's contiguous axis, so a warp's loads
-// are coalesced.
-__device__ __forceinline__ void a_slot(bool kAT, int e, int& m, int& k) {
-  if (kAT) { k = e / kBM; m = e % kBM; } else { m = e / kBK; k = e % kBK; }
-}
-
-__device__ __forceinline__ void b_slot(bool kBT, int e, int& k, int& n) {
-  if (kBT) { n = e / kBK; k = e % kBK; } else { k = e / kBN; n = e % kBN; }
-}
+// A product as a launch runs it: its output tiles, and S contraction
+// ranges of kps slices each, one block a (tile, range); with S > 1 the
+// blocks write raw sums to partial (S, rows, N).
+struct Product {
+  Gemm g;
+  int tiles_n, tiles;
+  int S, kps;
+  float* partial;
+};
 
 __device__ __forceinline__ float epilogue(const Gemm& g, int m, int n,
                                           float acc) {
@@ -125,128 +159,265 @@ __device__ __forceinline__ void store(const Gemm& g, int m, int n, float v) {
   else g.gbias[n] = v;
 }
 
-// One (64 x 64) output tile over the contraction range of split
-// blockIdx.z (kps slices of kBK). partial == nullptr: the epilogue and the
-// output; otherwise the raw sums into partial (S, rows, N).
-template <bool kAT, bool kBT>
-__global__ void __launch_bounds__(kThreads)
-mlp_gemm_kernel(Gemm g, int kps, float* __restrict__ partial) {
-  __shared__ __align__(16) float As[kBK][kBM + 4];
-  __shared__ __align__(16) float Bs[kBK][kBN + 4];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  const int kb = blockIdx.z * kps * kBK;
-  const int ke = min(g.K, kb + kps * kBK);
-  const int rows = out_rows(g);
+// Queue the copy of an R x C slice, row r and column c from
+// src[(r0 + r) * ld + c0 + c], into dst[r * stride + c], CW floats a copy.
+// One axis is the contraction, the other an edge of the matrix: past the
+// contraction's end (r_end or c_end) the copies zero-fill, past the
+// matrix's edge (kRowsEdge: rows, else columns) nothing is copied.
+template <int CW, int R, int C, bool kRowsEdge>
+__device__ __forceinline__ void copy_slice(float* dst, int stride,
+                                           const float* src, int ld, int r0,
+                                           int r_end, int c0, int c_end) {
+  constexpr int kPerRow = C / CW;
+#pragma unroll 1
+  for (int e = threadIdx.x; e < R * kPerRow; e += kThreads) {
+    const int r = e / kPerRow, c = e % kPerRow * CW;
+    const int gr = r0 + r, gc = c0 + c;
+    if (kRowsEdge ? gr >= r_end : gc >= c_end) continue;
+    const int n = gr < r_end ? c_end - gc : 0;
+    cp_async<CW>(dst + r * stride + c,
+                 n > 0 ? src + (size_t)gr * ld + gc : src, n);
+  }
+}
 
-  float ra[kPerThread], rb[kPerThread];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      int m, k, n, kk;
-      a_slot(kAT, tid + i * kThreads, m, k);
-      b_slot(kBT, tid + i * kThreads, kk, n);
-      ra[i] = load_a<kAT>(g, m0 + m, k0 + k, ke);
-      rb[i] = load_b<kBT>(g, k0 + kk, n0 + n, ke);
+// 16-byte copies need 16-byte aligned rows and, along an edge axis, a
+// length that is a multiple of 4 (no copy straddles the edge).
+__device__ __forceinline__ bool vec_ok(const float* p, int ld, int edge,
+                                       bool edge_is_column) {
+  return ld % 4 == 0 && ((uintptr_t)p & 15) == 0 &&
+         (!edge_is_column || edge % 4 == 0);
+}
+
+// One (kBM x kBN) output tile over one contraction range: block blk of p.
+template <bool kAT, bool kBT>
+__device__ __forceinline__ void gemm_tile(const Product& p, int blk,
+                                          float* smem) {
+  const Gemm& g = p.g;
+  const int tile = blk % p.tiles, s = blk / p.tiles;
+  const int n0 = tile % p.tiles_n * kBN, m0 = tile / p.tiles_n * kBM;
+  const int kb = s * p.kps * kBK;
+  const int ke = min(g.K, kb + p.kps * kBK);
+  const int n_slices = cdiv(ke - kb, kBK);
+  const int rows = out_rows(g);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = warp / kWarpsN * kWM, wn = warp % kWarpsN * kWN;
+
+  // the virtual ones row (gW's bias gradient) in every stage; the copies
+  // never touch it. Other entries past M or N are not set: a product's row
+  // m reads only A's row m and its column n only B's column n, and those
+  // outputs are never stored.
+  if (g.gbias && g.M >= m0 && g.M < m0 + kBM)
+#pragma unroll 1
+    for (int e = tid; e < kStages * kBK; e += kThreads) {
+      const int m = g.M - m0, k = e % kBK;
+      smem[e / kBK * kStageFloats + (kAT ? k * kSM + m : m * kSK + k)] = 1.f;
+    }
+
+  const bool vec_a = vec_ok(g.A, g.lda, g.M, kAT);
+  const bool vec_b = vec_ok(g.B, g.ldb, g.N, !kBT);
+  auto load = [&](int slice, int st) {
+    float* a = smem + st * kStageFloats;
+    float* b = a + kAFloats;
+    const int k0 = kb + slice * kBK;
+    if (kAT) {
+      if (vec_a) copy_slice<4, kBK, kBM, false>(a, kSM, g.A, g.lda, k0, ke, m0, g.M);
+      else       copy_slice<1, kBK, kBM, false>(a, kSM, g.A, g.lda, k0, ke, m0, g.M);
+    } else {
+      if (vec_a) copy_slice<4, kBM, kBK, true>(a, kSK, g.A, g.lda, m0, g.M, k0, ke);
+      else       copy_slice<1, kBM, kBK, true>(a, kSK, g.A, g.lda, m0, g.M, k0, ke);
+    }
+    if (kBT) {
+      if (vec_b) copy_slice<4, kBN, kBK, true>(b, kSK, g.B, g.ldb, n0, g.N, k0, ke);
+      else       copy_slice<1, kBN, kBK, true>(b, kSK, g.B, g.ldb, n0, g.N, k0, ke);
+    } else {
+      if (vec_b) copy_slice<4, kBK, kBN, false>(b, kSN, g.B, g.ldb, k0, ke, n0, g.N);
+      else       copy_slice<1, kBK, kBN, false>(b, kSN, g.B, g.ldb, k0, ke, n0, g.N);
     }
   };
 
-  float acc[4][4];
+  float acc[kFM][kFN][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kFM; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kFN; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
 
-  fetch(kb);
-  for (int k0 = kb; k0 < ke; k0 += kBK) {
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      int m, k, n, kk;
-      a_slot(kAT, tid + i * kThreads, m, k);
-      b_slot(kBT, tid + i * kThreads, kk, n);
-      As[k][m] = ra[i];
-      Bs[kk][n] = rb[i];
+  // the first kStages - 1 passes only queue copies; pass t >= 0 waits for
+  // slice t, queues slice t + kStages - 1 into the stage slice t - 1 used,
+  // and consumes slice t (one call site of the copies keeps the code small)
+#pragma unroll 1
+  for (int t = 1 - kStages; t < n_slices; ++t) {
+    if (t >= 0) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // slice t landed; slice t - 1's stage is free
     }
-    __syncthreads();
-    if (k0 + kBK < ke) fetch(k0 + kBK);  // in flight during the products
+    if (t + kStages - 1 < n_slices)
+      load(t + kStages - 1, (t + kStages - 1) % kStages);
+    cp_async_commit();
+    if (t < 0) continue;
+    const float* a = smem + t % kStages * kStageFloats;
+    const float* b = a + kAFloats;
 #pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+    for (int kf = 0; kf < kBK; kf += kChain) {
+      float part[kFM][kFN][4];  // kChain deep on the tensor cores
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kFM; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < kFN; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) part[i][j][c] = 0.f;
+#pragma unroll
+      for (int kk = kf; kk < kf + kChain; kk += 8) {
+        uint32_t ab[kFM][4], as[kFM][4], bb[kFN][2], bs[kFN][2];
+#pragma unroll
+        for (int i = 0; i < kFM; ++i) {
+          const int m = wm + 16 * i + gid, k = kk + tig;
+          const float v[4] = {
+              kAT ? a[k * kSM + m] : a[m * kSK + k],
+              kAT ? a[k * kSM + m + 8] : a[(m + 8) * kSK + k],
+              kAT ? a[(k + 4) * kSM + m] : a[m * kSK + k + 4],
+              kAT ? a[(k + 4) * kSM + m + 8] : a[(m + 8) * kSK + k + 4]};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) split_tf32(v[c], ab[i][c], as[i][c]);
+        }
+#pragma unroll
+        for (int j = 0; j < kFN; ++j) {
+          const int n = wn + 8 * j + gid, k = kk + tig;
+          split_tf32(kBT ? b[n * kSK + k] : b[k * kSN + n], bb[j][0],
+                     bs[j][0]);
+          split_tf32(kBT ? b[n * kSK + k + 4] : b[(k + 4) * kSN + n],
+                     bb[j][1], bs[j][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < kFM; ++i)
+#pragma unroll
+          for (int j = 0; j < kFN; ++j)
+            mma_3xtf32(part[i][j], part[i][j], ab[i], as[i], bb[j], bs[j]);
+      }
+#pragma unroll
+      for (int i = 0; i < kFM; ++i)
+#pragma unroll
+        for (int j = 0; j < kFN; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[i][j][c] += part[i][j][c];
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= rows) continue;
+  for (int i = 0; i < kFM; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= g.N) continue;
-      if (partial)
-        partial[((size_t)blockIdx.z * rows + m) * g.N + n] = acc[i][j];
-      else
-        store(g, m, n, epilogue(g, m, n, acc[i][j]));
-    }
+    for (int j = 0; j < kFN; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int m = m0 + wm + 16 * i + gid + (c >> 1) * 8;
+        const int n = n0 + wn + 8 * j + 2 * tig + (c & 1);
+        if (m >= rows || n >= g.N) continue;
+        if (p.partial)
+          p.partial[((size_t)s * rows + m) * g.N + n] = acc[i][j][c];
+        else
+          store(g, m, n, epilogue(g, m, n, acc[i][j][c]));
+      }
+}
+
+// One launch over the blocks of one product (the forward's layouts, kAT0
+// == kAT1 and kBT0 == kBT1: p0 alone) or of two (the backward's gW and gact
+// of a layer); of two, the product with the longer contraction ranges
+// (second_first: p1) takes the first block indices, so its blocks start
+// first. Each layout's tile routine is inlined once.
+template <bool kAT0, bool kBT0, bool kAT1, bool kBT1>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+mlp_gemm_kernel(Product p0, Product p1, int second_first) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (kAT0 == kAT1 && kBT0 == kBT1) {
+    gemm_tile<kAT0, kBT0>(p0, blockIdx.x, smem);
+  } else {
+    const int n0 = p0.tiles * p0.S, n1 = p1.tiles * p1.S;
+    const int blk = blockIdx.x;
+    const bool in1 = second_first ? blk < n1 : blk >= n0;
+    if (in1) gemm_tile<kAT1, kBT1>(p1, second_first ? blk : blk - n0, smem);
+    else gemm_tile<kAT0, kBT0>(p0, second_first ? blk - n1 : blk, smem);
   }
 }
 
-// Sum the S partials of each output in order s = 0..S-1, then the epilogue.
+// Output idx of a split product: its S partials summed in order s =
+// 0..S-1, then the epilogue.
+__device__ __forceinline__ void reduce_one(const Product& p, size_t idx) {
+  const size_t total = (size_t)out_rows(p.g) * p.g.N;
+  if (p.S <= 1 || idx >= total) return;
+  float acc = p.partial[idx];
+  for (int s = 1; s < p.S; ++s) acc += p.partial[s * total + idx];
+  const int m = (int)(idx / p.g.N), n = (int)(idx % p.g.N);
+  store(p.g, m, n, epilogue(p.g, m, n, acc));
+}
+
+// Every output of each split product of a launch, p0's first.
 __global__ void __launch_bounds__(256)
-mlp_splitk_reduce(Gemm g, int S, const float* __restrict__ partial) {
-  const size_t total = (size_t)out_rows(g) * g.N;
+mlp_splitk_reduce(Product p0, Product p1) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  float acc = partial[idx];
-  for (int s = 1; s < S; ++s) acc += partial[s * total + idx];
-  const int m = (int)(idx / g.N), n = (int)(idx % g.N);
-  store(g, m, n, epilogue(g, m, n, acc));
+  const size_t t0 = p0.S > 1 ? (size_t)out_rows(p0.g) * p0.g.N : 0;
+  if (idx < t0) reduce_one(p0, idx);
+  else reduce_one(p1, idx - t0);
 }
 
-// How many contraction ranges S, of kps slices each: one when the output
-// tiles fill the card, else enough to give about two blocks an SM, at
-// least kMinSplitTiles slices a range.
-struct Split {
-  int S, kps;
-};
-
-Split plan(int rows, int N, int K) {
-  const int tiles = cdiv(rows, kBM) * cdiv(N, kBN);
+// The contraction ranges of a product with `tiles` output tiles launched
+// beside `others` tiles of another product: one range when the launch has
+// kTargetBlocks tiles, else as many as keep the launch within that many
+// blocks, at most kMaxSplit and at least kMinSplitSlices slices a range.
+void plan(int tiles, int others, int K, int& S, int& kps) {
   const int kt = cdiv(K, kBK);
-  int S = 1;
-  if (tiles < kSMs) {
-    S = cdiv(2 * kSMs, tiles);
-    S = std::min({S, std::max(1, kt / kMinSplitTiles), kMaxSplit});
+  S = std::max(1, std::min({(kTargetBlocks - others) / tiles,
+                            kt / kMinSplitSlices, kMaxSplit}));
+  kps = cdiv(kt, S);
+  S = cdiv(kt, kps);
+}
+
+Product product(const Gemm& g, int other_tiles) {
+  Product p;
+  p.g = g;
+  p.tiles_n = cdiv(g.N, kBN);
+  p.tiles = p.tiles_n * cdiv(out_rows(g), kBM);
+  plan(p.tiles, other_tiles, g.K, p.S, p.kps);
+  p.partial = nullptr;
+  return p;
+}
+
+int tiles_of(const Gemm& g) { return cdiv(g.N, kBN) * cdiv(out_rows(g), kBM); }
+
+size_t partial_floats(const Product& p) {
+  return p.S > 1 ? (size_t)p.S * out_rows(p.g) * p.g.N : 0;
+}
+
+// Launch one product (n = 1) or a pair (n = 2), then the reduction where
+// either was split; partial holds both products' partials, p0's first.
+template <bool kAT0, bool kBT0, bool kAT1, bool kBT1>
+cudaError_t run(Product p0, Product p1, int n, float* partial,
+                cudaStream_t stream) {
+  auto kernel = mlp_gemm_kernel<kAT0, kBT0, kAT1, kBT1>;
+  // the shared-memory limit, set once a device (a host call that costs
+  // more than the launch)
+  static bool raised[64];
+  int dev = 0;
+  if (cudaError_t err = cudaGetDevice(&dev)) return err;
+  if (dev >= 64 || !raised[dev]) {
+    if (cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes))
+      return err;
+    if (dev < 64) raised[dev] = true;
   }
-  const int kps = cdiv(kt, S);
-  return {cdiv(kt, kps), kps};
-}
-
-size_t partial_floats(int rows, int N, int K) {
-  const Split p = plan(rows, N, K);
-  return p.S > 1 ? (size_t)p.S * rows * N : 0;
-}
-
-template <bool kAT, bool kBT>
-cudaError_t run(const Gemm& g, float* partial, cudaStream_t stream) {
-  const int rows = out_rows(g);
-  const Split p = plan(rows, g.N, g.K);
-  const dim3 grid(cdiv(g.N, kBN), cdiv(rows, kBM), p.S);
-  mlp_gemm_kernel<kAT, kBT><<<grid, kThreads, 0, stream>>>(
-      g, p.kps, p.S > 1 ? partial : nullptr);
+  if (n < 2) p1.tiles = p1.S = 0;
+  p0.partial = p0.S > 1 ? partial : nullptr;
+  p1.partial = p1.S > 1 ? partial + partial_floats(p0) : nullptr;
+  const int blocks = p0.tiles * p0.S + p1.tiles * p1.S;
+  kernel<<<blocks, kThreads, kSmemBytes, stream>>>(p0, p1, p1.kps > p0.kps);
   if (cudaError_t err = cudaGetLastError()) return err;
-  if (p.S > 1) {
-    const size_t total = (size_t)rows * g.N;
+  const size_t total = (p0.S > 1 ? (size_t)out_rows(p0.g) * p0.g.N : 0) +
+                       (p1.S > 1 ? (size_t)out_rows(p1.g) * p1.g.N : 0);
+  if (total > 0)
     mlp_splitk_reduce<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-        g, p.S, partial);
-  }
+        p0, p1);
   return cudaGetLastError();
 }
 
@@ -256,25 +427,56 @@ Gemm gemm(int M, int N, int K, const float* A, int lda, const float* B,
 }
 
 bool bad_shape(int B, int D, int H, int O) {
-  return B <= 0 || D <= 0 || H <= 0 || O <= 0 || cdiv(B + 1, kBM) > 65535 ||
-         cdiv(H + 1, kBM) > 65535;
+  if (B <= 0 || D <= 0 || H <= 0 || O <= 0) return true;
+  // a launch's blocks (two products of at most t x t tiles and kMaxSplit
+  // ranges each) in one grid dimension
+  const long long t = (std::max({B, D, H, O}) + 64LL) / 64;
+  return 2 * kMaxSplit * t * t > INT_MAX;
+}
+
+// The forward's layers as (M, N, K) products: the batch against each weight.
+struct Layer {
+  int K_in, N;
+};
+
+void layers_of(int D, int H, int O, Layer out[4]) {
+  out[0] = {D, H};
+  out[1] = {H, H};
+  out[2] = {H, H};
+  out[3] = {H, O};
+}
+
+// The backward's pair of products for a layer (act (B,K_in), W (K_in,N)):
+// gW = act^T g with its ones row, and gact = g W^T.
+void backward_pair(int B, const Layer& l, const float* act, const float* W,
+                   const float* g, float* gW, float* gbias, float* gact,
+                   const float* mask, Product& pw, Product& pa) {
+  Gemm w = gemm(l.K_in, l.N, B, act, l.K_in, g, l.N, gW, l.N);
+  w.gbias = gbias;
+  Gemm a = gemm(B, l.K_in, l.N, g, l.N, W, l.N, gact, l.K_in);
+  a.mask = mask;
+  pw = product(w, tiles_of(a));
+  pa = product(a, tiles_of(w));
 }
 
 }  // namespace
 
 // Floats of device scratch nemo_mlp_fwd and nemo_mlp_bwd need at (B, D, H,
 // O): the backward's two (B,H) intermediates and the largest split-K
-// partial buffer of any product; -1 for a shape the kernels refuse.
+// partial buffer of any launch; -1 for a shape the kernels refuse.
 extern "C" int nemo_mlp_scratch_floats(int B, int D, int H, int O) {
   if (bad_shape(B, D, H, O)) return -1;
-  const int shapes[][3] = {
-      {B, H, D}, {B, H, H}, {B, O, H},                    // forward
-      {H + 1, O, B}, {B, H, O}, {H + 1, H, B}, {B, H, H},  // backward
-      {D + 1, H, B}, {B, D, H}};
+  Layer ls[4];
+  layers_of(D, H, O, ls);
   size_t most = 0;
-  for (const auto& s : shapes) {
-    const size_t n = partial_floats(s[0], s[1], s[2]);
-    if (n > most) most = n;
+  for (const Layer& l : ls) {
+    const Gemm f = gemm(B, l.N, l.K_in, nullptr, 0, nullptr, 0, nullptr, 0);
+    most = std::max(most, partial_floats(product(f, 0)));
+    Product pw, pa;
+    float ones_row;  // a gbias pointer only marks gW's ones row here
+    backward_pair(B, l, nullptr, nullptr, nullptr, nullptr, &ones_row,
+                  nullptr, nullptr, pw, pa);
+    most = std::max(most, partial_floats(pw) + partial_floats(pa));
   }
   const size_t total = 2 * (size_t)B * H + most;
   return total > (size_t)INT_MAX ? -1 : (int)total;
@@ -290,14 +492,19 @@ extern "C" int nemo_mlp_fwd(int B, int D, int H, int O, const float* x,
                             float* h1, float* h2, float* z, float* scratch,
                             cudaStream_t stream) {
   if (bad_shape(B, D, H, O)) return (int)cudaErrorInvalidValue;
-  const struct { const float *in, *W, *b; int K, N; float* C; int relu; }
-      layers[] = {{x, W1, b1, D, H, h1, 1}, {h1, W2, b2, H, H, h2, 1},
-                  {h2, W3, b3, H, H, z, 1}, {z, Wo, bo, H, O, out, 0}};
-  for (const auto& l : layers) {
-    Gemm g = gemm(B, l.N, l.K, l.in, l.K, l.W, l.N, l.C, l.N);
-    g.bias = l.b;
-    g.relu = l.relu;
-    if (cudaError_t err = run<false, false>(g, scratch, stream))
+  const struct { const float *in, *W, *b; float* C; int relu; } io[] = {
+      {x, W1, b1, h1, 1}, {h1, W2, b2, h2, 1}, {h2, W3, b3, z, 1},
+      {z, Wo, bo, out, 0}};
+  Layer ls[4];
+  layers_of(D, H, O, ls);
+  for (int i = 0; i < 4; ++i) {
+    Gemm g = gemm(B, ls[i].N, ls[i].K_in, io[i].in, ls[i].K_in, io[i].W,
+                  ls[i].N, io[i].C, ls[i].N);
+    g.bias = io[i].b;
+    g.relu = io[i].relu;
+    const Product p = product(g, 0);
+    if (cudaError_t err = run<false, false, false, false>(p, p, 1, scratch,
+                                                          stream))
       return (int)err;
   }
   return (int)cudaSuccess;
@@ -317,26 +524,43 @@ extern "C" int nemo_mlp_bwd(int B, int D, int H, int O, const float* gout,
   float* ga = scratch;                    // gz, then gh1 (B,H)
   float* gb = scratch + (size_t)B * H;    // gh2 (B,H)
   float* partial = scratch + 2 * (size_t)B * H;
-  // layer by layer from the output: (input activation act (B,K_in), its
+  // layer by layer from the output: the input activation act (B,K_in), its
   // weight W (K_in,N), the cotangent on the layer's output g (B,N), the
   // weight and bias gradients, the cotangent on act and the mask it takes
-  // (act itself; none for x))
+  // (act itself; none for x)
   const struct {
     const float *act, *W, *g;
-    int K_in, N;
     float *gW, *gbias, *gact;
     const float* mask;
-  } layers[] = {{z, Wo, gout, H, O, gWo, gbo, ga, z},
-                {h2, W3, ga, H, H, gW3, gb3, gb, h2},
-                {h1, W2, gb, H, H, gW2, gb2, ga, h1},
-                {x, W1, ga, D, H, gW1, gb1, gx, nullptr}};
-  for (const auto& l : layers) {
-    Gemm w = gemm(l.K_in, l.N, B, l.act, l.K_in, l.g, l.N, l.gW, l.N);
-    w.gbias = l.gbias;
-    if (cudaError_t err = run<true, false>(w, partial, stream)) return (int)err;
-    Gemm a = gemm(B, l.K_in, l.N, l.g, l.N, l.W, l.N, l.gact, l.K_in);
-    a.mask = l.mask;
-    if (cudaError_t err = run<false, true>(a, partial, stream)) return (int)err;
+  } io[] = {{z, Wo, gout, gWo, gbo, ga, z},
+            {h2, W3, ga, gW3, gb3, gb, h2},
+            {h1, W2, gb, gW2, gb2, ga, h1},
+            {x, W1, ga, gW1, gb1, gx, nullptr}};
+  Layer ls[4];
+  layers_of(D, H, O, ls);
+  for (int i = 0; i < 4; ++i) {
+    Product pw, pa;
+    backward_pair(B, ls[3 - i], io[i].act, io[i].W, io[i].g, io[i].gW,
+                  io[i].gbias, io[i].gact, io[i].mask, pw, pa);
+    if (cudaError_t err = run<true, false, false, true>(pw, pa, 2, partial,
+                                                        stream))
+      return (int)err;
   }
   return (int)cudaSuccess;
+}
+
+// out int[4]: the GEMM kernel's registers a thread, static and dynamic
+// shared memory bytes and local (spill) bytes, for the forward's
+// instantiation (pair = 0) or the backward's pair (pair = 1).
+extern "C" int nemo_mlp_attributes(int pair, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err =
+      pair ? cudaFuncGetAttributes(&a, mlp_gemm_kernel<true, false, false, true>)
+           : cudaFuncGetAttributes(&a, mlp_gemm_kernel<false, false, false, false>);
+  if (err) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = kSmemBytes;
+  out[3] = (int)a.localSizeBytes;
+  return 0;
 }

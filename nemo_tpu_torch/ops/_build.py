@@ -79,6 +79,10 @@ _SIGNATURES = {
     # B, D, H, O, gout, x, h1, h2, z, W1, W2, W3, Wo, gx, gW1, gb1, gW2, gb2,
     # gW3, gb3, gWo, gbo, scratch, stream
     "nemo_mlp_bwd": [_I] * 4 + [_P] * 20,
+    # pair (0 the forward's instantiation, 1 the backward's), out int[4]:
+    # the K6 GEMM kernel's registers a thread, static and dynamic shared
+    # memory bytes, local (spill) bytes
+    "nemo_mlp_attributes": [_I, _P],
 }
 
 build_seconds = None  # wall time of the build this process ran, if any

@@ -39,6 +39,9 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ._emulation import in_order as _in_order
+from ._emulation import mm_3xtf32 as _mm_3xtf32
+from ._emulation import tf32 as _tf32
 
 NUM_POSE_FEATURES = 207
 NUM_JOINTS = 24
@@ -127,21 +130,6 @@ def fused_ranges(B: int, V: int, num_sms: int) -> int:
     return min(2 * max(1, num_sms // n_bt), -(-V // FUSED_VERTS))
 
 
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """f32 rounded to the nearest TF32, ties away from zero, by masking the
-    low 13 mantissa bits (csrc/skin_common.cuh:tf32_bits)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b as three TF32 products accumulated in f32: small . big, then
-    big . small, then big . big."""
-    ab, bb = _tf32(a), _tf32(b)
-    a_s, b_s = _tf32(a - ab), _tf32(b - bb)
-    return (a_s @ bb + ab @ b_s) + ab @ bb
-
-
 def _blocks(B: int, V: int, num_sms: int):
     """The one-pass kernels' (batch tiles, vertex ranges) as index pairs."""
     R = fused_ranges(B, V, num_sms)
@@ -149,13 +137,6 @@ def _blocks(B: int, V: int, num_sms: int):
     cut = [min(V, r * n_t // R * FUSED_VERTS) for r in range(R + 1)]
     rows = [(b, min(B, b + FUSED_ROWS)) for b in range(0, B, FUSED_ROWS)]
     return rows, list(zip(cut[:-1], cut[1:]))
-
-
-def _in_order(parts):
-    acc = parts[0]
-    for part in parts[1:]:
-        acc = acc + part
-    return acc
 
 
 def _posed_3xtf32(pf, posedirs_t, v_shaped_t) -> torch.Tensor:

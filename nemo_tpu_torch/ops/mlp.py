@@ -13,20 +13,26 @@ the raw ``W_rot``/``W_lin``/``b_rot``/``b_lin`` and optimizer state keeps
 its shapes, as JAX's differentiable ``pad_motion_net_params`` does. Nothing
 is padded: the kernels mask the ragged edges.
 
-On a CUDA tensor the op launches ``csrc/mlp.cu`` (f32 FMA on the CUDA
-cores, operations-bound at the fit's batch; the source note has the design),
-with no fallback. On a CPU tensor it runs :func:`motion_net_mlp_plain` and
-:func:`motion_net_mlp_bwd_plain`, which mirror ``_fwd_kernel`` and
-``_bwd_kernel`` step by step.
+On a CUDA tensor the op launches ``csrc/mlp.cu`` (every product on the
+tensor cores in 3xTF32, operations-bound at the fit's batch; the source
+note has the design), with no fallback. On a CPU tensor it runs
+:func:`motion_net_mlp_plain` and :func:`motion_net_mlp_bwd_plain`, which
+mirror ``_fwd_kernel`` and ``_bwd_kernel`` step by step;
+:func:`motion_net_mlp_split_emulation` and
+:func:`motion_net_mlp_bwd_split_emulation` repeat the kernels' arithmetic
+for the tests.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import ctypes
+
 import torch
 
 from . import _build
+from ._emulation import in_order, mm_3xtf32
 
 LAUNCHES = {"mlp_fwd": 0, "mlp_bwd": 0}
 
@@ -62,6 +68,88 @@ def motion_net_mlp_bwd_plain(gout, x, h1, h2, z, W1, W2, W3, Wo):
 
 
 # ---------------------------------------------------------------------------
+# the kernels' arithmetic, emulated (tests only)
+# ---------------------------------------------------------------------------
+
+# csrc/mlp.cu's output tile (kBM x kBN), contraction slice (kBK), the depth
+# of one tensor-core sum (kChain), blocks a launch aims at per SM, and the
+# split's limits
+TILE_M, TILE_N, SLICE, CHAIN = 128, 64, 32, 16
+BLOCKS_PER_SM, MAX_SPLIT, MIN_SPLIT_SLICES = 2, 16, 2
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _tiles(rows: int, N: int) -> int:
+    return _cdiv(rows, TILE_M) * _cdiv(N, TILE_N)
+
+
+def split_plan(tiles: int, others: int, K: int, num_sms: int = 132
+               ) -> Tuple[int, int]:
+    """(S, slices a range) of a product with ``tiles`` output tiles launched
+    beside ``others`` tiles of another product (csrc/mlp.cu: plan)."""
+    kt = _cdiv(K, SLICE)
+    S = max(1, min((BLOCKS_PER_SM * num_sms - others) // tiles,
+                   kt // MIN_SPLIT_SLICES, MAX_SPLIT))
+    kps = _cdiv(kt, S)
+    return _cdiv(kt, kps), kps
+
+
+def _product(a, b, others: int, num_sms: int, ones_row: bool = False):
+    """a (M, K) @ b (K, N) as the GEMM routine sums it: each CHAIN-deep
+    piece in 3xTF32, the pieces of a contraction range summed in order, then
+    the ranges' partials in order; with ``ones_row`` one more row of ones in
+    a (the bias gradient: b's column sums)."""
+    if ones_row:
+        a = torch.cat([a, a.new_ones((1, a.shape[1]))])
+    K = a.shape[1]
+    _, kps = split_plan(_tiles(a.shape[0], b.shape[1]), others, K, num_sms)
+    w = kps * SLICE
+    return in_order([
+        in_order([mm_3xtf32(a[:, k:k + CHAIN], b[k:k + CHAIN])
+                  for k in range(r, min(r + w, K), CHAIN)])
+        for r in range(0, K, w)])
+
+
+def motion_net_mlp_split_emulation(x, W1, b1, W2, b2, W3, b3, Wo, bo,
+                                   num_sms: int = 132) -> Acts:
+    """(out, h1, h2, z) in K6f's arithmetic: each layer's product in
+    3xTF32 CHAIN deep at a time, those sums and the split-K partials in the
+    kernel's order for the plan at ``num_sms``, then the bias and the ReLU. Nothing on the main path
+    calls it: the tests hold it against the JAX kernel and
+    motion_net_mlp_plain to show that the split and the reduction order stay
+    inside the tolerances."""
+    h1 = torch.relu(_product(x, W1, 0, num_sms) + b1)
+    h2 = torch.relu(_product(h1, W2, 0, num_sms) + b2)
+    z = torch.relu(_product(h2, W3, 0, num_sms) + b3)
+    return _product(z, Wo, 0, num_sms) + bo, h1, h2, z
+
+
+def motion_net_mlp_bwd_split_emulation(gout, x, h1, h2, z, W1, W2, W3, Wo,
+                                       num_sms: int = 132):
+    """(gx, gW1, gb1, gW2, gb2, gW3, gb3, gWo, gbo) in K6b's arithmetic: a
+    layer's gW (with the bias gradient as its ones row) and gact products
+    planned as the one launch that holds both, each in 3xTF32 with its
+    partials summed in order, then the ReLU mask. For the tests, as
+    :func:`motion_net_mlp_split_emulation`."""
+    B = gout.shape[0]
+    grads = []
+    g = gout
+    for act, W in ((z, Wo), (h2, W3), (h1, W2), (x, W1)):
+        K_in, N = W.shape
+        tw, ta = _tiles(K_in + 1, N), _tiles(B, K_in)
+        gWb = _product(act.t(), g, ta, num_sms, ones_row=True)
+        gact = _product(g, W.t(), tw, num_sms)
+        if act is not x:
+            gact = gact * (act > 0)
+        grads = [gWb[:-1], gWb[-1]] + grads
+        g = gact
+    return (g, *grads)
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels (csrc/mlp.cu)
 # ---------------------------------------------------------------------------
 
@@ -84,6 +172,17 @@ def _scratch(lib, B, D, H, O, dev) -> torch.Tensor:
         raise ValueError(f"nemo_mlp: shape (B, D, H, O) = {(B, D, H, O)} "
                          "is out of the kernels' range")
     return torch.empty(max(n, 1), dtype=torch.float32, device=dev)
+
+
+def gemm_attributes(pair: bool = False) -> dict:
+    """The GEMM kernel's registers a thread, shared memory and spills (local
+    memory), as the CUDA runtime reports them for the built library: the
+    forward's instantiation, or (pair) the backward's."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.library().nemo_mlp_attributes(int(pair), out),
+                 "nemo_mlp_attributes")
+    return dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
+                     "local_bytes"), out))
 
 
 def mlp_fwd_cuda(x, W1, b1, W2, b2, W3, b3, Wo, bo) -> Acts:
