@@ -14,8 +14,10 @@ Run from the repository root with no arguments:
    rotations); K2 in fused, forward-only and pair modes (B=512, the
    6890-vertex synthetic SMPL's tables), the fused and forward-only modes
    (the one-pass kernel) also at B=960, with the kernel's registers,
-   shared memory and spills; K3f at (512, 6890) and (960,
-   1024); K3b (the one-pass backward) recomputing the posed vertices and
+   shared memory and spills; K3f and the pair mode (the one-pass forward
+   kernel, with its registers, shared memory and spills) at (512, 6890),
+   (960, 1024), (37, 300) and (1, 5), each run twice for bit-stability;
+   K3b (the one-pass backward) recomputing the posed vertices and
    reading stored ones, under a random cotangent and a sign, at (512,
    6890) (the stored vertices and the sign from K2's pair mode), at path
    A's (960, 1024), at (1, 5) and at (37, 300), each run twice for
@@ -33,9 +35,9 @@ Run from the repository root with no arguments:
    version's, one PyTorch call's (where one computes the whole function or
    its largest contraction) and its bound (the least time the card could
    take: the larger of bytes over 3.35 TB/s and f32 FLOPs over 67 TFLOP/s;
-   for the one-pass kernels (K2's fused and forward-only modes, K3b) the
-   operations bound counts their posedirs contractions as three TF32
-   products at 495 TFLOP/s on the tensor cores and the rest as f32, for
+   for the one-pass kernels (K2's fused, forward-only and pair modes, K3f,
+   K3b) the operations bound counts their posedirs contractions as three
+   TF32 products at 495 TFLOP/s on the tensor cores and the rest as f32, for
    K6 every product so, and the f32 bound is printed beside it).
 4. The fit, one path after another, each with the launch counters zeroed
    just before and read just after, and each asserting that its own
@@ -131,8 +133,9 @@ SIDE_FLOP = POSE_FLOP + BLEND_FLOP + 2 * 9
 # one posedirs contraction per (batch row, vertex): a side's forward vph or
 # the backward gpf. The one-pass kernels run them on the TF32 tensor cores
 # as three products each (3xTF32): K2 the forward of both sides and gpf,
-# K3b gpf and, recomputing the posed vertices, the forward of its one side;
-# the rest of their work stays on the CUDA cores
+# K3b gpf and, recomputing the posed vertices, the forward of its one side,
+# K3f and K2's pair mode the forward of each side; the rest of their work
+# stays on the CUDA cores
 POSE_TC_FLOP = 2 * 621
 K2_TC_FWD_FLOP = 2 * POSE_TC_FLOP
 K2_TC_GRAD_FLOP = POSE_TC_FLOP
@@ -364,6 +367,46 @@ def kernel_phase(device, smpl):
         pf_r, A_r = skin_side_inputs(smpl, Bk, g, device, offset=10.0)
         return (pf_o, A_o, vsh, pd, W, pf_r, A_r)
 
+    fwd_res = {k: lbs.skin_fwd_attributes(k == "pair")
+               for k in ("skin_fwd", "pair")}
+    print(f"[kernel] skin_fwd_kernel resources (cudaFuncGetAttributes): "
+          f"{json.dumps(fwd_res)}")
+
+    def fwd_stable(args, got, tag):
+        """The pair mode rerun bit-identical, and without vp the same total
+        and sign."""
+        again = lbs.v2v_pair_cuda(*args, want_vp=True)
+        tot_n, sign_n, none = lbs.v2v_pair_cuda(*args, want_vp=False)
+        if not (all(torch.equal(x, y) for x, y in zip(again, got)) and
+                none is None and torch.equal(tot_n, got[0]) and
+                torch.equal(sign_n, got[1])):
+            raise AssertionError(f"v2v_pair is not bit-stable ({tag})")
+
+    def pair_checks(args, tag):
+        """The pair mode against its plain version: total rtol 1e-5 (sums
+        of B x 3V |diff| terms in another order), sign exact (the rec side
+        offset by +-10 m), vp within 1e-5 of its largest entry (sums of
+        207 products, in 3xTF32, in another order); then fwd_stable."""
+        got = lbs.v2v_pair_cuda(*args, want_vp=True)
+        tot_p, sign_p, vp_p = lbs.v2v_pair_plain(*args, want_vp=True)
+        check(f"v2v_pair total {tag}", got[0], tot_p,
+              1e-5 * float(tot_p.abs()), errs)
+        check(f"v2v_pair sign {tag}", got[1], sign_p, 0.0, errs)
+        check(f"v2v_pair vp {tag}", got[2], vp_p,
+              1e-5 * float(vp_p.abs().max()), errs)
+        fwd_stable(args, got, tag)
+
+    def k3f_check(a, tag):
+        """K3f against its plain version (sums of 207 + 24 + 3 f32 products
+        of metre-scale values: 1e-5 of the largest entry), rerun
+        bit-identical."""
+        out_k = lbs.skin_fwd_cuda(*a)
+        out_p = lbs.skin_verts_t_plain(*a)
+        check(f"skin_fwd {tag}", out_k, out_p,
+              1e-5 * float(out_p.abs().max()), errs)
+        if not torch.equal(lbs.skin_fwd_cuda(*a), out_k):
+            raise AssertionError(f"skin_fwd is not bit-stable ({tag})")
+
     def k2_fused_checks(args, tag):
         """K2's one-pass kernel (fused and forward-only modes) against the
         plain version; returns (total, grads) of each."""
@@ -427,6 +470,7 @@ def kernel_phase(device, smpl):
     check("v2v_pair total", tot_q, tot_p, 1e-5 * float(tot_p.abs()), errs)
     check("v2v_pair sign", sign_k, sign_p, 0.0, errs)
     check("v2v_pair vp", vp_k, vp_p, 1e-5 * float(vp_p.abs().max()), errs)
+    fwd_stable(args, (tot_q, sign_k, vp_k), f"B={B}, V={V}")
     pair = lbs.skin_bwd_cuda(*side, sign_k)
     pair_vp = lbs.skin_bwd_cuda(*side, sign_k, vp=vp_k)
     for name, gk, gp in zip(("gpf", "gA", "gvsh"), pair, (gpf_p, gA_p, gvsh_p)):
@@ -466,18 +510,27 @@ def kernel_phase(device, smpl):
         for gname, gg in (("random g", gk), ("sign g", torch.sign(gk))):
             k3b_checks(a, gg, posed(a), f"B={Bk}, V={Vk}, {gname}", errs)
 
-    # K3f at the slice-1 shape and at path A's (B=960, V=1024 subset)
+    # K3f at the slice-1 shape and at path A's (B=960, V=1024 subset); then
+    # K3f and the pair mode at path A's shape and at the ragged (37, 300)
+    # and (1, 5), each rerun bit-identical (fixed-order partials, no
+    # atomics)
     vidx, pd_s, W_s = subset_skin_tables(smpl, 1024)
     pf_a, A_a = skin_side_inputs(smpl, B_A, gen, device)
     fwd_cases = (((pf_o, A_o, vsh, pd, W), f"B={B}, V={V}"),
                  ((pf_a, A_a, vsh[:, vidx].contiguous(), pd_s, W_s),
                   f"B={B_A}, V={len(vidx)}"))
     for a, shape in fwd_cases:
-        out_k = lbs.skin_fwd_cuda(*a)
-        out_p = lbs.skin_verts_t_plain(*a)
-        # sums of 207 + 24 + 3 f32 products of metre-scale values
-        check(f"skin_fwd {shape}", out_k, out_p,
-              1e-5 * float(out_p.abs().max()), errs)
+        k3f_check(a, shape)
+    for Bk, Vk in ((B_A, 1024), (37, 300), (1, 5)):
+        vi, pd_k, W_k = subset_skin_tables(smpl, Vk)
+        a = (*skin_side_inputs(smpl, Bk, gen_s, device),
+             vsh[:, vi].contiguous(), pd_k, W_k)
+        shape = f"B={Bk}, V={len(vi)}"
+        if Bk != B_A:
+            k3f_check(a, shape)
+        pair_args = (*a, *skin_side_inputs(smpl, Bk, gen_s, device,
+                                           offset=10.0))
+        pair_checks(pair_args, shape)
 
     # times at the paths' shapes
     VV = 3 * V
@@ -492,7 +545,8 @@ def kernel_phase(device, smpl):
           lambda: lbs.v2v_pair_plain(*args, want_vp=True),
           bv * (2 * SIDE_FLOP + L1_FLOP),
           nbytes(pf_o, A_o, pf_r, A_r, tot_k, sign_k, vp_k) + tables,
-          library=lambda: torch.matmul(pf2, pd2))
+          library=lambda: torch.matmul(pf2, pd2),
+          tc_flop=bv * K2_TC_FWD_FLOP)
     # K2's fused and forward-only modes at the custom-video recipe's full
     # batch (8 views x 120 frames), checked and timed as at B=512
     # (a generator of its own, so the later phases draw what they drew)
@@ -521,7 +575,8 @@ def kernel_phase(device, smpl):
         timed("skin_fwd", shape, lambda: lbs.skin_fwd_cuda(*a),
               lambda: lbs.skin_verts_t_plain(*a),
               Bk * Vk * SIDE_FLOP, nbytes(*a) + 4 * Bk * 3 * Vk,
-              library=lambda: torch.matmul(a[0], pdk))
+              library=lambda: torch.matmul(a[0], pdk),
+              tc_flop=Bk * Vk * POSE_TC_FLOP)
     # K3b at path A's shape under a random cotangent and a sign: recomputing
     # vp, as the subset loss runs it, and reading it stored; timed in the
     # log beside the (512, 6890) one

@@ -1,6 +1,7 @@
 // Plain linear blend skinning and its VJP: the Hopper port of
-// nemo_tpu/ops/lbs_pallas.py _fwd_kernel (K3f, called by _fwd_pallas) and
-// _bwd_kernel / _bwd_kernel_vp (K3b, called by _bwd_pallas).
+// nemo_tpu/ops/lbs_pallas.py _fwd_kernel / _fwd_pallas (K3f, :69 / :129,
+// its pallas_call at :155) and _bwd_kernel / _bwd_kernel_vp (K3b, called
+// by _bwd_pallas).
 //
 // K3f: for every (batch row b, vertex v),
 //   vph[k]  = sum_p pf[b,p] posedirs_t[p,k,v] + v_shaped_t[k,v],  vph[3] = 1
@@ -11,12 +12,25 @@
 // with vp either recomputed from pf (mode 1) or read from a stored (B,3,V)
 // copy (mode 2).
 //
-// K3f: a 32-row x 32-vertex tile per block on the CUDA cores, pf and a
-// 16-feature slice of posedirs staged in shared memory, 4 rows x 3
-// coordinates of vph in registers a thread, the blend M from warp-uniform
-// A loads and W coalesced along v, so the (B,V,12) blended transforms never
-// reach memory. 2*B*V*921 FLOP (1.81 GFLOP at B=960, V=1024), bound by f32
-// arithmetic on the CUDA cores.
+// K3f: skin_fwd_kernel<1> (csrc/skin_fwd.cuh, shared with K2's pair mode),
+// one pass over 32-row batch tiles x vertex ranges.
+//   - Work: B*V*1839 FLOP (posing 2*621 + 3, blending 2*288, the vertices
+//     2*9; 6.49 GFLOP at (512, 6890), 1.81 at (960, 1024)). At the f32 rate of the CUDA cores (67 TFLOP/s) it is
+//     bound by operations (0.097 / 0.027 ms). With the posedirs contraction
+//     (1242 FLOP a (b, v)) on the TF32 tensor cores in 3xTF32 (three
+//     products at 495 TFLOP/s: 0.027 / 0.007 ms) the rest, the blend M = A . W
+//     and the vertices, bounds it on the CUDA cores: 0.031 / 0.009 ms if the
+//     two overlap. Device bytes (the tables, which stay in L2, and the
+//     (B,3,V) output: 61 / 16 MB) take less. On the tensor cores the blend
+//     would cost three times its products, so it stays on the CUDA cores.
+//   - So: vph on mma.sync in 3xTF32 in one warp group, the blend on the
+//     CUDA cores in the other, overlapped tile by tile through
+//     double-buffered vph and named barriers; A (all 12 components) and
+//     the pre-split pf in shared memory for the block's range; the tables'
+//     slices staged by cp.async, double-buffered; the vertices stored 16
+//     bytes a thread where V allows it (skin_fwd.cuh has the details).
+//   - Alignment: A is read as float4, so the caller passes it on a 16-byte
+//     boundary (ops/lbs.py checks it, and the tables' 8 bytes).
 //
 // K3b: skin_bwd_kernel, one pass, as the TPU kernel does it, with K2's
 // one-pass design (csrc/v2v.cu) on one side.
@@ -61,91 +75,12 @@
 // Ragged B and V are masked everywhere: there are no padded tables, and
 // outputs have exactly V columns.
 
-#include "skin_common.cuh"
+#include "skin_fwd.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// K3f: the forward tile kernel
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kTV * kTY)
-skin_tile_kernel(int B, int V, const float* __restrict__ pf,
-                 const float* __restrict__ A, const float* __restrict__ vsh,
-                 const float* __restrict__ pd, const float* __restrict__ W,
-                 float* __restrict__ out) {
-  __shared__ float s_pf[kTB][kPK];
-  __shared__ float s_pd[kPK][3][kTV];
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTV + tx;
-  const int v0 = blockIdx.x * kTV, b0 = blockIdx.y * kTB;
-  const int v = v0 + tx;
-  const size_t V3 = 3 * (size_t)V;
-
-  float a[kRB][3];
-#pragma unroll
-  for (int r = 0; r < kRB; ++r)
-#pragma unroll
-    for (int k = 0; k < 3; ++k) a[r][k] = 0.f;
-
-  for (int p0 = 0; p0 < kP; p0 += kPK) {
-    for (int e = tid; e < kTB * kPK; e += kTV * kTY) {
-      const int r = e / kPK, q = e % kPK, b = b0 + r, p = p0 + q;
-      s_pf[r][q] = (b < B && p < kP) ? pf[(size_t)b * kP + p] : 0.f;
-    }
-    for (int e = tid; e < kPK * 3 * kTV; e += kTV * kTY) {
-      const int x = e % kTV, k = (e / kTV) % 3, q = e / (3 * kTV);
-      const int p = p0 + q, vv = v0 + x;
-      s_pd[q][k][x] = (p < kP && vv < V) ? pd[(size_t)p * V3 + (size_t)k * V + vv] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kPK; ++q) {
-      const float d0 = s_pd[q][0][tx], d1 = s_pd[q][1][tx], d2 = s_pd[q][2][tx];
-#pragma unroll
-      for (int r = 0; r < kRB; ++r) {
-        const float f = s_pf[ty * kRB + r][q];
-        a[r][0] += f * d0; a[r][1] += f * d1; a[r][2] += f * d2;
-      }
-    }
-    __syncthreads();
-  }
-
-  if (v >= V) return;
-  float w[kJ];
-#pragma unroll
-  for (int j = 0; j < kJ; ++j) w[j] = W[(size_t)j * V + v];
-  const float vs[3] = {vsh[v], vsh[(size_t)V + v], vsh[2 * (size_t)V + v]};
-#pragma unroll
-  for (int r = 0; r < kRB; ++r) {
-    const int b = b0 + ty * kRB + r;
-    if (b >= B) continue;
-    float M[kL];
-#pragma unroll
-    for (int l = 0; l < kL; ++l) M[l] = 0.f;
-    const float* a_row = A + (size_t)b * kJ * kL;
-#pragma unroll 4
-    for (int j = 0; j < kJ; ++j) {
-#pragma unroll
-      for (int l = 0; l < kL; ++l) M[l] += a_row[j * kL + l] * w[j];
-    }
-    const size_t base = (size_t)b * V3 + v;
-    float vo[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) vo[k] = a[r][k] + vs[k];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      float o = M[4 * i + 3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) o += M[4 * i + k] * vo[k];
-      out[base + (size_t)i * V] = o;
-    }
-  }
-}
-
 bool bad_shape(int B, int V) {
-  return B <= 0 || V <= 0 || cdiv(B, kTB) > 65535;
+  return B <= 0 || V <= 0 || cdiv(B, kFB) > 65535;
 }
 
 // ---------------------------------------------------------------------------
@@ -357,15 +292,27 @@ cudaError_t launch_bwd(int B, int V, int R, const float* pf, const float* A,
 
 }  // namespace
 
-// pf (B,207), A (B,24,12), vsh (3,V), pd (207,3,V), W (24,V), all f32
-// contiguous on one device; output verts (B,3,V).
+// pf (B,207), A (B,24,12) on a 16-byte boundary, vsh (3,V), pd (207,3,V),
+// W (24,V) (on 8-byte boundaries where V is even), all f32 contiguous on
+// one device; output verts (B,3,V).
 extern "C" int nemo_skin_fwd(int B, int V, const float* pf, const float* A,
                              const float* vsh, const float* pd, const float* W,
                              float* verts, cudaStream_t stream) {
   if (bad_shape(B, V)) return (int)cudaErrorInvalidValue;
-  skin_tile_kernel<<<dim3(cdiv(V, kTV), cdiv(B, kTB)), dim3(kTV, kTY), 0,
-                     stream>>>(B, V, pf, A, vsh, pd, W, verts);
-  return (int)cudaGetLastError();
+  return (int)launch_skin_fwd<1>(B, V, pf, A, nullptr, nullptr, vsh, pd, W,
+                                 verts, nullptr, nullptr, stream);
+}
+
+extern "C" int nemo_v2v_pair_attributes(int* out);  // csrc/v2v.cu
+
+// Registers, shared memory and local memory (spills) of the forward kernel
+// skin_fwd_kernel<sides> (1: K3f, 2: K2's pair mode), as the CUDA runtime
+// reports them: out[0..3] = registers, static and dynamic shared memory
+// bytes, local bytes.
+extern "C" int nemo_skin_fwd_attributes(int sides, int* out) {
+  if (sides == 1) return skin_fwd_attributes<1>(out);
+  if (sides == 2) return nemo_v2v_pair_attributes(out);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Floats of scratch nemo_skin_bwd needs at (B, V): the per-block gpf, gA

@@ -1,6 +1,7 @@
 // Shared pieces of the skinning kernels (csrc/skin.cu, csrc/v2v.cu): the
 // table sizes, the tile constants, and the building blocks of the one-pass
-// gradient kernels (K2's fused mode, K3b).
+// gradient kernels (K2's fused mode, K3b); csrc/skin_fwd.cuh builds the
+// one-pass forward kernel (K3f, K2's pair mode) from the same pieces.
 //
 // With vph = [vp; 1] the posed vertices, M = A . W the blended transforms
 // and g (B,3,V) any f32 cotangent on the skinned vertices,
@@ -34,14 +35,7 @@ constexpr int kJ = 24;    // joints
 constexpr int kL = 12;    // 3x4 transform components
 constexpr int kGL = kJ * kL;  // 288 gA entries a row
 
-// the 32 x 32 tile kernels (K3f, K2's pair mode)
-constexpr int kTV = 32;   // vertices per tile (one per lane)
-constexpr int kTY = 8;    // warps per tile
-constexpr int kRB = 4;    // batch rows per thread
-constexpr int kTB = kTY * kRB;  // batch rows per tile
-constexpr int kPK = 16;   // pose-feature slice staged per step
-
-// the one-pass kernels (K2's fused and forward-only modes, K3b)
+// the one-pass kernels (K2, K3b, and the forward kernel of skin_fwd.cuh)
 constexpr int kFB = 32;          // batch rows a block
 constexpr int kFV = 16;          // vertices a tile
 constexpr int kFN = 3 * kFV;     // (k, v) columns a tile
@@ -126,34 +120,58 @@ __device__ __forceinline__ void range_tiles(int r, int R, int V, int& t_begin,
   t_end = (int)((long long)(r + 1) * n_tiles / R);
 }
 
+// Queue the copies of vertex tile t's posedirs slice into s_pd [kPP][kSD],
+// CW floats a copy (2 where V is even, so every row is 8-byte aligned), by
+// the nt threads from tid; rows past the 207 features and vertices past V
+// are zero-filled.
+template <int CW>
+__device__ __forceinline__ void load_pd_slice(float* s_pd, int t, int V,
+                                              const float* __restrict__ pd,
+                                              int tid, int nt) {
+  constexpr int kCh = kFV / CW;  // copies a row of the tile
+  const int v0 = t * kFV;
+  const size_t V3 = 3 * (size_t)V;
+  for (int e = tid; e < kPP * 3 * kCh; e += nt) {
+    const int x = e % kCh * CW, pk = e / kCh, p = pk / 3, k = pk % 3;
+    const int n = p < kP ? V - (v0 + x) : 0;
+    cp_async<CW>(s_pd + p * kSD + k * kFV + x,
+                 n > 0 ? pd + (size_t)p * V3 + (size_t)k * V + v0 + x : pd, n);
+  }
+}
+
+// The same for the W slice (into s_w, rows of kStride floats) and the
+// v_shaped slice (into s_vs [3][kFV]).
+template <int CW, int kStride>
+__device__ __forceinline__ void load_w_slice(float* s_w, float* s_vs, int t,
+                                             int V,
+                                             const float* __restrict__ vsh,
+                                             const float* __restrict__ W,
+                                             int tid, int nt) {
+  constexpr int kCh = kFV / CW;
+  const int v0 = t * kFV;
+  for (int e = tid; e < kJ * kCh; e += nt) {
+    const int x = e % kCh * CW, j = e / kCh, n = V - (v0 + x);
+    cp_async<CW>(s_w + j * kStride + x, n > 0 ? W + (size_t)j * V + v0 + x : W,
+                 n);
+  }
+  for (int e = tid; e < 3 * kCh; e += nt) {
+    const int x = e % kCh * CW, k = e / kCh, n = V - (v0 + x);
+    cp_async<CW>(s_vs + k * kFV + x, n > 0 ? vsh + (size_t)k * V + v0 + x : vsh,
+                 n);
+  }
+}
+
 // Queue the copies of vertex tile t of the tables (posedirs into s_pd
-// [kPP][kSD], W into s_w [kJ][kSW], v_shaped into s_vs [3][kFV]), CW floats
-// a copy (2 where V is even, so every row is 8-byte aligned); rows past the
-// 207 features and vertices past V are zero-filled.
+// [kPP][kSD], W into s_w [kJ][kSW], v_shaped into s_vs [3][kFV]) by all
+// kFT threads of the block.
 template <int CW>
 __device__ __forceinline__ void load_tile(float* s_pd, float* s_w, float* s_vs,
                                           int t, int V,
                                           const float* __restrict__ vsh,
                                           const float* __restrict__ pd,
                                           const float* __restrict__ W) {
-  constexpr int kCh = kFV / CW;  // copies a row of the tile
-  const int v0 = t * kFV;
-  const size_t V3 = 3 * (size_t)V;
-  for (int e = threadIdx.x; e < kPP * 3 * kCh; e += kFT) {
-    const int x = e % kCh * CW, pk = e / kCh, p = pk / 3, k = pk % 3;
-    const int n = p < kP ? V - (v0 + x) : 0;
-    cp_async<CW>(s_pd + p * kSD + k * kFV + x,
-                 n > 0 ? pd + (size_t)p * V3 + (size_t)k * V + v0 + x : pd, n);
-  }
-  for (int e = threadIdx.x; e < kJ * kCh; e += kFT) {
-    const int x = e % kCh * CW, j = e / kCh, n = V - (v0 + x);
-    cp_async<CW>(s_w + j * kSW + x, n > 0 ? W + (size_t)j * V + v0 + x : W, n);
-  }
-  for (int e = threadIdx.x; e < 3 * kCh; e += kFT) {
-    const int x = e % kCh * CW, k = e / kCh, n = V - (v0 + x);
-    cp_async<CW>(s_vs + k * kFV + x, n > 0 ? vsh + (size_t)k * V + v0 + x : vsh,
-                 n);
-  }
+  load_pd_slice<CW>(s_pd, t, V, pd, threadIdx.x, kFT);
+  load_w_slice<CW, kSW>(s_w, s_vs, t, V, vsh, W, threadIdx.x, kFT);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 // The VPoser v2v-L1 prior (K2): the Hopper port of nemo_tpu/ops/lbs_pallas.py
 // _v2v_fwdbwd_kernel / _v2v_fwdbwd_pallas (:625 / :709, the fused mode) and
-// _v2v_fwd_kernel / _v2v_fwd_kernel_vp / _v2v_fwd_pallas (:560, the
-// total-only and pair modes).
+// _v2v_fwd_kernel / _v2v_fwd_kernel_vp / _v2v_fwd_pallas (:505 / :553 /
+// :560, its pallas_call at :594; the total-only and pair modes).
 //
 // For every (batch row b, vertex v), both pose sets are skinned,
 //   vph[k]  = sum_p pf[b,p] posedirs_t[p,k,v] + v_shaped_t[k,v],  vph[3] = 1
@@ -69,120 +69,27 @@
 //   - Alignment: A is read as float4 and, where V is even, the tables are
 //     copied 8 bytes at a time, so the caller passes A on 16-byte and the
 //     tables on 8-byte boundaries (ops/lbs.py checks it).
-// Mode 2: v2v_tile_kernel, a 32-row x 32-vertex tile per block on the CUDA
-// cores: pf and a 16-feature slice of posedirs staged in shared memory,
-// each thread keeping 4 rows x 2 sides x 3 coordinates of vph in registers.
+// Mode 2, the pair mode: skin_fwd_kernel<2> (csrc/skin_fwd.cuh, shared with
+// K3f), one pass over 16-row batch tiles (both sides: 32 rows of the MMA) x
+// vertex ranges, storing the sign and, if asked, vp.
+//   - Work: B*V*(2*1839 + 9) FLOP (13.0 GFLOP at B=512, V=6890): 0.194 ms
+//     at the f32 rate. With both sides' posedirs contractions on the TF32
+//     tensor cores in 3xTF32 (8.76 GFLOP of products, three each: 0.053 ms)
+//     the rest bounds it on the CUDA cores, 4.24 GFLOP: 0.063 ms if the two
+//     overlap. Bytes: the sign and vp (84.7 MB at B=512) and the inputs,
+//     ~105 MB: 0.031 ms.
+//   - So: vph of both sides on mma.sync in one warp group while the other
+//     blends the previous tile on the CUDA cores, A and the pre-split pf of
+//     both sides held in shared memory for the block's range; the orig and
+//     rec vertices meet by shuffle; each block writes its |diff| sum and
+//     total_kernel adds them in index order. 16-row tiles read posedirs
+//     from L2 twice as often as 32-row tiles would, but 32 rows of both
+//     sides do not fit in a block's shared memory with vph double-buffered.
 // Ragged B and V are masked everywhere (no padded tables).
 
-#include "skin_common.cuh"
+#include "skin_fwd.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// mode 2: the pair mode's tile kernel
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kTV * kTY)
-v2v_tile_kernel(int B, int V, const float* __restrict__ pf_o,
-                const float* __restrict__ A_o, const float* __restrict__ pf_r,
-                const float* __restrict__ A_r, const float* __restrict__ vsh,
-                const float* __restrict__ pd, const float* __restrict__ W,
-                float* __restrict__ partial, float* __restrict__ sign,
-                float* __restrict__ vp) {
-  __shared__ float s_pfo[kTB][kPK];
-  __shared__ float s_pfr[kTB][kPK];
-  __shared__ float s_pd[kPK][3][kTV];
-  __shared__ float s_red[kTV * kTY];
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTV + tx;
-  const int v0 = blockIdx.x * kTV, b0 = blockIdx.y * kTB;
-  const int v = v0 + tx;
-  const size_t V3 = 3 * (size_t)V;
-
-  float ao[kRB][3], ar[kRB][3];
-#pragma unroll
-  for (int r = 0; r < kRB; ++r)
-#pragma unroll
-    for (int k = 0; k < 3; ++k) { ao[r][k] = 0.f; ar[r][k] = 0.f; }
-
-  for (int p0 = 0; p0 < kP; p0 += kPK) {
-    for (int e = tid; e < kTB * kPK; e += kTV * kTY) {
-      const int r = e / kPK, q = e % kPK, b = b0 + r, p = p0 + q;
-      const bool ok = b < B && p < kP;
-      s_pfo[r][q] = ok ? pf_o[(size_t)b * kP + p] : 0.f;
-      s_pfr[r][q] = ok ? pf_r[(size_t)b * kP + p] : 0.f;
-    }
-    for (int e = tid; e < kPK * 3 * kTV; e += kTV * kTY) {
-      const int x = e % kTV, k = (e / kTV) % 3, q = e / (3 * kTV);
-      const int p = p0 + q, vv = v0 + x;
-      s_pd[q][k][x] = (p < kP && vv < V) ? pd[(size_t)p * V3 + (size_t)k * V + vv] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kPK; ++q) {
-      const float d0 = s_pd[q][0][tx], d1 = s_pd[q][1][tx], d2 = s_pd[q][2][tx];
-#pragma unroll
-      for (int r = 0; r < kRB; ++r) {
-        const float fo = s_pfo[ty * kRB + r][q], fr = s_pfr[ty * kRB + r][q];
-        ao[r][0] += fo * d0; ao[r][1] += fo * d1; ao[r][2] += fo * d2;
-        ar[r][0] += fr * d0; ar[r][1] += fr * d1; ar[r][2] += fr * d2;
-      }
-    }
-    __syncthreads();
-  }
-
-  float local = 0.f;
-  if (v < V) {
-    float w[kJ];
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) w[j] = W[(size_t)j * V + v];
-    const float vs[3] = {vsh[v], vsh[(size_t)V + v], vsh[2 * (size_t)V + v]};
-#pragma unroll
-    for (int r = 0; r < kRB; ++r) {
-      const int b = b0 + ty * kRB + r;
-      if (b >= B) continue;
-      float Mo[kL], Mr[kL];
-#pragma unroll
-      for (int l = 0; l < kL; ++l) { Mo[l] = 0.f; Mr[l] = 0.f; }
-      const float* ao_row = A_o + (size_t)b * kJ * kL;
-      const float* ar_row = A_r + (size_t)b * kJ * kL;
-#pragma unroll 4
-      for (int j = 0; j < kJ; ++j) {
-#pragma unroll
-        for (int l = 0; l < kL; ++l) {
-          Mo[l] += ao_row[j * kL + l] * w[j];
-          Mr[l] += ar_row[j * kL + l] * w[j];
-        }
-      }
-      float vo[3], vr[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) { vo[k] = ao[r][k] + vs[k]; vr[k] = ar[r][k] + vs[k]; }
-      const size_t base = (size_t)b * V3 + v;
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        float o = Mo[4 * i + 3];
-        float q = Mr[4 * i + 3];
-#pragma unroll
-        for (int k = 0; k < 3; ++k) { o += Mo[4 * i + k] * vo[k]; q += Mr[4 * i + k] * vr[k]; }
-        const float diff = q - o;
-        local += fabsf(diff);
-        sign[base + (size_t)i * V] = (float)(diff > 0.f) - (float)(diff < 0.f);
-        if (vp) vp[base + (size_t)i * V] = vo[i];
-      }
-    }
-  }
-
-  s_red[tid] = local;
-  __syncthreads();
-  for (int s = kTV * kTY / 2; s > 0; s >>= 1) {
-    if (tid < s) s_red[tid] += s_red[tid + s];
-    __syncthreads();
-  }
-  if (tid == 0) partial[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = s_red[0];
-}
-
-int num_tile_partials(int B, int V) { return cdiv(V, kTV) * cdiv(B, kTB); }
 
 // ---------------------------------------------------------------------------
 // modes 0 and 1: the one-pass kernel
@@ -354,20 +261,28 @@ v2v_fused_kernel(int B, int V, int R, const float* __restrict__ pf_o,
 }  // namespace
 
 // Floats of scratch nemo_v2v_l1 needs for (B, V, mode): mode 0 the |diff|
-// partials; mode 1 also the gpf, gA and gvsh partials; mode 2 the pair tile
+// partials; mode 1 also the gpf, gA and gvsh partials; mode 2 the forward
 // kernel's |diff| partials. -1 for a shape it refuses.
 extern "C" int nemo_v2v_scratch_floats(int B, int V, int mode) {
   if (B <= 0 || V <= 0 || mode < 0 || mode > 2) return -1;
-  if (mode == 2) return num_tile_partials(B, V);
+  if (mode == 2) {
+    const int n_bt = fwd_batch_tiles<2>(B);
+    return n_bt * fwd_ranges(n_bt, V);
+  }
   const long long R = fused_ranges(B, V), n_bt = cdiv(B, kFB);
   long long n = n_bt * R;
   if (mode == 1) n += grad_partial_floats(B, V, R);
   return n < (1LL << 31) ? (int)n : -1;
 }
 
-// Registers, shared memory and local memory (spills) of the fused kernel,
-// as the CUDA runtime reports them: out[0..3] = registers, static and
-// dynamic shared memory bytes, local bytes.
+// Registers, shared memory and local memory (spills) of the pair mode's
+// kernel, skin_fwd_kernel<2>, as the CUDA runtime reports them: out[0..3] =
+// registers, static and dynamic shared memory bytes, local bytes.
+extern "C" int nemo_v2v_pair_attributes(int* out) {
+  return skin_fwd_attributes<2>(out);
+}
+
+// The same for the fused kernel (modes 0 and 1).
 extern "C" int nemo_v2v_fused_attributes(int* out) {
   cudaFuncAttributes a;
   if (cudaError_t err = cudaFuncGetAttributes(&a, v2v_fused_kernel)) return (int)err;
@@ -378,7 +293,8 @@ extern "C" int nemo_v2v_fused_attributes(int* out) {
   return 0;
 }
 
-// pf_* (B,207), A_* (B,24,12), vsh (3,V), pd (207,3,V), W (24,V), all f32
+// pf_* (B,207), A_* (B,24,12) on 16-byte boundaries, vsh (3,V), pd
+// (207,3,V), W (24,V) (on 8-byte boundaries where V is even), all f32
 // contiguous on one device; scratch: nemo_v2v_scratch_floats(B, V, mode)
 // floats; total: 1 float. mode 0: total only (sign, vp, gpf, gA, gvsh may
 // be null). mode 1: also gpf (B,207), gA (B,24,12), gvsh (3,V). mode 2
@@ -389,15 +305,16 @@ extern "C" int nemo_v2v_l1(int B, int V, const float* pf_o, const float* A_o,
                            int mode, float* scratch, float* sign, float* vp,
                            float* total, float* gpf, float* gA, float* gvsh,
                            cudaStream_t stream) {
-  if (B <= 0 || V <= 0 || cdiv(B, kTB) > 65535 || mode < 0 || mode > 2 ||
+  if (B <= 0 || V <= 0 || mode < 0 || mode > 2 ||
+      cdiv(B, mode == 2 ? kFB / 2 : kFB) > 65535 ||
       (mode == 2 && !sign) || (mode == 1 && (!gpf || !gA || !gvsh)))
     return (int)cudaErrorInvalidValue;
   if (mode == 2) {
-    const dim3 tile_grid(cdiv(V, kTV), cdiv(B, kTB));
-    v2v_tile_kernel<<<tile_grid, dim3(kTV, kTY), 0, stream>>>(
-        B, V, pf_o, A_o, pf_r, A_r, vsh, pd, W, scratch, sign, vp);
-    if (cudaError_t err = cudaGetLastError()) return (int)err;
-    total_kernel<<<1, 256, 0, stream>>>(num_tile_partials(B, V), scratch,
+    if (cudaError_t err = launch_skin_fwd<2>(B, V, pf_o, A_o, pf_r, A_r, vsh,
+                                             pd, W, sign, vp, scratch, stream))
+      return (int)err;
+    const int n_bt = fwd_batch_tiles<2>(B);
+    total_kernel<<<1, 256, 0, stream>>>(n_bt * fwd_ranges(n_bt, V), scratch,
                                         total);
     return (int)cudaGetLastError();
   }

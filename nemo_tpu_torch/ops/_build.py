@@ -51,6 +51,10 @@ _SIGNATURES = {
     "nemo_v2v_fused_attributes": [_P],
     # B, V, pf, A, vsh_t, posedirs_t, W_t, verts, stream
     "nemo_skin_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P],
+    # sides (1 K3f, 2 K2's pair mode), out int[4]: the forward kernel's
+    # registers a thread, static and dynamic shared memory bytes, local
+    # (spill) bytes
+    "nemo_skin_fwd_attributes": [_I, _P],
     # B, V, pf, A, vsh_t, posedirs_t, W_t, g, vp_in, scratch, gpf, gA,
     # gvsh, stream
     "nemo_skin_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

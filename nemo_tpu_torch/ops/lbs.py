@@ -22,13 +22,14 @@ gradients.
 
 Layouts are the logical vertex-major tables: posedirs_t (207, 3, V),
 W_t (24, V), v_shaped_t (3, V), verts (B, 3, V). On a CUDA tensor a wrapper
-launches its kernel: K2's fused and forward-only modes and K3b one pass
-each, with the posedirs contractions on the tensor cores in 3xTF32; K2's
-pair mode and K3f f32 on the CUDA cores (the source notes have the counts
+launches its kernel, each one pass with the posedirs contractions on the
+tensor cores in 3xTF32: K2's fused and forward-only modes, K3b, and one
+forward kernel for K3f and K2's pair mode (the source notes have the counts
 and the designs). On a CPU tensor it runs the plain versions below, which
-mirror ``_skin_verts_t_xla`` and ``_bwd_xla``; ``v2v_l1_split_emulation``
-and ``skin_bwd_split_emulation`` repeat the one-pass kernels' arithmetic
-for the tests.
+mirror ``_skin_verts_t_xla`` and ``_bwd_xla``; ``v2v_l1_split_emulation``,
+``skin_bwd_split_emulation``, ``skin_fwd_split_emulation`` and
+``v2v_pair_split_emulation`` repeat the one-pass kernels' arithmetic for
+the tests.
 """
 
 from __future__ import annotations
@@ -132,11 +133,30 @@ def fused_ranges(B: int, V: int, num_sms: int) -> int:
 
 def _blocks(B: int, V: int, num_sms: int):
     """The one-pass kernels' (batch tiles, vertex ranges) as index pairs."""
-    R = fused_ranges(B, V, num_sms)
+    rows = [(b, min(B, b + FUSED_ROWS)) for b in range(0, B, FUSED_ROWS)]
+    return rows, _ranges(V, fused_ranges(B, V, num_sms))
+
+
+FWD_SIDE_ROWS = 32   # csrc/skin_fwd.cuh's kXR: 32 rows of one side, or 16 of two
+
+
+def fwd_ranges(B: int, V: int, sides: int, num_sms: int) -> int:
+    """The forward kernel's vertex ranges (csrc/skin_fwd.cuh: fwd_ranges)
+    for K3f (sides=1) or K2's pair mode (sides=2): of R = 1 .. min(4 SMs /
+    batch tiles, vertex tiles), the smallest with the fewest tile times,
+    each wave of blocks counted as its largest range plus 2 of set-up."""
+    n_bt = -(-B // (FWD_SIDE_ROWS // sides))
+    n_tiles = -(-V // FUSED_VERTS)
+    cap = min(max(1, 4 * num_sms // n_bt), n_tiles)
+    cost = lambda R: -(-(n_bt * R) // num_sms) * (-(-n_tiles // R) + 2)
+    return min(range(1, cap + 1), key=lambda R: (cost(R), R))
+
+
+def _ranges(V: int, R: int):
+    """The vertex ranges [lo, hi) of R (csrc/skin_common.cuh:range_tiles)."""
     n_t = -(-V // FUSED_VERTS)
     cut = [min(V, r * n_t // R * FUSED_VERTS) for r in range(R + 1)]
-    rows = [(b, min(B, b + FUSED_ROWS)) for b in range(0, B, FUSED_ROWS)]
-    return rows, list(zip(cut[:-1], cut[1:]))
+    return list(zip(cut[:-1], cut[1:]))
 
 
 def _posed_3xtf32(pf, posedirs_t, v_shaped_t) -> torch.Tensor:
@@ -203,6 +223,39 @@ def skin_bwd_split_emulation(pf, A34, v_shaped_t, posedirs_t, W_t, g,
     return _split_grads(_blend(A34, W_t), vp, g, posedirs_t, W_t, num_sms)
 
 
+def skin_fwd_split_emulation(pf, A34, v_shaped_t, posedirs_t, W_t
+                             ) -> torch.Tensor:
+    """verts_t (B, 3, V) in the forward kernel's arithmetic (K3f): the
+    posed vertices in 3xTF32, the blend and the vertices in f32. Nothing on
+    the main path calls it: the tests hold it against the JAX kernel and
+    skin_verts_t_plain to show that the split stays inside the
+    tolerances."""
+    vph = _homogeneous(_posed_3xtf32(pf, posedirs_t, v_shaped_t))
+    return torch.einsum('bikv,bkv->biv', _blend(A34, W_t), vph)
+
+
+def v2v_pair_split_emulation(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r,
+                             A_r, want_vp: bool, num_sms: int = 132
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        Optional[torch.Tensor]]:
+    """(total, sign, vp or None) in the forward kernel's arithmetic for
+    K2's pair mode: both sides skinned as skin_fwd_split_emulation does,
+    and the |diff| partials of its blocks (16-row batch tiles x
+    fwd_ranges' vertex ranges) summed in block order. Nothing on the main
+    path calls it (tests only, as skin_fwd_split_emulation)."""
+    B, V = pf_o.shape[0], v_shaped_t.shape[-1]
+    vp = _posed_3xtf32(pf_o, posedirs_t, v_shaped_t)
+    o = torch.einsum('bikv,bkv->biv', _blend(A_o, W_t), _homogeneous(vp))
+    r = skin_fwd_split_emulation(pf_r, A_r, v_shaped_t, posedirs_t, W_t)
+    diff = r - o
+    rows = FWD_SIDE_ROWS // 2
+    total = _in_order([diff[b:b + rows, :, lo:hi].abs().sum()
+                       for b in range(0, B, rows)
+                       for lo, hi in _ranges(V, fwd_ranges(B, V, 2,
+                                                           num_sms))])
+    return total, torch.sign(diff), (vp if want_vp else None)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels (csrc/skin.cu, csrc/v2v.cu)
 # ---------------------------------------------------------------------------
@@ -224,8 +277,11 @@ def _check_skin_inputs(pf, A34, v_shaped_t, posedirs_t, W_t, **extra):
 
 
 def skin_fwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t) -> torch.Tensor:
-    """Launch K3f (CUDA tensors only): verts_t (B, 3, V)."""
+    """Launch K3f (CUDA tensors only): verts_t (B, 3, V). A34 must start on
+    a 16-byte boundary and the tables, where V is even, on an 8-byte one."""
     B, V, dev = _check_skin_inputs(pf, A34, v_shaped_t, posedirs_t, W_t)
+    _check_alignment("K3f", V, A34=A34, v_shaped_t=v_shaped_t,
+                     posedirs_t=posedirs_t, W_t=W_t)
     lib = _build.library()
     verts = torch.empty((B, 3, V), dtype=torch.float32, device=dev)
     err = lib.nemo_skin_fwd(B, V, pf.data_ptr(), A34.data_ptr(),
@@ -238,7 +294,7 @@ def skin_fwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t) -> torch.Tensor:
 
 
 def _check_alignment(kernel: str, V: int, **tensors):
-    """The one-pass kernels read A as float4 and, where V is even, copy the
+    """The kernels read A as float4 and, where V is even, copy the
     tables 8 bytes at a time: a misaligned address would end the CUDA
     context, so refuse such views (a contiguous slice whose offset is not a
     multiple of 4 floats for A, of 2 floats for the tables)."""
@@ -293,6 +349,12 @@ def skin_bwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t, g,
     return gpf, gA, gvsh
 
 
+def skin_fwd_attributes(pair: bool = False) -> dict:
+    """The forward kernel's registers a thread, shared memory and spills:
+    K3f's instantiation, or (pair) K2's pair mode's."""
+    return _attributes("nemo_skin_fwd_attributes", 2 if pair else 1)
+
+
 def skin_bwd_attributes(stored_vp: bool = False) -> dict:
     """The one-pass K3b kernel's registers a thread, shared memory and
     spills, recomputing vp or (stored_vp) reading it."""
@@ -308,10 +370,8 @@ def _v2v_launch(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
     B, V, dev = _check_skin_inputs(pf_o, A_o, v_shaped_t, posedirs_t, W_t)
     _check_skin_inputs(pf_r, A_r, v_shaped_t, posedirs_t, W_t)
     lib = _build.library()
-    if mode != 2:
-        _check_alignment("fused K2", V, A_o=A_o, A_r=A_r,
-                         v_shaped_t=v_shaped_t, posedirs_t=posedirs_t,
-                         W_t=W_t)
+    _check_alignment("K2", V, A_o=A_o, A_r=A_r, v_shaped_t=v_shaped_t,
+                     posedirs_t=posedirs_t, W_t=W_t)
     f32 = dict(dtype=torch.float32, device=dev)
     empty = lambda *shape, on=True: torch.empty(shape, **f32) if on else None
     n_scratch = lib.nemo_v2v_scratch_floats(B, V, mode)

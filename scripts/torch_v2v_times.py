@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""K2 and K3b of one checkout, timed on one GPU, with digests of K2's outputs.
+"""K2, K3b and K3f of one checkout, timed on one GPU, with digests of outputs.
 
     python scripts/torch_v2v_times.py [--root DIR] [--batches 512 960]
         [--reps 20] [--label NAME]
@@ -15,14 +15,25 @@ checkout this script lies in) and builds its kernels there.
   outputs on these seeded inputs (fused: the total, gpf, gA and gvsh;
   forward-only: the total), so two checkouts whose K2 computes the same
   bits print the same digests.
+- K2's pair mode on the same inputs: holds ``lbs.v2v_pair_cuda`` against
+  ``lbs.v2v_pair_plain`` (total rtol 1e-5, sign exact, vp within 1e-5 of
+  its largest entry) and times it with vp stored and without; digests of
+  (total, sign, vp) and of (total, sign).
 - K3b: at (512, 6890) and at path A's (960, 1024) (chip_smoke.py's 1024
   vertex subset), pf and A as above (seed B + V), a N(0,1) cotangent and
   the posed vertices computed by the plain einsum; holds
   ``lbs.skin_bwd_cuda`` against ``lbs.skin_bwd_plain`` (1e-4 of each
-  gradient's largest entry) and times it recomputing vp and reading it.
+  gradient's largest entry) and times it recomputing vp and reading it,
+  with a digest of its gradients.
+- K3f at the same two shapes and inputs: holds ``lbs.skin_fwd_cuda``
+  against ``lbs.skin_verts_t_plain`` (1e-5 of the largest entry), with a
+  digest of the vertices.
 
-A time is the median of ``--reps`` CUDA-event timings of one call each
-after 3 warm-up calls. To compare two commits on one card, unpack the other
+Each line has two times: ``ms``, the median of ``--reps`` CUDA-event
+timings of one call each after 3 warm-up calls (the wrapper's host work
+inside), and ``device_ms``, one call's share of ``--reps`` calls run back
+to back (the host enqueues faster than the kernels run), the median of 5
+such windows. To compare two commits on one card, unpack the other
 with ``git archive`` into a directory that .gitignore lists and run, in one
 call, this script with --root set to each in turn: parent, change, change,
 parent.
@@ -47,6 +58,25 @@ def digest(*tensors) -> str:
     for t in tensors:
         h.update(t.detach().cpu().contiguous().numpy().tobytes())
     return h.hexdigest()
+
+
+def loop_ms(fn, reps: int) -> float:
+    """One call's device share: CUDA events around reps back-to-back
+    calls, divided by reps, the median of 5 windows after 3 warm-ups."""
+    import torch
+    for _ in range(3):
+        fn()
+    windows = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        windows.append(start.elapsed_time(end) / reps)
+    return sorted(windows)[2]
 
 
 def main(argv=None) -> int:
@@ -75,7 +105,9 @@ def main(argv=None) -> int:
     vsh = smpl.v_template.t().contiguous()
     label = args.label or root
 
-    def emit(**rec):
+    def emit(fn, **rec):
+        rec["ms"] = median_ms(fn, reps=args.reps)
+        rec["device_ms"] = loop_ms(fn, args.reps)
         print(json.dumps({"label": label, **rec, "reps": args.reps}),
               flush=True)
 
@@ -92,10 +124,23 @@ def main(argv=None) -> int:
             raise AssertionError(f"B={B}: total off by {rel:.3e} (rtol 1e-5)")
         sha = {"fused": digest(tot_k, *grads), "forward_only": digest(tot_f)}
         for mode, grad in (("fused", True), ("forward_only", False)):
-            ms = median_ms(lambda: lbs.v2v_l1_cuda(*a, grad=grad),
-                           reps=args.reps)
-            emit(kernel="K2", mode=mode, B=B, V=6890, ms=ms,
-                 total_rel_err=rel, sha256=sha[mode])
+            emit(lambda: lbs.v2v_l1_cuda(*a, grad=grad), kernel="K2",
+                 mode=mode, B=B, V=6890, total_rel_err=rel, sha256=sha[mode])
+        tot_p, sign_p, vp_p = lbs.v2v_pair_plain(*a, want_vp=True)
+        for want_vp in (True, False):
+            got = lbs.v2v_pair_cuda(*a, want_vp=want_vp)
+            err = {"total_rel_err": float((got[0] - tot_p).abs()
+                                          / tot_p.abs()),
+                   "sign_equal": bool(torch.equal(got[1], sign_p))}
+            if want_vp:
+                err["vp_rel_err"] = float((got[2] - vp_p).abs().max()
+                                          / vp_p.abs().max())
+            if not (err["total_rel_err"] <= 1e-5 and err["sign_equal"] and
+                    err.get("vp_rel_err", 0.0) <= 1e-5):
+                raise AssertionError(f"K2 pair at B={B}: {err}")
+            emit(lambda: lbs.v2v_pair_cuda(*a, want_vp=want_vp), kernel="K2",
+                 mode="pair_vp" if want_vp else "pair", B=B, V=6890, **err,
+                 sha256=digest(*(t for t in got if t is not None)))
 
     for B, V in K3B_SHAPES:
         gen = torch.Generator().manual_seed(B + V)
@@ -116,9 +161,16 @@ def main(argv=None) -> int:
                 raise AssertionError(f"K3b {mode} at ({B}, {V}): off by "
                                      f"{rel:.3e} of a gradient's largest "
                                      f"entry (1e-4)")
-            ms = median_ms(lambda: lbs.skin_bwd_cuda(*s, g, vp=stored),
-                           reps=args.reps)
-            emit(kernel="K3b", mode=mode, B=B, V=V, ms=ms, max_rel_err=rel)
+            emit(lambda: lbs.skin_bwd_cuda(*s, g, vp=stored), kernel="K3b",
+                 mode=mode, B=B, V=V, max_rel_err=rel, sha256=digest(*got))
+        out = lbs.skin_fwd_cuda(*s)
+        want = lbs.skin_verts_t_plain(*s)
+        rel = float((out - want).abs().max() / want.abs().max())
+        if not rel <= 1e-5:
+            raise AssertionError(f"K3f at ({B}, {V}): off by {rel:.3e} of "
+                                 f"the largest entry (1e-5)")
+        emit(lambda: lbs.skin_fwd_cuda(*s), kernel="K3f", mode="forward",
+             B=B, V=V, max_rel_err=rel, sha256=digest(out))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

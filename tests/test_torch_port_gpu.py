@@ -297,6 +297,89 @@ def test_v2v_pair_mode_matches_plain(cuda, B, V):
             _close_scaled(a, b, 1e-5)
 
 
+def _pair_args(B, V, cuda, seed):
+    """K2 pair-mode inputs: _skin_args' orig side and a rec side offset by
+    +-10 m, so every sign is exact."""
+    args, _ = _skin_args(B, V, cuda, seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    A_r = torch.randn((B, 24, 12), generator=gen)
+    A_r.view(B, 24, 3, 4)[..., 3] += 10.0 * torch.sign(
+        torch.randn((B, 1, 3), generator=gen))
+    pf_r = (0.1 * torch.randn((B, 207), generator=gen)).to(cuda)
+    return args, args + [pf_r, A_r.to(cuda).contiguous()]
+
+
+@pytest.mark.parametrize("V", [5, 300, 1024, 6890])
+@pytest.mark.parametrize("B", [1, 37, 512, 960])
+def test_skin_fwd_kernel_matches_plain(cuda, B, V):
+    """The one-pass forward kernel, K3f and the pair mode, against the
+    plain versions at ragged shapes (B off the 32- and 16-row batch tiles,
+    V off the 16-vertex tile, odd V copied 4 bytes at a time): vertices and
+    vp within 1e-5 of the largest entry, the total within rtol 1e-5, the
+    sign exact; a second run bit-identical, and the pair mode without vp
+    giving the same total and sign."""
+    args, full = _pair_args(B, V, cuda, seed=B + V)
+    out = lbs.skin_fwd_cuda(*args)
+    _close_scaled(out, lbs.skin_verts_t_plain(*args), 1e-5)
+    assert torch.equal(lbs.skin_fwd_cuda(*args), out)
+    got = lbs.v2v_pair_cuda(*full, want_vp=True)
+    tot_p, sign_p, vp_p = lbs.v2v_pair_plain(*full, want_vp=True)
+    torch.testing.assert_close(got[0], tot_p, rtol=1e-5, atol=0)
+    assert torch.equal(got[1], sign_p)
+    _close_scaled(got[2], vp_p, 1e-5)
+    again = lbs.v2v_pair_cuda(*full, want_vp=True)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    tot_n, sign_n, none = lbs.v2v_pair_cuda(*full, want_vp=False)
+    assert none is None and torch.equal(tot_n, got[0])
+    assert torch.equal(sign_n, got[1])
+
+
+@pytest.mark.parametrize("name", ["A34", "posedirs_t", "W_t", "v_shaped_t"])
+def test_skin_fwd_refuses_misaligned_views(cuda, name):
+    """K3f and the pair mode read A as float4 and copy the tables 8 bytes at
+    a time (V even): a contiguous view of A34 (or A_o, A_r) off a 16-byte
+    boundary, or of a table off an 8-byte one, raises ValueError instead of
+    reaching the kernel; the context stays usable."""
+    args, full = _pair_args(37, 300, cuda, seed=3)
+    names = ("pf", "A34", "v_shaped_t", "posedirs_t", "W_t")
+    kw = dict(zip(names, args))
+
+    def shifted(t):
+        out = torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 8 == 4
+        return out
+    with pytest.raises(ValueError, match="boundary"):
+        lbs.skin_fwd_cuda(**{**kw, name: shifted(kw[name])})
+    pair_names = ("pf_o", "A_o", "v_shaped_t", "posedirs_t", "W_t", "pf_r",
+                  "A_r")
+    pkw = dict(zip(pair_names, full))
+    for key in (("A_o", "A_r") if name == "A34" else (name,)):
+        with pytest.raises(ValueError, match="boundary"):
+            lbs.v2v_pair_cuda(**{**pkw, key: shifted(pkw[key])},
+                              want_vp=True)
+    _close_scaled(lbs.skin_fwd_cuda(*args), lbs.skin_verts_t_plain(*args),
+                  1e-5)
+
+
+def test_skin_fwd_resources_and_scratch(cuda):
+    """The forward kernel fits one block an SM without spilling in both
+    instantiations, and the pair mode's scratch is one |diff| partial a
+    block of lbs.fwd_ranges' grid, the rule its CPU emulation uses."""
+    from nemo_tpu_torch.ops import _build
+    for pair in (False, True):
+        res = lbs.skin_fwd_attributes(pair)
+        assert res["local_bytes"] == 0, res
+        assert 0 < res["registers"] <= 255, res
+        assert res["static_smem_bytes"] + res["dynamic_smem_bytes"] <= 232448
+    lib = _build.library()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for B, V in ((1, 5), (37, 300), (512, 6890), (960, 6890), (4096, 100)):
+        n_bt = -(-B // (lbs.FWD_SIDE_ROWS // 2))
+        assert lib.nemo_v2v_scratch_floats(B, V, 2) == \
+            n_bt * lbs.fwd_ranges(B, V, 2, sms)
+
+
 def _tiny_fitter(cuda, v2v_vjp="fused", motion_mlp="plain", **over):
     from nemo_tpu_torch.body.assets import synthetic_smpl_model
     from nemo_tpu_torch.data.synthetic import synthetic_problem
