@@ -149,13 +149,16 @@ FK_FLOP_PER_JOINT = {"fk_fwd": 2 * (27 + 9) + 3,
 # (csrc/raster_common.cuh): three edge functions of 2 subtractions, 2
 # products and 1 subtraction each (15), three sign products and three
 # comparisons (6), three barycentric and three inverse-depth products (6),
-# 2 additions, 1 depth comparison: 30. Counted once for each distinct
-# (face, tile) pair over the tile's 4096 pixels; duplicate entries of the
-# span scatter repeat the same work and are not counted. Bytes: each entry
-# read once (9 f32 attributes and a face id), z, fid and bary written (20 B
-# a pixel).
+# 2 additions, 1 depth comparison: 30. The bound counts them for each
+# (entry, sub-tile) pair the kernel folds, over the sub-tile's 256 pixels:
+# the span scatter's repeated entries and the pairs the exact cull rules
+# out need no work. The TPU kernel's dense work (each distinct (face,
+# tile) pair over the tile's 4096 pixels) is printed beside it. Bytes:
+# each entry read once (9 f32 attributes and a face id), z, fid and bary
+# written (20 B a pixel).
 RASTER_FLOP = 30
 RASTER_TILE_PIXELS = 32 * 128
+RASTER_SUBTILE_PIXELS = 8 * 32   # a warp's sub-tile in csrc/raster.cu
 RASTER_ENTRY_BYTES = 40
 RASTER_PIXEL_BYTES = 20
 IMG_HW = (1000, 1900)    # synthetic_problem's image, (D0 height, D1 width)
@@ -639,8 +642,9 @@ def posed_panels(smpl, bundle, device, views):
             [(float(c.center[0]), float(c.center[1])) for c in cams])
 
 
-def raster_work(ent):
-    """(distinct (face, tile) pairs, entries) that a fold of ``ent`` reads."""
+def raster_pairs(ent):
+    """Distinct (face, tile) pairs that a fold of ``ent`` reads (the span
+    scatter's duplicate entries of a face in a tile counted once)."""
     import torch
     counts = ent.counts
     tile = torch.repeat_interleave(torch.arange(counts.numel(),
@@ -649,70 +653,118 @@ def raster_work(ent):
     offset = torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
     face = ent.face[first + torch.arange(tile.numel(), device=tile.device)
                     - offset]
-    pairs = torch.unique(tile * (ent.N * ent.F) + face).numel()
-    return pairs, int(counts.sum())
+    return torch.unique(tile * (ent.N * ent.F) + face).numel()
 
 
 def raster_phase(device, smpl, bundle, rec):
     """K5s and K5g against the plain fold on the card at path D's shapes:
     the posed 6890-vertex mesh at 1000 x 1900, one panel and a batch of
-    four views. Face ids and coverage must be identical, z and bary within
-    one ulp of the largest value (the kernels round every operation as the
-    plain version does, so the expected difference is 0); the image's
-    ragged right and bottom tiles are part of every comparison. Returns
-    {kernel: max_abs_err} and adds the times to rec."""
+    four views ("body"); the same mesh 30 m further away, so a few tiles
+    hold all of its entries ("crowded"); and the mesh with every face twice,
+    each twin 13776 faces later in its tiles, so equal depths meet in
+    different work items and the first must win ("tie", which must also
+    equal "body"). Every output must be bit-identical to the plain
+    version's (torch.equal on z, fid and bary), and so must a second run;
+    K5g equals K5s on "body" (no overflow); on the crowded and tie cases
+    gather mode drops the entries past its default capacity as its plain
+    version does. The image's ragged right and bottom tiles are part of
+    every comparison. Returns {kernel: max_abs_err} and adds the body's
+    times to rec."""
     import torch
     from nemo_tpu_torch.ops import raster
-    faces = smpl.faces
+    faces = torch.as_tensor(smpl.faces, device=device).long()
     verts_cam, focals, centers = posed_panels(smpl, bundle, device,
                                               [0, 1, 2, 3])
+    far = verts_cam.clone()
+    far[..., 2] += 30.0
+    for name, att in raster.raster_attributes().items():
+        print(f"[raster] {name} kernel: {json.dumps(att)}")
     errs = {}
+    outs = {}
     for n, shape in ((4, "4 panels 1000x1900"), (1, "1 panel 1000x1900")):
-        ent = raster.prepare(verts_cam[:n], faces, focals[:n], centers[:n],
-                             IMG_HW)
-        for v in range(n):
-            over = raster.gather_mode_overflow(
-                verts_cam[v].cpu().numpy(), faces, focals[v], centers[v],
-                IMG_HW)
-            if over:
-                raise AssertionError(f"panel {v}: gather mode overflows")
-        si, gi = raster.stream_inputs(ent), raster.gather_inputs(ent)
-        ks = raster.raster_stream_cuda(ent, si, IMG_HW)
-        kg = raster.raster_gather_cuda(ent, gi, IMG_HW)
-        ps = raster.rasterize_plain(ent, IMG_HW, stream=True)
-        pg = raster.rasterize_plain(ent, IMG_HW, stream=False)
-        for key, got, want in (("raster_stream", ks, ps),
-                               ("raster_gather", kg, pg),
-                               ("raster_gather vs stream", kg, ks)):
-            (zk, fk, bk), (zp, fp, bp) = got, want
-            cov = torch.isfinite(zp)
-            if not (torch.equal(torch.isfinite(zk), cov)
-                    and torch.equal(fk, fp)):
-                raise AssertionError(f"{key} {shape}: coverage or face ids "
-                                     "differ from the plain version")
-            ulp = 2.0 ** -23
-            check(f"{key} z {shape}", zk[cov], zp[cov],
-                  ulp * float(zp[cov].abs().max()), errs)
-            check(f"{key} bary {shape}", bk, bp, ulp, errs)
-        pairs, entries = raster_work(ent)
-        pix = n * IMG_HW[0] * IMG_HW[1]
-        print(f"[raster] {shape}: {entries} entries, {pairs} distinct "
-              f"(face, tile) pairs, busiest tile {int(ent.counts.max())} "
-              f"entries, {int((ent.counts > 0).sum())} of "
-              f"{ent.counts.numel()} tiles hold entries, coverage "
-              f"{float(torch.isfinite(ks[0]).float().mean()):.4f}")
-        flop = pairs * RASTER_TILE_PIXELS * RASTER_FLOP
-        bytes_ = entries * RASTER_ENTRY_BYTES + pix * RASTER_PIXEL_BYTES
-        # no single PyTorch call rasterizes: library none
-        time_kernel(rec, "raster_stream", shape,
-                    lambda: raster.raster_stream_cuda(ent, si, IMG_HW),
-                    lambda: raster.rasterize_plain(ent, IMG_HW), flop,
-                    bytes_, plain_reps=3)
-        time_kernel(rec, "raster_gather", shape,
-                    lambda: raster.raster_gather_cuda(ent, gi, IMG_HW),
-                    lambda: raster.rasterize_plain(ent, IMG_HW,
-                                                   stream=False), flop,
-                    bytes_, plain_reps=3)
+        for case, v, f in (("body", verts_cam, faces), ("crowded", far, faces),
+                           ("tie", verts_cam, torch.cat([faces, faces]))):
+            ent = raster.prepare(v[:n], f, focals[:n], centers[:n], IMG_HW)
+            if case == "body":
+                for i in range(n):
+                    if raster.gather_mode_overflow(
+                            verts_cam[i].cpu().numpy(), smpl.faces,
+                            focals[i], centers[i], IMG_HW):
+                        raise AssertionError(f"panel {i}: gather mode "
+                                             "overflows")
+            si, gi = raster.stream_inputs(ent), raster.gather_inputs(ent)
+            calls = {"raster_stream":
+                     lambda: raster.raster_stream_cuda(ent, si, IMG_HW),
+                     "raster_gather":
+                     lambda: raster.raster_gather_cuda(ent, gi, IMG_HW)}
+            got = {k: fn() for k, fn in calls.items()}
+            for key, stream in (("raster_stream", True),
+                                ("raster_gather", False)):
+                want = raster.rasterize_plain(ent, IMG_HW, stream=stream)
+                again = calls[key]()
+                tag = f"{key} {case} {shape}"
+                for part, a, b, c in zip(("z", "fid", "bary"), got[key],
+                                         want, again):
+                    if not (torch.equal(a, b) and torch.equal(a, c)):
+                        raise AssertionError(f"{tag}: {part} differs from "
+                                             "the plain version's or the "
+                                             "rerun's")
+                cov = torch.isfinite(want[0])
+                check(f"{tag} z", got[key][0][cov], want[0][cov], 0.0, errs)
+                check(f"{tag} bary", got[key][2], want[2], 0.0, errs)
+            if case == "body" and not all(torch.equal(a, b) for a, b in zip(
+                    got["raster_gather"], got["raster_stream"])):
+                raise AssertionError(f"K5g differs from K5s at {shape}")
+            if case == "tie" and not all(torch.equal(a, b) for a, b in zip(
+                    got["raster_stream"], outs[n])):
+                raise AssertionError(f"tie {shape}: a later twin won")
+            outs.setdefault(n, got["raster_stream"])
+            work = raster.raster_work(ent)
+            print(f"[raster] {case} {shape}: bit-identical to the plain "
+                  f"version and on a rerun, both modes; {work['entries']} "
+                  f"entries, busiest tile {work['busiest_tile']} entries, "
+                  f"{work['busy_tiles']} of {ent.counts.numel()} tiles hold "
+                  f"entries, {work['items']} work items of "
+                  f"{raster.CHUNK} entries, {work['subtiles_folded']} of "
+                  f"{work['subtile_tests']} (entry, sub-tile) pairs folded "
+                  f"after the cull; coverage "
+                  f"{float(torch.isfinite(got['raster_stream'][0]).float().mean()):.4f}")
+            if case != "body":
+                print(f"[time] raster {case} {shape}: K5s "
+                      f"{median_ms(calls['raster_stream']):.4f} ms, K5g "
+                      f"{median_ms(calls['raster_gather']):.4f} ms (median "
+                      "of 20 CUDA-event timings, every launch of the call "
+                      f"inside; {nvidia_smi_line()})")
+                continue
+            pix = n * IMG_HW[0] * IMG_HW[1]
+            bytes_ = work["entries"] * RASTER_ENTRY_BYTES \
+                + pix * RASTER_PIXEL_BYTES
+            flop = work["subtiles_folded"] * RASTER_SUBTILE_PIXELS \
+                * RASTER_FLOP
+            dense = raster_pairs(ent) * RASTER_TILE_PIXELS * RASTER_FLOP
+            # no single PyTorch call rasterizes: library none
+            for key in ("raster_stream", "raster_gather"):
+                r = time_kernel(rec, key, shape, calls[key],
+                                lambda: raster.rasterize_plain(
+                                    ent, IMG_HW, stream=key ==
+                                    "raster_stream"),
+                                flop, bytes_, plain_reps=3)
+                print(f"[time] {key} {shape}: bound {r['bound_ms']:.4f} "
+                      f"ms ({r['bound_by']}) from the (entry, sub-tile) "
+                      "pairs the kernel folds (repeated entries and the "
+                      f"cull's skipped; {flop / 1e9:.3f} GFLOP: "
+                      f"{1e3 * flop / PEAK_F32_FLOPS:.4f} ms at 67 "
+                      f"TFLOP/s, {1e3 * flop / (PEAK_F32_FLOPS / 2):.4f} "
+                      "ms at one f32 instruction an operation, no FMA) "
+                      f"and {bytes_ / 1e6:.3f} MB "
+                      f"({1e3 * bytes_ / PEAK_HBM_BYTES:.4f} ms); the TPU "
+                      "kernel's dense work (every distinct (face, tile) "
+                      f"pair at all 4096 pixels): {dense / 1e9:.3f} GFLOP, "
+                      f"{1e3 * dense / PEAK_F32_FLOPS:.4f} ms, "
+                      f"{1e3 * dense / (PEAK_F32_FLOPS / 2):.4f} ms an "
+                      f"instruction each; kernel at "
+                      f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound "
+                      f"({nvidia_smi_line()})")
     return {k: max(v for name, v in errs.items() if name.startswith(k + " "))
             for k in ("raster_stream", "raster_gather")}
 

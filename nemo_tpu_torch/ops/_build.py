@@ -65,14 +65,16 @@ _SIGNATURES = {
     # kernel's registers a thread, static and dynamic shared memory bytes,
     # local (spill) bytes
     "nemo_skin_bwd_attributes": [_I, _P],
-    # N, T, H, W, th, tw, ntx, attr, efid, starts, counts, z, fid, bary,
-    # stream
-    "nemo_raster_stream": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                           _P, _P, _P, _P],
-    # N, T, H, W, th, tw, ntx, F, K, attr_face, tbl, counts, z, fid, bary,
-    # stream
-    "nemo_raster_gather": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                           _P, _P, _P, _P],
+    # N, T, H, W, th, tw, ntx, attr, codes, starts, counts, ints, keys, z,
+    # fid, bary, stream
+    "nemo_raster_stream": [_I] * 7 + [_P] * 10,
+    # N, T, H, W, th, tw, ntx, F, K, attr_face, tbl, counts, ints, keys, z,
+    # fid, bary, stream
+    "nemo_raster_gather": [_I] * 9 + [_P] * 9,
+    # which (0/1 the stream/gather fold, 2/3 their finalise, 4 the list
+    # kernel), out int[4]: registers a thread, static and dynamic shared
+    # memory bytes, local (spill) bytes
+    "nemo_raster_attributes": [_I, _P],
     # a, b, T, N, M, dist, idx, stream
     "nemo_chamfer_nn": [_P, _P, _I, _I, _I, _P, _P, _P],
     # floats of scratch nemo_mlp_fwd/_bwd need at (B, D, H, O), -1 if refused
@@ -216,3 +218,13 @@ def check_input(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def kernel_operand(t: torch.Tensor, align: int = 4) -> torch.Tensor:
+    """``t`` itself when a kernel can read it as it is (contiguous, its
+    first element on an ``align``-byte boundary), else one contiguous copy,
+    which PyTorch's allocator aligns. The public ops pass the caller's
+    views through this; the launchers refuse what it would copy."""
+    if t.is_contiguous() and t.data_ptr() % align == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)

@@ -139,13 +139,15 @@ def fk_bwd_cuda(R_l, t_l, R_g, gR_g, gt_g, parents
 
 class FKCompose(torch.autograd.Function):
     """Forward = K1 forward kernel, backward = K1 backward kernel (plain
-    versions for CPU tensors)."""
+    versions for CPU tensors). A transposed or offset CUDA view is copied
+    once, contiguous, before the kernel; the cotangents likewise."""
 
     @staticmethod
     def forward(ctx, R_l, t_l, parents):
         if _build.route(R_l, t_l) == "cpu":
             R_g, t_g = fk_fwd_plain(R_l, t_l, parents)
         else:
+            R_l, t_l = (_build.kernel_operand(t) for t in (R_l, t_l))
             R_g, t_g = fk_fwd_cuda(R_l, t_l, parents)
         ctx.parents = parents
         ctx.save_for_backward(R_l, t_l, R_g)

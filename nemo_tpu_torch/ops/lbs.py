@@ -293,13 +293,31 @@ def skin_fwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t) -> torch.Tensor:
     return verts
 
 
+def _alignment(name: str, V: int) -> int:
+    """The byte boundary the kernels read an operand at: A as float4, the
+    tables (v_shaped_t, posedirs_t, W_t) 8 bytes at a time where V is
+    even, the rest (pose features, cotangents) 4 bytes at a time."""
+    if name.startswith("A"):
+        return 16
+    if name in ("v_shaped_t", "posedirs_t", "W_t"):
+        return 8 if V % 2 == 0 else 4
+    return 4
+
+
+def _kernel_operands(names, args):
+    """The public ops' operands as the kernels read them: each tensor
+    itself when it is contiguous and aligned, else one aligned copy."""
+    V = args[names.index("W_t")].shape[-1]
+    return tuple(_build.kernel_operand(t, _alignment(n, V))
+                 for n, t in zip(names, args))
+
+
 def _check_alignment(kernel: str, V: int, **tensors):
-    """The kernels read A as float4 and, where V is even, copy the
-    tables 8 bytes at a time: a misaligned address would end the CUDA
-    context, so refuse such views (a contiguous slice whose offset is not a
-    multiple of 4 floats for A, of 2 floats for the tables)."""
+    """A misaligned address would end the CUDA context, so refuse views the
+    kernels cannot read (_alignment; a contiguous slice whose offset is not
+    a multiple of 4 floats for A, of 2 floats for the tables)."""
     for name, t in tensors.items():
-        align = 16 if name.startswith("A") else 8 if V % 2 == 0 else 4
+        align = _alignment(name, V)
         if t.data_ptr() % align:
             raise ValueError(f"{name} must start on a {align}-byte boundary "
                              f"for the {kernel} kernel")
@@ -425,14 +443,19 @@ def v2v_pair_cuda(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
 # ---------------------------------------------------------------------------
 
 class SkinVertsT(torch.autograd.Function):
-    """K3f forward, K3b backward (recomputing the posed vertices)."""
+    """K3f forward, K3b backward (recomputing the posed vertices). A
+    transposed or misaligned CUDA view is copied once before the kernels
+    (_kernel_operands)."""
 
     @staticmethod
     def forward(ctx, pf, A34, v_shaped_t, posedirs_t, W_t):
         args = (pf, A34, v_shaped_t, posedirs_t, W_t)
-        ctx.save_for_backward(*args)
         if _build.route(*args) == "cpu":
+            ctx.save_for_backward(*args)
             return skin_verts_t_plain(*args)
+        args = _kernel_operands(("pf", "A34", "v_shaped_t", "posedirs_t",
+                                 "W_t"), args)
+        ctx.save_for_backward(*args)
         return skin_fwd_cuda(*args)
 
     @staticmethod
@@ -461,13 +484,19 @@ def skin_verts_t(V: int, pf: torch.Tensor, A34: torch.Tensor,
 
 class SkinV2VL1(torch.autograd.Function):
     """Fused mode saves (gpf, gA, gvsh) from the forward and the backward
-    scales them; the pair modes save sign (and vp) and run K3b backward."""
+    scales them; the pair modes save sign (and vp) and run K3b backward.
+    A transposed or misaligned CUDA view is copied once before the
+    kernels (_kernel_operands)."""
 
     @staticmethod
     def forward(ctx, vjp, pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r):
         grad = any(ctx.needs_input_grad[1:4])
         args = (pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r)
         cpu = _build.route(*args) == "cpu"
+        if not cpu:
+            args = _kernel_operands(("pf_o", "A_o", "v_shaped_t",
+                                     "posedirs_t", "W_t", "pf_r", "A_r"),
+                                    args)
         ctx.fused = vjp == "fused"
         if not grad or ctx.fused:
             total, grads = (v2v_l1_plain if cpu else v2v_l1_cuda)(

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_raster_cases as raster_cases
 from nemo_tpu_torch.body.constants import SMPL_PARENTS
 from nemo_tpu_torch.ops import fk, lbs, launch_counts, reset_launches
 
@@ -362,6 +363,113 @@ def test_skin_fwd_refuses_misaligned_views(cuda, name):
                   1e-5)
 
 
+def _strided(t, kind, cuda):
+    """(leaf on the card, the view of it an op receives) holding t's values:
+    transposed (not contiguous) or offset (contiguous, 4 bytes past an
+    8-byte boundary: A off 16 bytes, a table off 8)."""
+    if kind == "transposed":
+        leaf = t.transpose(0, -1).contiguous().to(cuda).requires_grad_()
+        view = leaf.transpose(0, -1)
+        assert not view.is_contiguous()
+    else:
+        leaf = torch.cat([torch.zeros(1), t.reshape(-1)]).to(cuda)
+        leaf.requires_grad_()
+        view = leaf[1:].view(t.shape)
+        assert view.is_contiguous() and view.data_ptr() % 8 == 4
+    return leaf, view
+
+
+def _grad_of(leaf, kind, shape):
+    g = leaf.grad
+    return g.transpose(0, -1) if kind == "transposed" else g[1:].view(shape)
+
+
+@pytest.mark.parametrize("kind", ["transposed", "offset"])
+def test_fk_compose_takes_strided_views(cuda, kind):
+    """fk_compose on transposed or offset CUDA views of R_l and t_l, under
+    cotangents that are such views too, matches the plain version forward
+    and backward (the public op copies what the kernels refuse)."""
+    gen = torch.Generator().manual_seed(11)
+    B = 37
+    R, t = _rot(gen, B, 24), torch.randn((B, 24, 3), generator=gen)
+    gR, gt = torch.randn((B, 24, 3, 3), generator=gen), \
+        torch.randn((B, 24, 3), generator=gen)
+    (lR, vR), (lt, vt) = (_strided(x, kind, cuda) for x in (R, t))
+    Rg, tg = fk.fk_compose(vR, vt, PARENTS)
+    cot = [_strided(x, kind, cuda)[1].detach() for x in (gR, gt)]
+    torch.autograd.backward((Rg, tg), cot)
+    Rp, tp = fk.fk_fwd_plain(R, t, PARENTS)
+    gRp, gtp = fk.fk_bwd_plain(R, t, Rp, gR, gt, PARENTS)
+    for got, want, tol in ((Rg, Rp, 1e-5), (tg, tp, 1e-5),
+                           (_grad_of(lR, kind, R.shape), gRp, 1e-4),
+                           (_grad_of(lt, kind, t.shape), gtp, 1e-4)):
+        torch.testing.assert_close(got.detach().cpu(), want, atol=tol,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["transposed", "offset"])
+def test_skin_verts_t_takes_strided_views(cuda, kind):
+    """skin_verts_t (K3f, then K3b) on transposed or offset views of every
+    operand matches the plain version, forward and gradients."""
+    args, g = _skin_args(37, 300, cuda, seed=12)
+    args = [a.cpu() for a in args]
+    leaves = [_strided(a, kind, cuda) for a in args]
+    out = lbs.skin_verts_t(300, *(v for _, v in leaves))
+    out.backward(g)
+    want = lbs.skin_verts_t_plain(*args)
+    _close_scaled(out.detach().cpu(), want, 1e-5)
+    for (leaf, _), a, w in zip(leaves, args,
+                               lbs.skin_bwd_plain(*args, g.cpu())):
+        _close_scaled(_grad_of(leaf, kind, a.shape).cpu(), w, 1e-4)
+
+
+@pytest.mark.parametrize("vjp", lbs.VJP_MODES)
+@pytest.mark.parametrize("kind", ["transposed", "offset"])
+def test_skin_v2v_l1_takes_strided_views(cuda, kind, vjp):
+    """skin_v2v_l1 in every vjp mode on transposed or offset views of every
+    operand matches the plain version: the total and its gradients."""
+    _, full = _pair_args(37, 300, cuda, seed=13)
+    full = [a.cpu() for a in full]
+    leaves = [_strided(a, kind, cuda) for a in full]
+    total = lbs.skin_v2v_l1(300, *(v for _, v in leaves), vjp=vjp)
+    total.backward()
+    want, grads = lbs.v2v_l1_plain(*full, grad=True)
+    torch.testing.assert_close(total.detach().cpu(), want, rtol=1e-5,
+                               atol=0)
+    for (leaf, _), a, w in zip(leaves[:3], full[:3], grads):
+        _close_scaled(_grad_of(leaf, kind, a.shape).cpu(), -w, 1e-4)
+
+
+def test_public_ops_pass_aligned_operands_uncopied(cuda, monkeypatch):
+    """Contiguous, aligned operands reach the kernels as they are: no copy,
+    so the fit's steps keep their launch count."""
+    seen = {}
+
+    def spy(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, **k):
+            seen[name] = [t.data_ptr() for t in a
+                          if isinstance(t, torch.Tensor)]
+            return fn(*a, **k)
+        monkeypatch.setattr(mod, name, wrapped)
+    for mod, name in ((fk, "fk_fwd_cuda"), (lbs, "skin_fwd_cuda"),
+                      (lbs, "v2v_l1_cuda"), (lbs, "v2v_pair_cuda")):
+        spy(mod, name)
+    gen = torch.Generator().manual_seed(14)
+    R, t = _rot(gen, 37, 24).to(cuda), torch.randn((37, 24, 3),
+                                                   generator=gen).to(cuda)
+    fk.fk_compose(R, t, PARENTS)
+    assert seen["fk_fwd_cuda"] == [R.data_ptr(), t.data_ptr()]
+    args, full = _pair_args(37, 300, cuda, seed=14)
+    lbs.skin_verts_t(300, *args)
+    assert seen["skin_fwd_cuda"] == [a.data_ptr() for a in args]
+    full[0] = full[0].detach().requires_grad_()    # the pair modes' path
+    for vjp, name in (("fused", "v2v_l1_cuda"), ("pair", "v2v_pair_cuda")):
+        lbs.skin_v2v_l1(300, *full, vjp=vjp)
+        assert seen[name] == [a.data_ptr() for a in full]
+
+
 def test_skin_fwd_resources_and_scratch(cuda):
     """The forward kernel fits one block an SM without spilling in both
     instantiations, and the pair mode's scratch is one |diff| partial a
@@ -491,28 +599,37 @@ def _raster_case(name, gen):
         v, f = blobs(2, 500, 0.5, 0.1)
         return v, f, [200.0, 150.0], [(64.0, 48.0), (70.0, 40.0)], \
             (96, 130), 16, 32
-    raise KeyError(name)
+    # the split fold's cases (tests/torch_raster_cases.py): one tile of 11
+    # work items, equal depths in two work items of a tile, slivers far
+    # from the origin, a panel with every face behind the near plane
+    v, f, foc, ctr, hw, th, tw = raster_cases.CASES[name]()
+    return torch.tensor(v), f, foc, ctr, hw, th, tw
 
 
 @pytest.mark.parametrize("case", ["ragged", "empty_tiles_behind",
-                                  "batch_intrinsics", "small_tiles"])
+                                  "batch_intrinsics", "small_tiles",
+                                  "many_chunks", "cross_chunk_tie", "sliver",
+                                  "all_behind"])
 @pytest.mark.parametrize("stream", [True, False])
 def test_raster_kernels_match_plain(cuda, case, stream):
-    """K5s / K5g against the plain fold on the same binned entries:
+    """K5s / K5g against the plain fold on the same binned entries, twice:
     coverage, face ids, z and bary identical (the kernels round every
-    operation as the plain version does), and one launch of the mode's
+    operation as the plain version does, and their merge does not depend
+    on the order the work items run in), and one launch of the mode's
     kernel through the public op."""
     from nemo_tpu_torch.ops import raster
     gen = torch.Generator().manual_seed(len(case))
     v, f, foc, ctr, hw, th, tw = _raster_case(case, gen)
     ent = raster.prepare(v.to(cuda), f, foc, ctr, hw, th, tw)
-    kernel = raster.raster_stream_cuda(ent, raster.stream_inputs(ent), hw,
-                                       th, tw) if stream else \
-        raster.raster_gather_cuda(ent, raster.gather_inputs(ent), hw, th, tw)
     plain = raster.rasterize_plain(ent, hw, th, tw, stream=stream)
-    for a, b in zip(kernel, plain):
-        assert a.shape == b.shape and a.dtype == b.dtype
-        assert torch.equal(a, b)
+    for _ in range(2):
+        kernel = raster.raster_stream_cuda(
+            ent, raster.stream_inputs(ent), hw, th, tw) if stream else \
+            raster.raster_gather_cuda(ent, raster.gather_inputs(ent), hw, th,
+                                      tw)
+        for a, b in zip(kernel, plain):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert torch.equal(a, b)
     z = kernel[0]
     assert torch.isfinite(z).any() and not torch.isfinite(z).all()
     reset_launches()
@@ -523,6 +640,30 @@ def test_raster_kernels_match_plain(cuda, case, stream):
     assert counts["raster_gather"] == int(not stream)
     for a, b in zip(got, kernel):
         assert torch.equal(a, b)
+
+
+def test_raster_batched_never_synchronises(cuda):
+    """rasterize_triangles_batched on CUDA tensors, both modes, runs with
+    no host synchronisation (the work list is built and read on the
+    device), and gives the plain fold's outputs."""
+    from nemo_tpu_torch.ops import raster
+    gen = torch.Generator().manual_seed(9)
+    v, f, foc, ctr, hw, th, tw = _raster_case("batch_intrinsics", gen)
+    v, f = v.to(cuda), torch.as_tensor(f).to(cuda)
+    for stream in (True, False):     # the first calls build and load
+        raster.rasterize_triangles_batched(v, f, foc, ctr, hw, stream=stream)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [raster.rasterize_triangles_batched(v, f, foc, ctr, hw,
+                                                  stream=stream)
+               for stream in (True, False)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ent = raster.prepare(v, f, foc, ctr, hw)
+    for stream, out in zip((True, False), got):
+        for a, b in zip(out, raster.rasterize_plain(ent, hw, stream=stream)):
+            assert torch.equal(a, b)
 
 
 def test_raster_gather_overflow(cuda):
