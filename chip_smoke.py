@@ -10,13 +10,18 @@ Run from the repository root with no arguments:
 2. Build: compiles nemo_tpu_torch/csrc/*.cu for sm_90a (ops/_build.py, one
    nvcc per source, in parallel).
 3. Kernels against their plain PyTorch versions on the card, at the shapes
-   of the fit's paths: K1 forward and backward (B=512 and 960, random
-   rotations); K2 in fused, forward-only and pair modes (B=512, the
-   6890-vertex synthetic SMPL's tables), the fused and forward-only modes
-   (the one-pass kernel) also at B=960, with the kernel's registers,
-   shared memory and spills; K3f and the pair mode (the one-pass forward
-   kernel, with its registers, shared memory and spills) at (512, 6890),
-   (960, 1024), (37, 300) and (1, 5), each run twice for bit-stability;
+   of the fit's paths: K1 forward and backward (random rotations at
+   B=512, 960 and 60 on SMPL's tree, and at 512 and 60 on a 23-deep chain,
+   a star and a random 64-joint tree, each rerun bit-identical, with the
+   kernels' registers, shared memory and spills and, at 512 and 960, each
+   direction's device time a launch from torch.profiler beside the one-call
+   time and an empty kernel's launch floor); K2 in fused, forward-only and
+   pair modes (B=512, the 6890-vertex synthetic SMPL's tables), the fused
+   and forward-only modes (the one-pass kernel) also at B=960, with the
+   kernel's registers, shared memory and spills; K3f and the pair mode
+   (the one-pass forward kernel, with its registers, shared memory and
+   spills) at (512, 6890), (960, 1024), (37, 300) and (1, 5), each run
+   twice for bit-stability;
    K3b (the one-pass backward) recomputing the posed vertices and
    reading stored ones, under a random cotangent and a sign, at (512,
    6890) (the stored vertices and the sign from K2's pair mode), at path
@@ -268,6 +273,36 @@ def time_kernel(rec, key, shape, kernel, plain, flop, bytes_, library=None,
     return r
 
 
+def profiled_ms(fn, kernels, reps: int = 20, tries: int = 3) -> dict:
+    """{kernel: mean device time a call of fn, in ms}, summed over the
+    launches whose name holds ``kernel``, from torch.profiler over ``reps``
+    calls (device time alone: neither the host's work nor the gaps between
+    launches). A trace now and then holds no device events of a kernel;
+    fn is traced again, up to ``tries`` traces, and a kernel still unseen
+    maps to None ("not measured")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    out = dict.fromkeys(kernels)
+    for _ in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        for k in kernels:
+            total = sum(getattr(e, "device_time_total", 0)
+                        or getattr(e, "cuda_time_total", 0)
+                        for e in events if k in e.key)
+            if out[k] is None and total > 0:
+                out[k] = total / reps / 1e3
+        if all(v is not None for v in out.values()):
+            break
+    return out
+
+
 def random_rotations(B: int, J: int, gen, device, scale: float = 0.6):
     import torch
     from nemo_tpu_torch.geometry.rotations import batch_rodrigues
@@ -329,32 +364,75 @@ def kernel_phase(device, smpl):
     def timed(*a, **k):
         return time_kernel(rec, *a, **k)
 
-    # K1 at slice 1's batch and path A's full batch (8 views x 120 frames).
-    # Tolerance: an 8-level chain of f32 3x3 products of O(1) entries; the
-    # two sides differ only in summation order (~1e-7 per product).
-    for Bk in (B, B_A):
-        R_l = random_rotations(Bk, J, gen, device)
-        t_l = (0.3 * torch.randn((Bk, J, 3), generator=gen)).to(device)
-        gR = torch.randn((Bk, J, 3, 3), generator=gen).to(device)
-        gt = torch.randn((Bk, J, 3), generator=gen).to(device)
-        Rk, tk = fk.fk_fwd_cuda(R_l, t_l, parents)
-        Rp, tp = fk.fk_fwd_plain(R_l, t_l, parents)
-        check(f"fk_fwd B={Bk}", torch.cat([Rk.flatten(), tk.flatten()]),
+    # K1 at slice 1's batch, path A's full batch (8 views x 120 frames) and
+    # path E's 60-frame windows on SMPL's tree, and at 512 and 60 on a
+    # 23-deep chain, a star and a random 64-joint tree; each rerun must give
+    # the same bits (fixed-order folds, no atomics). Tolerance: a chain of
+    # up to 23 f32 3x3 products of O(1) entries; the two sides differ only
+    # in summation order and FMA (~1e-7 a product). The cases beyond
+    # SMPL's at 512 and 960 draw from a generator of their own, so the
+    # later kernels' inputs stay as they were.
+    tree_gen = torch.Generator().manual_seed(64)
+    fk_trees = {"smpl": parents, "chain": (-1,) + tuple(range(23)),
+                "star": (-1,) + (0,) * 23,
+                "random64": (-1,) + tuple(
+                    int(torch.randint(0, j, (1,), generator=tree_gen))
+                    for j in range(1, 64))}
+    print("[kernel] fk_fwd_kernel, fk_bwd_kernel resources at J=24 "
+          "(cudaFuncGetAttributes): " + json.dumps(
+              [fk.fk_attributes(False), fk.fk_attributes(True)]))
+    fk_cases = [("smpl", B), ("smpl", B_A), ("smpl", SEQ_LEN)] + [
+        (tree, Bk) for tree in ("chain", "star", "random64")
+        for Bk in (B, SEQ_LEN)]
+    for tree, Bk in fk_cases:
+        par = fk_trees[tree]
+        Jk, tag = len(par), f"{tree} B={Bk}"
+        g = gen if tree == "smpl" and Bk in (B, B_A) else tree_gen
+        R_l = random_rotations(Bk, Jk, g, device)
+        t_l = (0.3 * torch.randn((Bk, Jk, 3), generator=g)).to(device)
+        gR = torch.randn((Bk, Jk, 3, 3), generator=g).to(device)
+        gt = torch.randn((Bk, Jk, 3), generator=g).to(device)
+        Rk, tk = fk.fk_fwd_cuda(R_l, t_l, par)
+        Rp, tp = fk.fk_fwd_plain(R_l, t_l, par)
+        check(f"fk_fwd {tag}", torch.cat([Rk.flatten(), tk.flatten()]),
               torch.cat([Rp.flatten(), tp.flatten()]), 1e-5, errs)
-        gRk, gtk = fk.fk_bwd_cuda(R_l, t_l, Rk, gR, gt, parents)
-        gRp, gtp = fk.fk_bwd_plain(R_l, t_l, Rp, gR, gt, parents)
-        # cotangents are N(0,1) summed over up to 23 descendants: O(10)
-        check(f"fk_bwd B={Bk}", torch.cat([gRk.flatten(), gtk.flatten()]),
+        gRk, gtk = fk.fk_bwd_cuda(R_l, t_l, Rk, gR, gt, par)
+        gRp, gtp = fk.fk_bwd_plain(R_l, t_l, Rp, gR, gt, par)
+        # cotangents are N(0,1) summed over up to 63 descendants: O(10)
+        check(f"fk_bwd {tag}", torch.cat([gRk.flatten(), gtk.flatten()]),
               torch.cat([gRp.flatten(), gtp.flatten()]), 1e-4, errs)
+        again = fk.fk_fwd_cuda(R_l, t_l, par) + fk.fk_bwd_cuda(
+            R_l, t_l, Rk, gR, gt, par)
+        if not all(torch.equal(a, b)
+                   for a, b in zip(again, (Rk, tk, gRk, gtk))):
+            raise AssertionError(f"K1 is not bit-stable run to run ({tag})")
+        if tree != "smpl" or Bk == SEQ_LEN:
+            continue
         # no single PyTorch call composes a kinematic tree: library none
-        timed("fk_fwd", f"B={Bk}", lambda: fk.fk_fwd_cuda(R_l, t_l, parents),
-              lambda: fk.fk_fwd_plain(R_l, t_l, parents),
-              FK_FLOP_PER_JOINT["fk_fwd"] * 23 * Bk, nbytes(R_l, t_l, Rk, tk))
-        timed("fk_bwd", f"B={Bk}",
-              lambda: fk.fk_bwd_cuda(R_l, t_l, Rk, gR, gt, parents),
-              lambda: fk.fk_bwd_plain(R_l, t_l, Rk, gR, gt, parents),
-              FK_FLOP_PER_JOINT["fk_bwd"] * 23 * Bk,
-              nbytes(R_l, t_l, Rk, gR, gt, gRk, gtk))
+        calls = {"fk_fwd": lambda: fk.fk_fwd_cuda(R_l, t_l, par),
+                 "fk_bwd": lambda: fk.fk_bwd_cuda(R_l, t_l, Rk, gR, gt, par)}
+        r = {"fk_fwd": timed(
+            "fk_fwd", f"B={Bk}", calls["fk_fwd"],
+            lambda: fk.fk_fwd_plain(R_l, t_l, par),
+            FK_FLOP_PER_JOINT["fk_fwd"] * (Jk - 1) * Bk,
+            nbytes(R_l, t_l, Rk, tk))}
+        r["fk_bwd"] = timed(
+            "fk_bwd", f"B={Bk}", calls["fk_bwd"],
+            lambda: fk.fk_bwd_plain(R_l, t_l, Rk, gR, gt, par),
+            FK_FLOP_PER_JOINT["fk_bwd"] * (Jk - 1) * Bk,
+            nbytes(R_l, t_l, Rk, gR, gt, gRk, gtk))
+        dev = profiled_ms(lambda: (calls["fk_fwd"](), calls["fk_bwd"](),
+                                   fk.fk_empty_cuda(Bk, Jk, False, device)),
+                          ("fk_fwd_kernel", "fk_bwd_kernel",
+                           "fk_empty_kernel"))
+        ms = {k: "not measured" if v is None else f"{v:.4f} ms"
+              for k, v in dev.items()}
+        for key in calls:
+            print(f"[time] {key} B={Bk}: device time a launch "
+                  f"{ms[key + '_kernel']} (torch.profiler, mean of 20), one "
+                  f"call {r[key]['ms']:.4f} ms, launch floor "
+                  f"{ms['fk_empty_kernel']} (an empty kernel on K1's grid), "
+                  f"bound {r[key]['bound_ms']:.4f} ms ({nvidia_smi_line()})")
 
     # K2 inputs as smpl_v2v_l1_sum builds them. The rec side gets a
     # per-row offset of +-10 m on each axis, so no vertex difference is

@@ -36,10 +36,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of csrc/*.cu; every function returns a cudaError_t as int.
 _SIGNATURES = {
-    # R_l, t_l, parents (host int*), order (host int*), B, J, R_g, t_g, stream
-    "nemo_fk_fwd": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
-    # R_l, t_l, R_g, gR_g, gt_g, parents, order, B, J, acc, gR_l, gt_l, stream
-    "nemo_fk_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    # R_l, t_l, tree (host int*, ops/fk.py kinematic_tree().packed), B, J,
+    # R_g, t_g, stream
+    "nemo_fk_fwd": [_P, _P, _P, _I, _I, _P, _P, _P],
+    # R_l, t_l, R_g, gR_g, gt_g, tree, B, J, gR_l, gt_l, stream
+    "nemo_fk_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # B, J, backward, stream: an empty kernel on K1's grid (launch floor)
+    "nemo_fk_empty": [_I, _I, _I, _P],
+    # backward, J, out int[4]: the K1 kernel's registers a thread, static
+    # and dynamic (at J joints) shared memory bytes, local (spill) bytes
+    "nemo_fk_attributes": [_I, _I, _P],
     # B, V, pf_o, A_o, pf_r, A_r, vsh_t, posedirs_t, W_t, mode,
     # scratch, sign, vp, total, gpf, gA, gvsh, stream
     "nemo_v2v_l1": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -183,6 +189,16 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def kernel_attributes(fn: str, *args) -> dict:
+    """A kernel's registers a thread, shared memory and spills (local
+    memory), as the CUDA runtime reports them for the built library: the C
+    function ``fn`` fills an int[4] passed after ``args``."""
+    out = (ctypes.c_int * 4)()
+    check(getattr(library(), fn)(*args, out), fn)
+    return dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
+                     "local_bytes"), out))
 
 
 def stream_handle(device: torch.device) -> int:

@@ -34,7 +34,6 @@ the tests.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -323,15 +322,6 @@ def _check_alignment(kernel: str, V: int, **tensors):
                              f"for the {kernel} kernel")
 
 
-def _attributes(fn, *args) -> dict:
-    """A kernel's registers a thread, shared memory and spills (local
-    memory), as the CUDA runtime reports them for the built library."""
-    out = (ctypes.c_int * 4)()
-    _build.check(getattr(_build.library(), fn)(*args, out), fn)
-    return dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
-                     "local_bytes"), out))
-
-
 def skin_bwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t, g,
                   vp: Optional[torch.Tensor] = None) -> Grads:
     """Launch K3b (CUDA tensors only): (gpf, gA, gvsh) under the f32
@@ -370,13 +360,15 @@ def skin_bwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t, g,
 def skin_fwd_attributes(pair: bool = False) -> dict:
     """The forward kernel's registers a thread, shared memory and spills:
     K3f's instantiation, or (pair) K2's pair mode's."""
-    return _attributes("nemo_skin_fwd_attributes", 2 if pair else 1)
+    return _build.kernel_attributes("nemo_skin_fwd_attributes",
+                                    2 if pair else 1)
 
 
 def skin_bwd_attributes(stored_vp: bool = False) -> dict:
     """The one-pass K3b kernel's registers a thread, shared memory and
     spills, recomputing vp or (stored_vp) reading it."""
-    return _attributes("nemo_skin_bwd_attributes", 2 if stored_vp else 1)
+    return _build.kernel_attributes("nemo_skin_bwd_attributes",
+                                    2 if stored_vp else 1)
 
 
 def _v2v_launch(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
@@ -417,7 +409,7 @@ def _v2v_launch(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
 def v2v_fused_attributes() -> dict:
     """The fused K2 kernel's registers a thread, shared memory and
     spills."""
-    return _attributes("nemo_v2v_fused_attributes")
+    return _build.kernel_attributes("nemo_v2v_fused_attributes")
 
 
 def v2v_l1_cuda(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,

@@ -27,8 +27,6 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import ctypes
-
 import torch
 
 from . import _build
@@ -178,11 +176,7 @@ def gemm_attributes(pair: bool = False) -> dict:
     """The GEMM kernel's registers a thread, shared memory and spills (local
     memory), as the CUDA runtime reports them for the built library: the
     forward's instantiation, or (pair) the backward's."""
-    out = (ctypes.c_int * 4)()
-    _build.check(_build.library().nemo_mlp_attributes(int(pair), out),
-                 "nemo_mlp_attributes")
-    return dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
-                     "local_bytes"), out))
+    return _build.kernel_attributes("nemo_mlp_attributes", int(pair))
 
 
 def mlp_fwd_cuda(x, W1, b1, W2, b2, W3, b3, Wo, bo) -> Acts:

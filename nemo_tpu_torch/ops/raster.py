@@ -44,7 +44,6 @@ in its tile, which the kernels skip. Render only: there is no VJP.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -581,14 +580,8 @@ def raster_attributes() -> dict:
     library."""
     names = ("stream fold", "gather fold", "stream finalise",
              "gather finalise", "list")
-    out = {}
-    for which, name in enumerate(names):
-        vals = (ctypes.c_int * 4)()
-        _build.check(_build.library().nemo_raster_attributes(which, vals),
-                     "nemo_raster_attributes")
-        out[name] = dict(zip(("registers", "static_smem_bytes",
-                              "dynamic_smem_bytes", "local_bytes"), vals))
-    return out
+    return {name: _build.kernel_attributes("nemo_raster_attributes", which)
+            for which, name in enumerate(names)}
 
 
 # ---------------------------------------------------------------------------

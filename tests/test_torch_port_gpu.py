@@ -40,21 +40,80 @@ def _rot(gen, B, J):
     return batch_rodrigues(0.7 * torch.randn((B, J, 3), generator=gen))
 
 
-@pytest.mark.parametrize("B", [1, 37, 300])
-def test_fk_kernels_match_plain(cuda, B):
-    gen = torch.Generator().manual_seed(B)
-    R = _rot(gen, B, 24).to(cuda)
-    t = torch.randn((B, 24, 3), generator=gen).to(cuda)
-    gR = torch.randn((B, 24, 3, 3), generator=gen).to(cuda)
-    gt = torch.randn((B, 24, 3), generator=gen).to(cuda)
-    Rk, tk = fk.fk_fwd_cuda(R, t, PARENTS)
-    Rp, tp = fk.fk_fwd_plain(R, t, PARENTS)
+_RNG = np.random.RandomState(64)
+FK_TREES = {"smpl": PARENTS, "chain": (-1,) + tuple(range(23)),
+            "star": (-1,) + (0,) * 23,
+            "random64": (-1,) + tuple(int(_RNG.randint(0, j))
+                                      for j in range(1, 64))}
+
+
+def _fk_inputs(B, J, seed, cuda):
+    gen = torch.Generator().manual_seed(seed)
+    return (_rot(gen, B, J).to(cuda),
+            torch.randn((B, J, 3), generator=gen).to(cuda),
+            torch.randn((B, J, 3, 3), generator=gen).to(cuda),
+            torch.randn((B, J, 3), generator=gen).to(cuda))
+
+
+@pytest.mark.parametrize("tree", sorted(FK_TREES))
+@pytest.mark.parametrize("B", [1, 37, 60, 300, 512, 960])
+def test_fk_kernels_match_plain(cuda, B, tree):
+    """K1f and K1b against the plain versions (1e-5 / 1e-4 absolute, as
+    chip_smoke.py holds them) on SMPL, a 23-deep chain, a star and a random
+    64-joint tree; a rerun gives the same bits (no atomics)."""
+    parents = FK_TREES[tree]
+    R, t, gR, gt = _fk_inputs(B, len(parents), B, cuda)
+    Rk, tk = fk.fk_fwd_cuda(R, t, parents)
+    Rp, tp = fk.fk_fwd_plain(R, t, parents)
     torch.testing.assert_close(Rk, Rp, atol=1e-5, rtol=0)
     torch.testing.assert_close(tk, tp, atol=1e-5, rtol=0)
-    gRk, gtk = fk.fk_bwd_cuda(R, t, Rk, gR, gt, PARENTS)
-    gRp, gtp = fk.fk_bwd_plain(R, t, Rp, gR, gt, PARENTS)
+    gRk, gtk = fk.fk_bwd_cuda(R, t, Rk, gR, gt, parents)
+    gRp, gtp = fk.fk_bwd_plain(R, t, Rp, gR, gt, parents)
     torch.testing.assert_close(gRk, gRp, atol=1e-4, rtol=0)
     torch.testing.assert_close(gtk, gtp, atol=1e-4, rtol=0)
+    again = fk.fk_fwd_cuda(R, t, parents) + fk.fk_bwd_cuda(R, t, Rk, gR, gt,
+                                                           parents)
+    assert all(torch.equal(a, b) for a, b in zip(again, (Rk, tk, gRk, gtk)))
+
+
+def test_fk_kernel_resources(cuda):
+    """Both K1 kernels: no spills, and the shared memory of a 64-joint
+    tree's tile within the 48 KB a block gets without opting in."""
+    for backward in (False, True):
+        for J in (24, 64):
+            res = fk.fk_attributes(backward, J)
+            assert res["local_bytes"] == 0, res
+            assert 0 < res["registers"] <= 255, res
+            assert res["static_smem_bytes"] + res["dynamic_smem_bytes"] \
+                <= 48 * 1024, res
+
+
+def test_fk_bwd_allocates_no_scratch(cuda):
+    """K1b keeps its accumulators on-chip: a call allocates its two
+    outputs and nothing else."""
+    R, t, gR, gt = _fk_inputs(512, 24, 3, cuda)
+    Rg, _ = fk.fk_fwd_cuda(R, t, PARENTS)
+    fk.fk_bwd_cuda(R, t, Rg, gR, gt, PARENTS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    before = torch.cuda.memory_allocated(cuda)
+    out = fk.fk_bwd_cuda(R, t, Rg, gR, gt, PARENTS)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(cuda) - before == \
+        sum(o.untyped_storage().nbytes() for o in out)
+
+
+def test_fk_kernels_refuse_what_they_cannot_take(cuda):
+    """More than 64 joints, or an empty batch: the launch is refused."""
+    parents = (-1,) + tuple(range(64))
+    R, t, gR, gt = _fk_inputs(2, 65, 4, cuda)
+    with pytest.raises(RuntimeError, match="nemo_fk_fwd"):
+        fk.fk_fwd_cuda(R, t, parents)
+    with pytest.raises(RuntimeError, match="nemo_fk_bwd"):
+        fk.fk_bwd_cuda(R, t, R, gR, gt, parents)
+    R, t, gR, gt = _fk_inputs(0, 24, 4, cuda)
+    with pytest.raises(RuntimeError, match="nemo_fk_fwd"):
+        fk.fk_fwd_cuda(R, t, PARENTS)
 
 
 @pytest.mark.parametrize("V", [5, 300, 1000, 6890])
