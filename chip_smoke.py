@@ -30,12 +30,14 @@ Run from the repository root with no arguments:
    K5s and K5g (the tile rasterizer's stream and gather
    modes) on the synthetic problem's posed mesh at 1000 x 1900, one panel
    and a batch of four; K4 (the one-way nearest-neighbour chamfer) at
-   (60, 512, 6890) and (60, 6890, 512); K6f and K6b (the fused MotionNet
-   MLP, forward and backward) at (B, D, H, O) = (512, 105, 1000, 147),
-   (960, ...) and (1, ...), each run twice for bit-stability, with the
-   GEMM kernel's registers, shared memory and spills, its distance from
-   its CPU emulation at B=512 and the same products as a chain of cuBLAS
-   calls timed beside it. Each check
+   (60, 512, 6890) and (60, 6890, 512), each rerun bit-identical, with its
+   split, registers, shared memory and spills and each direction's device
+   time a launch beside the launch floor and its instruction figure; K6f
+   and K6b (the fused MotionNet MLP, forward and backward) at (B, D, H,
+   O) = (512, 105, 1000, 147), (960, ...) and (1, ...), each run twice
+   for bit-stability, with the GEMM kernel's registers, shared memory and
+   spills, its distance from its CPU emulation at B=512 and the same
+   products as a chain of cuBLAS calls timed beside it. Each check
    prints its max error beside its tolerance; each kernel's median CUDA-event time beside its plain
    version's, one PyTorch call's (where one computes the whole function or
    its largest contraction) and its bound (the least time the card could
@@ -167,10 +169,16 @@ RASTER_SUBTILE_PIXELS = 8 * 32   # a warp's sub-tile in csrc/raster.cu
 RASTER_ENTRY_BYTES = 40
 RASTER_PIXEL_BYTES = 20
 IMG_HW = (1000, 1900)    # synthetic_problem's image, (D0 height, D1 width)
-# f32 operations per (query, candidate) pair of the chamfer kernel
-# (csrc/chamfer.cu's inner loop): 3 products and 2 sums for the dot, the
-# product by 2, one sum, one difference, one comparison
+# f32 operations per (query, candidate) pair of the chamfer search: 3
+# products and 2 sums for the dot, the product by 2, one sum, one
+# difference, one comparison
 CHAMFER_FLOP = 9
+# f32 instructions csrc/chamfer.cu issues a pair for that arithmetic: it
+# doubles each query once and takes the minimum a group at a time (fminf),
+# so 3 products, 4 sums and a minimum
+CHAMFER_INSTR = 8
+# f32 instructions the card issues a second: 132 SMs x 128 lanes at 1.98 GHz
+LANE_INSTR_PER_S = 132 * 128 * 1.98e9
 # path E: fit-amass's defaults (seq_len 60, num_samp_pts 512, steps 30 70
 # 70, lr 1e-2, latent 48) on the 6890-vertex synthetic SMPL
 SEQ_LEN, SAMP_PTS = 60, 512
@@ -273,34 +281,53 @@ def time_kernel(rec, key, shape, kernel, plain, flop, bytes_, library=None,
     return r
 
 
-def profiled_ms(fn, kernels, reps: int = 20, tries: int = 3) -> dict:
-    """{kernel: mean device time a call of fn, in ms}, summed over the
-    launches whose name holds ``kernel``, from torch.profiler over ``reps``
-    calls (device time alone: neither the host's work nor the gaps between
-    launches). A trace now and then holds no device events of a kernel;
-    fn is traced again, up to ``tries`` traces, and a kernel still unseen
-    maps to None ("not measured")."""
+def profiled_ms(fn, kernels, reps: int = 20, launches: int = 1,
+                tries: int = 5) -> dict:
+    """{kernel: mean device time a launch in ms, or None} for the launches
+    whose name holds ``kernel``, from torch.profiler over ``reps`` calls of
+    fn, each of which launches every kernel ``launches`` times (device time
+    alone: neither the host's work nor the gaps between launches). A trace
+    may lose the device events of its first launches (late in a long
+    process, the first few milliseconds' worth), so each trace runs fn
+    ``reps`` times unmeasured, then the ``reps`` measured calls inside a
+    mark. A kernel's time comes only from a trace that holds all reps x
+    launches of its launches after the mark; fn is traced again while a
+    kernel lacks one, up to ``tries`` traces, and a kernel that none held
+    whole maps to None ("not measured")."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
     out = dict.fromkeys(kernels)
     for _ in range(tries):
-        fn()
-        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = prof.key_averages()
+            with record_function("profiled_ms"):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        t0 = next(e.time_range.start for e in events
+                  if e.name == "profiled_ms"
+                  and e.device_type == DeviceType.CPU)
+        device = [e for e in events if e.device_type == DeviceType.CUDA
+                  and e.time_range.start >= t0]
         for k in kernels:
-            total = sum(getattr(e, "device_time_total", 0)
-                        or getattr(e, "cuda_time_total", 0)
-                        for e in events if k in e.key)
-            if out[k] is None and total > 0:
-                out[k] = total / reps / 1e3
+            mine = [e.time_range.elapsed_us() for e in device if k in e.name]
+            if out[k] is None and len(mine) == reps * launches:
+                out[k] = sum(mine) / len(mine) / 1e3
         if all(v is not None for v in out.values()):
             break
     return out
+
+
+def device_ms_text(ms, reps: int = 20) -> str:
+    """profiled_ms's entry as text."""
+    if ms is None:
+        return f"not measured (no trace held all {reps} launches)"
+    return f"{ms:.4f} ms (torch.profiler, mean of {reps} launches)"
 
 
 def random_rotations(B: int, J: int, gen, device, scale: float = 0.6):
@@ -425,11 +452,10 @@ def kernel_phase(device, smpl):
                                    fk.fk_empty_cuda(Bk, Jk, False, device)),
                           ("fk_fwd_kernel", "fk_bwd_kernel",
                            "fk_empty_kernel"))
-        ms = {k: "not measured" if v is None else f"{v:.4f} ms"
-              for k, v in dev.items()}
+        ms = {k: device_ms_text(v) for k, v in dev.items()}
         for key in calls:
             print(f"[time] {key} B={Bk}: device time a launch "
-                  f"{ms[key + '_kernel']} (torch.profiler, mean of 20), one "
+                  f"{ms[key + '_kernel']}, one "
                   f"call {r[key]['ms']:.4f} ms, launch floor "
                   f"{ms['fk_empty_kernel']} (an empty kernel on K1's grid), "
                   f"bound {r[key]['bound_ms']:.4f} ms ({nvidia_smi_line()})")
@@ -852,8 +878,14 @@ def chamfer_phase(device, smpl, rec):
     frames of a 512-point scan near the 6890-vertex mesh, scan -> mesh (the
     direction the loss reads) and mesh -> scan. The kernel rounds every
     operation in the plain version's order, so distances and indices must
-    be identical (tolerance 0). Returns {"chamfer_nn": max_abs_err} and adds
-    the times to rec (the scan -> mesh record first)."""
+    be identical (tolerance 0), and a rerun must give the same bits. Prints
+    the kernel's split, its registers, shared memory and spills, and each
+    direction's device time a launch from torch.profiler beside the
+    one-call time, an empty kernel's launch floor, the bound and the
+    instruction figures (each of the 9 operations a pair issued alone, and
+    the 8 instructions a pair the kernel issues).
+    Returns {"chamfer_nn": max_abs_err} and adds the times to rec (the scan
+    -> mesh record first)."""
     import torch
     from nemo_tpu_torch.ops import chamfer
     gen = torch.Generator().manual_seed(4)
@@ -865,24 +897,56 @@ def chamfer_phase(device, smpl, rec):
     scan = (torch.gather(mesh, 1, pick[..., None].expand(T, N, 3))
             + 0.01 * torch.randn((T, N, 3), generator=gen).to(device)
             ).contiguous()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    print("[kernel] nn_one_way_split_kernel<4>, <2>, <1> resources "
+          "(cudaFuncGetAttributes): " + json.dumps(
+              [chamfer.nn_attributes(q) for q in (4, 2, 1)]))
     errs = {}
     for a, b, shape in ((scan, mesh, f"T={T}, N={N}, M={V}"),
                         (mesh, scan, f"T={T}, N={V}, M={N}")):
+        Tk, Nk, Mk = a.shape[0], a.shape[1], b.shape[1]
         dk, ik = chamfer.nn_one_way_cuda(a, b)
         dp, ip = chamfer.nn_one_way_plain(a, b)
         n_idx = int((ik != ip).sum())
-        print(f"[kernel] chamfer_nn {shape}: indices differing from the "
-              f"plain version {n_idx} of {ik.numel()} (tolerance 0)")
+        print(f"[kernel] chamfer_nn {shape}: split "
+              f"{chamfer.nn_split(Tk, Nk, Mk, sms)}; indices differing from "
+              f"the plain version {n_idx} of {ik.numel()} (tolerance 0)")
         if n_idx:
             raise AssertionError("chamfer_nn: argmin differs from plain")
         check(f"chamfer_nn {shape}", dk, dp, 0.0, errs)
-        Tk, Nk, Mk = a.shape[0], a.shape[1], b.shape[1]
+        dr, ir = chamfer.nn_one_way_cuda(a, b)
+        if not (torch.equal(dr, dk) and torch.equal(ir, ik)):
+            raise AssertionError(f"K4 is not bit-stable run to run ({shape})")
         bt = b.transpose(1, 2).contiguous()
-        time_kernel(rec, "chamfer_nn", shape,
-                    lambda: chamfer.nn_one_way_cuda(a, b),
-                    lambda: chamfer.nn_one_way_plain(a, b),
-                    CHAMFER_FLOP * Tk * Nk * Mk, nbytes(a, b, dk, ik),
-                    library=lambda: torch.bmm(a, bt), plain_reps=5)
+        call = lambda: chamfer.nn_one_way_cuda(a, b)
+        r = time_kernel(rec, "chamfer_nn", shape, call,
+                        lambda: chamfer.nn_one_way_plain(a, b),
+                        CHAMFER_FLOP * Tk * Nk * Mk, nbytes(a, b, dk, ik),
+                        library=lambda: torch.bmm(a, bt), plain_reps=5)
+        dev = profiled_ms(call, ("nn_one_way",))
+        dev.update(profiled_ms(lambda: chamfer.nn_empty_cuda(
+            Tk, Nk, Mk, device), ("chamfer_empty",)))
+        ms = {k: device_ms_text(v) for k, v in dev.items()}
+        pairs = Tk * Nk * Mk
+        instr = {n: 1e3 * n * pairs / LANE_INSTR_PER_S
+                 for n in (CHAMFER_FLOP, CHAMFER_INSTR)}
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        for _ in range(20):
+            call()
+        end.record()
+        end.synchronize()
+        print(f"[time] chamfer_nn {shape}: device time a launch "
+              f"{ms['nn_one_way']}, 20 launches back to back "
+              f"{start.elapsed_time(end) / 20:.4f} ms each (CUDA events), "
+              f"one call {r['ms']:.4f} ms, launch floor "
+              f"{ms['chamfer_empty']} (an empty kernel on K4's grid), "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), instruction "
+              f"figure {instr[CHAMFER_FLOP]:.4f} ms (the {CHAMFER_FLOP} "
+              f"operations a pair each issued alone, 132 SMs x 128 lanes at "
+              f"1.98 GHz), the kernel's own {instr[CHAMFER_INSTR]:.4f} ms "
+              f"(its {CHAMFER_INSTR} instructions a pair) "
+              f"({nvidia_smi_line()})")
     return {"chamfer_nn": max(errs.values())}
 
 
@@ -1434,7 +1498,8 @@ def path_e(device, smpl):
     CLI's defaults (60 frames, 512 scan points, 30/70/70 steps, the
     reference HuMoR widths with latent 48, the 6890-vertex synthetic SMPL),
     on the card (the CLI's default device), and the eval CSVs. K4 runs in
-    every step (both directions), K1 in every SMPL forward and backward.
+    every step (scan -> mesh alone, the direction the points3d loss reads),
+    K1 in every SMPL forward and backward.
     Then points3d_loss and the stage-3 loss on the card against the port's
     CPU path from the same parameters (the fit's result)."""
     import numpy as np

@@ -33,7 +33,7 @@ from .. import device_index
 from ..body.smpl import SMPLModel, smpl_forward
 from ..fit.optimizer import GroupAdam
 from ..geometry.rotations import batch_rodrigues
-from ..ops.chamfer import chamfer_distance
+from ..ops.chamfer import chamfer_one_way
 from .humor import HumorConfig, Params, humor_roll_out, pack_state, split_state
 
 
@@ -94,12 +94,13 @@ def points3d_loss(obs_pts: torch.Tensor, pred_verts: torch.Tensor,
                   tune_const: float = 4.6851) -> torch.Tensor:
     """One-way scan->mesh chamfer with robust weighting
     (fitting_loss.py:378-396): min squared distance from each observed point
-    to the predicted vertex set (K4; ``chamfer_distance`` computes both
-    directions and the loss reads the first; its distances are computed
-    directly and never negative, see ops/chamfer.py), sqrt'd without a
-    clamp, Tukey-bisquare weighted on the detached residuals, then 0.5 * the
-    sum of the weighted squares. obs_pts (T, N, 3), pred_verts (T, V, 3)."""
-    sq, _ = chamfer_distance(obs_pts, pred_verts)        # (T, N)
+    to the predicted vertex set (K4, one search: ``chamfer_one_way``, the
+    first direction of ``chamfer_distance``, which is all the loss reads;
+    its distances are computed directly and never negative, see
+    ops/chamfer.py), sqrt'd without a clamp, Tukey-bisquare weighted on the
+    detached residuals, then 0.5 * the sum of the weighted squares. obs_pts
+    (T, N, 3), pred_verts (T, V, 3)."""
+    sq = chamfer_one_way(obs_pts, pred_verts)            # (T, N)
     res = torch.sqrt(sq + 1e-12).reshape(1, -1)          # (1, T*N)
     weighted, _ = apply_robust_weighting(res, robust_loss, tune_const)
     return 0.5 * weighted.sum()

@@ -3,7 +3,8 @@
 K1 ``fk.fk_compose`` (forward and backward kernels), K2
 ``lbs.skin_v2v_l1`` (fused, pair and forward-only modes), K3
 ``lbs.skin_verts_t`` (forward and backward kernels), K4
-``chamfer.nn_one_way`` (under ``chamfer.chamfer_distance``), K5
+``chamfer.nn_one_way`` (under ``chamfer.chamfer_distance`` and
+``chamfer.chamfer_one_way``), K5
 ``raster.rasterize_triangles`` (stream and gather modes) and K6
 ``mlp.motion_net_mlp`` (forward and backward kernels). Each wrapper
 counts its kernel launches; :func:`launch_counts` reads the counts and
@@ -15,7 +16,7 @@ from __future__ import annotations
 from typing import Dict
 
 from . import chamfer, fk, lbs, mlp, raster
-from .chamfer import chamfer_distance, nn_one_way
+from .chamfer import chamfer_distance, chamfer_one_way, nn_one_way
 from .fk import fk_compose
 from .lbs import skin_v2v_l1, skin_verts_t
 from .mlp import motion_net_mlp
@@ -37,6 +38,6 @@ def reset_launches() -> None:
 
 
 __all__ = ["fk_compose", "skin_v2v_l1", "skin_verts_t", "nn_one_way",
-           "chamfer_distance", "motion_net_mlp",
+           "chamfer_distance", "chamfer_one_way", "motion_net_mlp",
            "rasterize_triangles", "rasterize_triangles_batched",
            "launch_counts", "reset_launches"]

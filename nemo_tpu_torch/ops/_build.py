@@ -81,8 +81,15 @@ _SIGNATURES = {
     # kernel), out int[4]: registers a thread, static and dynamic shared
     # memory bytes, local (spill) bytes
     "nemo_raster_attributes": [_I, _P],
-    # a, b, T, N, M, dist, idx, stream
-    "nemo_chamfer_nn": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # a, b, T, N, M, q, ranges, range (ops/chamfer.py nn_split), dist,
+    # idx, stream
+    "nemo_chamfer_nn": [_P, _P] + [_I] * 6 + [_P, _P, _P],
+    # T, N, M, q, ranges, stream: an empty kernel on K4's grid (launch
+    # floor)
+    "nemo_chamfer_empty": [_I] * 5 + [_P],
+    # q, out int[4]: K4's registers a thread, static and dynamic (at 16
+    # ranges) shared memory bytes, local (spill) bytes
+    "nemo_chamfer_attributes": [_I, _P],
     # floats of scratch nemo_mlp_fwd/_bwd need at (B, D, H, O), -1 if refused
     "nemo_mlp_scratch_floats": [_I, _I, _I, _I],
     # B, D, H, O, x, W1, b1, W2, b2, W3, b3, Wo, bo, out, h1, h2, z, scratch,

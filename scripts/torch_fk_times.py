@@ -5,8 +5,10 @@ call, digests of the outputs, and launches a main-stage step.
     python scripts/torch_fk_times.py [--root DIR] [--label NAME]
         [--batches 512 960] [--trees smpl] [--reps 20] [--profile]
 
-Imports ``nemo_tpu_torch`` and ``chip_smoke`` from DIR (default: the
-checkout this script lies in) and builds its kernels there.
+Imports ``nemo_tpu_torch`` from DIR (default: the checkout this script
+lies in) and builds its kernels there; chip_smoke.py, whose helpers do
+the measuring, comes from this script's checkout, so two checkouts are
+measured by the same rules.
 
 - K1f and K1b (``fk.fk_fwd_cuda``, ``fk.fk_bwd_cuda``) at each batch B on
   each of ``--trees`` (SMPL's 24 joints in 9 levels; ``chain``, 24 joints
@@ -21,8 +23,10 @@ checkout this script lies in) and builds its kernels there.
   a call), ``bound_ms`` (the bytes moved at 3.35 TB/s; the f32 operations
   at 67 TFLOP/s take less) and the sha256 of the outputs, so two
   checkouts that compute the same bits print the same digests.
-- ``--profile`` adds ``device_ms``, the kernel's device time a launch from
-  torch.profiler (the mean over --reps launches), and ``floor_ms``, the
+- ``--profile`` adds ``device_ms``, the kernel's device time a launch
+  (chip_smoke.py's ``profiled_ms``: torch.profiler, the mean over --reps
+  launches from a trace that holds all of them; null where none did), and
+  ``floor_ms``, the
   same for an empty kernel on K1's grid (``fk.fk_empty_cuda``; null where
   the checkout has none): the launch floor beside the bound.
 - Launches a step: the reference configuration
@@ -48,29 +52,6 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def profiled_ms(fn, kernel: str, reps: int, tries: int = 3) -> float:
-    """Mean device time a call of the kernels whose name holds ``kernel``,
-    over ``reps`` calls of fn (torch.profiler). A trace now and then holds
-    no device events; fn is traced again, up to ``tries`` traces."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(tries):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(getattr(e, "device_time_total", 0)
-                    or getattr(e, "cuda_time_total", 0)
-                    for e in prof.key_averages() if kernel in e.key)
-        if total > 0:
-            return total / reps / 1e3
-    raise RuntimeError(f"torch.profiler saw no device time of {kernel} in "
-                       f"{tries} traces")
-
-
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--root", default=REPO)
@@ -83,12 +64,13 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, os.path.join(REPO, "scripts"))
-    sys.path.insert(0, root)
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs     # this checkout's measuring rules
+    sys.path.insert(0, root)    # --root's package and kernels
     import torch
     if not torch.cuda.is_available():
         print("torch_fk_times: needs a CUDA device", file=sys.stderr)
         return 1
-    import chip_smoke as cs
     import nemo_tpu_torch
     from torch_v2v_times import digest, loop_ms
     from nemo_tpu_torch.body.assets import synthetic_smpl_model
@@ -134,10 +116,11 @@ def main(argv=None) -> int:
                    / cs.PEAK_HBM_BYTES,
                    "max_abs_err": err, "reps": args.reps}
             if args.profile:
-                rec["device_ms"] = profiled_ms(fn, key + "_kernel", args.reps)
-                rec["floor_ms"] = None if empty is None else profiled_ms(
+                k = key + "_kernel"
+                rec["device_ms"] = cs.profiled_ms(fn, (k,), args.reps)[k]
+                rec["floor_ms"] = None if empty is None else cs.profiled_ms(
                     lambda: empty(B, 24, key == "fk_bwd", device),
-                    "fk_empty_kernel", args.reps)
+                    ("fk_empty_kernel",), args.reps)["fk_empty_kernel"]
             print(json.dumps(rec), flush=True)
 
     smpl = synthetic_smpl_model(6890, seed=0, device=device)
@@ -155,9 +138,12 @@ def main(argv=None) -> int:
         rec = {"label": label, "config": name, "main_step_launches": {
             k: counts[k] for k in ("fk_fwd", "fk_bwd")}}
         if args.profile:
-            rec["main_step_device_ms"] = {
-                k: profiled_ms(fitter.main_step, k + "_kernel", 5)
-                for k in ("fk_fwd", "fk_bwd")}
+            rec["main_step_device_ms"] = {}
+            for k in ("fk_fwd", "fk_bwd"):
+                ms = cs.profiled_ms(fitter.main_step, (k + "_kernel",), 5,
+                                    counts[k])[k + "_kernel"]
+                rec["main_step_device_ms"][k] = None if ms is None \
+                    else ms * counts[k]
         print(json.dumps(rec), flush=True)
     print(cs.nvidia_smi_line())
     return 0

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_chamfer_cases as chamfer_cases
 import torch_raster_cases as raster_cases
 from nemo_tpu_torch.body.constants import SMPL_PARENTS
 from nemo_tpu_torch.ops import fk, lbs, launch_counts, reset_launches
@@ -742,20 +743,34 @@ def test_raster_gather_overflow(cuda):
     assert not torch.equal(got[1], stream[1])
 
 
-# K4 cases: (T, N, M, kind). N and M straddle the kernel's 128-query block
-# and 1024-candidate tile; "dup" repeats every candidate (ties, the lowest
-# index must win) and puts some queries exactly on candidates; "far" puts
-# the sets 100 m apart.
+# K4 cases: (T, N, M, kind). N and M straddle the parent kernel's 128-query
+# block and 1024-candidate tile; "dup" repeats every candidate (ties, the
+# lowest index must win) and puts some queries exactly on candidates; "far"
+# puts the sets 100 m apart; "path_e" is the fit's scan -> mesh shape (the
+# test runs both directions). The kinds of tests/torch_chamfer_cases.py:
+# ties across group and range boundaries ("straddle"), a set of 5
+# candidates ("few"), +inf and NaN distances ("nonfinite"). Each case runs
+# at the split nn_split picks for the card; over both directions the cases
+# reach every instantiation (q = 1, 2, 4) and 1 to 16 ranges
+# (test_chamfer_cases_reach_every_split).
 CHAMFER_CASES = {"one_point": (1, 1, 1, "normal"),
                  "ragged": (3, 129, 1025, "normal"),
                  "t1_two_tiles": (1, 300, 2100, "normal"),
                  "t60": (60, 200, 700, "normal"),
                  "dup": (4, 150, 600, "dup"),
-                 "far": (5, 97, 1500, "far")}
+                 "far": (5, 97, 1500, "far"),
+                 "path_e": (60, 512, 6890, "normal"),
+                 "straddle": (2, 48, 600, "straddle"),
+                 "few": (2, 9, 5, "few"),
+                 "nonfinite": (3, 20, 90, "nonfinite")}
 
 
 def _chamfer_inputs(case, cuda):
     T, N, M, kind = CHAMFER_CASES[case]
+    if kind in ("straddle", "few", "nonfinite"):
+        a, b = chamfer_cases.chamfer_case(kind)
+        assert a.shape == (T, N, 3) and b.shape == (T, M, 3)
+        return torch.tensor(a).to(cuda), torch.tensor(b).to(cuda)
     gen = torch.Generator().manual_seed(N + M)
     b = torch.randn((T, M, 3), generator=gen)
     a = torch.randn((T, N, 3), generator=gen)
@@ -771,20 +786,88 @@ def _chamfer_inputs(case, cuda):
 def test_chamfer_kernel_matches_plain(cuda, case):
     """K4 against its plain version on the card: distances and indices
     bit-equal (the kernel rounds every operation in the plain version's
-    order), in both directions; one launch per call through nn_one_way."""
+    order), in both directions, and bit-equal on a rerun; one launch per
+    call through nn_one_way."""
     from nemo_tpu_torch.ops import chamfer
     a, b = _chamfer_inputs(case, cuda)
     for x, y in ((a, b), (b, a)):
-        dk, ik = chamfer.nn_one_way_cuda(x, y)
         dp, ip = chamfer.nn_one_way_plain(x, y)
+        dk, ik = chamfer.nn_one_way_cuda(x, y)
         assert dk.dtype == dp.dtype and ik.dtype == ip.dtype == torch.int64
         assert torch.equal(dk, dp) and torch.equal(ik, ip)
+        again = chamfer.nn_one_way_cuda(x, y)
+        assert torch.equal(again[0], dk) and torch.equal(again[1], ik)
         if CHAMFER_CASES[case][3] == "dup" and y is b:
             M = b.shape[1]
             assert bool((ik < M - M // 2).all())
     reset_launches()
     chamfer.nn_one_way(a, b)
     assert launch_counts()["chamfer_nn"] == 1
+
+
+def test_chamfer_cases_reach_every_split(cuda):
+    """The splits nn_split gives CHAMFER_CASES on this card, both ways:
+    every instantiation (q = 1, 2, 4), one range, two and sixteen; path
+    E's (4, 16) and (4, 2) on a 132-SM card; and "straddle"'s scan ->
+    mesh ranges end on one of its ties, so the lower index must win across
+    a range boundary."""
+    from nemo_tpu_torch.ops import chamfer
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = {}
+    for case, (T, N, M, _) in CHAMFER_CASES.items():
+        splits[case] = (chamfer.nn_split(T, N, M, sms),
+                        chamfer.nn_split(T, M, N, sms))
+    every = [s for pair in splits.values() for s in pair]
+    assert {s.q for s in every} == {1, 2, 4}
+    assert {1, 2, 16} <= {s.ranges for s in every}
+    if sms == 132:
+        assert [(s.q, s.ranges) for s in splits["path_e"]] == [(4, 16),
+                                                              (4, 2)]
+    s = splits["straddle"][0]
+    ends = {s.range * w for w in range(1, s.ranges)}
+    assert ends & {p + 1 for p in chamfer_cases._TIES}, s
+
+
+def test_chamfer_kernel_resources(cuda):
+    """Each instantiation fits two blocks of 16 warps an SM (64 registers
+    a thread at most) without spilling, in 32 KB of shared memory."""
+    from nemo_tpu_torch.ops import chamfer
+    for q in (1, 2, 4):
+        att = chamfer.nn_attributes(q)
+        assert att["registers"] <= 64 and att["local_bytes"] == 0, att
+        assert att["dynamic_smem_bytes"] == 32768, att
+
+
+def test_chamfer_one_way_launches_once(cuda):
+    """chamfer_one_way launches K4 once a call (its backward none) and
+    matches chamfer_distance's first direction on the card."""
+    from nemo_tpu_torch.ops import chamfer
+    a, b = _chamfer_inputs("t60", cuda)
+    x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
+    reset_launches()
+    d = chamfer.chamfer_one_way(x, y)
+    d.sum().backward()
+    assert launch_counts()["chamfer_nn"] == 1
+    d1, _ = chamfer.chamfer_distance(a, b)
+    assert torch.equal(d.detach(), d1)
+
+
+@pytest.mark.parametrize("kind", ["transposed", "offset"])
+def test_nn_one_way_takes_strided_views(cuda, kind):
+    """nn_one_way on transposed or offset CUDA views copies what the kernel
+    refuses, once, and matches the plain version bit for bit in one launch;
+    nn_one_way_cuda itself refuses a non-contiguous operand."""
+    from nemo_tpu_torch.ops import chamfer
+    a, b = (t.cpu() for t in _chamfer_inputs("ragged", cuda))
+    va, vb = (_strided(t, kind, cuda)[1].detach() for t in (a, b))
+    reset_launches()
+    d, i = chamfer.nn_one_way(va, vb)
+    assert launch_counts()["chamfer_nn"] == 1
+    dp, ip = chamfer.nn_one_way_plain(a, b)
+    assert torch.equal(d.cpu(), dp) and torch.equal(i.cpu(), ip)
+    if kind == "transposed":
+        with pytest.raises(ValueError, match="contiguous"):
+            chamfer.nn_one_way_cuda(va, vb)
 
 
 @pytest.mark.parametrize("case", ["ragged", "dup"])
