@@ -66,16 +66,27 @@ Run from the repository root with no arguments:
    - path E: HuMoR 3D fitting through humor_tool, process-amass on a
      synthetic raw AMASS walk, then fit-amass --obs joints verts points at
      the CLI's defaults (60 frames, 512 scan points, 30/70/70 steps, the
-     reference HuMoR widths) through K4 and K1, and the eval CSVs;
+     reference HuMoR widths) through K4 and K1, and the eval CSVs; the SMPL
+     model and the HuMoR weights come from files written as in path G;
    - path F: slice 1's reference configuration with the MotionNet through
      K6 (motion_mlp="fused"), two K6f launches a predict (the batch and the
      B = 1 phase-0 anchor), and fit_loss with its gradients against the
-     plain MotionNet on the card from the same parameters and batch.
+     plain MotionNet on the card from the same parameters and batch;
+   - path G: the recipes from asset files in the real layouts, written
+     into a temporary directory from the smoke's body and priors (the SMPL
+     chumpy pickle and npz, J_regressor_extra.npy, a V02_05 VPoser
+     snapshot, gmm_08.pkl, a HuMoR checkpoint): every loader's tensors
+     bit-identical on the card, the init fit_loss from files equal to the
+     in-memory one, run_examples/nemomocap-example.sh's fit through the
+     CLI on a bundle with vs, pare and GLAMR baselines (5/5/10 steps,
+     every 4th video frame; the eval CSVs' baseline and GLAMR columns
+     finite), then the custom-video configuration without and with the
+     HuMoR dynamics term (card vs CPU on the full grid, no sync, steps/s).
    Losses must be finite, main-stage kp_loss must fall on slice 1 and paths
    A and F (stage 2's loss on path E), fit_loss on the card must agree with the
    port's CPU path from the same parameters (points3d_loss and the stage-3
-   loss on path E), and one step of each stage must run without a device
-   synchronisation.
+   loss on path E; with the HuMoR term on path G), and one step of each
+   stage must run without a device synchronisation.
 
 Prints a JSON line of per-kernel results, the nvidia-smi line as the tool
 prints it, and as the last line {"ok": true, "device": {...}}. Any failure
@@ -1145,17 +1156,19 @@ def check_falls(name, kp, n):
         raise AssertionError(f"{name}: main-stage kp_loss did not fall")
 
 
-def card_vs_cpu(name, fitter, bundle, smpl):
+def card_vs_cpu(name, fitter, bundle, smpl, batch=None):
     """fit_loss on the card against the port's CPU path (plain versions of
-    the kernels, in the same v2v and MotionNet modes) from the same
-    parameters, on one batch of 64."""
+    the kernels, in the same v2v and MotionNet modes, with the same HuMoR
+    weights) from the same parameters, on one batch of 64, or on ``batch``
+    (view and frame indices on the host)."""
     import torch
     from nemo_tpu_torch.fit import NemoParams, build_assets, fit_loss
     cfg, assets = fitter.cfg, fitter.assets
     V, F = assets.num_views, assets.num_frames
     g = torch.Generator().manual_seed(3)
-    vi = torch.randint(0, V, (64,), generator=g)
-    fi = torch.randint(0, F, (64,), generator=g)
+    vi, fi = batch if batch is not None else (
+        torch.randint(0, V, (64,), generator=g),
+        torch.randint(0, F, (64,), generator=g))
     with torch.no_grad():
         _, m_gpu = fit_loss(fitter.params, cfg, assets, vi.to(assets.device),
                             fi.to(assets.device))
@@ -1164,7 +1177,9 @@ def card_vs_cpu(name, fitter, bundle, smpl):
                                   vposer={k: v.cpu()
                                           for k, v in assets.vposer.items()},
                                   device="cpu", v2v_vjp=assets.v2v_vjp,
-                                  motion_mlp=assets.motion_mlp)
+                                  motion_mlp=assets.motion_mlp,
+                                  humor=assets.humor,
+                                  humor_cfg=assets.humor_cfg)
         params_cpu = NemoParams(cfg, V, assets.img_d0)
         params_cpu.load_state_dict({k: v.cpu() for k, v in
                                     fitter.params.state_dict().items()})
@@ -1492,12 +1507,15 @@ def raw_amass_walk(path, T=360):
              mocap_framerate=120.0)
 
 
-def path_e(device, smpl):
+def path_e(device, files):
     """HuMoR 3D fitting through the port's humor_tool: process-amass on a
     synthetic raw sequence, then fit-amass --obs joints verts points at the
-    CLI's defaults (60 frames, 512 scan points, 30/70/70 steps, the
-    reference HuMoR widths with latent 48, the 6890-vertex synthetic SMPL),
-    on the card (the CLI's default device), and the eval CSVs. K4 runs in
+    CLI's defaults (60 frames, 512 scan points, 30/70/70 steps), on the
+    card (the CLI's default device), and the eval CSVs. The SMPL model
+    comes from the written .npz of the 6890-vertex synthetic body and the
+    HuMoR weights (the reference widths, latent 48) from the written
+    checkpoint of init_humor at --seed 0: the model and weights the CLI
+    builds without the two flags. K4 runs in
     every step (scan -> mesh alone, the direction the points3d loss reads),
     K1 in every SMPL forward and backward.
     Then points3d_loss and the stage-3 loss on the card against the port's
@@ -1535,12 +1553,15 @@ def path_e(device, smpl):
                 t0 = time.perf_counter()
                 if humor_tool.main(["process-amass", "--amass_root",
                                     os.path.join(d, "raw"), "--out", proc,
-                                    "--datasets", "HumanEva"]) != 0:
+                                    "--datasets", "HumanEva", "--smpl_path",
+                                    files["smpl_npz"]]) != 0:
                     raise AssertionError("path E: process-amass failed")
                 t1 = time.perf_counter()
                 if humor_tool.main(["fit-amass", "--amass", proc, "--out",
                                     out, "--obs", "joints", "verts",
-                                    "points"]) != 0:
+                                    "points", "--smpl_path",
+                                    files["smpl_npz"], "--humor_ckpt",
+                                    files["humor"]]) != 0:
                     raise AssertionError("path E: fit-amass failed")
                 return t1 - t0, time.perf_counter() - t1
             finally:
@@ -1711,6 +1732,250 @@ def path_f(device, smpl, bundle):
     return counts, steady
 
 
+def write_asset_files(d, smpl):
+    """The recipe's assets in the real files' layouts under d, written from
+    the smoke's own objects: the 6890-vertex synthetic body as
+    smpl/SMPL_NEUTRAL.pkl (chumpy arrays, a sparse J_regressor, uint32
+    parents and faces) and as SMPL_NEUTRAL.npz, J_regressor_extra.npy, the
+    VPoser of make_fitter as V02_05/snapshots/*.ckpt ('vp_model.' keys),
+    the synthetic GMM as gmm_08.pkl (a dict), and init_humor's weights at
+    generator seed 0 (humor_tool's default) as a {'model': ...} torch
+    file. Returns the paths and the in-memory sources."""
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.models.humor import HumorConfig, init_humor
+    from nemo_tpu_torch.priors.gmm import synthetic_gmm_arrays
+    from nemo_tpu_torch.priors.vposer import init_vposer
+    from nemo_tpu_torch.utils import asset_files as af
+    host = smpl.to("cpu")
+    arrays = af.smpl_file_arrays(host)
+    os.makedirs(os.path.join(d, "smpl"))
+    files = {
+        "smpl_dir": os.path.join(d, "smpl"),
+        "smpl_pkl": af.write_smpl_pkl(os.path.join(d, "smpl",
+                                                   "SMPL_NEUTRAL.pkl"),
+                                      arrays),
+        "smpl_npz": af.write_smpl_npz(os.path.join(d, "SMPL_NEUTRAL.npz"),
+                                      arrays),
+        "jre": os.path.join(d, "J_regressor_extra.npy"),
+        "gmm": af.write_gmm_pkl(os.path.join(d, "gmm_08.pkl"),
+                                *synthetic_gmm_arrays(8)),
+    }
+    np.save(files["jre"], host.J_regressor_extra.numpy())
+    vposer = init_vposer(generator=torch.Generator().manual_seed(7))
+    files["vposer"] = af.write_vposer_snapshot(os.path.join(d, "V02_05"),
+                                               vposer)
+    humor = init_humor(torch.Generator().manual_seed(0), HumorConfig())
+    files["humor"] = af.write_humor_ckpt(os.path.join(d, "humor.pth"),
+                                         humor)
+    return files, {"vposer": vposer, "humor": humor}
+
+
+def loaders_bit_identical(device, smpl, files, sources):
+    """Each loader's tensors on the card against their in-memory sources,
+    bit for bit: both SMPL files (every SMPLModel field), the VPoser
+    snapshot, the GMM and the HuMoR checkpoint. Returns the loaded SMPL,
+    GMM, VPoser and HuMoR."""
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.body.assets import load_smpl, load_smpl_npz
+    from nemo_tpu_torch.body.smpl import _TENSOR_FIELDS
+    from nemo_tpu_torch.models.humor import HumorConfig, load_humor
+    from nemo_tpu_torch.priors.gmm import load_gmm_prior, synthetic_gmm_prior
+    from nemo_tpu_torch.priors.vposer import load_vposer
+
+    def same(tag, a, b):
+        if not (a.device == b.device and a.dtype == b.dtype
+                and torch.equal(a, b)):
+            raise AssertionError(f"path G: {tag} differs from its source")
+
+    loaded = {"smpl (pkl)": load_smpl(files["smpl_dir"], files["jre"],
+                                      device=device),
+              "smpl (npz)": load_smpl_npz(files["smpl_npz"], files["jre"],
+                                          device=device)}
+    n = 0
+    for tag, m in loaded.items():
+        for f in _TENSOR_FIELDS:
+            same(f"{tag} {f}", getattr(m, f), getattr(smpl, f))
+            n += 1
+        for f in ("parents", "vertex_joint_ids", "joint_map", "faces"):
+            if not np.array_equal(getattr(m, f), getattr(smpl, f)):
+                raise AssertionError(f"path G: {tag} {f} differs")
+            n += 1
+    gmm = load_gmm_prior(files["gmm"], device=device)
+    want = synthetic_gmm_prior(8).to(device)
+    for f in ("means", "precisions", "nll_weights"):
+        same(f"gmm {f}", getattr(gmm, f), getattr(want, f))
+        n += 1
+    vposer = load_vposer(files["vposer"], device=device)
+    if sorted(vposer) != sorted(sources["vposer"]):
+        raise AssertionError("path G: VPoser keys differ")
+    for k, v in sources["vposer"].items():
+        same(f"vposer {k}", vposer[k], v.to(device))
+        n += 1
+    humor = load_humor(files["humor"], HumorConfig(), device=device)
+    for m, sub in sources["humor"].items():
+        for k, v in sub.items():
+            same(f"humor {m}.{k}", humor[m][k], v.to(device))
+            n += 1
+    print(f"[path G] {n} loaded tensors and index arrays (SMPL from the "
+          "pickle and the npz, GMM, VPoser, HuMoR) bit-identical on the card "
+          "to their in-memory sources")
+    return loaded["smpl (pkl)"], gmm, vposer, humor
+
+
+def recipe_bundle(bundle, path):
+    """The smoke's bundle with vs, pare and GLAMR baseline poses and GLAMR
+    world data (global orient and root translation) near the ground truth,
+    from a seeded numpy RNG, saved to path."""
+    import dataclasses
+    import numpy as np
+    rng = np.random.default_rng(11)
+    V, F = bundle.num_views, bundle.num_frames
+    pose = lambda: np.concatenate(
+        [bundle.gt3d_pose[..., 3:] + 0.1 * rng.standard_normal((V, F, 69)),
+         np.ones((V, F, 1))], -1).astype(np.float32)
+    b = dataclasses.replace(
+        bundle, baseline_poses={"vs": pose(), "pare": pose(),
+                                "glamr": pose()},
+        glamr_orient=(bundle.gt3d_pose[..., :3] + 0.1 * rng.standard_normal(
+            (V, F, 3))).astype(np.float32),
+        glamr_trans=(bundle.gt3d_trans + 0.1 * rng.standard_normal(
+            (V, F, 3))).astype(np.float32))
+    b.save(path)
+    return path
+
+
+def path_g(device, smpl, bundle, files, sources):
+    """The NeMo-MoCap recipe from files in the real layouts, at full width.
+
+    1. Every loader's tensors on the card bit-identical to their sources.
+    2. fit_loss at initialisation (reference configuration, 8 views x 120
+       frames, B=512, the same seed and batch) equal between a fitter on
+       the loaded assets and one on the in-memory assets.
+    3. nemo_tpu_torch.cli.fit with run_examples/nemomocap-example.sh's
+       flags (--default_config configs/default-v2.yml, the four asset
+       paths, the mesh video) on the bundle with vs, pare and GLAMR
+       baselines and GLAMR world data. Cut: 5 warmup, 5 camera and 10 main
+       steps (--warmup_step, --opt_cam_step, --n_steps), and the video to
+       every 4th frame (--render_video 30 in place of 1, as path D). The
+       eval CSVs must hold the baseline and GLAMR columns, all finite.
+    4. The custom-video configuration (NemoV3, full batch B=960) on the
+       loaded assets, without and then with the HuMoR dynamics term
+       (weight 1, the written checkpoint): 3 warmup, 3 camera and 20 main
+       steps each, the main stage's steps/s. With the term: humor_loss
+       finite, the first main step's loss (the full grid) on the card
+       against the CPU, a step of each stage without a
+       synchronisation.
+    """
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.cli import fit as fit_cli
+    from nemo_tpu_torch.fit import NemoFitter, build_assets, fit_loss
+    out = {}
+    t_start = time.perf_counter()
+
+    def run():
+        smpl_f, gmm_f, vposer_f, humor_f = loaders_bit_identical(
+            device, smpl, files, sources)
+        # 2. init fit_loss, loaded vs in-memory assets
+        cfg = reference_config()
+        mem = make_fitter(device, smpl, bundle, cfg)
+        fil = NemoFitter(cfg, build_assets(bundle, smpl_f, cfg, gmm=gmm_f,
+                                           vposer=vposer_f, device=device),
+                         seed=0)
+        g = torch.Generator().manual_seed(9)
+        V, F = bundle.num_views, bundle.num_frames
+        vi = torch.randint(0, V, (BATCH,), generator=g).to(device)
+        fi = torch.randint(0, F, (BATCH,), generator=g).to(device)
+        with torch.no_grad():
+            _, m_mem = fit_loss(mem.params, cfg, mem.assets, vi, fi)
+            _, m_fil = fit_loss(fil.params, cfg, fil.assets, vi, fi)
+        got = {k: (float(m_mem[k]), float(m_fil[k])) for k in m_mem}
+        print(f"[path G] init fit_loss at B={BATCH}, in memory vs from "
+              f"files: {json.dumps(got)}")
+        if sorted(m_mem) != sorted(m_fil) or any(a != b for a, b in
+                                                 got.values()):
+            raise AssertionError("path G: fit_loss from the files differs")
+        del mem, fil
+        # 3. the recipe through the CLI
+        with tempfile.TemporaryDirectory() as d:
+            argv = ["--bundle", recipe_bundle(bundle, os.path.join(
+                        d, "bundle.npz")),
+                    "--default_config", "configs/default-v2.yml",
+                    "--smpl_path", files["smpl_dir"],
+                    "--j_regressor_extra", files["jre"],
+                    "--vposer_path", files["vposer"],
+                    "--gmm_path", files["gmm"],
+                    "--render_video", "30", "--warmup_step", "5",
+                    "--opt_cam_step", "5", "--n_steps", "10",
+                    "--out_dir", os.path.join(d, "out"),
+                    "--device", str(device)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if fit_cli.main(argv) != 0:
+                raise AssertionError("path G: the fit CLI failed")
+            out["cli_s"] = time.perf_counter() - t0
+            run_dir = os.path.join(d, "out", "000000")
+            print(f"[path G] the recipe's fit CLI: {out['cli_s']:.2f} s; "
+                  f"outputs {sorted(os.listdir(run_dir))}")
+            want = {"eval_3d.csv": ("mpjpe-vibe", "mpjpe-vs", "mpjpe-pare",
+                                    "mpjpe-glamr", "pa_mpjpe-glamr"),
+                    "eval_3d_dynamic.csv": ("mpjpe-vibe", "mpjpe-glamr"),
+                    "eval_3d_global.csv": ("mpjpe-ours", "mpvpe-ours",
+                                           "mpjpe-glamr", "mpvpe-glamr")}
+            for name, cols in want.items():
+                with open(os.path.join(run_dir, name)) as f:
+                    rows = [line.strip().split(",") for line in f]
+                head, vals = rows[0], [list(map(float, r[1:]))
+                                       for r in rows[1:]]
+                missing = [c for c in cols if c not in head]
+                if missing or len(vals) != V or not np.isfinite(vals).all():
+                    raise AssertionError(f"path G: {name} malformed "
+                                         f"(missing {missing})")
+                print(f"[path G] {name}: {head[1:]}; view 0 "
+                      f"{dict(zip(head[1:], vals[0]))}")
+        # 4. the custom-video configuration without, then with, the
+        # HuMoR term
+        for weight in (0.0, 1.0):
+            tag = "path G humor" if weight else "path G no humor"
+            cfg = custom_video_config(weight_humor_loss=weight)
+            fitter = NemoFitter(cfg, build_assets(
+                bundle, smpl_f, cfg, gmm=gmm_f, vposer=vposer_f,
+                device=device, humor=humor_f if weight else None), seed=0)
+            wm, cm = fitter.warmup(3), fitter.opt_cam(3)
+            if weight:
+                grid = (torch.arange(V).repeat_interleave(F),
+                        torch.arange(F).repeat(V))
+                card_vs_cpu(tag, fitter, bundle, smpl_f, batch=grid)
+            main, chunk = 20, 5
+            stamps = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fm = fitter.fit(main, chunk=chunk, on_chunk=lambda *_:
+                            stamps.append(time.perf_counter()))
+            rate = (main - chunk) / (stamps[-1] - stamps[0])
+            out["humor_steps_s" if weight else "custom_steps_s"] = rate
+            check_finite(tag, [wm, cm, fm])
+            rows, term = "off", ""
+            if weight:
+                rows = f"on {3 * V * F} rows"
+                term = (f"humor_loss {fm['humor_loss'][0]:.4f} -> "
+                        f"{fm['humor_loss'][-1]:.4f}, ")
+            print(f"[{tag}] main stage: {main} steps in "
+                  f"{stamps[-1] - t0:.3f} s; the last {main - chunk} at "
+                  f"{rate:.3f} steps/s (full batch B={V * F}, the HuMoR "
+                  f"term {rows}; {nvidia_smi_line()}); {term}total_loss "
+                  f"{fm['total_loss'][0]:.3f} -> {fm['total_loss'][-1]:.3f}")
+        no_sync_steps("path G humor", fitter)
+
+    counts, _ = run_path("path G", ("fk_fwd", "fk_bwd", "v2v_grad",
+                                    "v2v_fwd", "raster_stream"), run)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"[path G] {out['seconds']:.1f} s in all")
+    return counts, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1750,13 +2015,18 @@ def main() -> int:
     for k, c in path_c(device, smpl, bundle).items():
         paths[f"path C {k}"] = c
     paths["path D"], render = path_d(device, smpl, bundle)
-    paths["path E"] = path_e(device, smpl)
-    paths["path F"], steady_f = path_f(device, smpl, bundle)
+    with tempfile.TemporaryDirectory() as d:
+        files, sources = write_asset_files(d, smpl)
+        paths["path E"] = path_e(device, files)
+        paths["path F"], steady_f = path_f(device, smpl, bundle)
+        paths["path G"], g = path_g(device, smpl, bundle, files, sources)
     launches = {k: sum(c[k] for c in paths.values()) for k in KERNELS}
     print(f"[paths] render: {render['video_s']:.4f} s a video frame with the "
           f"PNG writes, {render['nopng_s']:.4f} s without")
     print(f"[paths] steps/s: slice 1 {steady1:.3f}, path A {steady_a:.3f}, "
-          f"path F {steady_f:.3f}; "
+          f"path F {steady_f:.3f}, path G's custom-video configuration "
+          f"{g['custom_steps_s']:.3f} without the HuMoR term and "
+          f"{g['humor_steps_s']:.3f} with it; path G {g['seconds']:.1f} s; "
           f"launches summed over the paths {json.dumps(launches)}; "
           f"{time.perf_counter() - t_start:.1f} s in all")
 

@@ -16,9 +16,23 @@ Usage:
   python -m nemo_tpu_torch.cli.fit --synthetic_assets --test \\
       --load_ckpt_path out/verify_fit_torch/000000/ckpt/sd_000100 ...
 
+  # the NeMo-MoCap recipe on the real assets (run_examples/
+  # nemomocap-example.sh):
+  python -m nemo_tpu_torch.cli.fit --bundle bundles/baseball_pitch.npz \
+      --default_config configs/default-v2.yml --smpl_path software/smpl \
+      --j_regressor_extra software/spin_data/J_regressor_extra.npy \
+      --vposer_path software/V02_05 \
+      --gmm_path software/spin_data/gmm_08.pkl --render_video 1 \
+      --out_dir out/mocap/baseball_pitch
+
 Every model version (--model_version 0..4) runs, with --full_batch,
---weight_3d_loss, --weight_instance_loss, --code_noise and --vp_v2v_n_verts;
---motion_mlp fused runs the MotionNet through the fused MLP kernels (K6).
+--weight_3d_loss, --weight_instance_loss, --code_noise, --vp_v2v_n_verts and
+the custom entry's HuMoR dynamics term (--weight_humor_loss, --humor_fps,
+--humor_ckpt); --motion_mlp fused runs the MotionNet through the fused MLP
+kernels (K6). --smpl_path (a .pkl or .npz file, or a directory holding
+one), --j_regressor_extra, --vposer_path and --gmm_path load the real
+assets; a named file that does not load raises. --synthetic_assets builds
+the synthetic body and random priors where no file is named.
 Writes config.json, metrics.jsonl, ckpt/sd_NNNNNN/, losses.npz, the eval
 CSVs and, with --render_video / --render_rollout_figure / --render_every,
 the mesh renders (mesh_rollout.mp4 or its .frames directory,
@@ -46,8 +60,6 @@ import torch
 
 from ..modules.networks import MLP_MODES
 
-_ROADMAP = "still to port: see ROADMAP.md, Queue 1"
-HUMOR_FPS = 30.0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -109,7 +121,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight_instance_loss", type=float, default=0)
     p.add_argument("--weight_3d_loss", type=float, default=0)
     p.add_argument("--weight_humor_loss", type=float, default=0)
-    p.add_argument("--humor_fps", type=float, default=HUMOR_FPS)
+    p.add_argument("--humor_fps", type=float, default=30.0)
     p.add_argument("--humor_ckpt", type=str, default="")
     p.add_argument("--init-motion-prior", dest="init_motion_prior",
                    type=str, default="")
@@ -146,19 +158,60 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _reject_unported(args) -> None:
     unported = {
-        "--smpl_path / --vposer_path / --gmm_path / --j_regressor_extra "
-        "(real assets)": (args.smpl_path or args.vposer_path or args.gmm_path
-                          or args.j_regressor_extra),
-        "--dp": args.dp,
-        "--skin_bf16": args.skin_bf16,
-        "--weight_humor_loss / --humor_fps / --humor_ckpt / "
-        "--init-motion-prior (the HuMoR prior)": (
-            args.weight_humor_loss > 0 or args.humor_fps != HUMOR_FPS
-            or args.humor_ckpt or args.init_motion_prior),
+        "--dp (data parallelism; see ROADMAP.md, Queue 1, item 6.4)":
+            args.dp,
+        "--skin_bf16 (bf16 skinning tables; see ROADMAP.md, Queue 2, part "
+        "A, item 1)": args.skin_bf16,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
-        raise NotImplementedError(f"{'; '.join(bad)}: {_ROADMAP}")
+        raise NotImplementedError(f"still to port: {'; '.join(bad)}")
+
+
+def load_assets(args, bundle, cfg, device):
+    """The SMPL model, priors and HuMoR weights the flags name, packed with
+    the bundle into NemoAssets on ``device``. A named file always wins over
+    --synthetic_assets (the JAX CLI takes the synthetic body when both
+    --smpl_path and --synthetic_assets are given; the port never swaps a
+    named file for a synthetic stand-in). Without --smpl_path the body is
+    the synthetic one; a prior with neither a path nor --synthetic_assets
+    is left out (None)."""
+    from ..fit.assemble import build_assets
+    from ..priors.gmm import load_gmm_prior, synthetic_gmm_prior
+    from ..priors.vposer import init_vposer, load_vposer
+
+    if args.smpl_path:
+        from ..body.assets import load_smpl
+        smpl = load_smpl(args.smpl_path, args.j_regressor_extra or None,
+                         device=device)
+    else:
+        from ..body.assets import synthetic_smpl_model
+        smpl = synthetic_smpl_model(device=device)
+
+    gmm = None
+    if args.gmm_path:
+        gmm = load_gmm_prior(args.gmm_path)
+    elif args.synthetic_assets and cfg.weight_gmm_loss:
+        gmm = synthetic_gmm_prior(8)
+
+    vposer = None
+    if args.vposer_path:
+        vposer = load_vposer(args.vposer_path)
+    elif args.synthetic_assets and (cfg.weight_vp_loss or
+                                    cfg.weight_vp_z_loss):
+        vposer = init_vposer(generator=torch.Generator().manual_seed(0))
+
+    humor = None
+    if cfg.weight_humor_loss:
+        from ..models.humor import init_humor, load_humor
+        if args.humor_ckpt:
+            humor = load_humor(args.humor_ckpt)
+        elif args.synthetic_assets:
+            humor = init_humor(torch.Generator().manual_seed(1))
+
+    return build_assets(bundle, smpl, cfg, gmm=gmm, vposer=vposer,
+                        device=device, motion_mlp=args.motion_mlp,
+                        humor=humor)
 
 
 def _figure(paths, draw, *args, **kw) -> None:
@@ -195,11 +248,8 @@ def main(argv=None) -> int:
     from ..data.synthetic import synthetic_problem
     from ..eval.metrics import (eval_2d, eval_3d, eval_3d_global,
                                 smpl_grid_forward, write_csv)
-    from ..fit.assemble import build_assets
     from ..fit.loop import NemoFitter
     from ..fit.model import NemoConfig, predict, project_to_views
-    from ..priors.gmm import synthetic_gmm_prior
-    from ..priors.vposer import init_vposer
     from ..render import keypoints as kp_render
     from ..utils.checkpoint import load_fit_state, save_fit_state
     from ..utils.exp import (MetricWriter, Timer, create_latest_child_dir,
@@ -217,25 +267,15 @@ def main(argv=None) -> int:
                   indent=2, default=str)
 
     with Timer("Data loading"):
-        smpl = synthetic_smpl_model(device=device)
         if args.bundle:
             bundle = MultiViewBundle.load(args.bundle)
         else:
             print("[fit] no --bundle given; generating a synthetic problem")
-            bundle, _ = synthetic_problem(smpl, num_views=4, num_frames=60)
-        if (bundle.glamr_orient is not None and bundle.glamr_trans is not None
-                and "glamr" in (bundle.baseline_poses or {})):
-            raise NotImplementedError(
-                f"the GLAMR columns of eval_3d_global are {_ROADMAP}")
+            bundle, _ = synthetic_problem(synthetic_smpl_model(device=device),
+                                          num_views=4, num_frames=60)
 
     with Timer("Model init"):
-        gmm = synthetic_gmm_prior(8) \
-            if args.synthetic_assets and cfg.weight_gmm_loss else None
-        vposer = init_vposer(generator=torch.Generator().manual_seed(0)) \
-            if args.synthetic_assets and (cfg.weight_vp_loss
-                                          or cfg.weight_vp_z_loss) else None
-        assets = build_assets(bundle, smpl, cfg, gmm=gmm, vposer=vposer,
-                              device=device, motion_mlp=args.motion_mlp)
+        assets = load_assets(args, bundle, cfg, device)
         fitter = NemoFitter(cfg, assets, seed=args.seed)
 
     if args.load_ckpt_path:
@@ -347,17 +387,26 @@ def main(argv=None) -> int:
         if bundle.gt3d_trans is not None:
             pv = view_meshes()
             full_mesh_verts = [p["v"].cpu().numpy() for p in pv]
+            glamr_kwargs = {}
+            if (bundle.glamr_orient is not None
+                    and bundle.glamr_trans is not None
+                    and "glamr" in (bundle.baseline_poses or {})):
+                glamr_kwargs = {
+                    "glamr_pose": np.concatenate(
+                        [bundle.glamr_orient,
+                         bundle.baseline_poses["glamr"][..., :69]], -1),
+                    "glamr_trans": bundle.glamr_trans}
             stats_g, aligned = eval_3d_global(
                 assets.smpl, np.stack([p["j"].cpu().numpy() for p in pv]),
                 np.stack(full_mesh_verts), bundle.gt3d_pose,
                 bundle.gt3d_trans,
                 pred_trans=preds["trans"].cpu().numpy().reshape(V, F, 3),
-                want_aligned=True)
+                want_aligned=True, **glamr_kwargs)
             write_csv(stats_g, osp.join(out_dir, "eval_3d_global.csv"))
             from ..render.figures import render_global_overlay
             _figure(osp.join(out_dir, "overlay.png"), render_global_overlay,
                     osp.join(out_dir, "overlay.png"), aligned["gt-t"][0],
-                    aligned["pred-t"][0])
+                    aligned["pred-t"][0], aligned.get("glamr-t", [None])[0])
 
     if args.render_video or args.render_rollout_figure:
         _render_outputs(args, out_dir, fitter, bundle, pts2d, full_mesh_verts

@@ -6,9 +6,11 @@ per-sequence npz, humor/scripts/process_amass_data.py) and ``fit-amass``
 the eval CSV family, run_fitting.py data_type=AMASS + eval_fitting_3d.py),
 with the JAX CLI's flags and defaults plus ``--device`` (default ``cuda``;
 the CPU runs the plain PyTorch versions of the kernels and must be asked
-for). The other subcommands (train, train-state-prior, fit-eval, fit-rgb,
-fit-prox, viz-fit), real SMPL files (``--smpl_path``) and HuMoR checkpoints
-(``--humor_ckpt``) are still to port (ROADMAP.md Queue 1, Slice 6).
+for). ``--smpl_path`` names an SMPL .npz (the smplx tools' layout);
+``fit-amass --humor_ckpt`` a ``train`` .npz of flat 'module.key' arrays or a
+HuMoR torch checkpoint, random weights from ``--seed`` when it is empty. The
+other subcommands (fit-rgb, fit-prox, viz-fit, fit-eval, train,
+train-state-prior) are still to port (ROADMAP.md Queue 1, item 7).
 
 Usage:
   python -m nemo_tpu_torch.cli.humor_tool process-amass --amass_root raw/ \\
@@ -90,24 +92,29 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _smpl_model(smpl_path: str, device):
-    from ..body.assets import synthetic_smpl_model
+    """The SMPL .npz that smpl_path names, else the synthetic model."""
+    from ..body.assets import load_smpl_npz, synthetic_smpl_model
     if smpl_path:
-        raise NotImplementedError(
-            "--smpl_path: the real SMPL loaders are not ported yet "
-            "(ROADMAP.md Queue 1, Slice 1 item 2); omit it for the synthetic "
-            "model")
+        return load_smpl_npz(smpl_path, device=device)
     return synthetic_smpl_model(device=device)
 
 
 def _humor_params(path: str, cfg, seed: int, device):
-    """HuMoR parameters: random ones from init_humor with a generator seeded
-    by ``seed`` when path is empty (the JAX CLI's default)."""
-    from ..models.humor import init_humor
-    if path:
-        raise NotImplementedError(
-            "--humor_ckpt: loading HuMoR checkpoint files is not ported yet "
-            "(ROADMAP.md Queue 1, Slice 6); omit it for random weights")
-    return init_humor(torch.Generator().manual_seed(seed), cfg, device=device)
+    """HuMoR parameters from a ``train`` .npz (flat 'module.key' arrays), a
+    torch checkpoint (load_humor), or, when path is empty, random ones from
+    init_humor with a generator seeded by ``seed`` (the JAX CLI's default)."""
+    from ..models.humor import humor_from_numpy, init_humor, load_humor
+    if not path:
+        return init_humor(torch.Generator().manual_seed(seed), cfg,
+                          device=device)
+    if path.endswith(".npz"):
+        tree = {}
+        with np.load(path) as flat:
+            for name in flat.files:
+                m, k = name.split(".", 1)
+                tree.setdefault(m, {})[k] = flat[name]
+        return humor_from_numpy(tree, device)
+    return load_humor(path, cfg, device=device)
 
 
 def _fit_config(args):

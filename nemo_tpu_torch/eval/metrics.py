@@ -62,15 +62,37 @@ def eval_frame_indices(F: int, num_frames: int = -1) -> np.ndarray:
                       F - 1)
 
 
+def eval_view_indices(V: int, num_views: int = -1,
+                      view_idxs=()) -> np.ndarray:
+    """View selection: explicit view_idxs, else the first min(V, num_views)
+    (all V when num_views <= 0)."""
+    if len(view_idxs):
+        return np.asarray(view_idxs, np.int64)
+    return np.arange(V if num_views <= 0 else min(V, num_views))
+
+
 def eval_3d(model: SMPLModel, pred_pose: np.ndarray, gt_pose: np.ndarray,
             baselines: Optional[Dict[str, np.ndarray]] = None,
+            baseline_masks: Optional[Dict[str, np.ndarray]] = None,
             dynamic_only: bool = False,
-            framerate_multiplier: Optional[np.ndarray] = None
-            ) -> Dict[str, list]:
-    """Per-view MPJPE / MPVPE / PA-MPJPE table over all frames (reference
-    eval_3d)."""
+            framerate_multiplier: Optional[np.ndarray] = None,
+            pa: bool = True, num_frames: int = -1, num_views: int = -1,
+            view_idxs=()) -> Dict[str, list]:
+    """Per-view MPJPE / MPVPE table (reference eval_3d), with PA-MPJPE
+    columns when pa.
+
+    pred_pose (V, F, 69) and baselines {name: (V, F, 69)} body poses; gt_pose
+    (V, F, 72), its joints from gt_pose[..., 3:] with identity global
+    orient. dynamic_only restricts the frames to the GT high-velocity span
+    (the mask is computed over all frames, then applied to the sampled
+    ones). num_frames / num_views / view_idxs: the reference's subsampling
+    (frame = round(cidx / ncol * F)). baseline_masks is accepted and
+    unused, as in the JAX package.
+    """
     V, F = pred_pose.shape[:2]
     baselines = baselines or {}
+    views = eval_view_indices(V, num_views, view_idxs)
+    fidx = eval_frame_indices(F, num_frames)
 
     def grid(poses69):
         v, j = smpl_grid_forward(model, poses69.reshape(V * F, 69))
@@ -90,22 +112,38 @@ def eval_3d(model: SMPLModel, pred_pose: np.ndarray, gt_pose: np.ndarray,
     stats: Dict[str, list] = {}
 
     def add(name, v_cmp, j_cmp):
-        for v in range(V):
-            sel = masks[v] > 0
+        for v in views:
+            sel = fidx[masks[v][fidx] > 0]
             mpvpe = 1000 * reconstruction_error_np(v_gt[v][sel],
                                                    v_cmp[v][sel], pa=False)
             mpjpe = 1000 * reconstruction_error_np(j_gt[v][sel],
                                                    j_cmp[v][sel], pa=False)
             stats.setdefault(f"mpjpe-{name}", []).append(float(mpjpe))
             stats.setdefault(f"mpvpe-{name}", []).append(float(mpvpe))
-            pj = 1000 * reconstruction_error_np(j_gt[v][sel], j_cmp[v][sel],
-                                                pa=True)
-            stats.setdefault(f"pa_mpjpe-{name}", []).append(float(pj))
+            if pa:
+                pj = 1000 * reconstruction_error_np(j_gt[v][sel],
+                                                    j_cmp[v][sel], pa=True)
+                stats.setdefault(f"pa_mpjpe-{name}", []).append(float(pj))
 
     add("ours", v_pred, j_pred)
     for k, (vb, jb) in base_grids.items():
         add(k, vb, jb)
     return stats
+
+
+def eval_3d_pa(model: SMPLModel, pred_pose: np.ndarray, gt_pose: np.ndarray
+               ) -> Dict[str, list]:
+    """PA-MPJPE per view over all frames (the joints-only SMPL path)."""
+    V, F = pred_pose.shape[:2]
+    _, j_gt = smpl_grid_forward(model, gt_pose[..., 3:].reshape(V * F, 69),
+                                want_vertices=False)
+    _, j_pred = smpl_grid_forward(model, pred_pose.reshape(V * F, 69),
+                                  want_vertices=False)
+    j_gt = j_gt.reshape(V, F, 49, 3)[..., :15, :]
+    j_pred = j_pred.reshape(V, F, 49, 3)[..., :15, :]
+    return {"pa_mpjpe-ours": [
+        float(1000 * reconstruction_error_np(j_gt[v], j_pred[v], pa=True))
+        for v in range(V)]}
 
 
 def rmse_2d(pred: np.ndarray, gt: np.ndarray, conf: np.ndarray) -> float:
@@ -125,21 +163,25 @@ def pck_2d(pred: np.ndarray, gt: np.ndarray, conf: np.ndarray,
 
 
 def eval_2d(points2d_pred: np.ndarray, labels: Dict[str, np.ndarray],
-            gt_label: np.ndarray, bbox_diag: np.ndarray) -> Dict[str, list]:
-    """Per-view 2D table on the first 15 joints over all frames (reference
-    eval_2d)."""
-    V = points2d_pred.shape[0]
+            gt_label: np.ndarray, bbox_diag: np.ndarray,
+            num_frames: int = -1, num_views: int = -1,
+            view_idxs=()) -> Dict[str, list]:
+    """Per-view 2D table on the first 15 joints (reference eval_2d), with
+    eval_3d's subsampling."""
+    V, F = points2d_pred.shape[:2]
+    views = eval_view_indices(V, num_views, view_idxs)
+    fidx = eval_frame_indices(F, num_frames)
     stats: Dict[str, list] = {}
 
     def add(name, pts):
-        for v in range(V):
-            p = pts[v][:, :15, :2]
-            g = gt_label[v][:, :15, :2]
-            c = gt_label[v][:, :15, 2:]
+        for v in views:
+            p = pts[v][fidx][:, :15, :2]
+            g = gt_label[v][fidx][:, :15, :2]
+            c = gt_label[v][fidx][:, :15, 2:]
             stats.setdefault(f"recon_error_2d-{name}", []).append(
                 rmse_2d(p, g, c))
             stats.setdefault(f"pck-{name}", []).append(
-                pck_2d(p, g, c, bbox_diag[v]))
+                pck_2d(p, g, c, bbox_diag[v][fidx]))
 
     add("ours", points2d_pred)
     for k, pts in labels.items():
@@ -167,37 +209,62 @@ def world_grid_forward(model: SMPLModel, pose72: np.ndarray,
 
 def eval_3d_global(model: SMPLModel, pred_j: np.ndarray, pred_v: np.ndarray,
                    gt_pose: np.ndarray, gt_trans: np.ndarray,
+                   glamr_pose: Optional[np.ndarray] = None,
+                   glamr_trans: Optional[np.ndarray] = None,
                    pred_trans: Optional[np.ndarray] = None,
-                   want_aligned: bool = False):
+                   want_aligned: bool = False, num_frames: int = -1,
+                   num_views: int = -1, view_idxs=()):
     """Global-frame MPJPE / MPVPE after a per-view all-frames rigid
-    (Kabsch) alignment of the predicted vertices to GT (reference
-    eval_3d_global + rigid_transform_to_gt). The GLAMR baseline columns are
-    still to port.
+    (Kabsch, no scale) alignment of the vertices to GT (reference
+    eval_3d_global + rigid_transform_to_gt).
 
-    want_aligned=True also returns the per-view aligned root translations
-    {'gt-t': (V, F, 3), 'pred-t': (V, F, 3) when pred_trans is given}: the
-    alignment moves the translations too, for the overlay.png plot."""
-    v_gt, j_gt = world_grid_forward(model, np.asarray(gt_pose),
-                                    np.asarray(gt_trans))
-    v_cmp = np.asarray(pred_v)
-    j_cmp = np.asarray(pred_j)[..., :15, :]
+    pred_j (V, F, >=15, 3) and pred_v (V, F, V_mesh, 3) are world-frame
+    predictions; gt_pose (V, F, 72) with the orient in [:3], gt_trans
+    (V, F, 3). glamr_pose / glamr_trans, the GLAMR world baseline in the
+    same layout, add its mpjpe-glamr / mpvpe-glamr columns, aligned the same
+    way. num_frames / num_views / view_idxs subsample as eval_3d does.
+
+    want_aligned=True also returns the selected views' aligned root
+    translations: {'gt-t', 'pred-t' (with pred_trans), 'glamr-t' (with the
+    GLAMR baseline)}, for the overlay.png plot.
+    """
+    V, F = gt_pose.shape[:2]
+    views = eval_view_indices(V, num_views, view_idxs)
+    fidx = eval_frame_indices(F, num_frames)
+
+    def sub(a):
+        return None if a is None else np.asarray(a)[:, fidx]
+
+    gt_trans = sub(gt_trans)
+    v_gt, j_gt = world_grid_forward(model, sub(gt_pose), gt_trans)
     stats: Dict[str, list] = {"mpjpe-ours": [], "mpvpe-ours": []}
-    aligned = {"gt-t": np.asarray(gt_trans)}
-    t_out = []
-    for v in range(v_gt.shape[0]):
-        R, t = rigid_transform_np(v_cmp[v].reshape(-1, 3),
-                                  v_gt[v].reshape(-1, 3))
-        align = lambda X: X.reshape(-1, 3) @ R.T + t
-        vv = align(v_cmp[v]).reshape(v_gt[v].shape)
-        vj = align(j_cmp[v]).reshape(j_gt[v].shape)
-        stats["mpjpe-ours"].append(float(
-            1000 * reconstruction_error_np(j_gt[v], vj, pa=False)))
-        stats["mpvpe-ours"].append(float(
-            1000 * reconstruction_error_np(v_gt[v], vv, pa=False)))
-        if pred_trans is not None:
-            t_out.append(align(np.asarray(pred_trans[v])))
-    if pred_trans is not None:
-        aligned["pred-t"] = np.stack(t_out)
+    aligned = {"gt-t": gt_trans[views]}
+    comparisons = [("ours", sub(pred_v), sub(pred_j)[..., :15, :],
+                    sub(pred_trans))]
+    if glamr_pose is not None and glamr_trans is not None:
+        v_gl, j_gl = world_grid_forward(model, sub(glamr_pose),
+                                        sub(glamr_trans))
+        comparisons.append(("glamr", v_gl, j_gl, sub(glamr_trans)))
+        stats["mpjpe-glamr"] = []
+        stats["mpvpe-glamr"] = []
+
+    for name, v_cmp, j_cmp, t_cmp in comparisons:
+        t_out = []
+        for v in views:
+            R, t = rigid_transform_np(v_cmp[v].reshape(-1, 3),
+                                      v_gt[v].reshape(-1, 3))
+            align = lambda X: X.reshape(-1, 3) @ R.T + t
+            vv = align(v_cmp[v]).reshape(v_gt[v].shape)
+            vj = align(j_cmp[v]).reshape(j_gt[v].shape)
+            stats[f"mpjpe-{name}"].append(float(
+                1000 * reconstruction_error_np(j_gt[v], vj, pa=False)))
+            stats[f"mpvpe-{name}"].append(float(
+                1000 * reconstruction_error_np(v_gt[v], vv, pa=False)))
+            if t_cmp is not None:
+                t_out.append(align(t_cmp[v]))
+        if t_cmp is not None:
+            aligned["pred-t" if name == "ours" else f"{name}-t"] = \
+                np.stack(t_out)
     if want_aligned:
         return stats, aligned
     return stats

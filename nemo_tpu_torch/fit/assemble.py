@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from ..body.smpl import SMPLModel, subset_skin_tables
+from ..models.humor import HumorConfig, humor_to
 from ..modules.networks import MLP_MODES
 from ..ops.lbs import VJP_MODES
 from ..priors.gmm import GMMPrior
@@ -18,7 +19,8 @@ def build_assets(bundle, smpl: SMPLModel, cfg: NemoConfig,
                  gmm: Optional[GMMPrior] = None,
                  vposer: Optional[Dict[str, torch.Tensor]] = None,
                  device=None, v2v_vjp: str = "fused",
-                 motion_mlp: str = "plain") -> NemoAssets:
+                 motion_mlp: str = "plain", humor=None,
+                 humor_cfg: Optional[HumorConfig] = None) -> NemoAssets:
     """Collate the 2D supervision (reference collate_gt_2d :2908-2961) and
     move everything to ``device`` once. ``bundle`` is a MultiViewBundle of
     either package (both are numpy). With cfg.vp_v2v_n_verts > 0 the v2v
@@ -26,7 +28,8 @@ def build_assets(bundle, smpl: SMPLModel, cfg: NemoConfig,
     full-mesh prior's gradient mode (ops.lbs.skin_v2v_l1), motion_mlp the
     MotionNet's MLP ("plain" matmuls or "fused" through K6, the counterpart
     of the JAX package's NEMO_TPU_NET_FUSED=1; model version 0 has no
-    MotionNet and ignores it)."""
+    MotionNet and ignores it). humor: the HuMoR parameter tree of the
+    weight_humor_loss term, with humor_cfg (default HumorConfig())."""
     if v2v_vjp not in VJP_MODES:
         raise ValueError(f"v2v_vjp {v2v_vjp!r}: expected one of {VJP_MODES}")
     if motion_mlp not in MLP_MODES:
@@ -40,6 +43,8 @@ def build_assets(bundle, smpl: SMPLModel, cfg: NemoConfig,
     if cfg.vp_v2v_n_verts:
         subset = dict(zip(("v2v_vidx", "v2v_posedirs_t", "v2v_lbs_weights_t"),
                           subset_skin_tables(smpl, cfg.vp_v2v_n_verts)))
+    if humor is not None and humor_cfg is None:
+        humor_cfg = HumorConfig()
     spin = getattr(bundle, "spin_theta", None)
     return NemoAssets(
         smpl=smpl,
@@ -55,5 +60,7 @@ def build_assets(bundle, smpl: SMPLModel, cfg: NemoConfig,
         spin_theta=None if spin is None else t(spin),
         v2v_vjp=v2v_vjp,
         motion_mlp=motion_mlp,
+        humor=None if humor is None else humor_to(humor, device),
+        humor_cfg=humor_cfg,
         **subset,
     )

@@ -11,8 +11,9 @@ Port of nemo_tpu/fit/model.py, model versions 0-4:
       and straight 25-joint projection indexing
 
 The VPoser v2v prior runs on the full mesh through K2 or on a vertex subset
-(``vp_v2v_n_verts``) through K3. The HuMoR dynamics term is still to port
-(ROADMAP Queue 1, Slice 6) and raises.
+(``vp_v2v_n_verts``) through K3. The custom entry's HuMoR dynamics term
+(``weight_humor_loss``) runs the batch's (f-1, f, f+1) windows through one
+predict and the frozen HuMoR CVAE.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ from ..body.smpl import (SMPLModel, smpl_forward, smpl_v2v_l1_sum,
 from ..geometry.camera import (FOCAL_LENGTH, camera_from_params,
                                init_camera_params, perspective_projection)
 from ..geometry.rotations import batch_rodrigues, rot6d_to_rotmat
+from ..geometry.rotations import rotmat_to_aa
+from ..models.humor import STATE_DIM, HumorConfig, humor_infer_seq
 from ..modules.networks import (FCNN, RBF, MonotonicNets, MotionNet, RotNet,
                                 apply_monotonic_gather, apply_rbf)
 from ..priors.gmm import GMMPrior, gmm_log_likelihood
@@ -39,8 +42,6 @@ from ..priors.vposer import (vposer_decode, vposer_encode,
 from .losses import camera_fitting_loss, keypoint_loss, per_view_average
 
 Metrics = Dict[str, torch.Tensor]
-
-_ROADMAP = "see ROADMAP.md, Queue 1 (Slice 6)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,13 +104,6 @@ class NemoConfig:
         return base + self.instance_code_size
 
 
-def check_supported(cfg: NemoConfig) -> None:
-    """Raise for every setting the port does not run yet."""
-    if cfg.weight_humor_loss != 0:
-        raise NotImplementedError(
-            f"nemo_tpu_torch does not port weight_humor_loss yet ({_ROADMAP})")
-
-
 @dataclasses.dataclass(frozen=True)
 class NemoAssets:
     """Frozen components and 2D supervision, as tensors on one device."""
@@ -134,6 +128,10 @@ class NemoAssets:
     # the MotionNet's MLP: "plain" matmuls or "fused" through K6
     # (modules.networks.MotionNet.forward)
     motion_mlp: str = "plain"
+    # the frozen HuMoR CVAE of the weight_humor_loss term
+    # (models.humor parameter tree) and its config
+    humor: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+    humor_cfg: Optional[HumorConfig] = None
 
     @property
     def num_views(self) -> int:
@@ -156,7 +154,6 @@ class NemoParams(nn.Module):
     def __init__(self, cfg: NemoConfig, num_views: int, img_d0: float,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        check_supported(cfg)
         self.cameras = nn.Parameter(init_camera_params(
             num_views, img_d0, cfg.focal_length, generator))
         self.phase = MonotonicNets(num_views, cfg.monotonic_network_n_nodes,
@@ -216,12 +213,14 @@ def _trans_at_phase0(params: NemoParams, cfg: NemoConfig,
 def predict(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
             view_idx: torch.Tensor, frame_idx: torch.Tensor,
             want_vertices: bool = False, detach_pose: bool = False,
-            add_trans: bool = True, noise: Optional[torch.Tensor] = None
-            ) -> Dict[str, torch.Tensor]:
+            add_trans: bool = True, noise: Optional[torch.Tensor] = None,
+            want_fk_joints: bool = False) -> Dict[str, torch.Tensor]:
     """Phase warp -> motion networks -> SMPL FK (+ translation). Returns
     'j' (B, 25, 3) projection joints, 'j49', 'poses' (B, 69) axis-angle,
     'pose_rotmat', 'orient' (B, 6), 'orient_aa', 'trans', 'warped_phase',
-    and 'v' (B, V, 3) with want_vertices.
+    'v' (B, V, 3) with want_vertices, and with want_fk_joints the 24
+    kinematic-chain joints 'fk_joints' (B, 24, 3) in SMPL tree order and
+    the root rotation 'orient_rotmat' (B, 3, 3).
 
     noise: a standard normal draw shaped like the batch's instance codes
     (B, instance_code_size); with cfg.code_noise > 0 the codes become
@@ -247,12 +246,14 @@ def predict(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
     if detach_pose:
         body_rotmat = body_rotmat.detach()
     orient_rotmat = rot6d_to_rotmat(orient_d["rot6d"])[:, None]
-    verts, joints49 = smpl_forward(assets.smpl, params.betas, body_rotmat,
-                                   orient_rotmat, want_vertices=want_vertices)
+    verts, joints49, *fk = smpl_forward(
+        assets.smpl, params.betas, body_rotmat, orient_rotmat,
+        want_vertices=want_vertices, want_fk_joints=want_fk_joints)
     if add_trans:
         joints49 = joints49 + trans[:, None, :]
         if verts is not None:
             verts = verts + trans[:, None, :]
+        fk = [j + trans[:, None, :] for j in fk]
     out = {
         "j": joints49[:, device_index(cfg.proj_joint_idx, joints49.device)],
         "j49": joints49,
@@ -265,6 +266,9 @@ def predict(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
     }
     if verts is not None:
         out["v"] = verts
+    if want_fk_joints:
+        out["fk_joints"] = fk[0]
+        out["orient_rotmat"] = orient_rotmat[:, 0]
     return out
 
 
@@ -308,6 +312,49 @@ def vposer_losses(params: NemoParams, assets: NemoAssets,
                                           orient_rot, *sub)
         v2v = (verts_r - verts_o).abs().sum() / (B * 3 * sub[0].shape[0])
     return v2v, vposer_kl_to_std_normal(mu, scale)
+
+
+def humor_dynamics_loss(params: NemoParams, cfg: NemoConfig,
+                        assets: NemoAssets, view_idx: torch.Tensor,
+                        frame_idx: torch.Tensor) -> torch.Tensor:
+    """The HuMoR dynamics prior: the mean KL of the predicted motion's
+    transitions under the frozen conditional prior (the custom entry's
+    --weight_humor_loss term).
+
+    Each batch frame f, clamped to [1, F-2], gives a window (f-1, f, f+1);
+    one predict runs the 3B rows. The window yields two HuMoR states with
+    velocities by finite differences at cfg.humor_fps (the reference's
+    estimate_velocities) and one transition KL. No code noise: the term
+    reads the motion field itself.
+    """
+    F = assets.num_frames
+    B = view_idx.shape[0]
+    fc = frame_idx.clamp(1, F - 2)
+    preds = predict(params, cfg, assets, view_idx.repeat(3),
+                    torch.cat([fc - 1, fc, fc + 1]), want_fk_joints=True)
+
+    def split3(x):
+        return x[:B], x[B:2 * B], x[2 * B:]
+
+    trans = split3(preds["trans"])
+    orient_R = split3(preds["orient_rotmat"])
+    orient_aa = split3(preds["orient_aa"])
+    poses = split3(preds["poses"])
+    joints = split3(preds["fk_joints"][:, :22].reshape(3 * B, 66))
+    fps = cfg.humor_fps
+
+    def state(i):
+        """The 'smpl+joints' state at window position i (reads i - 1)."""
+        dR = torch.einsum("bij,bkj->bik", orient_R[i], orient_R[i - 1])
+        return torch.cat([
+            trans[i], (trans[i] - trans[i - 1]) * fps, orient_aa[i],
+            rotmat_to_aa(dR) * fps, poses[i][:, :63], joints[i],
+            (joints[i] - joints[i - 1]) * fps], dim=-1)
+
+    states = torch.stack([state(1), state(2)], dim=1)   # (B, 2, STATE_DIM)
+    assert states.shape[-1] == STATE_DIM
+    kl = humor_infer_seq(assets.humor, assets.humor_cfg, states)["kl"]
+    return kl.mean()
 
 
 def fit_loss(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
@@ -358,6 +405,10 @@ def fit_loss(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
             metrics["gmm_loss"] = g
             if cfg.weight_gmm_loss:
                 loss = loss + cfg.weight_gmm_loss * g
+        if cfg.weight_humor_loss and assets.humor is not None:
+            hl = humor_dynamics_loss(params, cfg, assets, view_idx, frame_idx)
+            metrics["humor_loss"] = hl
+            loss = loss + cfg.weight_humor_loss * hl
     if include_3d and cfg.weight_3d_loss and cfg.model_version >= 3:
         theta = assets.hmr_theta[view_idx, frame_idx]
         mask = assets.hmr_mask[view_idx, frame_idx]

@@ -366,6 +366,36 @@ def humor_roll_out(p: Params, cfg: HumorConfig, x0: torch.Tensor,
             for k, n in enumerate(names)}
 
 
+def humor_infer_seq(p: Params, cfg: HumorConfig, states: torch.Tensor
+                    ) -> Dict[str, torch.Tensor]:
+    """Posterior latents for every transition of (B, T, D) state sequences
+    (the core of the reference's infer / infer_global_seq): each
+    (state_t, state_t+1) pair is encoded; the conditional prior and the
+    per-transition KL, the sequence's likelihood under the motion prior,
+    come with them."""
+    B, T, D = states.shape
+    past = states[:, :-1].reshape(B * (T - 1), D)
+    nxt = states[:, 1:].reshape(B * (T - 1), D)
+    qm, qv = humor_posterior(p, cfg, past, nxt)
+    pm, pv = humor_prior(p, cfg, past)
+    kl_per = 0.5 * (torch.log(pv) - torch.log(qv)
+                    + (qv + (qm - pm) ** 2) / pv - 1.0).sum(-1)
+    shape = (B, T - 1)
+    return {"z_mean": qm.reshape(shape + (-1,)),
+            "z_var": qv.reshape(shape + (-1,)),
+            "prior_mean": pm.reshape(shape + (-1,)),
+            "prior_var": pv.reshape(shape + (-1,)),
+            "kl": kl_per.reshape(shape)}
+
+
+def humor_transition_prior_loss(p: Params, cfg: HumorConfig,
+                                states: torch.Tensor) -> torch.Tensor:
+    """Mean KL(posterior || conditional prior) over the transitions of
+    (B, T, D) state sequences: the dynamics-prior regularizer of the
+    custom entry's weight_humor_loss term."""
+    return humor_infer_seq(p, cfg, states)["kl"].mean()
+
+
 def convert_humor_state_dict(sd: dict, cfg: HumorConfig = HumorConfig(),
                              device=None) -> Params:
     """A torch HuMoR state dict (numpy- or tensor-valued, possibly
@@ -396,3 +426,13 @@ def convert_humor_state_dict(sd: dict, cfg: HumorConfig = HumorConfig(),
     if cfg.conditional_prior:
         out["prior"] = mlp("prior_net", 5)
     return out
+
+
+def load_humor(path: str, cfg: HumorConfig = HumorConfig(), device=None
+               ) -> Params:
+    """A HuMoR checkpoint file ({'model': state_dict, ...}, the state dict
+    possibly DataParallel-prefixed) on ``device``."""
+    # the checkpoints pickle more than tensors; torch >= 2.6 defaults to
+    # weights_only=True, which refuses them
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return convert_humor_state_dict(ckpt.get("model", ckpt), cfg, device)

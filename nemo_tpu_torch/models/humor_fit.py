@@ -15,9 +15,9 @@ against the 3D energies (masked L2 on joints and marker vertices, the
 one-way scan->mesh chamfer through kernel K4, joint smoothness). Each stage
 is a Python loop of Adam steps with optax.adam's arithmetic
 (``fit.optimizer.GroupAdam``); the loss histories stay on the device until
-the stage ends. The 2D keypoint term and the camera optimization (the RGB
-drivers' path), ``optimizer="lbfgs"`` and the camera->prior frame utilities
-are still to port (ROADMAP.md Queue 1, Slice 6).
+the stage ends. The 2D keypoint term, the camera optimization and the
+camera->prior frame utilities (the RGB drivers' path) are still to port
+(ROADMAP.md Queue 1, item 7.1), as is ``optimizer="lbfgs"`` (item 7.4).
 """
 
 from __future__ import annotations
@@ -370,12 +370,12 @@ def humor_motion_fit(smpl: SMPLModel, humor_params: Params,
         raise NotImplementedError(
             "humor_motion_fit: the 2D keypoint term and camera optimization "
             "(the RGB drivers' path) are not ported yet; see ROADMAP.md "
-            "Queue 1, Slice 6")
+            "Queue 1, item 7.1")
     if cfg.optimizer != "adam":
         raise NotImplementedError(
             f"humor_motion_fit: optimizer={cfg.optimizer!r} is not ported "
             "yet (no humor_tool entry point selects it); see ROADMAP.md "
-            "Queue 1, Slice 6")
+            "Queue 1, item 7.4")
     T = init_pose.shape[0]
     dev = init_pose.device
 

@@ -7,7 +7,7 @@ writers, and the results-directory layer (``save_fitting_results``,
 ``load_fitting_results``, ``eval_fitting_results_dirs``). All of it is the
 JAX package's numpy, copied: the port imports nothing of nemo_tpu. The RGB
 evaluation (``quant_eval_2d``) and ``stitch_rgb_results`` wait for the RGB
-drivers (ROADMAP.md Queue 1, Slice 6).
+drivers (ROADMAP.md Queue 1, item 7.1).
 """
 
 from __future__ import annotations

@@ -2,12 +2,14 @@
 
 BatchNorm runs on stored statistics and Dropout is identity, so the model is
 a fixed chain of affine maps and LeakyReLUs over a dict of weight tensors
-(``(in, out)`` layout, as in the JAX package).
+(``(in, out)`` layout, as in the JAX package). ``load_vposer`` reads a
+V02_05 snapshot directory or checkpoint file.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -56,10 +58,69 @@ def init_vposer(cfg: VPoserConfig = VPoserConfig(),
     return p
 
 
-def vposer_from_numpy(arrays) -> Params:
+def vposer_from_numpy(arrays, device=None) -> Params:
     """VPoser weights from numpy arrays keyed as nemo_tpu's pytree."""
-    return {k: torch.tensor(np.asarray(v, np.float32))
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device)
             for k, v in arrays.items()}
+
+
+# torch module name -> this layout's names: (weight, bias) of a Linear, or
+# (gamma, beta, mean, var) of a BatchNorm
+_TORCH_KEY_MAP = {
+    "encoder_net.1": ("bn0_gamma", "bn0_beta", "bn0_mean", "bn0_var"),
+    "encoder_net.2": ("enc_w1", "enc_b1"),
+    "encoder_net.4": ("bn1_gamma", "bn1_beta", "bn1_mean", "bn1_var"),
+    "encoder_net.6": ("enc_w2", "enc_b2"),
+    "encoder_net.7": ("enc_w3", "enc_b3"),
+    "encoder_net.8.mu": ("mu_w", "mu_b"),
+    "encoder_net.8.logvar": ("logvar_w", "logvar_b"),
+    "decoder_net.0": ("dec_w1", "dec_b1"),
+    "decoder_net.3": ("dec_w2", "dec_b2"),
+    "decoder_net.5": ("dec_w3", "dec_b3"),
+}
+
+
+def convert_torch_state_dict(sd: dict, device=None) -> Params:
+    """A torch VPoser state dict (tensor- or numpy-valued) in this layout.
+
+    Linear weights are transposed (torch stores (out, in)); BatchNorm
+    running statistics map to the eval-mode affine. Keys may carry the
+    'vp_model.' prefix of the snapshot files.
+    """
+    def get(k):
+        for prefix in ("", "vp_model."):
+            if prefix + k in sd:
+                v = sd[prefix + k]
+                return np.asarray(v.detach().cpu().numpy()
+                                  if hasattr(v, "detach") else v)
+        raise KeyError(k)
+
+    arrays = {}
+    for tkey, names in _TORCH_KEY_MAP.items():
+        if len(names) == 4:  # batchnorm
+            for name, field in zip(names, ("weight", "bias", "running_mean",
+                                           "running_var")):
+                arrays[name] = get(f"{tkey}.{field}")
+        else:
+            arrays[names[0]] = get(tkey + ".weight").T
+            arrays[names[1]] = get(tkey + ".bias")
+    return vposer_from_numpy(arrays, device)
+
+
+def load_vposer(ckpt_dir_or_file: str, device=None) -> Params:
+    """A V02_05-style VPoser snapshot directory (its last snapshots/* file
+    in sorted order) or .ckpt file."""
+    path = ckpt_dir_or_file
+    if os.path.isdir(path):
+        snap = os.path.join(path, "snapshots")
+        cands = sorted(os.listdir(snap)) if os.path.isdir(snap) else []
+        if not cands:
+            raise FileNotFoundError(f"no snapshots under {path}")
+        path = os.path.join(snap, cands[-1])
+    # the snapshots pickle more than tensors; torch >= 2.6 defaults to
+    # weights_only=True, which refuses them
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return convert_torch_state_dict(ckpt.get("state_dict", ckpt), device)
 
 
 def _bn(x, mean, var, gamma, beta, eps: float = 1e-5):

@@ -107,12 +107,6 @@ class TestConfigAndWeights:
         with pytest.raises(KeyError, match="motion.W_lin"):
             params_from_numpy(tp, flat)
 
-    @pytest.mark.parametrize("field,value", [("weight_humor_loss", 1.0)])
-    def test_unported_settings_raise(self, problem, field, value):
-        cfg = dataclasses.replace(problem["tcfg"], **{field: value})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfit.init_params(cfg, 2, 1000.0)
-
 
 def _grads_np(tp):
     return {n.replace(".", "/"): (p.grad.numpy() if p.grad is not None

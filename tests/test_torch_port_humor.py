@@ -732,6 +732,46 @@ def test_humor_tool_process_then_fit_amass_cpu(tmp_path):
     assert "compare_mean.csv" in csvs
 
 
+@pytest.mark.parametrize("humor_file", ["humor.pth", "humor.npz"])
+def test_humor_tool_from_files_matches_defaults(tmp_path, humor_file):
+    """process-amass and fit-amass with --smpl_path (the synthetic body's
+    .npz) and --humor_ckpt (init_humor's weights from --seed, as a torch
+    checkpoint or humor_tool's flat .npz) give bit for bit the results of
+    the runs on the synthetic body and the seeded random weights."""
+    from nemo_tpu_torch.body.assets import synthetic_smpl_model
+    from nemo_tpu_torch.cli.humor_tool import main
+    from nemo_tpu_torch.utils import asset_files
+    raw = tmp_path / "raw" / "HumanEva" / "S1"
+    raw.mkdir(parents=True)
+    np.savez(raw / "walk_poses.npz", **_raw_amass())
+    smpl = asset_files.write_smpl_npz(
+        str(tmp_path / "SMPL_NEUTRAL.npz"), asset_files.smpl_file_arrays(
+            synthetic_smpl_model(device="cpu")))
+    hp = thumor.init_humor(torch.Generator().manual_seed(0),
+                           thumor.HumorConfig(latent_size=LATENT))
+    write = asset_files.write_humor_ckpt if humor_file.endswith(".pth") \
+        else asset_files.write_humor_npz
+    ckpt = write(str(tmp_path / humor_file), hp)
+    results = []
+    for tag, files in (("default", []), ("files", ["--smpl_path", smpl])):
+        proc, out = str(tmp_path / f"proc_{tag}"), str(tmp_path / tag)
+        assert main(["process-amass", "--amass_root", str(tmp_path / "raw"),
+                     "--out", proc, "--device", "cpu"] + files) == 0
+        extra = files + (["--humor_ckpt", ckpt] if files else [])
+        assert main(["fit-amass", "--amass", proc, "--out", out,
+                     "--seq_len", "8", "--obs", "joints", "points",
+                     "--num_samp_pts", "32", "--latent_size", str(LATENT),
+                     "--steps", "2", "2", "2", "--no_eval",
+                     "--device", "cpu"] + extra) == 0
+        res = os.path.join(out, "results_out")
+        with np.load(os.path.join(res, os.listdir(res)[0],
+                                  "stage3_results.npz")) as d:
+            results.append({k: d[k] for k in d.files})
+    assert sorted(results[0]) == sorted(results[1])
+    for k in results[0]:
+        np.testing.assert_array_equal(results[1][k], results[0][k], k)
+
+
 def test_humor_tool_defaults_to_the_card(tmp_path):
     """Without --device the CLI asks for CUDA: on a machine without a card
     it raises instead of running on the CPU."""
