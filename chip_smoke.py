@@ -37,7 +37,16 @@ Run from the repository root with no arguments:
    O) = (512, 105, 1000, 147), (960, ...) and (1, ...), each run twice
    for bit-stability, with the GEMM kernel's registers, shared memory and
    spills, its distance from its CPU emulation at B=512 and the same
-   products as a chain of cuBLAS calls timed beside it. Each check
+   products as a chain of cuBLAS calls timed beside it. Then the skinning
+   kernels' bf16 instantiations (bf16 tables, --skin_bf16: K2 fused,
+   forward-only and pair at (512, 6890), K3b both modes at (512, 6890)
+   and (960, 1024), K3f at (960, 1024) and (512, 6890)) against their
+   plain bf16 versions, each rerun bit-identical, with their registers,
+   shared memory and spills, each one's device time a launch beside the
+   f32 kernel's on the same inputs, and the bf16-vs-f32 gap of the
+   vertices and the gradients; their bound counts the posedirs
+   contractions as one bf16 pass at 989 TFLOP/s and the tables' bytes at
+   2 a value, and their one PyTorch call is a bf16 matmul. Each check
    prints its max error beside its tolerance; each kernel's median CUDA-event time beside its plain
    version's, one PyTorch call's (where one computes the whole function or
    its largest contraction) and its bound (the least time the card could
@@ -53,6 +62,11 @@ Run from the repository root with no arguments:
      batch 512, h_dim 1000, RBF 100 quadratic, 200-node phase nets, 8 views
      x 120 frames, VPoser v2v 10 + KL 1 + GMM 1), warmup, camera and main
      stages, eval_loss and the eval CSVs, the K2 fused mode;
+   - path H: slice 1 with bf16 skinning tables (the JAX bench's
+     precision; K2 bf16, no f32 skinning kernel): card vs CPU at the first
+     main step, no sync, steps/s beside slice 1's; the custom-video
+     configuration's 1024-vertex subset in bf16 (K3f/K3b bf16); fused,
+     pair and pair_vp in bf16 from the same parameters;
    - path A: the custom-video configuration (run_examples/
      custom-video-example.sh: NemoV3, full_batch so B=960, weight_3d_loss
      1000, lr_phase 0, lr_factor 1) with the opt-in v2v prior on 1024
@@ -106,6 +120,7 @@ BATCH = 512
 BATCH_A = 8 * 120       # path A's full batch: every view and frame
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores, 700 W
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores, 700 W
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores, 700 W
 PEAK_HBM_BYTES = 3.35e12
 
 # counter key -> (source, TPU kernel it replaces)
@@ -137,6 +152,19 @@ KERNELS = {
     "mlp_bwd": ("nemo_tpu_torch/csrc/mlp.cu",
                 "nemo_tpu/ops/mlp_pallas.py:177"),
 }
+# the bf16 tables' instantiations of the skinning kernels (--skin_bf16):
+# the same sources and TPU kernels, their computation with bf16 tables
+SKIN_KERNELS = ("v2v_grad", "v2v_fwd", "v2v_pair", "skin_fwd", "skin_bwd",
+                "skin_bwd_vp")
+KERNELS.update({k + "_bf16": KERNELS[k] for k in SKIN_KERNELS})
+# bf16 gradients, kernel against plain: where the two round gm = g . [vp; 1]
+# or gvp to bf16 after f32 sums taken in other orders, a term can move by
+# one bf16 step (2^-8 of it); 1e-3 of the tensor's largest entry holds a few
+# such flips (tests/test_torch_port_gpu.py's GRAD_BF16). A rounding point
+# moved moves entries by about as much, so each bf16 gradient is also held
+# within lbs.MISROUNDED_SHARE of the plain version's distance from every
+# variant with one point moved (lbs.misrounding_shares)
+GRAD_BF16 = 1e-3
 
 # f32 operations per (batch row, vertex) of the skinning kernels (a MAC is
 # 2): posing 3x207 MACs + 3 adds, blending 12x24 MACs, transforming 9 MACs;
@@ -157,6 +185,17 @@ SIDE_FLOP = POSE_FLOP + BLEND_FLOP + 2 * 9
 POSE_TC_FLOP = 2 * 621
 K2_TC_FWD_FLOP = 2 * POSE_TC_FLOP
 K2_TC_GRAD_FLOP = POSE_TC_FLOP
+# with bf16 tables the blend M = A . W (12x24 MACs, or its 9x24 rotation in
+# a backward) and gA's gm . W^T (12x24 MACs) multiply bf16 operands too and
+# sum in f32: the function of a bf16 tensor-core contraction, so the bf16
+# bound takes them at the bf16 peak with the posedirs contractions; only
+# the elementwise rest stays on the CUDA cores
+BF16_TC_SIDE_FLOP = POSE_TC_FLOP + BLEND_FLOP
+BF16_TC_GA_FLOP = 2 * 288
+BF16_TC_K2_FWD_FLOP = 2 * BF16_TC_SIDE_FLOP
+BF16_TC_K2_GRAD_FLOP = POSE_TC_FLOP + BF16_TC_GA_FLOP
+BF16_TC_BWD_VP_FLOP = BWD_BLEND_FLOP + POSE_TC_FLOP + BF16_TC_GA_FLOP
+BF16_TC_BWD_FLOP = POSE_TC_FLOP + BF16_TC_BWD_VP_FLOP
 GRAD_FLOP = 2 * 9 + 2 * 621 + 9 + 2 * 288 + 3
 L1_FLOP = 9
 # per joint: forward R = R_p R_l (27 MACs), t = R_p t_l + t_p (9 MACs + 3);
@@ -234,12 +273,15 @@ def bound_ms(flop: float, bytes_: float):
     return 1e3 * max(t_op, t_mem), ("operations" if t_op >= t_mem else "bytes")
 
 
-def tc_bound_ms(flop: float, tc_flop: float, bytes_: float):
-    """A one-pass kernel's least time with its posedirs contractions
-    (tc_flop of the flop) on the tensor cores in 3xTF32 and the rest in
-    f32 on the CUDA cores: (ms, "tensor cores", "CUDA cores" or
-    "bytes")."""
-    times = {"tensor cores": 3 * tc_flop / PEAK_TF32_FLOPS,
+def tc_bound_ms(flop: float, tc_flop: float, bytes_: float,
+                bf16: bool = False):
+    """A one-pass kernel's least time with the contractions it may run on
+    the tensor cores (tc_flop of the flop) there: the posedirs ones in
+    3xTF32 (three TF32 products each) or, with bf16 tables, those and the
+    blend and gA in one bf16 pass; the rest in f32 on the CUDA cores: (ms,
+    "tensor cores", "CUDA cores" or "bytes")."""
+    tc = tc_flop / PEAK_BF16_FLOPS if bf16 else 3 * tc_flop / PEAK_TF32_FLOPS
+    times = {"tensor cores": tc,
              "CUDA cores": (flop - tc_flop) / PEAK_F32_FLOPS,
              "bytes": bytes_ / PEAK_HBM_BYTES}
     by = max(times, key=times.get)
@@ -260,15 +302,15 @@ def check(name: str, got, want, atol: float, results: dict) -> float:
 
 
 def time_kernel(rec, key, shape, kernel, plain, flop, bytes_, library=None,
-                plain_reps: int = 20, tc_flop=None):
+                plain_reps: int = 20, tc_flop=None, bf16: bool = False):
     """Median CUDA-event times of a kernel, its plain version and one
     PyTorch call, beside the bound; given the flop its tensor cores take,
-    the bound is the tensor-core one and the f32 bound is only printed.
-    The first record of a key is kept."""
+    the bound is the tensor-core one (bf16: one bf16 pass) and the f32
+    bound is only printed. The first record of a key is kept."""
     f32_ms, by = bound_ms(flop, bytes_)
     b_ms = f32_ms
     if tc_flop is not None:
-        b_ms, tc_by = tc_bound_ms(flop, tc_flop, bytes_)
+        b_ms, tc_by = tc_bound_ms(flop, tc_flop, bytes_, bf16)
         by = "bytes" if tc_by == "bytes" else "operations"
     r = {"ms": median_ms(kernel),
          "plain_ms": median_ms(plain, reps=plain_reps,
@@ -283,9 +325,12 @@ def time_kernel(rec, key, shape, kernel, plain, flop, bytes_, library=None,
           f"{bytes_ / 1e6:.3f} MB) (median of 20 CUDA-event timings, "
           f"{plain_reps} of the plain version)")
     if tc_flop is not None:
+        tc_text = (f"{tc_flop / 1e9:.3f} GFLOP in bf16 at 989 TFLOP/s"
+                   if bf16 else
+                   f"{3 * tc_flop / 1e9:.3f} GFLOP in 3xTF32 at 495 TFLOP/s")
         print(f"[time] {key} {shape}: tensor-core bound {b_ms:.4f} ms "
-              f"({tc_by}; {3 * tc_flop / 1e9:.3f} GFLOP in 3xTF32 at 495 "
-              f"TFLOP/s, {(flop - tc_flop) / 1e9:.3f} GFLOP f32 at 67) "
+              f"({tc_by}; {tc_text}, {(flop - tc_flop) / 1e9:.3f} GFLOP "
+              f"f32 at 67) "
               f"beside the f32 bound {f32_ms:.4f} ms; kernel at "
               f"{100 * b_ms / r['ms']:.1f}% of it ({nvidia_smi_line()})")
     rec.setdefault(key, r)
@@ -732,6 +777,238 @@ def kernel_phase(device, smpl):
                            if k.startswith("skin_bwd_vp")),
     }
     return kernel_err, rec
+
+
+def bf16_kernel_phase(device, smpl, smpl_b, rec):
+    """The skinning kernels' bf16 instantiations (the _bf16 entry points,
+    --skin_bf16) at path H's shapes, each against its plain bf16 version on
+    the same inputs and rerun bit-identical: K2 fused and forward-only and
+    the pair mode at (512, 6890), K3b recomputing vp and reading the pair
+    mode's bf16 vp under the pair mode's sign and a N(0,1) cotangent at
+    (512, 6890), K3f and K3b at path H's subset (960, 1024). Tolerances:
+    the total rtol 1e-5 and vertices 1e-5 of the largest entry (f32 sums
+    of exact bf16 products in another order), the sign exact (the rec side
+    offset by +-10 m), vp one bf16 step, gradients GRAD_BF16 and, against
+    every variant of the plain version with one rounding point moved,
+    within lbs.MISROUNDED_SHARE of its distance. Times as the f32 rows',
+    the bound's posedirs, blend and gA contractions one bf16 pass at 989
+    TFLOP/s and its bytes with 2-byte tables, one bf16 torch.matmul of the
+    largest posedirs contraction as the one PyTorch call; each kernel's
+    device time a launch beside the f32 kernel's on the same inputs; the
+    bf16-vs-f32 gap of the vertices and the gradients. Returns {kernel:
+    max_abs_err}."""
+    import torch
+    from nemo_tpu_torch.body.smpl import subset_skin_tables
+    from nemo_tpu_torch.ops import lbs
+
+    gen = torch.Generator().manual_seed(15)
+    errs = {}
+    B, B_A, V = BATCH, BATCH_A, smpl.num_vertices
+    bf = torch.bfloat16
+    vsh = smpl.v_template.t().contiguous()
+    pd, W = smpl.posedirs_t, smpl.lbs_weights_t
+    pdb, Wb = smpl_b.posedirs_t, smpl_b.lbs_weights_t
+    if pdb.dtype != bf or Wb.dtype != bf:
+        raise AssertionError("the bf16 body's tables are not bf16")
+    res = {"v2v_fused": lbs.v2v_fused_attributes(bf16=True),
+           "skin_fwd": lbs.skin_fwd_attributes(False, True),
+           "pair": lbs.skin_fwd_attributes(True, True),
+           "skin_bwd": lbs.skin_bwd_attributes(False, True),
+           "skin_bwd_vp": lbs.skin_bwd_attributes(True, True)}
+    print(f"[kernel] bf16 instantiations' resources (cudaFuncGetAttributes;"
+          f" local_bytes are spills): {json.dumps(res)}")
+
+    def stable(name, fn, got):
+        again = fn()
+        flat = lambda x: [t for t in (x if isinstance(x, tuple) else (x,))
+                          for t in (t if isinstance(t, tuple) else (t,))]
+        if not all(torch.equal(a, b) for a, b in zip(flat(again), flat(got))):
+            raise AssertionError(f"{name} is not bit-stable run to run")
+
+    def grads_check(key, got, args, g, vp, tag):
+        want = lbs.skin_bwd_plain(*args, g, vp=vp)
+        for name, gk, gp in zip(("gpf", "gA", "gvsh"), got, want):
+            check(f"{key} {name} {tag}", gk, gp,
+                  GRAD_BF16 * float(gp.abs().max()), errs)
+        shares = lbs.misrounding_shares(got, *args, g, vp=vp)
+        worst = max(shares, key=shares.get)
+        print(f"[kernel] {key} {tag}: |kernel - plain| over |variant - "
+              f"plain| at most {shares[worst]:.3e} (the variant {worst[0]} "
+              f"on {worst[1]}; {len(shares)} variant-gradient pairs; "
+              f"limit {lbs.MISROUNDED_SHARE}) "
+              f"{'OK' if shares[worst] <= lbs.MISROUNDED_SHARE else 'FAIL'}")
+        if shares[worst] > lbs.MISROUNDED_SHARE:
+            raise AssertionError(f"{key}: rounds at other points than plain")
+
+    # K2 at (512, 6890): both gradient-free and fused modes, and the pair
+    pf_o, A_o = skin_side_inputs(smpl, B, gen, device)
+    pf_r, A_r = skin_side_inputs(smpl, B, gen, device, offset=10.0)
+    args_b = (pf_o, A_o, vsh, pdb, Wb, pf_r, A_r)
+    args_f = (pf_o, A_o, vsh, pd, W, pf_r, A_r)
+    tag = f"B={B}, V={V}"
+    tot_k, g_k = lbs.v2v_l1_cuda(*args_b, grad=True)
+    tot_q, sign_p, vp_p = lbs.v2v_pair_plain(*args_b, want_vp=True)
+    tot_f, _ = lbs.v2v_l1_cuda(*args_b, grad=False)
+    check(f"v2v_grad_bf16 total {tag}", tot_k, tot_q,
+          1e-5 * float(tot_q.abs()), errs)
+    check(f"v2v_fwd_bf16 total {tag}", tot_f, tot_q,
+          1e-5 * float(tot_q.abs()), errs)
+    if not torch.equal(tot_f, tot_k):
+        raise AssertionError("bf16 forward-only total differs from grad mode")
+    grads_check("v2v_grad_bf16", g_k, args_b[:5], sign_p, None, tag)
+    stable("v2v_grad_bf16", lambda: lbs.v2v_l1_cuda(*args_b, grad=True),
+           (tot_k, g_k))
+    pair = lbs.v2v_pair_cuda(*args_b, want_vp=True)
+    check(f"v2v_pair_bf16 total {tag}", pair[0], tot_q,
+          1e-5 * float(tot_q.abs()), errs)
+    check(f"v2v_pair_bf16 sign {tag}", pair[1], sign_p, 0.0, errs)
+    if pair[2].dtype != bf:
+        raise AssertionError("the bf16 pair mode's vp is not bf16")
+    check(f"v2v_pair_bf16 vp {tag} (one bf16 step)", pair[2].float(),
+          vp_p.float(), 2.0 ** -8 * float(vp_p.float().abs().max()), errs)
+    stable("v2v_pair_bf16", lambda: lbs.v2v_pair_cuda(*args_b, want_vp=True),
+           pair)
+    # K3b at (512, 6890) under the pair mode's sign (as path H's pair modes
+    # run it) and a N(0,1) cotangent, both modes
+    side_b = args_b[:5]
+    g_r = torch.randn((B, 3, V), generator=gen).to(device)
+    for gname, g in (("sign g", pair[1]), ("random g", g_r)):
+        for key, stored in (("skin_bwd_bf16", None),
+                            ("skin_bwd_vp_bf16", pair[2])):
+            got = lbs.skin_bwd_cuda(*side_b, g, vp=stored)
+            grads_check(key, got, side_b, g, stored, f"{tag}, {gname}")
+            stable(key, lambda: lbs.skin_bwd_cuda(*side_b, g, vp=stored),
+                   got)
+    # K3f and K3b at path H's subset (960, 1024), and K3f at (512, 6890)
+    vidx, pd_s, W_s = subset_skin_tables(smpl_b, 1024)
+    _, pd_sf, W_sf = subset_skin_tables(smpl, 1024)
+    pf_a, A_a = skin_side_inputs(smpl, B_A, gen, device)
+    Vs = len(vidx)
+    sub_b = (pf_a, A_a, vsh[:, vidx].contiguous(), pd_s, W_s)
+    sub_f = sub_b[:3] + (pd_sf, W_sf)
+    tag_a = f"B={B_A}, V={Vs}"
+    for a, t in ((sub_b, tag_a), (side_b, tag)):
+        out = lbs.skin_fwd_cuda(*a)
+        want = lbs.skin_verts_t_plain(*a)
+        check(f"skin_fwd_bf16 {t}", out, want, 1e-5 * float(want.abs().max()),
+              errs)
+        stable("skin_fwd_bf16", lambda: lbs.skin_fwd_cuda(*a), out)
+    g_a = torch.randn((B_A, 3, Vs), generator=gen).to(device)
+    vp_a = lbs.v2v_pair_plain(*sub_b, *skin_side_inputs(
+        smpl, B_A, gen, device, offset=10.0), want_vp=True)[2]
+    for key, stored in (("skin_bwd_bf16", None), ("skin_bwd_vp_bf16", vp_a)):
+        got_a = lbs.skin_bwd_cuda(*sub_b, g_a, vp=stored)
+        grads_check(key, got_a, sub_b, g_a, stored, tag_a)
+        stable(key, lambda: lbs.skin_bwd_cuda(*sub_b, g_a, vp=stored), got_a)
+
+    # times: one bf16 matmul of the largest posedirs contraction as the
+    # one PyTorch call ((2B x 207).(207 x 3V) for K2's two sides)
+    def timed(*a, **k):
+        return time_kernel(rec, *a, tc_flop=k.pop("tc"), bf16=True, **k)
+    bv = B * V
+    pd2b = pdb.reshape(207, 3 * V)
+    pf2b = torch.cat([pf_o, pf_r]).to(bf)
+    pfb = pf_o.to(bf)
+    io = nbytes(pf_o, A_o, pf_r, A_r, tot_k, vsh, pdb, Wb)
+    timed("v2v_grad_bf16", tag, lambda: lbs.v2v_l1_cuda(*args_b, grad=True),
+          lambda: lbs.v2v_l1_plain(*args_b, grad=True),
+          bv * (2 * SIDE_FLOP + L1_FLOP + GRAD_FLOP), io + nbytes(*g_k),
+          library=lambda: torch.matmul(pf2b, pd2b),
+          tc=bv * (BF16_TC_K2_FWD_FLOP + BF16_TC_K2_GRAD_FLOP))
+    timed("v2v_fwd_bf16", tag, lambda: lbs.v2v_l1_cuda(*args_b, grad=False),
+          lambda: lbs.v2v_l1_plain(*args_b, grad=False),
+          bv * (2 * SIDE_FLOP + L1_FLOP), io,
+          library=lambda: torch.matmul(pf2b, pd2b),
+          tc=bv * BF16_TC_K2_FWD_FLOP)
+    timed("v2v_pair_bf16", f"{tag}, vp stored",
+          lambda: lbs.v2v_pair_cuda(*args_b, want_vp=True),
+          lambda: lbs.v2v_pair_plain(*args_b, want_vp=True),
+          bv * (2 * SIDE_FLOP + L1_FLOP), io + nbytes(*pair),
+          library=lambda: torch.matmul(pf2b, pd2b),
+          tc=bv * BF16_TC_K2_FWD_FLOP)
+    g_s = pair[1]
+    got = lbs.skin_bwd_cuda(*side_b, g_s)
+    timed("skin_bwd_bf16", f"{tag}, sign g",
+          lambda: lbs.skin_bwd_cuda(*side_b, g_s),
+          lambda: lbs.skin_bwd_plain(*side_b, g_s),
+          bv * (POSE_FLOP + BWD_BLEND_FLOP + GRAD_FLOP),
+          nbytes(*side_b, g_s, *got),
+          library=lambda: torch.matmul(pfb, pd2b), tc=bv * BF16_TC_BWD_FLOP)
+    timed("skin_bwd_vp_bf16", f"{tag}, sign g",
+          lambda: lbs.skin_bwd_cuda(*side_b, g_s, vp=pair[2]),
+          lambda: lbs.skin_bwd_plain(*side_b, g_s, vp=pair[2]),
+          bv * (BWD_BLEND_FLOP + GRAD_FLOP),
+          nbytes(A_o, pdb, Wb, g_s, pair[2], *got),
+          library=lambda: torch.matmul(pfb, pd2b),
+          tc=bv * BF16_TC_BWD_VP_FLOP)
+    pd2s = pd_s.reshape(207, 3 * Vs)
+    pfab = pf_a.to(bf)
+    bva = B_A * Vs
+    timed("skin_fwd_bf16", tag_a, lambda: lbs.skin_fwd_cuda(*sub_b),
+          lambda: lbs.skin_verts_t_plain(*sub_b), bva * SIDE_FLOP,
+          nbytes(*sub_b) + 4 * B_A * 3 * Vs,
+          library=lambda: torch.matmul(pfab, pd2s),
+          tc=bva * BF16_TC_SIDE_FLOP)
+    timed("skin_fwd_bf16", tag, lambda: lbs.skin_fwd_cuda(*side_b),
+          lambda: lbs.skin_verts_t_plain(*side_b), bv * SIDE_FLOP,
+          nbytes(*side_b) + 4 * B * 3 * V,
+          library=lambda: torch.matmul(pfb, pd2b), tc=bv * BF16_TC_SIDE_FLOP)
+    got_a = lbs.skin_bwd_cuda(*sub_b, g_a)
+    timed("skin_bwd_bf16 path H subset", tag_a,
+          lambda: lbs.skin_bwd_cuda(*sub_b, g_a),
+          lambda: lbs.skin_bwd_plain(*sub_b, g_a),
+          bva * (POSE_FLOP + BWD_BLEND_FLOP + GRAD_FLOP),
+          nbytes(*sub_b, g_a, *got_a),
+          library=lambda: torch.matmul(pfab, pd2s),
+          tc=bva * BF16_TC_BWD_FLOP)
+
+    # device time a launch, each bf16 kernel beside the f32 one on the same
+    # inputs (separate traces: the two share a kernel name)
+    vp_f = lbs.v2v_pair_cuda(*args_f, want_vp=True)[2]
+    calls = {
+        "v2v_grad_bf16": ("v2v_fused_kernel",
+                          lambda: lbs.v2v_l1_cuda(*args_b, grad=True),
+                          lambda: lbs.v2v_l1_cuda(*args_f, grad=True)),
+        "v2v_fwd_bf16": ("v2v_fused_kernel",
+                         lambda: lbs.v2v_l1_cuda(*args_b, grad=False),
+                         lambda: lbs.v2v_l1_cuda(*args_f, grad=False)),
+        "v2v_pair_bf16": ("skin_fwd_kernel",
+                          lambda: lbs.v2v_pair_cuda(*args_b, want_vp=True),
+                          lambda: lbs.v2v_pair_cuda(*args_f, want_vp=True)),
+        "skin_fwd_bf16": ("skin_fwd_kernel",
+                          lambda: lbs.skin_fwd_cuda(*sub_b),
+                          lambda: lbs.skin_fwd_cuda(*sub_f)),
+        "skin_bwd_bf16": ("skin_bwd_kernel",
+                          lambda: lbs.skin_bwd_cuda(*side_b, g_s),
+                          lambda: lbs.skin_bwd_cuda(*args_f[:5], g_s)),
+        "skin_bwd_vp_bf16": ("skin_bwd_kernel",
+                             lambda: lbs.skin_bwd_cuda(*side_b, g_s,
+                                                       vp=pair[2]),
+                             lambda: lbs.skin_bwd_cuda(*args_f[:5], g_s,
+                                                       vp=vp_f)),
+    }
+    smi = nvidia_smi_line()
+    for key, (name, fb, ff) in calls.items():
+        db = profiled_ms(fb, (name,))[name]
+        df = profiled_ms(ff, (name,))[name]
+        rec[key]["device_ms"], rec[key]["device_ms_f32"] = db, df
+        print(f"[time] {key} {rec[key]['shape']}: device time a launch "
+              f"{device_ms_text(db)}, the f32 kernel's {device_ms_text(df)} "
+              f"on the same inputs ({smi})")
+
+    # the knob's error on this card: bf16 against f32 tables, same inputs
+    gap = {}
+    for t, a_b, a_f in ((tag, side_b, args_f[:5]), (tag_a, sub_b, sub_f)):
+        vb, vf = lbs.skin_fwd_cuda(*a_b), lbs.skin_fwd_cuda(*a_f)
+        gap[f"verts {t}"] = float((vb - vf).abs().max() / vf.abs().max())
+    _, g_f = lbs.v2v_l1_cuda(*args_f, grad=True)
+    for name, a, b in zip(("gpf", "gA", "gvsh"), g_k, g_f):
+        gap[f"v2v {name} {tag}"] = float((a - b).abs().max() / b.abs().max())
+    print(f"[kernel] bf16 vs f32 tables on the card, max |difference| over "
+          f"the largest f32 entry: {json.dumps(gap)}")
+    return {k + "_bf16": max(v for e, v in errs.items()
+                             if e.startswith(k + "_bf16 "))
+            for k in SKIN_KERNELS}
 
 
 def posed_panels(smpl, bundle, device, views):
@@ -1318,6 +1595,90 @@ def path_b(device, smpl, bundle):
               f"{fm['total_loss'][-1]:.3f}")
         out[vjp] = counts
     return out
+
+
+def path_h(device, smpl_b, bundle, steady1):
+    """Slice 1's reference configuration with bf16 skinning tables
+    (skin_dtype=torch.bfloat16, the JAX package's --skin_bf16 and
+    bench.py's default) at full width: 10 warmup and 10 camera steps, card
+    vs CPU (the CPU on the plain bf16 versions) at the parameters of the
+    first main step, 30 main steps, eval_loss; K2's bf16 kernels and no f32
+    skinning kernel; no sync; steps/s beside slice 1's (this process). Then
+    the custom-video configuration with the 1024-vertex subset (K3f/K3b
+    bf16, 5 + 5 + 20 steps, card vs CPU), and fused against pair against
+    pair_vp in bf16 from the same parameters and batch (modes_agree: the
+    loss within 1e-5 relative, gradients within GRAD_BF16 of each tensor's
+    largest entry, for the bf16 roundings of g . vp that flip where the
+    modes' vp differ in their last f32 bit). Returns ({run: counts},
+    steps/s)."""
+    import torch
+    if smpl_b.posedirs_t.dtype != torch.bfloat16:
+        raise AssertionError("path H needs bf16 tables")
+    out = {}
+
+    def no_f32_skinning(name, counts):
+        ran = [k for k in SKIN_KERNELS if counts[k]]
+        if ran:
+            raise AssertionError(f"{name}: f32 skinning kernels {ran} ran")
+
+    fitter = make_fitter(device, smpl_b, bundle, reference_config())
+    main = 30
+
+    def run():
+        fitter.warmup(10)
+        fitter.opt_cam(10)
+        card_vs_cpu("path H", fitter, bundle, smpl_b)
+        stamps = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fm = fitter.fit(main, chunk=10,
+                        on_chunk=lambda *_: stamps.append(time.perf_counter()))
+        steady = (main - 10) / (stamps[-1] - stamps[0])
+        return fm, steady, stamps[-1] - t0, fitter.eval_loss()
+
+    counts, (fm, steady, main_s, final) = run_path(
+        "path H", ("fk_fwd", "fk_bwd", "v2v_grad_bf16", "v2v_fwd_bf16"), run)
+    no_f32_skinning("path H", counts)
+    out["path H"] = counts
+    print(f"[path H] main stage: {main} steps in {main_s:.3f} s; the last "
+          f"{main - 10} at {steady:.3f} steps/s with bf16 tables, slice 1 "
+          f"(f32 tables, this process) {steady1:.3f} (batch {BATCH}, 8 "
+          f"views x 120 frames, V={smpl_b.num_vertices}; {nvidia_smi_line()})")
+    print(f"[path H] final {final}")
+    check_finite("path H", [fm], final)
+    check_falls("path H", fm["kp_loss"], 10)
+    no_sync_steps("path H", fitter)
+
+    def modes():
+        modes_agree("path H", fitter, "v2v_vjp", ("fused", "pair"), 1e-5,
+                    GRAD_BF16)
+        modes_agree("path H", fitter, "v2v_vjp", ("pair", "pair_vp"), 1e-5,
+                    GRAD_BF16)
+    counts, _ = run_path("path H modes", ("v2v_grad_bf16", "v2v_pair_bf16",
+                                          "skin_bwd_bf16",
+                                          "skin_bwd_vp_bf16"), modes)
+    no_f32_skinning("path H modes", counts)
+    out["path H modes"] = counts
+
+    cfg = custom_video_config(vp_v2v_n_verts=1024)
+    fitter_a = make_fitter(device, smpl_b, bundle, cfg)
+    if fitter_a.assets.v2v_posedirs_t.dtype != torch.bfloat16:
+        raise AssertionError("path H subset: the subset tables are not bf16")
+
+    def run_a():
+        ms, steady_a, _ = stages(fitter_a, 5, 5, 20, 10)
+        return ms, steady_a
+
+    counts, (ms, steady_a) = run_path(
+        "path H subset", ("fk_fwd", "fk_bwd", "skin_fwd_bf16",
+                          "skin_bwd_bf16"), run_a)
+    no_f32_skinning("path H subset", counts)
+    out["path H subset"] = counts
+    print(f"[path H subset] main stage at {steady_a:.3f} steps/s (B="
+          f"{BATCH_A}, v2v on {len(fitter_a.assets.v2v_vidx)} vertices, bf16)")
+    check_finite("path H subset", ms)
+    card_vs_cpu("path H subset", fitter_a, bundle, smpl_b)
+    return out, steady
 
 
 def path_c(device, smpl, bundle):
@@ -2001,7 +2362,10 @@ def main() -> int:
           f"{_build.build_seconds if _build.build_seconds is not None else 0:.2f} s)")
 
     smpl = synthetic_smpl_model(6890, seed=0, device=device)
+    smpl_b = synthetic_smpl_model(6890, seed=0, device=device,
+                                  skin_dtype=torch.bfloat16)
     kernel_err, rec = kernel_phase(device, smpl)
+    kernel_err.update(bf16_kernel_phase(device, smpl, smpl_b, rec))
     bundle, _ = synthetic_problem(smpl, num_views=8, num_frames=120,
                                   img_hw=IMG_HW, seed=0)
     kernel_err.update(raster_phase(device, smpl, bundle, rec))
@@ -2009,6 +2373,8 @@ def main() -> int:
     kernel_err.update(mlp_phase(device, rec))
     paths = {}
     paths["slice 1"], steady1 = slice1_path(device, smpl, bundle)
+    path_h_counts, steady_h = path_h(device, smpl_b, bundle, steady1)
+    paths.update(path_h_counts)
     paths["path A"], steady_a = path_a(device, smpl, bundle)
     for k, c in path_b(device, smpl, bundle).items():
         paths[f"path B {k}"] = c
@@ -2023,7 +2389,8 @@ def main() -> int:
     launches = {k: sum(c[k] for c in paths.values()) for k in KERNELS}
     print(f"[paths] render: {render['video_s']:.4f} s a video frame with the "
           f"PNG writes, {render['nopng_s']:.4f} s without")
-    print(f"[paths] steps/s: slice 1 {steady1:.3f}, path A {steady_a:.3f}, "
+    print(f"[paths] steps/s: slice 1 {steady1:.3f}, path H (slice 1 with "
+          f"bf16 tables) {steady_h:.3f}, path A {steady_a:.3f}, "
           f"path F {steady_f:.3f}, path G's custom-video configuration "
           f"{g['custom_steps_s']:.3f} without the HuMoR term and "
           f"{g['humor_steps_s']:.3f} with it; path G {g['seconds']:.1f} s; "

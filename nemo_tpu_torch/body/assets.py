@@ -11,7 +11,10 @@ The real SMPL files are distributed by MPI and cannot ship with the code:
     neutral model.
 ``synthetic_smpl_model`` is the same numpy/scipy recipe as
 nemo_tpu/body/assets.py, so one seed gives identical tables in both
-packages.
+packages. Each of these functions takes ``skin_dtype``, the dtype of the
+skinning tables (``torch.float32``, or ``torch.bfloat16`` as the JAX
+package's ``--skin_bf16`` tiles them); the source arrays are read in
+float32 either way.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import pickle
 from typing import Optional
 
 import numpy as np
+import torch
 
 from . import constants
 from .smpl import SMPLModel, build_fused_tables
@@ -73,11 +77,13 @@ def _parents(kintree_table) -> np.ndarray:
 
 def assemble(v_template, shapedirs, posedirs, J_regressor, weights, parents,
              faces, J_regressor_extra: Optional[np.ndarray],
-             num_betas: int = 10, device=None) -> SMPLModel:
+             num_betas: int = 10, device=None,
+             skin_dtype: torch.dtype = torch.float32) -> SMPLModel:
     """SMPLModel from raw SMPL arrays (posedirs as (207, V*3) or
     (V, 3, 207); J_regressor dense or scipy sparse; any array may be a
-    chumpy stand-in), with the fused joint tables and vertex-major twins.
-    shapedirs is cut to its first num_betas columns."""
+    chumpy stand-in), with the fused joint tables and vertex-major twins,
+    the skinning tables in skin_dtype. shapedirs is cut to its first
+    num_betas columns."""
     v_template = np.asarray(v_template, np.float32)
     V = v_template.shape[0]
     shapedirs = np.asarray(shapedirs, np.float32)[..., :num_betas]
@@ -94,7 +100,8 @@ def assemble(v_template, shapedirs, posedirs, J_regressor, weights, parents,
         vids = (vids * V) // 6890
     ES, EP, EW = build_fused_tables(weights, J_regressor_extra, vids, posedirs)
     return SMPLModel.from_numpy(
-        device=device, v_template=v_template, shapedirs=shapedirs,
+        device=device, skin_dtype=skin_dtype, v_template=v_template,
+        shapedirs=shapedirs,
         posedirs=posedirs, J_regressor=_to_dense(J_regressor).astype(
             np.float32),
         lbs_weights=weights, J_regressor_extra=J_regressor_extra,
@@ -105,7 +112,8 @@ def assemble(v_template, shapedirs, posedirs, J_regressor, weights, parents,
 
 
 def load_smpl_pkl(path: str, j_regressor_extra_path: Optional[str] = None,
-                  num_betas: int = 10, device=None) -> SMPLModel:
+                  num_betas: int = 10, device=None,
+                  skin_dtype: torch.dtype = torch.float32) -> SMPLModel:
     """An original SMPL .pkl (a chumpy pickle), read without chumpy."""
     with open(path, "rb") as f:
         data = _TolerantUnpickler(f, encoding="latin1").load()
@@ -117,22 +125,25 @@ def load_smpl_pkl(path: str, j_regressor_extra_path: Optional[str] = None,
         data["J_regressor"], _to_dense(data["weights"]),
         _parents(data["kintree_table"]),
         None if data.get("f") is None else _to_dense(data["f"]), jre,
-        num_betas, device=device)
+        num_betas, device=device, skin_dtype=skin_dtype)
 
 
 def load_smpl_npz(path: str, j_regressor_extra_path: Optional[str] = None,
-                  num_betas: int = 10, device=None) -> SMPLModel:
+                  num_betas: int = 10, device=None,
+                  skin_dtype: torch.dtype = torch.float32) -> SMPLModel:
     """A converted SMPL .npz (the smplx tools' layout)."""
     data = np.load(path, allow_pickle=True)
     jre = np.load(j_regressor_extra_path) if j_regressor_extra_path else None
     return assemble(np.asarray(data["v_template"]), data["shapedirs"],
                     np.asarray(data["posedirs"]), data["J_regressor"],
                     data["weights"], _parents(data["kintree_table"]),
-                    data.get("f"), jre, num_betas, device=device)
+                    data.get("f"), jre, num_betas, device=device,
+                    skin_dtype=skin_dtype)
 
 
 def load_smpl(path: str, j_regressor_extra_path: Optional[str] = None,
-              num_betas: int = 10, device=None) -> SMPLModel:
+              num_betas: int = 10, device=None,
+              skin_dtype: torch.dtype = torch.float32) -> SMPLModel:
     """Dispatch on the file's extension; a directory gives its first
     SMPL_CANDIDATES file (the neutral model)."""
     if os.path.isdir(path):
@@ -144,11 +155,14 @@ def load_smpl(path: str, j_regressor_extra_path: Optional[str] = None,
         else:
             raise FileNotFoundError(f"no SMPL model file under {path}")
     load = load_smpl_npz if path.endswith(".npz") else load_smpl_pkl
-    return load(path, j_regressor_extra_path, num_betas, device=device)
+    return load(path, j_regressor_extra_path, num_betas, device=device,
+                skin_dtype=skin_dtype)
 
 
 def synthetic_smpl_model(num_vertices: int = 6890, seed: int = 0,
-                         num_betas: int = 10, device=None) -> SMPLModel:
+                         num_betas: int = 10, device=None,
+                         skin_dtype: torch.dtype = torch.float32
+                         ) -> SMPLModel:
     """A deterministic, kinematically valid synthetic body model (the same
     recipe and numbers as nemo_tpu.body.synthetic_smpl_model)."""
     rng = np.random.RandomState(seed)
@@ -190,18 +204,26 @@ def synthetic_smpl_model(num_vertices: int = 6890, seed: int = 0,
     faces = nn.astype(np.int64)
 
     return assemble(v_template, shapedirs, posedirs_raw, Jreg, weights,
-                    parents, faces, jre, num_betas, device=device)
+                    parents, faces, jre, num_betas, device=device,
+                    skin_dtype=skin_dtype)
 
 
-def smpl_from_numpy(model, device=None) -> SMPLModel:
+def smpl_from_numpy(model, device=None,
+                    skin_dtype: Optional[torch.dtype] = None) -> SMPLModel:
     """Port model from the arrays of a nemo_tpu ``SMPLModel`` (any object
     with its field names; values are read with ``np.asarray``). The JAX
-    model's logical ``posedirs_t``/``lbs_weights_t`` are taken as they are;
-    its kernel-tiled ``pd_tiles``/``w_tiles`` are layout only."""
+    model's logical ``posedirs_t``/``lbs_weights_t`` are taken as they are,
+    rounded to skin_dtype; its kernel-tiled ``pd_tiles``/``w_tiles`` are
+    layout, and their dtype is the default skin_dtype (a model tiled in
+    bf16, NEMO_TPU_SKIN_BF16=1, gives bf16 tables; f32 without tiles)."""
+    if skin_dtype is None:
+        tiled = str(getattr(getattr(model, "pd_tiles", None), "dtype", ""))
+        skin_dtype = torch.bfloat16 if tiled == "bfloat16" else torch.float32
     fields = ("v_template", "shapedirs", "posedirs", "J_regressor",
               "lbs_weights", "J_regressor_extra", "fused_ES", "fused_EP",
               "fused_EW", "posedirs_t", "lbs_weights_t", "parents",
               "vertex_joint_ids", "joint_map")
     arrays = {f: np.asarray(getattr(model, f)) for f in fields}
     arrays["faces"] = getattr(model, "faces", None)
-    return SMPLModel.from_numpy(device=device, **arrays)
+    return SMPLModel.from_numpy(device=device, skin_dtype=skin_dtype,
+                                **arrays)

@@ -9,7 +9,12 @@ PyTorch.
 The model keeps logical tables only: ``posedirs_t (207, 3, V)`` and
 ``lbs_weights_t (24, V)`` feed K2 and K3 directly (the kernels mask the
 ragged vertex edge, so there is no tiled or padded copy), and a vertex
-subset's tables are contiguous column slices of them.
+subset's tables are contiguous column slices of them. Those two are the
+skinning tables, in float32 or, built with ``skin_dtype=torch.bfloat16``
+(the JAX package's NEMO_TPU_SKIN_BF16 / ``--skin_bf16``), in bfloat16, which
+selects the kernels' bf16 computation; they feed only K2 and K3. Every
+other field stays float32, so the keypoints, the evals and the renders
+(``smpl_forward``: ``posedirs``, ``lbs_weights``) do not see the choice.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ NUM_OUTPUT_JOINTS = 49
 _TENSOR_FIELDS = ("v_template", "shapedirs", "posedirs", "J_regressor",
                   "lbs_weights", "J_regressor_extra", "fused_ES", "fused_EP",
                   "fused_EW", "posedirs_t", "lbs_weights_t")
+_SKIN_TABLES = ("posedirs_t", "lbs_weights_t")
+SKIN_DTYPES = (torch.float32, torch.bfloat16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,8 +55,8 @@ class SMPLModel:
     fused_ES: torch.Tensor           # (30, 24)
     fused_EP: torch.Tensor           # (30, 24, 3, 207)
     fused_EW: torch.Tensor           # (30, V, 24)
-    posedirs_t: torch.Tensor         # (207, 3, V) vertex-major, for K2
-    lbs_weights_t: torch.Tensor      # (24, V)
+    posedirs_t: torch.Tensor         # (207, 3, V) vertex-major, for K2/K3
+    lbs_weights_t: torch.Tensor      # (24, V); both f32 or bf16
     parents: np.ndarray              # (24,) int
     vertex_joint_ids: np.ndarray     # (21,) int
     joint_map: np.ndarray            # (49,) int
@@ -68,10 +75,18 @@ class SMPLModel:
             self, **{f: getattr(self, f).to(device) for f in _TENSOR_FIELDS})
 
     @classmethod
-    def from_numpy(cls, device=None, **arrays) -> "SMPLModel":
-        """Build from numpy arrays keyed by field name."""
+    def from_numpy(cls, device=None, skin_dtype: torch.dtype = torch.float32,
+                   **arrays) -> "SMPLModel":
+        """Build from numpy arrays keyed by field name; the skinning tables
+        (posedirs_t, lbs_weights_t) rounded to ``skin_dtype`` (float32 or
+        bfloat16, round to nearest even), every other field float32."""
+        if skin_dtype not in SKIN_DTYPES:
+            raise ValueError(f"skin_dtype {skin_dtype}: expected one of "
+                             f"{SKIN_DTYPES}")
         kw = {f: torch.tensor(np.ascontiguousarray(arrays[f], np.float32),
                               device=device) for f in _TENSOR_FIELDS}
+        for f in _SKIN_TABLES:
+            kw[f] = kw[f].to(skin_dtype)
         return cls(**kw, parents=np.asarray(arrays["parents"], np.int64),
                    vertex_joint_ids=np.asarray(arrays["vertex_joint_ids"],
                                                np.int64),
@@ -259,9 +274,11 @@ def subset_skin_tables(model: SMPLModel, n: int
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """An even vertex subsample and its skinning tables (once, at setup):
     (vidx (n',) long, posedirs_t (207, 3, n'), lbs_weights_t (24, n')),
-    contiguous on the model's device. The vertices are those of
-    nemo_tpu/body/smpl.py subset_skin_tables, unique(linspace(0, V-1, n)),
-    so n' <= n; the tables are logical column slices, not tiles."""
+    contiguous on the model's device, in the model's table dtype (as the
+    JAX package tiles the subset in skin_tables_dtype). The vertices are
+    those of nemo_tpu/body/smpl.py subset_skin_tables,
+    unique(linspace(0, V-1, n)), so n' <= n; the tables are logical column
+    slices, not tiles."""
     V = model.num_vertices
     vidx = np.unique(np.linspace(0, V - 1, n).astype(np.int64))
     idx = torch.as_tensor(vidx, device=model.device)

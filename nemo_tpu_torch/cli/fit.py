@@ -29,7 +29,9 @@ Every model version (--model_version 0..4) runs, with --full_batch,
 --weight_3d_loss, --weight_instance_loss, --code_noise, --vp_v2v_n_verts and
 the custom entry's HuMoR dynamics term (--weight_humor_loss, --humor_fps,
 --humor_ckpt); --motion_mlp fused runs the MotionNet through the fused MLP
-kernels (K6). --smpl_path (a .pkl or .npz file, or a directory holding
+kernels (K6); --skin_bf16 builds the skinning tables in bf16 (the JAX CLI's
+flag, bench.py's default), so the v2v prior runs the K2/K3 kernels' bf16
+computation, while the keypoints, evals and renders keep the f32 tables. --smpl_path (a .pkl or .npz file, or a directory holding
 one), --j_regressor_extra, --vposer_path and --gmm_path load the real
 assets; a named file that does not load raises. --synthetic_assets builds
 the synthetic body and random priors where no file is named.
@@ -39,10 +41,8 @@ the mesh renders (mesh_rollout.mp4 or its .frames directory,
 rollout_figure.png, comparison_view0.png, vibe_rollout.png) and the
 matplotlib figures, under out_dir/<NNNNNN>/. The mesh renders need neither
 matplotlib nor PIL; where matplotlib is missing the CLI skips its figures
-and names each file it skipped. Every flag of the JAX CLI parses. Real
-SMPL/VPoser/GMM assets, --dp, --skin_bf16 and the HuMoR prior
-(--weight_humor_loss, --humor_fps, --humor_ckpt, --init-motion-prior) are
-still to port (ROADMAP.md Queue 1) and raise.
+and names each file it skipped. Every flag of the JAX CLI parses; --dp is
+still to port (ROADMAP.md Queue 1) and raises.
 """
 
 from __future__ import annotations
@@ -116,7 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight_vp_z_loss", type=float, default=0)
     p.add_argument("--vp_v2v_n_verts", type=int, default=0)
     p.add_argument("--skin_bf16", action="store_true", default=False,
-                   help="bf16 skinning tables: refused, still to port")
+                   help="store the skinning tables in bf16 (f32 "
+                        "accumulation): the v2v prior's K2/K3 kernels on "
+                        "bf16 tensor cores; off by default, as in JAX")
     p.add_argument("--weight_gmm_loss", type=float, default=1e-2)
     p.add_argument("--weight_instance_loss", type=float, default=0)
     p.add_argument("--weight_3d_loss", type=float, default=0)
@@ -160,8 +162,6 @@ def _reject_unported(args) -> None:
     unported = {
         "--dp (data parallelism; see ROADMAP.md, Queue 1, item 6.4)":
             args.dp,
-        "--skin_bf16 (bf16 skinning tables; see ROADMAP.md, Queue 2, part "
-        "A, item 1)": args.skin_bf16,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -175,18 +175,20 @@ def load_assets(args, bundle, cfg, device):
     --smpl_path and --synthetic_assets are given; the port never swaps a
     named file for a synthetic stand-in). Without --smpl_path the body is
     the synthetic one; a prior with neither a path nor --synthetic_assets
-    is left out (None)."""
+    is left out (None). --skin_bf16 makes the body's skinning tables bf16
+    as it is built, as the JAX CLI sets its table knob before loading."""
     from ..fit.assemble import build_assets
     from ..priors.gmm import load_gmm_prior, synthetic_gmm_prior
     from ..priors.vposer import init_vposer, load_vposer
 
+    skin_dtype = torch.bfloat16 if args.skin_bf16 else torch.float32
     if args.smpl_path:
         from ..body.assets import load_smpl
         smpl = load_smpl(args.smpl_path, args.j_regressor_extra or None,
-                         device=device)
+                         device=device, skin_dtype=skin_dtype)
     else:
         from ..body.assets import synthetic_smpl_model
-        smpl = synthetic_smpl_model(device=device)
+        smpl = synthetic_smpl_model(device=device, skin_dtype=skin_dtype)
 
     gmm = None
     if args.gmm_path:

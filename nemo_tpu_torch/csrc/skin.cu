@@ -74,6 +74,16 @@
 //     boundary (ops/lbs.py checks it, and the tables' 8 bytes).
 // Ragged B and V are masked everywhere: there are no padded tables, and
 // outputs have exactly V columns.
+//
+// bf16 tables (_fwd_kernel, _bwd_kernel and _bwd_kernel_vp with cdt =
+// bf16; the C entry points with the _bf16 suffix): K3f is skin_fwd_kernel
+// <1, bf16>; K3b is skin_bwd_kernel<kMode, bf16> (skin_common.cuh has the
+// arithmetic): pf rounded to bf16 two features a word and A rounded as they
+// are staged, mode 1's vp (32 x 48, the features split at 112) and gpf (gvp
+// rounded to bf16) on mma.sync m16n8k16 in one pass each, W widened for the
+// blend, g . [vp; 1] rounded for gA. Mode 2 reads a stored bf16 vp: its
+// tiles are staged by cp.async into the upper half of the vp buffers and
+// widened to f32 beside the blend.
 
 #include "skin_fwd.cuh"
 
@@ -107,38 +117,38 @@ static_assert(kBOffA % 4 == 0 && kBOffG % 4 == 0 && kBOffX % 4 == 0,
               "float4 and float2 views of shared memory need 16-byte rows");
 
 // Queue the copies of vertex tile v0 of rows b0 .. b0 + 31 of a (B,3,V)
-// tensor into dst [kFB][kSX] (coordinate k at k * kFV), CW floats a copy;
-// rows past B and vertices past V are zero-filled.
-template <int CW>
-__device__ __forceinline__ void load_rows(float* dst,
-                                          const float* __restrict__ src,
+// tensor (f32, or a bf16 vp) into dst [kFB][kSX] (coordinate k at k * kFV),
+// CW elements a copy; rows past B and vertices past V are zero-filled.
+template <int CW, typename E>
+__device__ __forceinline__ void load_rows(E* dst, const E* __restrict__ src,
                                           int B, int V, int b0, int v0) {
   constexpr int kCh = kFV / CW;
   for (int e = threadIdx.x; e < kFB * 3 * kCh; e += kFT) {
     const int x = e % kCh * CW, rk = e / kCh, row = rk / 3, k = rk % 3;
     const int b = b0 + row;
     const int n = b < B ? V - (v0 + x) : 0;
-    cp_async<CW>(dst + row * kSX + k * kFV + x,
-                 n > 0 ? src + ((size_t)b * 3 + k) * V + v0 + x : src, n);
+    copy_elems<CW>(dst + row * kSX + k * kFV + x,
+                   n > 0 ? src + ((size_t)b * 3 + k) * V + v0 + x : src, n);
   }
 }
 
-__device__ __forceinline__ void load_rows_cw(int cw, float* dst,
-                                             const float* __restrict__ src,
+template <typename E>
+__device__ __forceinline__ void load_rows_cw(int cw, E* dst,
+                                             const E* __restrict__ src,
                                              int B, int V, int b0, int v0) {
   if (cw == 2) load_rows<2>(dst, src, B, V, b0, v0);
   else         load_rows<1>(dst, src, B, V, b0, v0);
 }
 
-// kMode 1: vp recomputed from pf; 2: vp read from vp_in. g_cw, vp_cw: the
-// copy width (floats) of the cotangent and of vp_in.
-template <int kMode>
+// kMode 1: vp recomputed from pf; 2: vp read from vp_in (in the table type
+// T). g_cw, vp_cw: the copy width (elements) of the cotangent and of vp_in.
+template <int kMode, typename T>
 __global__ void __launch_bounds__(kFT, 1)
 skin_bwd_kernel(int B, int V, int R, int g_cw, int vp_cw,
                 const float* __restrict__ pf, const float* __restrict__ A,
-                const float* __restrict__ vsh, const float* __restrict__ pd,
-                const float* __restrict__ W, const float* __restrict__ g,
-                const float* __restrict__ vp_in,
+                const float* __restrict__ vsh, const T* __restrict__ pd,
+                const T* __restrict__ W, const float* __restrict__ g,
+                const T* __restrict__ vp_in,
                 float* __restrict__ gpf_part, float* __restrict__ ga_part,
                 float* __restrict__ gvsh_part) {
   extern __shared__ __align__(16) float smem[];
@@ -152,16 +162,23 @@ skin_bwd_kernel(int B, int V, int R, int g_cw, int vp_cw,
   float* s_A = smem + kBOffA;
   float* s_x = smem + kBOffX;
   float* s_gvp = smem + kBOffGvp;
+  // mode 2, bf16 tables: the staged bf16 vp tiles, [2][kFB][kSX] elements
+  // in the upper half of s_x; the widened tile goes to the lower half
+  T* s_vpt = reinterpret_cast<T*>(s_x + (kIsBf16<T> ? kFB * kSX : 0));
 
+  const auto pd_buf = [&](int buf) {
+    return reinterpret_cast<T*>(smem + kBOffPd) + buf * kPP * kSD;
+  };
+  const auto w_buf = [&](int buf) {
+    return reinterpret_cast<T*>(smem + kBOffW) + buf * kJ * kSW;
+  };
   const auto load = [&](int buf, int t) {
-    float* s_pd = smem + kBOffPd + buf * kPP * kSD;
-    float* s_w = smem + kBOffW + buf * kJ * kSW;
     float* s_vs = smem + kBOffVs + buf * 3 * kFV;
-    if (V & 1) load_tile<1>(s_pd, s_w, s_vs, t, V, vsh, pd, W);
-    else       load_tile<2>(s_pd, s_w, s_vs, t, V, vsh, pd, W);
+    if (V & 1) load_tile<1>(pd_buf(buf), w_buf(buf), s_vs, t, V, vsh, pd, W);
+    else       load_tile<2>(pd_buf(buf), w_buf(buf), s_vs, t, V, vsh, pd, W);
     load_rows_cw(g_cw, smem + kBOffG + buf * kFB * kSX, g, B, V, b0, t * kFV);
     if (kMode == 2)
-      load_rows_cw(vp_cw, s_x + buf * kFB * kSX, vp_in, B, V, b0, t * kFV);
+      load_rows_cw(vp_cw, s_vpt + buf * kFB * kSX, vp_in, B, V, b0, t * kFV);
   };
   load(0, t_begin);
   cp_async_commit();
@@ -173,9 +190,13 @@ skin_bwd_kernel(int B, int V, int R, int g_cw, int vp_cw,
                                  A + (size_t)b * kGL) + c4)
                            : make_float4(0.f, 0.f, 0.f, 0.f);
     float* d = s_A + row * kSA + 3 * i * kJ + j;
-    d[0] = x.x; d[kJ] = x.y; d[2 * kJ] = x.z;
+    d[0] = rnd<T>(x.x); d[kJ] = rnd<T>(x.y); d[2 * kJ] = rnd<T>(x.z);
   }
-  if (kMode == 1) {
+  if constexpr (kMode == 1 && kIsBf16<T>) {
+    stage_pf_bf16(reinterpret_cast<uint32_t*>(s_pf), kFB, B,
+                  [&](int) { return pf; }, [&](int row) { return b0 + row; },
+                  tid, kFT);
+  } else if constexpr (kMode == 1) {
     for (int e = tid; e < kFB * kPP; e += kFT) {
       const int row = e / kPP, p = e % kPP, b = b0 + row;
       s_pf[row * kSF + p] = (b < B && p < kP) ? pf[(size_t)b * kP + p] : 0.f;
@@ -208,15 +229,20 @@ skin_bwd_kernel(int B, int V, int R, int g_cw, int vp_cw,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* s_pd = smem + kBOffPd + buf * kPP * kSD;
-    const float* s_w = smem + kBOffW + buf * kJ * kSW;
+    const T* s_pd = pd_buf(buf);
+    const T* s_w = w_buf(buf);
     const float* s_vs = smem + kBOffVs + buf * 3 * kFV;
     const float* s_g = smem + kBOffG + buf * kFB * kSX;
-    float* s_vo = kMode == 1 ? s_x : s_x + buf * kFB * kSX;
+    float* s_vo = kMode == 1 || kIsBf16<T> ? s_x : s_x + buf * kFB * kSX;
 
     // 1. mode 1: the two halves of vph (32 x 48) = pf (32 x 208) . pd
     //    (208 x 48) on the tensor cores
-    if (kMode == 1) {
+    if constexpr (kMode == 1 && kIsBf16<T>) {
+      vph_mma_bf16<1>(reinterpret_cast<const uint32_t*>(s_pf), s_pd,
+                      s_x + kh * kFB * kSX, fm, fn0, kh * kPHalf<T>,
+                      kh ? kPP : kPHalf<T>, q.gid, q.tig);
+      __syncthreads();
+    } else if constexpr (kMode == 1) {
       vph_mma(s_pf, s_pd, s_x + kh * kFB * kSX, fm, fn0, kh * kPH,
               (kh + 1) * kPH, q.gid, q.tig);
       __syncthreads();
@@ -234,8 +260,7 @@ skin_bwd_kernel(int B, int V, int R, int g_cw, int vp_cw,
       for (int j0 = 0; j0 < kJ; j0 += 4) {
         float2 w[4];
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          w[jj] = *reinterpret_cast<const float2*>(s_w + (j0 + jj) * kSW + sv);
+        for (int jj = 0; jj < 4; ++jj) w[jj] = ld2(s_w + (j0 + jj) * kSW + sv);
 #pragma unroll
         for (int c = 0; c < 9; ++c) {
           const float4 x = *reinterpret_cast<const float4*>(a + c * kJ + j0);
@@ -252,9 +277,12 @@ skin_bwd_kernel(int B, int V, int R, int g_cw, int vp_cw,
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
           s_gvp[o + k * kFV] = m[e][k] * g0 + m[e][3 + k] * g1 + m[e][6 + k] * g2;
-          if (kMode == 1)
+          if constexpr (kMode == 1)
             s_x[o + k * kFV] = s_x[o + k * kFV] + s_x[kFB * kSX + o + k * kFV] +
                                s_vs[k * kFV + sv + e];
+          else if constexpr (kIsBf16<T>)
+            s_vo[o + k * kFV] =
+                __bfloat162float(s_vpt[buf * kFB * kSX + o + k * kFV]);
         }
       }
     }
@@ -269,25 +297,65 @@ skin_bwd_kernel(int B, int V, int R, int g_cw, int vp_cw,
   store_grad_parts(q, B, b0, r, gpf_acc, ga_acc, gpf_part, ga_part);
 }
 
-// Copy width (floats) for a (B,3,V) operand: 8 bytes where V is even and
-// its address is 8-byte aligned, else 4.
-int copy_width(const float* p, int V) {
-  return V % 2 == 0 && reinterpret_cast<uintptr_t>(p) % 8 == 0 ? 2 : 1;
+// Copy width (elements) for a (B,3,V) operand: two where V is even and its
+// address is aligned to two elements, else one.
+template <typename E>
+int copy_width(const E* p, int V) {
+  return V % 2 == 0 && reinterpret_cast<uintptr_t>(p) % (2 * sizeof(E)) == 0
+             ? 2 : 1;
 }
 
-template <int kMode>
+template <int kMode, typename T>
 cudaError_t launch_bwd(int B, int V, int R, const float* pf, const float* A,
-                       const float* vsh, const float* pd, const float* W,
-                       const float* g, const float* vp_in, float* gpf_part,
+                       const float* vsh, const T* pd, const T* W,
+                       const float* g, const T* vp_in, float* gpf_part,
                        float* ga_part, float* gvsh_part, cudaStream_t stream) {
   if (cudaError_t err = cudaFuncSetAttribute(
-          skin_bwd_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)kBSmemBytes))
+          skin_bwd_kernel<kMode, T>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBSmemBytes))
     return err;
-  skin_bwd_kernel<kMode><<<dim3(R, cdiv(B, kFB)), kFT, kBSmemBytes, stream>>>(
+  skin_bwd_kernel<kMode, T><<<dim3(R, cdiv(B, kFB)), kFT, kBSmemBytes, stream>>>(
       B, V, R, copy_width(g, V), vp_in ? copy_width(vp_in, V) : 1, pf, A, vsh,
       pd, W, g, vp_in, gpf_part, ga_part, gvsh_part);
   return cudaGetLastError();
+}
+
+template <typename T>
+int bwd_attributes(int mode, int* out) {
+  if (mode != 1 && mode != 2) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err =
+      mode == 1 ? cudaFuncGetAttributes(&a, skin_bwd_kernel<1, T>)
+                : cudaFuncGetAttributes(&a, skin_bwd_kernel<2, T>);
+  if (err) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)kBSmemBytes;
+  out[3] = (int)a.localSizeBytes;
+  return 0;
+}
+
+template <typename T>
+int skin_bwd(int B, int V, const float* pf, const float* A, const float* vsh,
+             const T* pd, const T* W, const float* g, const T* vp_in,
+             float* scratch, float* gpf, float* gA, float* gvsh,
+             cudaStream_t stream) {
+  if (bad_shape(B, V)) return (int)cudaErrorInvalidValue;
+  const int R = fused_ranges(B, V), n_bt = cdiv(B, kFB);
+  float* gpf_part = scratch;
+  float* ga_part = gpf_part + (size_t)R * B * kP;
+  float* gvsh_part = ga_part + (size_t)R * B * kGL;
+  const cudaError_t err =
+      vp_in ? launch_bwd<2, T>(B, V, R, pf, A, vsh, pd, W, g, vp_in, gpf_part,
+                               ga_part, gvsh_part, stream)
+            : launch_bwd<1, T>(B, V, R, pf, A, vsh, pd, W, g, nullptr,
+                               gpf_part, ga_part, gvsh_part, stream);
+  if (err) return (int)err;
+  const int n_gpf = B * kP, n_ga = B * kGL, n_gvsh = 3 * V;
+  range_reduce_kernel<<<cdiv(n_gpf + n_ga + n_gvsh, 256), 256, 0, stream>>>(
+      n_gpf, n_ga, n_gvsh, R, n_bt, gpf_part, ga_part, gvsh_part, gpf, gA,
+      gvsh);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -299,19 +367,37 @@ extern "C" int nemo_skin_fwd(int B, int V, const float* pf, const float* A,
                              const float* vsh, const float* pd, const float* W,
                              float* verts, cudaStream_t stream) {
   if (bad_shape(B, V)) return (int)cudaErrorInvalidValue;
-  return (int)launch_skin_fwd<1>(B, V, pf, A, nullptr, nullptr, vsh, pd, W,
-                                 verts, nullptr, nullptr, stream);
+  return (int)launch_skin_fwd<1, float>(B, V, pf, A, nullptr, nullptr, vsh,
+                                        pd, W, verts, nullptr, nullptr,
+                                        stream);
 }
 
-extern "C" int nemo_v2v_pair_attributes(int* out);  // csrc/v2v.cu
+// The same with bf16 tables: pd and W bf16 (on 4-byte boundaries where V
+// is even); the output stays f32.
+extern "C" int nemo_skin_fwd_bf16(int B, int V, const float* pf,
+                                  const float* A, const float* vsh,
+                                  const bf16* pd, const bf16* W, float* verts,
+                                  cudaStream_t stream) {
+  if (bad_shape(B, V)) return (int)cudaErrorInvalidValue;
+  return (int)launch_skin_fwd<1, bf16>(B, V, pf, A, nullptr, nullptr, vsh,
+                                       pd, W, verts, nullptr, nullptr, stream);
+}
+
+extern "C" int nemo_v2v_pair_attributes(int* out);       // csrc/v2v.cu
+extern "C" int nemo_v2v_pair_attributes_bf16(int* out);  // csrc/v2v.cu
 
 // Registers, shared memory and local memory (spills) of the forward kernel
-// skin_fwd_kernel<sides> (1: K3f, 2: K2's pair mode), as the CUDA runtime
-// reports them: out[0..3] = registers, static and dynamic shared memory
-// bytes, local bytes.
+// skin_fwd_kernel<sides, T> (1: K3f, 2: K2's pair mode), as the CUDA
+// runtime reports them: out[0..3] = registers, static and dynamic shared
+// memory bytes, local bytes. The _bf16 twin: T = bf16.
 extern "C" int nemo_skin_fwd_attributes(int sides, int* out) {
-  if (sides == 1) return skin_fwd_attributes<1>(out);
+  if (sides == 1) return skin_fwd_attributes<1, float>(out);
   if (sides == 2) return nemo_v2v_pair_attributes(out);
+  return (int)cudaErrorInvalidValue;
+}
+extern "C" int nemo_skin_fwd_attributes_bf16(int sides, int* out) {
+  if (sides == 1) return skin_fwd_attributes<1, bf16>(out);
+  if (sides == 2) return nemo_v2v_pair_attributes_bf16(out);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -326,19 +412,12 @@ extern "C" int nemo_skin_bwd_scratch_floats(int B, int V) {
 // Registers, shared memory and local memory (spills) of the one-pass
 // backward kernel (mode 1: vp recomputed, 2: stored), as the CUDA runtime
 // reports them: out[0..3] = registers, static and dynamic shared memory
-// bytes, local bytes.
+// bytes, local bytes. The _bf16 twin: bf16 tables.
 extern "C" int nemo_skin_bwd_attributes(int mode, int* out) {
-  if (mode != 1 && mode != 2) return (int)cudaErrorInvalidValue;
-  cudaFuncAttributes a;
-  const cudaError_t err =
-      mode == 1 ? cudaFuncGetAttributes(&a, skin_bwd_kernel<1>)
-                : cudaFuncGetAttributes(&a, skin_bwd_kernel<2>);
-  if (err) return (int)err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.sharedSizeBytes;
-  out[2] = (int)kBSmemBytes;
-  out[3] = (int)a.localSizeBytes;
-  return 0;
+  return bwd_attributes<float>(mode, out);
+}
+extern "C" int nemo_skin_bwd_attributes_bf16(int mode, int* out) {
+  return bwd_attributes<bf16>(mode, out);
 }
 
 // Inputs as nemo_skin_fwd (A on a 16-byte boundary) plus the cotangent g
@@ -350,20 +429,18 @@ extern "C" int nemo_skin_bwd(int B, int V, const float* pf, const float* A,
                              const float* g, const float* vp_in,
                              float* scratch, float* gpf, float* gA,
                              float* gvsh, cudaStream_t stream) {
-  if (bad_shape(B, V)) return (int)cudaErrorInvalidValue;
-  const int R = fused_ranges(B, V), n_bt = cdiv(B, kFB);
-  float* gpf_part = scratch;
-  float* ga_part = gpf_part + (size_t)R * B * kP;
-  float* gvsh_part = ga_part + (size_t)R * B * kGL;
-  const cudaError_t err =
-      vp_in ? launch_bwd<2>(B, V, R, pf, A, vsh, pd, W, g, vp_in, gpf_part,
-                            ga_part, gvsh_part, stream)
-            : launch_bwd<1>(B, V, R, pf, A, vsh, pd, W, g, nullptr, gpf_part,
-                            ga_part, gvsh_part, stream);
-  if (err) return (int)err;
-  const int n_gpf = B * kP, n_ga = B * kGL, n_gvsh = 3 * V;
-  range_reduce_kernel<<<cdiv(n_gpf + n_ga + n_gvsh, 256), 256, 0, stream>>>(
-      n_gpf, n_ga, n_gvsh, R, n_bt, gpf_part, ga_part, gvsh_part, gpf, gA,
-      gvsh);
-  return (int)cudaGetLastError();
+  return skin_bwd<float>(B, V, pf, A, vsh, pd, W, g, vp_in, scratch, gpf, gA,
+                         gvsh, stream);
+}
+
+// The same with bf16 tables: pd, W and a stored vp_in bf16 (pd and W on
+// 4-byte boundaries where V is even); g and the outputs stay f32.
+extern "C" int nemo_skin_bwd_bf16(int B, int V, const float* pf,
+                                  const float* A, const float* vsh,
+                                  const bf16* pd, const bf16* W,
+                                  const float* g, const bf16* vp_in,
+                                  float* scratch, float* gpf, float* gA,
+                                  float* gvsh, cudaStream_t stream) {
+  return skin_bwd<bf16>(B, V, pf, A, vsh, pd, W, g, vp_in, scratch, gpf, gA,
+                        gvsh, stream);
 }

@@ -19,16 +19,44 @@
 // The posedirs contractions run on the tensor cores, mma.sync m16n8k8 TF32
 // with the 3xTF32 split of csrc/tf32_mma.cuh, which also has the cp.async
 // copies that stage the tiles.
+//
+// bf16 tables. Every kernel is a template on its table type T (posedirs_t
+// and W_t): float, or bf16 (the JAX package's skin_tables_dtype, set by
+// --skin_bf16). With bf16 tables a kernel computes the TPU kernel's bf16
+// function (nemo_tpu/ops/lbs_pallas.py, cdt = bf16): pf and A are rounded to
+// bf16 (round to nearest even) as they are staged; the posedirs
+// contractions run on mma.sync m16n8k16 bf16 with f32 accumulation, in one
+// pass, the feature axis padded to 208 (13 steps of 16); the blend M = A . W,
+// the vertices, gvp and gA stay on the CUDA cores in f32 over the rounded
+// operands (a product of two bf16 values is exact in f32, so that is the
+// function of a bf16 x bf16 contraction with f32 accumulation); the backward
+// rounds gm = g . [vp; 1] (gA's operand) and gvp (gpf's) to bf16, and gvsh
+// sums the unrounded gvp. v_shaped_t, the cotangent and the outputs stay f32;
+// the pair mode stores vp in bf16. A bf16 table row is 2V bytes: the tiles
+// are staged by 4-byte cp.async where V is even and element by element (plain
+// loads) where it is odd, into the first half of the f32 kernels' buffers.
+// What bounds the kernels does not change: the SIMT part (the blend, gA),
+// as in f32; the posedirs contractions' tensor-core time falls from three
+// TF32 passes at 495 TFLOP/s to one bf16 pass at 989, and the table bytes
+// halve (PERF.md has the times).
 
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "tf32_mma.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+// true for the bf16 tables' instantiations
+template <typename T>
+constexpr bool kIsBf16 = std::is_same<T, bf16>::value;
 
 constexpr int kP = 207;   // pose features (23 joints x 9)
 constexpr int kJ = 24;    // joints
@@ -49,6 +77,87 @@ constexpr int kSF = 212;
 constexpr int kSX = 52;
 // W rows (18: the gA loop's 4 joint groups fall on distinct banks)
 constexpr int kSW = 18;
+// Where the feature axis is split between two halves of the warps: 104 in
+// 3xTF32 (m16n8k8 steps), 112 with bf16 tables (m16n8k16 steps, 7 and 6).
+// The bf16 tiles keep the strides above in elements: kSD bf16 (28 words)
+// puts the forward's and gpf's fragment loads on distinct banks too.
+template <typename T>
+constexpr int kPHalf = kIsBf16<T> ? 112 : kPP / 2;
+
+// ---------------------------------------------------------------------------
+// bf16 helpers
+// ---------------------------------------------------------------------------
+
+// x as an operand the bf16 kernels round: to the nearest bf16, ties to even
+template <typename T>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (kIsBf16<T>) return __bfloat162float(__float2bfloat16_rn(x));
+  else return x;
+}
+
+// two f32 rounded to bf16 in one register, lo in the low half (the lower
+// index, as mma.sync's fragments take them)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// Two bf16 in one register as f32 (exact: a bf16 is the top half of an f32).
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t u) {
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
+// Two (ld2) or four (ld4) neighbouring table elements as f32, from an 8- or
+// 16-byte (f32) or 4- or 8-byte (bf16) boundary.
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const bf16* p) {
+  return bf16x2_to_float2(*reinterpret_cast<const uint32_t*>(p));
+}
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = bf16x2_to_float2(u.x), b = bf16x2_to_float2(u.y);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// d += a . b on mma.sync m16n8k16, bf16 operands, f32 accumulation.
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Copy CW (1 or 2) table elements from global to shared memory; only the
+// first n of them are read (n <= 0: none), the rest are zero-filled. f32:
+// one cp.async of 4 or 8 bytes. bf16: a pair by one 4-byte cp.async (V even,
+// so n is even too); a lone element (V odd: rows on 2-byte boundaries,
+// below cp.async's 4) by a plain load and store, done before the barrier
+// that hands the buffer over.
+template <int CW>
+__device__ __forceinline__ void copy_elems(float* dst, const float* src, int n) {
+  cp_async<CW>(dst, src, n);
+}
+template <int CW>
+__device__ __forceinline__ void copy_elems(bf16* dst, const bf16* src, int n) {
+  if constexpr (CW == 2) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    const int bytes = n > 0 ? 2 * (n < 2 ? n : 2) : 0;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(bytes));
+  } else {
+    *dst = n > 0 ? src[0] : __ushort_as_bfloat16((unsigned short)0);
+  }
+}
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -121,12 +230,12 @@ __device__ __forceinline__ void range_tiles(int r, int R, int V, int& t_begin,
 }
 
 // Queue the copies of vertex tile t's posedirs slice into s_pd [kPP][kSD],
-// CW floats a copy (2 where V is even, so every row is 8-byte aligned), by
-// the nt threads from tid; rows past the 207 features and vertices past V
-// are zero-filled.
-template <int CW>
-__device__ __forceinline__ void load_pd_slice(float* s_pd, int t, int V,
-                                              const float* __restrict__ pd,
+// CW elements a copy (2 where V is even, so every row is 8-byte (f32) or
+// 4-byte (bf16) aligned), by the nt threads from tid; rows past the 207
+// features and vertices past V are zero-filled.
+template <int CW, typename T>
+__device__ __forceinline__ void load_pd_slice(T* s_pd, int t, int V,
+                                              const T* __restrict__ pd,
                                               int tid, int nt) {
   constexpr int kCh = kFV / CW;  // copies a row of the tile
   const int v0 = t * kFV;
@@ -134,25 +243,25 @@ __device__ __forceinline__ void load_pd_slice(float* s_pd, int t, int V,
   for (int e = tid; e < kPP * 3 * kCh; e += nt) {
     const int x = e % kCh * CW, pk = e / kCh, p = pk / 3, k = pk % 3;
     const int n = p < kP ? V - (v0 + x) : 0;
-    cp_async<CW>(s_pd + p * kSD + k * kFV + x,
-                 n > 0 ? pd + (size_t)p * V3 + (size_t)k * V + v0 + x : pd, n);
+    copy_elems<CW>(s_pd + p * kSD + k * kFV + x,
+                   n > 0 ? pd + (size_t)p * V3 + (size_t)k * V + v0 + x : pd, n);
   }
 }
 
-// The same for the W slice (into s_w, rows of kStride floats) and the
-// v_shaped slice (into s_vs [3][kFV]).
-template <int CW, int kStride>
-__device__ __forceinline__ void load_w_slice(float* s_w, float* s_vs, int t,
+// The same for the W slice (into s_w, rows of kStride elements) and the
+// v_shaped slice (f32, into s_vs [3][kFV]).
+template <int CW, int kStride, typename T>
+__device__ __forceinline__ void load_w_slice(T* s_w, float* s_vs, int t,
                                              int V,
                                              const float* __restrict__ vsh,
-                                             const float* __restrict__ W,
+                                             const T* __restrict__ W,
                                              int tid, int nt) {
   constexpr int kCh = kFV / CW;
   const int v0 = t * kFV;
   for (int e = tid; e < kJ * kCh; e += nt) {
     const int x = e % kCh * CW, j = e / kCh, n = V - (v0 + x);
-    cp_async<CW>(s_w + j * kStride + x, n > 0 ? W + (size_t)j * V + v0 + x : W,
-                 n);
+    copy_elems<CW>(s_w + j * kStride + x,
+                   n > 0 ? W + (size_t)j * V + v0 + x : W, n);
   }
   for (int e = tid; e < 3 * kCh; e += nt) {
     const int x = e % kCh * CW, k = e / kCh, n = V - (v0 + x);
@@ -164,12 +273,12 @@ __device__ __forceinline__ void load_w_slice(float* s_w, float* s_vs, int t,
 // Queue the copies of vertex tile t of the tables (posedirs into s_pd
 // [kPP][kSD], W into s_w [kJ][kSW], v_shaped into s_vs [3][kFV]) by all
 // kFT threads of the block.
-template <int CW>
-__device__ __forceinline__ void load_tile(float* s_pd, float* s_w, float* s_vs,
+template <int CW, typename T>
+__device__ __forceinline__ void load_tile(T* s_pd, T* s_w, float* s_vs,
                                           int t, int V,
                                           const float* __restrict__ vsh,
-                                          const float* __restrict__ pd,
-                                          const float* __restrict__ W) {
+                                          const T* __restrict__ pd,
+                                          const T* __restrict__ W) {
   load_pd_slice<CW>(s_pd, t, V, pd, threadIdx.x, kFT);
   load_w_slice<CW, kSW>(s_w, s_vs, t, V, vsh, W, threadIdx.x, kFT);
 }
@@ -214,6 +323,69 @@ __device__ __forceinline__ void vph_mma(const float* s_pf, const float* s_pd,
   }
 }
 
+// The same with bf16 tables on mma.sync m16n8k16: vph (kM 16-row m-tiles
+// from m0, 3 n-tiles from fn0) = pf . pd over [k_begin, k_end) (multiples
+// of 16), one pass. s_pf2 holds pf rounded to bf16, two features a word
+// ([row][kSF] words, features 2w and 2w + 1 in word w); the B fragment's
+// feature pairs are packed from two 16-bit loads of the [kPP][kSD] tile.
+template <int kM>
+__device__ __forceinline__ void vph_mma_bf16(const uint32_t* s_pf2,
+                                             const bf16* s_pd, float* out,
+                                             int m0, int fn0, int k_begin,
+                                             int k_end, int gid, int tig) {
+  float acc[kM][3][4];
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int n = 0; n < 3; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+#pragma unroll 2
+  for (int k0 = k_begin; k0 < k_end; k0 += 16) {
+    uint32_t a[kM][4];
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      const int o = (16 * (m0 + m) + gid) * kSF + k0 / 2 + tig;
+      a[m][0] = s_pf2[o]; a[m][1] = s_pf2[o + 8 * kSF];
+      a[m][2] = s_pf2[o + 4]; a[m][3] = s_pf2[o + 8 * kSF + 4];
+    }
+#pragma unroll
+    for (int n = 0; n < 3; ++n) {
+      const bf16* p = s_pd + (k0 + 2 * tig) * kSD + 8 * (fn0 + n) + gid;
+      const uint32_t b[2] = {pack_bf16(p[0], p[kSD]),
+                             pack_bf16(p[8 * kSD], p[9 * kSD])};
+#pragma unroll
+      for (int m = 0; m < kM; ++m) mma_bf16(acc[m][n], a[m], b);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int n = 0; n < 3; ++n) {
+      float* o = out + (16 * (m0 + m) + gid) * kSX + 8 * (fn0 + n) + 2 * tig;
+      *reinterpret_cast<float2*>(o) = make_float2(acc[m][n][0], acc[m][n][1]);
+      *reinterpret_cast<float2*>(o + 8 * kSX) =
+          make_float2(acc[m][n][2], acc[m][n][3]);
+    }
+}
+
+// Stage pf of nrows side-rows for the bf16 MMA: s_pf2[row * kSF + w] packs
+// features 2w, 2w + 1 (feature 207 the zero pad), rounded to bf16; row's
+// pose features from src(row), zero where b_of(row) >= B.
+template <typename Src, typename Row>
+__device__ __forceinline__ void stage_pf_bf16(uint32_t* s_pf2, int nrows,
+                                              int B, Src src, Row b_of,
+                                              int tid, int nt) {
+  for (int e = tid; e < nrows * (kPP / 2); e += nt) {
+    const int row = e / (kPP / 2), w = e % (kPP / 2), p = 2 * w;
+    const int b = b_of(row);
+    const float* pf = src(row) + (size_t)b * kP;
+    const float x0 = b < B ? pf[p] : 0.f;
+    const float x1 = b < B && p + 1 < kP ? pf[p + 1] : 0.f;
+    s_pf2[row * kSF + w] = pack_bf16(x0, x1);
+  }
+}
+
 // What each of a block's 256 threads holds of the gradients.
 struct GradRoles {
   int gid, tig;         // the lane's MMA fragment coordinates
@@ -226,10 +398,11 @@ struct GradRoles {
 };
 
 // gA for one half of the 12 components (LH = 0: l 0..5, 1: l 6..11) of one
-// row and 6 joints, over the tile's vertices two at a time.
-template <int LH>
+// row and 6 joints, over the tile's vertices two at a time; with bf16 tables
+// gm = g . [vo; 1] is rounded to bf16 first.
+template <int LH, typename T>
 __device__ __forceinline__ void ga_tile(float acc[6][6], const float* s_g,
-                                        const float* s_vo, const float* s_w,
+                                        const float* s_vo, const T* s_w,
                                         int row, int j0) {
 #pragma unroll
   for (int v = 0; v < kFV; v += 2) {
@@ -240,13 +413,13 @@ __device__ __forceinline__ void ga_tile(float acc[6][6], const float* s_g,
       vo[i] = *reinterpret_cast<const float2*>(s_vo + row * kSX + i * kFV + v);
     }
 #pragma unroll
-    for (int jj = 0; jj < 6; ++jj)
-      w[jj] = *reinterpret_cast<const float2*>(s_w + (j0 + jj) * kSW + v);
+    for (int jj = 0; jj < 6; ++jj) w[jj] = ld2(s_w + (j0 + jj) * kSW + v);
 #pragma unroll
     for (int q = 0; q < 6; ++q) {
       const int l = 6 * LH + q, i = l / 4, k = l % 4;
-      const float2 G = k < 3 ? make_float2(g[i].x * vo[k % 3].x, g[i].y * vo[k % 3].y)
-                             : g[i];
+      float2 G = k < 3 ? make_float2(g[i].x * vo[k % 3].x, g[i].y * vo[k % 3].y)
+                       : g[i];
+      if constexpr (kIsBf16<T>) G = make_float2(rnd<T>(G.x), rnd<T>(G.y));
 #pragma unroll
       for (int jj = 0; jj < 6; ++jj) {
         acc[q][jj] += G.x * w[jj].x;
@@ -258,17 +431,42 @@ __device__ __forceinline__ void ga_tile(float acc[6][6], const float* s_g,
 
 // A tile's gradients from its gvp (s_gvp [kFB][kSX]), cotangent (s_g) and
 // posed vertices (s_vo), both [kFB][kSX]:
-//   gpf (32 x 208) += gvp (32 x 48) . pd^T (48 x 208) on the tensor cores;
+//   gpf (32 x 208) += gvp (32 x 48) . pd^T (48 x 208) on the tensor cores
+//   (bf16 tables: gvp rounded to bf16, m16n8k16, the (k, v) pairs of the B
+//   fragment one 32-bit load);
 //   gA += (g x [vo; 1]) . W^T (SIMT);
 //   gvsh: the tile's gvp summed over the block's rows, in order, written to
 //   the batch tile's partial.
+template <typename T>
 __device__ __forceinline__ void tile_grads(const GradRoles& q,
                                            float gpf_acc[7][4],
                                            float ga_acc[6][6],
                                            const float* s_gvp, const float* s_g,
-                                           const float* s_vo, const float* s_pd,
-                                           const float* s_w, int V, int v0,
+                                           const float* s_vo, const T* s_pd,
+                                           const T* s_w, int V, int v0,
                                            int bt, float* __restrict__ gvsh_part) {
+  if constexpr (kIsBf16<T>) {
+#pragma unroll
+    for (int k0 = 0; k0 < kFN; k0 += 16) {
+      const float* pa = s_gvp + (16 * q.gm + q.gid) * kSX + k0 + 2 * q.tig;
+      const float2 x0 = *reinterpret_cast<const float2*>(pa);
+      const float2 x1 = *reinterpret_cast<const float2*>(pa + 8 * kSX);
+      const float2 x2 = *reinterpret_cast<const float2*>(pa + 8);
+      const float2 x3 = *reinterpret_cast<const float2*>(pa + 8 * kSX + 8);
+      const uint32_t a[4] = {pack_bf16(x0.x, x0.y), pack_bf16(x1.x, x1.y),
+                             pack_bf16(x2.x, x2.y), pack_bf16(x3.x, x3.y)};
+#pragma unroll
+      for (int n = 0; n < 7; ++n) {
+        const int nt = q.gn0 + 4 * n;
+        if (nt < kPP / 8) {
+          const T* pb = s_pd + (8 * nt + q.gid) * kSD + k0 + 2 * q.tig;
+          const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(pb),
+                                 *reinterpret_cast<const uint32_t*>(pb + 8)};
+          mma_bf16(gpf_acc[n], a, b);
+        }
+      }
+    }
+  } else {
 #pragma unroll
   for (int k0 = 0; k0 < kFN; k0 += 8) {
     const float* pa = s_gvp + (16 * q.gm + q.gid) * kSX + k0 + q.tig;
@@ -284,6 +482,7 @@ __device__ __forceinline__ void tile_grads(const GradRoles& q,
         mma_3xtf32(gpf_acc[n], gpf_acc[n], a, bb, bs);
       }
     }
+  }
   }
   if (q.lh == 0) ga_tile<0>(ga_acc, s_g, s_vo, s_w, q.ga_row, q.ga_j0);
   else           ga_tile<1>(ga_acc, s_g, s_vo, s_w, q.ga_row, q.ga_j0);

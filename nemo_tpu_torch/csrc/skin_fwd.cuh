@@ -42,6 +42,13 @@
 //     |diff| sum (fixed order) and total_kernel sums the partials in index
 //     order: no atomics, repeated runs are bit-identical.
 // Ragged B and V are masked everywhere; there are no padded tables.
+//
+// bf16 tables (skin_fwd_kernel<kSides, bf16>, skin_common.cuh has the
+// arithmetic): pf is rounded to bf16 and packed two features a word once,
+// A rounded to bf16 as it is staged; the tensor-core group runs vph on
+// mma.sync m16n8k16 in one pass, its two pairs of warps splitting the
+// features at 112; the blend reads W as bf16 and widens it; the pair mode
+// stores vp in bf16. The groups, barriers and buffers are the f32 kernel's.
 
 #pragma once
 
@@ -141,8 +148,8 @@ __device__ __forceinline__ void vph_mma_split(const uint32_t* s_pfb,
     }
 }
 
-// Store the first nv (<= 4) of x at dst: one 16-byte store (ow = 4), 8-byte
-// ones (ow = 2) or 4-byte ones.
+// Store the first nv (<= 4) of x at dst: four elements at once (ow = 4),
+// two (ow = 2) or one at a time; in f32 16-, 8- or 4-byte stores.
 __device__ __forceinline__ void store4(float* dst, const float x[4], int nv,
                                        int ow) {
   if (nv >= 4 && ow == 4) {
@@ -160,16 +167,36 @@ __device__ __forceinline__ void store4(float* dst, const float x[4], int nv,
   }
 }
 
-// kSides 1: out = verts. kSides 2: out = sign, vp_out = vp (or null),
-// tot_part[bt * R + r] = the block's |diff| sum. ow: the store width
-// (store4). Launched with kXT threads and kXSmemBytes of shared memory.
-template <int kSides>
+// The same in bf16 (rounded to nearest even): 8-, 4- or 2-byte stores.
+__device__ __forceinline__ void store4(bf16* dst, const float x[4], int nv,
+                                       int ow) {
+  if (nv >= 4 && ow == 4) {
+    *reinterpret_cast<uint2*>(dst) =
+        make_uint2(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]));
+  } else if (ow >= 2) {
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      if (e + 1 < nv) *reinterpret_cast<uint32_t*>(dst + e) = pack_bf16(x[e], x[e + 1]);
+      else if (e < nv) dst[e] = __float2bfloat16_rn(x[e]);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < nv) dst[e] = __float2bfloat16_rn(x[e]);
+  }
+}
+
+// kSides 1: out = verts. kSides 2: out = sign, vp_out = vp (or null; in
+// the table type T), tot_part[bt * R + r] = the block's |diff| sum. ow: the
+// store width (store4). Launched with kXT threads and kXSmemBytes of shared
+// memory.
+template <int kSides, typename T>
 __global__ void __launch_bounds__(kXT, 1)
 skin_fwd_kernel(int B, int V, int R, int ow, const float* __restrict__ pf0,
                 const float* __restrict__ A0, const float* __restrict__ pf1,
                 const float* __restrict__ A1, const float* __restrict__ vsh,
-                const float* __restrict__ pd, const float* __restrict__ W,
-                float* __restrict__ out, float* __restrict__ vp_out,
+                const T* __restrict__ pd, const T* __restrict__ W,
+                float* __restrict__ out, T* __restrict__ vp_out,
                 float* __restrict__ tot_part) {
   constexpr int kRows = kXR / kSides;  // batch rows a block
   extern __shared__ __align__(16) float smem[];
@@ -184,8 +211,12 @@ skin_fwd_kernel(int B, int V, int R, int ow, const float* __restrict__ pf0,
   uint32_t* s_pfs = reinterpret_cast<uint32_t*>(smem + kXOffPfs);
   float* s_A = smem + kXOffA;
   float* s_vph = smem + kXOffVph;
-  const auto s_pd = [&](int buf) { return smem + kXOffPd + buf * kPP * kSD; };
-  const auto s_w = [&](int buf) { return smem + kXOffW + buf * kJ * kFV; };
+  const auto s_pd = [&](int buf) {
+    return reinterpret_cast<T*>(smem + kXOffPd) + buf * kPP * kSD;
+  };
+  const auto s_w = [&](int buf) {
+    return reinterpret_cast<T*>(smem + kXOffW) + buf * kJ * kFV;
+  };
   const auto s_vs = [&](int buf) { return smem + kXOffVs + buf * 3 * kFV; };
   const auto vph = [&](int buf, int half) {
     return s_vph + (2 * buf + half) * kXR * kSX;
@@ -206,14 +237,21 @@ skin_fwd_kernel(int B, int V, int R, int ow, const float* __restrict__ pf0,
     cp_async_commit();
   }
   // pf of the side-rows (side-row sr: side sr / kRows, row sr % kRows),
-  // split into TF32 parts; feature 207 is the zero row
-  for (int e = tid; e < kXR * kPP; e += kXT) {
-    const int sr = e / kPP, p = e % kPP, b = b0 + sr % kRows;
-    const float* pf = sr < kRows ? pf0 : pf1;
-    const float x = (b < B && p < kP) ? pf[(size_t)b * kP + p] : 0.f;
-    split_tf32(x, s_pfb[sr * kSF + p], s_pfs[sr * kSF + p]);
+  // split into TF32 parts (bf16 tables: rounded to bf16, two features a
+  // word, in s_pfb); feature 207 is the zero row
+  if constexpr (kIsBf16<T>) {
+    stage_pf_bf16(s_pfb, kXR, B,
+                  [&](int sr) { return sr < kRows ? pf0 : pf1; },
+                  [&](int sr) { return b0 + sr % kRows; }, tid, kXT);
+  } else {
+    for (int e = tid; e < kXR * kPP; e += kXT) {
+      const int sr = e / kPP, p = e % kPP, b = b0 + sr % kRows;
+      const float* pf = sr < kRows ? pf0 : pf1;
+      const float x = (b < B && p < kP) ? pf[(size_t)b * kP + p] : 0.f;
+      split_tf32(x, s_pfb[sr * kSF + p], s_pfs[sr * kSF + p]);
+    }
   }
-  // A: s_A[a_row(sr) + l * kJ + j] = A[b, j, l]
+  // A: s_A[a_row(sr) + l * kJ + j] = A[b, j, l] (bf16 tables: rounded)
   for (int e = tid; e < kXR * kJ * 3; e += kXT) {
     const int sr = e / (3 * kJ), c4 = e % (3 * kJ), j = c4 / 3, q = c4 % 3;
     const int b = b0 + sr % kRows;
@@ -222,7 +260,8 @@ skin_fwd_kernel(int B, int V, int R, int ow, const float* __restrict__ pf0,
                                  A + (size_t)b * kGL) + c4)
                            : make_float4(0.f, 0.f, 0.f, 0.f);
     float* d = s_A + a_row(sr) + 4 * q * kJ + j;
-    d[0] = x.x; d[kJ] = x.y; d[2 * kJ] = x.z; d[3 * kJ] = x.w;
+    d[0] = rnd<T>(x.x); d[kJ] = rnd<T>(x.y); d[2 * kJ] = rnd<T>(x.z);
+    d[3 * kJ] = rnd<T>(x.w);
   }
   __syncthreads();
 
@@ -247,8 +286,13 @@ skin_fwd_kernel(int B, int V, int R, int ow, const float* __restrict__ pf0,
       const int buf = i & 1;
       bar_sync(kBarPdFull + buf, 2 * kXG);
       if (i >= 2) bar_sync(kBarEmpty + buf, 2 * kXG);  // tile i - 2 blended
-      vph_mma_split(s_pfb, s_pfs, s_pd(buf), vph(buf, kh), fn0, kh * kXPH,
-                    (kh + 1) * kXPH, lane >> 2, lane & 3);
+      if constexpr (kIsBf16<T>)
+        vph_mma_bf16<2>(s_pfb, s_pd(buf), vph(buf, kh), 0, fn0,
+                        kh * kPHalf<T>, kh ? kPP : kPHalf<T>, lane >> 2,
+                        lane & 3);
+      else
+        vph_mma_split(s_pfb, s_pfs, s_pd(buf), vph(buf, kh), fn0, kh * kXPH,
+                      (kh + 1) * kXPH, lane >> 2, lane & 3);
       if (i + 2 < n_t) bar_arrive(kBarPdEmpty + buf, 2 * kXG);
       bar_arrive(kBarFull + buf, 2 * kXG);
     }
@@ -277,13 +321,12 @@ skin_fwd_kernel(int B, int V, int R, int ow, const float* __restrict__ pf0,
     for (int e = 0; e < 4; ++e)
 #pragma unroll
       for (int l = 0; l < kL; ++l) m[e][l] = 0.f;
-    const float* w = s_w(buf) + vg;
+    const T* w = s_w(buf) + vg;
 #pragma unroll 2
     for (int j0 = 0; j0 < kJ; j0 += 4) {
       float4 wj[4];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        wj[jj] = *reinterpret_cast<const float4*>(w + (j0 + jj) * kFV);
+      for (int jj = 0; jj < 4; ++jj) wj[jj] = ld4(w + (j0 + jj) * kFV);
 #pragma unroll
       for (int l = 0; l < kL; ++l) {
         const float4 x = *reinterpret_cast<const float4*>(a + l * kJ + j0);
@@ -381,13 +424,16 @@ inline int fwd_ranges(int n_bt, int V) {
   return best;
 }
 
-// The widest store (4, 2 or 1 floats) that V and every output address
-// allow.
-inline int out_width(int V, const float* a, const float* b) {
-  const uintptr_t p = reinterpret_cast<uintptr_t>(a) |
-                      reinterpret_cast<uintptr_t>(b);  // b may be null
-  if (V % 4 == 0 && p % 16 == 0) return 4;
-  if (V % 2 == 0 && p % 8 == 0) return 2;
+// The widest store (4, 2 or 1 elements) that V and every output address
+// allow: a (f32) and b (T, may be null).
+template <typename T>
+inline int out_width(int V, const float* a, const T* b) {
+  const uintptr_t pa = reinterpret_cast<uintptr_t>(a);
+  const uintptr_t pb = reinterpret_cast<uintptr_t>(b);
+  for (int w = 4; w > 1; w /= 2)
+    if (V % w == 0 && pa % (w * sizeof(float)) == 0 &&
+        pb % (w * sizeof(T)) == 0)
+      return w;
   return 1;
 }
 
@@ -395,30 +441,30 @@ inline int out_width(int V, const float* a, const float* b) {
 template <int kSides>
 inline int fwd_batch_tiles(int B) { return cdiv(B, kXR / kSides); }
 
-template <int kSides>
+template <int kSides, typename T>
 cudaError_t launch_skin_fwd(int B, int V, const float* pf0, const float* A0,
                             const float* pf1, const float* A1,
-                            const float* vsh, const float* pd, const float* W,
-                            float* out, float* vp_out, float* tot_part,
+                            const float* vsh, const T* pd, const T* W,
+                            float* out, T* vp_out, float* tot_part,
                             cudaStream_t stream) {
   if (cudaError_t err = cudaFuncSetAttribute(
-          skin_fwd_kernel<kSides>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)kXSmemBytes))
+          skin_fwd_kernel<kSides, T>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kXSmemBytes))
     return err;
   const int n_bt = fwd_batch_tiles<kSides>(B), R = fwd_ranges(n_bt, V);
-  skin_fwd_kernel<kSides><<<dim3(R, n_bt), kXT, kXSmemBytes, stream>>>(
+  skin_fwd_kernel<kSides, T><<<dim3(R, n_bt), kXT, kXSmemBytes, stream>>>(
       B, V, R, out_width(V, out, vp_out), pf0, A0, pf1, A1, vsh, pd, W, out,
       vp_out, tot_part);
   return cudaGetLastError();
 }
 
 // Registers, shared memory and local memory (spills) of skin_fwd_kernel
-// <kSides>: out[0..3] = registers, static and dynamic shared memory bytes,
-// local bytes.
-template <int kSides>
+// <kSides, T>: out[0..3] = registers, static and dynamic shared memory
+// bytes, local bytes.
+template <int kSides, typename T>
 int skin_fwd_attributes(int* out) {
   cudaFuncAttributes a;
-  if (cudaError_t err = cudaFuncGetAttributes(&a, skin_fwd_kernel<kSides>))
+  if (cudaError_t err = cudaFuncGetAttributes(&a, skin_fwd_kernel<kSides, T>))
     return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;

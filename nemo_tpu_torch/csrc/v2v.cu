@@ -86,6 +86,18 @@
 //     from L2 twice as often as 32-row tiles would, but 32 rows of both
 //     sides do not fit in a block's shared memory with vph double-buffered.
 // Ragged B and V are masked everywhere (no padded tables).
+//
+// bf16 tables (_v2v_fwdbwd_kernel and _v2v_fwd_kernel with cdt = bf16; the
+// C entry points with the _bf16 suffix): every mode is the same kernel at
+// T = bf16 (skin_common.cuh has the arithmetic). The fused kernel stages pf
+// of both sides rounded to bf16, two features a word, and A of both sides
+// rounded to bf16 once for its range (36 KB, in the half of the posedirs
+// buffers the bf16 tiles leave free; the blend reads it from there), runs
+// the forward vph (64 x 48 over 13 steps of 16) and the backward
+// gpf (gvp rounded to bf16) on mma.sync m16n8k16 in one pass each, widens W
+// for the blend and rounds g . [vp; 1] for gA. The tiles keep the f32
+// layout's strides in elements, in the first half of each buffer. The pair
+// mode stores vp in bf16.
 
 #include "skin_fwd.cuh"
 
@@ -106,12 +118,18 @@ constexpr int kOffG = kOffGvp + kFB * kSX;            // [kFB][kSX]
 constexpr int kOffRed = kOffG + kFB * kSX;            // [kFT]
 constexpr int kSmemFloats = kOffRed + kFT;
 constexpr size_t kSmemBytes = sizeof(float) * kSmemFloats;
+// bf16 tables: the two bf16 posedirs buffers fill the first half of theirs,
+// and A of both sides, rounded to bf16 once, [2 * kFB][kGL], takes the rest
+constexpr int kOffAb = kOffPd + kPP * kSD;
+static_assert(2 * kFB * kGL * sizeof(bf16) <= sizeof(float) * kPP * kSD,
+              "the rounded A does not fit beside the bf16 posedirs tiles");
 
+template <typename T>
 __global__ void __launch_bounds__(kFT, 1)
 v2v_fused_kernel(int B, int V, int R, const float* __restrict__ pf_o,
                  const float* __restrict__ A_o, const float* __restrict__ pf_r,
                  const float* __restrict__ A_r, const float* __restrict__ vsh,
-                 const float* __restrict__ pd, const float* __restrict__ W,
+                 const T* __restrict__ pd, const T* __restrict__ W,
                  int grad, float* __restrict__ tot_part,
                  float* __restrict__ gpf_part, float* __restrict__ ga_part,
                  float* __restrict__ gvsh_part) {
@@ -123,24 +141,45 @@ v2v_fused_kernel(int B, int V, int R, const float* __restrict__ pf_o,
   range_tiles(r, R, V, t_begin, t_end);
 
   float* s_pf = smem + kOffPf;
+  bf16* s_Ab = reinterpret_cast<bf16*>(smem + kOffAb);
   float* s_vph = smem + kOffVph;
   float* s_gvp = smem + kOffGvp;
   float* s_g = smem + kOffG;
 
+  const auto pd_buf = [&](int buf) {
+    return reinterpret_cast<T*>(smem + kOffPd) + buf * kPP * kSD;
+  };
+  const auto w_buf = [&](int buf) {
+    return reinterpret_cast<T*>(smem + kOffW) + buf * kJ * kSW;
+  };
   const auto load = [&](int buf, int t) {
-    float* s_pd = smem + kOffPd + buf * kPP * kSD;
-    float* s_w = smem + kOffW + buf * kJ * kSW;
     float* s_vs = smem + kOffVs + buf * 3 * kFV;
-    if (V & 1) load_tile<1>(s_pd, s_w, s_vs, t, V, vsh, pd, W);
-    else       load_tile<2>(s_pd, s_w, s_vs, t, V, vsh, pd, W);
+    if (V & 1) load_tile<1>(pd_buf(buf), w_buf(buf), s_vs, t, V, vsh, pd, W);
+    else       load_tile<2>(pd_buf(buf), w_buf(buf), s_vs, t, V, vsh, pd, W);
   };
   load(0, t_begin);
   cp_async_commit();
   // pf of both sides for the whole range: rows 0..31 orig, 32..63 rec
-  for (int e = tid; e < 2 * kFB * kPP; e += kFT) {
-    const int row = e / kPP, p = e % kPP, b = b0 + row % kFB;
-    const float* src = row < kFB ? pf_o : pf_r;
-    s_pf[row * kSF + p] = (b < B && p < kP) ? src[(size_t)b * kP + p] : 0.f;
+  // (bf16 tables: rounded to bf16, two features a word; A of both sides
+  // too, rounded once here instead of on every vertex tile)
+  if constexpr (kIsBf16<T>) {
+    stage_pf_bf16(reinterpret_cast<uint32_t*>(s_pf), 2 * kFB, B,
+                  [&](int row) { return row < kFB ? pf_o : pf_r; },
+                  [&](int row) { return b0 + row % kFB; }, tid, kFT);
+    for (int e = tid; e < 2 * kFB * (kGL / 4); e += kFT) {
+      const int row = e / (kGL / 4), c4 = e % (kGL / 4), b = b0 + row % kFB;
+      const float4 x = b < B ? __ldg(reinterpret_cast<const float4*>(
+          (row < kFB ? A_o : A_r) + (size_t)b * kGL) + c4)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      reinterpret_cast<uint2*>(s_Ab + row * kGL)[c4] =
+          make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+    }
+  } else {
+    for (int e = tid; e < 2 * kFB * kPP; e += kFT) {
+      const int row = e / kPP, p = e % kPP, b = b0 + row % kFB;
+      const float* src = row < kFB ? pf_o : pf_r;
+      s_pf[row * kSF + p] = (b < B && p < kP) ? src[(size_t)b * kP + p] : 0.f;
+    }
   }
 
   // forward MMA: warp -> m-tile (16 of the 64 rows), 3 of the 6 n-tiles
@@ -170,12 +209,16 @@ v2v_fused_kernel(int B, int V, int R, const float* __restrict__ pf_o,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* s_pd = smem + kOffPd + buf * kPP * kSD;
-    const float* s_w = smem + kOffW + buf * kJ * kSW;
+    const T* s_pd = pd_buf(buf);
+    const T* s_w = w_buf(buf);
     const float* s_vs = smem + kOffVs + buf * 3 * kFV;
 
     // 1. vph (64 x 48) = pf (64 x 208) . pd (208 x 48) on the tensor cores
-    vph_mma(s_pf, s_pd, s_vph, fm, fn0, 0, kPP, q.gid, q.tig);
+    if constexpr (kIsBf16<T>)
+      vph_mma_bf16<1>(reinterpret_cast<const uint32_t*>(s_pf), s_pd, s_vph, fm,
+                      fn0, 0, kPP, q.gid, q.tig);
+    else
+      vph_mma(s_pf, s_pd, s_vph, fm, fn0, 0, kPP, q.gid, q.tig);
     __syncthreads();
 
     // 2. the blend, the vertices, |rec - orig|, the sign and gvp (SIMT)
@@ -190,11 +233,18 @@ v2v_fused_kernel(int B, int V, int R, const float* __restrict__ pf_o,
         const float4* ar = reinterpret_cast<const float4*>(A_r + (size_t)b_s * kGL);
 #pragma unroll 4
         for (int j = 0; j < kJ; ++j) {
-          const float2 w = *reinterpret_cast<const float2*>(s_w + j * kSW + sv);
+          const float2 w = ld2(s_w + j * kSW + sv);
           float a_o[kL], a_r[kL];
 #pragma unroll
           for (int c = 0; c < 3; ++c) {
-            const float4 x = __ldg(ao + 3 * j + c), y = __ldg(ar + 3 * j + c);
+            float4 x, y;
+            if constexpr (kIsBf16<T>) {
+              x = ld4(s_Ab + sb * kGL + kL * j + 4 * c);
+              y = ld4(s_Ab + (kFB + sb) * kGL + kL * j + 4 * c);
+            } else {
+              x = __ldg(ao + 3 * j + c);
+              y = __ldg(ar + 3 * j + c);
+            }
             a_o[4 * c] = x.x; a_o[4 * c + 1] = x.y; a_o[4 * c + 2] = x.z; a_o[4 * c + 3] = x.w;
             a_r[4 * c] = y.x; a_r[4 * c + 1] = y.y; a_r[4 * c + 2] = y.z; a_r[4 * c + 3] = y.w;
           }
@@ -276,22 +326,88 @@ extern "C" int nemo_v2v_scratch_floats(int B, int V, int mode) {
 }
 
 // Registers, shared memory and local memory (spills) of the pair mode's
-// kernel, skin_fwd_kernel<2>, as the CUDA runtime reports them: out[0..3] =
-// registers, static and dynamic shared memory bytes, local bytes.
+// kernel, skin_fwd_kernel<2, T>, as the CUDA runtime reports them:
+// out[0..3] = registers, static and dynamic shared memory bytes, local
+// bytes.
 extern "C" int nemo_v2v_pair_attributes(int* out) {
-  return skin_fwd_attributes<2>(out);
+  return skin_fwd_attributes<2, float>(out);
+}
+extern "C" int nemo_v2v_pair_attributes_bf16(int* out) {
+  return skin_fwd_attributes<2, bf16>(out);
 }
 
-// The same for the fused kernel (modes 0 and 1).
-extern "C" int nemo_v2v_fused_attributes(int* out) {
+namespace {
+
+template <typename T>
+int fused_attributes(int* out) {
   cudaFuncAttributes a;
-  if (cudaError_t err = cudaFuncGetAttributes(&a, v2v_fused_kernel)) return (int)err;
+  if (cudaError_t err = cudaFuncGetAttributes(&a, v2v_fused_kernel<T>))
+    return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)kSmemBytes;
   out[3] = (int)a.localSizeBytes;
   return 0;
 }
+
+}  // namespace
+
+// The same for the fused kernel (modes 0 and 1), f32 and bf16 tables.
+extern "C" int nemo_v2v_fused_attributes(int* out) {
+  return fused_attributes<float>(out);
+}
+extern "C" int nemo_v2v_fused_attributes_bf16(int* out) {
+  return fused_attributes<bf16>(out);
+}
+
+namespace {
+
+template <typename T>
+int v2v_l1(int B, int V, const float* pf_o, const float* A_o,
+           const float* pf_r, const float* A_r, const float* vsh, const T* pd,
+           const T* W, int mode, float* scratch, float* sign, T* vp,
+           float* total, float* gpf, float* gA, float* gvsh,
+           cudaStream_t stream) {
+  if (B <= 0 || V <= 0 || mode < 0 || mode > 2 ||
+      cdiv(B, mode == 2 ? kFB / 2 : kFB) > 65535 ||
+      (mode == 2 && !sign) || (mode == 1 && (!gpf || !gA || !gvsh)))
+    return (int)cudaErrorInvalidValue;
+  if (mode == 2) {
+    if (cudaError_t err = launch_skin_fwd<2, T>(B, V, pf_o, A_o, pf_r, A_r,
+                                                vsh, pd, W, sign, vp, scratch,
+                                                stream))
+      return (int)err;
+    const int n_bt = fwd_batch_tiles<2>(B);
+    total_kernel<<<1, 256, 0, stream>>>(n_bt * fwd_ranges(n_bt, V), scratch,
+                                        total);
+    return (int)cudaGetLastError();
+  }
+  if (cudaError_t err = cudaFuncSetAttribute(
+          v2v_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)kSmemBytes))
+    return (int)err;
+  const int R = fused_ranges(B, V), n_bt = cdiv(B, kFB);
+  const int grad = mode == 1;
+  float* tot_part = scratch;
+  float* gpf_part = tot_part + (size_t)n_bt * R;
+  float* ga_part = gpf_part + (size_t)R * B * kP;
+  float* gvsh_part = ga_part + (size_t)R * B * kGL;
+  v2v_fused_kernel<T><<<dim3(R, n_bt), kFT, kSmemBytes, stream>>>(
+      B, V, R, pf_o, A_o, pf_r, A_r, vsh, pd, W, grad, tot_part,
+      grad ? gpf_part : nullptr, grad ? ga_part : nullptr,
+      grad ? gvsh_part : nullptr);
+  if (cudaError_t err = cudaGetLastError()) return (int)err;
+  total_kernel<<<1, 256, 0, stream>>>(n_bt * R, tot_part, total);
+  if (cudaError_t err = cudaGetLastError()) return (int)err;
+  if (!grad) return 0;
+  const int n_gpf = B * kP, n_ga = B * kGL, n_gvsh = 3 * V;
+  range_reduce_kernel<<<cdiv(n_gpf + n_ga + n_gvsh, 256), 256, 0, stream>>>(
+      n_gpf, n_ga, n_gvsh, R, n_bt, gpf_part, ga_part, gvsh_part, gpf, gA,
+      gvsh);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 // pf_* (B,207), A_* (B,24,12) on 16-byte boundaries, vsh (3,V), pd
 // (207,3,V), W (24,V) (on 8-byte boundaries where V is even), all f32
@@ -305,40 +421,19 @@ extern "C" int nemo_v2v_l1(int B, int V, const float* pf_o, const float* A_o,
                            int mode, float* scratch, float* sign, float* vp,
                            float* total, float* gpf, float* gA, float* gvsh,
                            cudaStream_t stream) {
-  if (B <= 0 || V <= 0 || mode < 0 || mode > 2 ||
-      cdiv(B, mode == 2 ? kFB / 2 : kFB) > 65535 ||
-      (mode == 2 && !sign) || (mode == 1 && (!gpf || !gA || !gvsh)))
-    return (int)cudaErrorInvalidValue;
-  if (mode == 2) {
-    if (cudaError_t err = launch_skin_fwd<2>(B, V, pf_o, A_o, pf_r, A_r, vsh,
-                                             pd, W, sign, vp, scratch, stream))
-      return (int)err;
-    const int n_bt = fwd_batch_tiles<2>(B);
-    total_kernel<<<1, 256, 0, stream>>>(n_bt * fwd_ranges(n_bt, V), scratch,
-                                        total);
-    return (int)cudaGetLastError();
-  }
-  if (cudaError_t err = cudaFuncSetAttribute(
-          v2v_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)kSmemBytes))
-    return (int)err;
-  const int R = fused_ranges(B, V), n_bt = cdiv(B, kFB);
-  const int grad = mode == 1;
-  float* tot_part = scratch;
-  float* gpf_part = tot_part + (size_t)n_bt * R;
-  float* ga_part = gpf_part + (size_t)R * B * kP;
-  float* gvsh_part = ga_part + (size_t)R * B * kGL;
-  v2v_fused_kernel<<<dim3(R, n_bt), kFT, kSmemBytes, stream>>>(
-      B, V, R, pf_o, A_o, pf_r, A_r, vsh, pd, W, grad, tot_part,
-      grad ? gpf_part : nullptr, grad ? ga_part : nullptr,
-      grad ? gvsh_part : nullptr);
-  if (cudaError_t err = cudaGetLastError()) return (int)err;
-  total_kernel<<<1, 256, 0, stream>>>(n_bt * R, tot_part, total);
-  if (cudaError_t err = cudaGetLastError()) return (int)err;
-  if (!grad) return 0;
-  const int n_gpf = B * kP, n_ga = B * kGL, n_gvsh = 3 * V;
-  range_reduce_kernel<<<cdiv(n_gpf + n_ga + n_gvsh, 256), 256, 0, stream>>>(
-      n_gpf, n_ga, n_gvsh, R, n_bt, gpf_part, ga_part, gvsh_part, gpf, gA,
-      gvsh);
-  return (int)cudaGetLastError();
+  return v2v_l1<float>(B, V, pf_o, A_o, pf_r, A_r, vsh, pd, W, mode, scratch,
+                       sign, vp, total, gpf, gA, gvsh, stream);
+}
+
+// The same with bf16 tables: pd and W bf16 (on 4-byte boundaries where V
+// is even), vp (B,3,V) bf16; everything else as nemo_v2v_l1.
+extern "C" int nemo_v2v_l1_bf16(int B, int V, const float* pf_o,
+                                const float* A_o, const float* pf_r,
+                                const float* A_r, const float* vsh,
+                                const bf16* pd, const bf16* W, int mode,
+                                float* scratch, float* sign, bf16* vp,
+                                float* total, float* gpf, float* gA,
+                                float* gvsh, cudaStream_t stream) {
+  return v2v_l1<bf16>(B, V, pf_o, A_o, pf_r, A_r, vsh, pd, W, mode, scratch,
+                      sign, vp, total, gpf, gA, gvsh, stream);
 }

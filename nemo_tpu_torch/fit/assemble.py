@@ -29,7 +29,9 @@ def build_assets(bundle, smpl: SMPLModel, cfg: NemoConfig,
     MotionNet's MLP ("plain" matmuls or "fused" through K6, the counterpart
     of the JAX package's NEMO_TPU_NET_FUSED=1; model version 0 has no
     MotionNet and ignores it). humor: the HuMoR parameter tree of the
-    weight_humor_loss term, with humor_cfg (default HumorConfig())."""
+    weight_humor_loss term, with humor_cfg (default HumorConfig()). The
+    skinning tables, the subset's included, keep the body's table dtype
+    (f32, or bf16 for a body built with skin_dtype=torch.bfloat16)."""
     if v2v_vjp not in VJP_MODES:
         raise ValueError(f"v2v_vjp {v2v_vjp!r}: expected one of {VJP_MODES}")
     if motion_mlp not in MLP_MODES:

@@ -47,30 +47,39 @@ _SIGNATURES = {
     # and dynamic (at J joints) shared memory bytes, local (spill) bytes
     "nemo_fk_attributes": [_I, _I, _P],
     # B, V, pf_o, A_o, pf_r, A_r, vsh_t, posedirs_t, W_t, mode,
-    # scratch, sign, vp, total, gpf, gA, gvsh, stream
+    # scratch, sign, vp, total, gpf, gA, gvsh, stream (the _bf16 twins of
+    # this and the skinning entries below take bf16 tables and vp)
     "nemo_v2v_l1": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                     _P, _P, _P, _P, _P, _P, _P, _P],
+    "nemo_v2v_l1_bf16": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                         _P, _P, _P, _P, _P, _P, _P, _P],
     # floats of scratch nemo_v2v_l1 needs at (B, V, mode), -1 if refused
     "nemo_v2v_scratch_floats": [_I, _I, _I],
     # out int[4]: the fused K2 kernel's registers a thread, static and
     # dynamic shared memory bytes, local (spill) bytes
     "nemo_v2v_fused_attributes": [_P],
+    "nemo_v2v_fused_attributes_bf16": [_P],
     # B, V, pf, A, vsh_t, posedirs_t, W_t, verts, stream
     "nemo_skin_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "nemo_skin_fwd_bf16": [_I, _I, _P, _P, _P, _P, _P, _P, _P],
     # sides (1 K3f, 2 K2's pair mode), out int[4]: the forward kernel's
     # registers a thread, static and dynamic shared memory bytes, local
     # (spill) bytes
     "nemo_skin_fwd_attributes": [_I, _P],
+    "nemo_skin_fwd_attributes_bf16": [_I, _P],
     # B, V, pf, A, vsh_t, posedirs_t, W_t, g, vp_in, scratch, gpf, gA,
     # gvsh, stream
     "nemo_skin_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _P],
+    "nemo_skin_bwd_bf16": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P],
     # floats of scratch nemo_skin_bwd needs at (B, V), -1 if refused
     "nemo_skin_bwd_scratch_floats": [_I, _I],
     # mode (1 recompute vp, 2 stored vp), out int[4]: the one-pass K3b
     # kernel's registers a thread, static and dynamic shared memory bytes,
     # local (spill) bytes
     "nemo_skin_bwd_attributes": [_I, _P],
+    "nemo_skin_bwd_attributes_bf16": [_I, _P],
     # N, T, H, W, th, tw, ntx, attr, codes, starts, counts, ints, keys, z,
     # fid, bary, stream
     "nemo_raster_stream": [_I] * 7 + [_P] * 10,
@@ -229,11 +238,12 @@ def route(*tensors: torch.Tensor) -> str:
                      "the CPU (plain version) or all on one CUDA device")
 
 
-def check_input(name: str, t: torch.Tensor, shape, device) -> None:
-    """Validate one kernel operand: float32, contiguous, on ``device``,
+def check_input(name: str, t: torch.Tensor, shape, device,
+                dtype: torch.dtype = torch.float32) -> None:
+    """Validate one kernel operand: of ``dtype``, contiguous, on ``device``,
     with ``shape`` (None entries match any size)."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dim() != len(shape) or any(

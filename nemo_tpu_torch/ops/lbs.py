@@ -30,6 +30,19 @@ mirror ``_skin_verts_t_xla`` and ``_bwd_xla``; ``v2v_l1_split_emulation``,
 ``skin_bwd_split_emulation``, ``skin_fwd_split_emulation`` and
 ``v2v_pair_split_emulation`` repeat the one-pass kernels' arithmetic for
 the tests.
+
+bf16 tables. The table dtype picks the computation, as the tiled tables'
+dtype does in the JAX package (``skin_tables_dtype``, NEMO_TPU_SKIN_BF16):
+with posedirs_t and W_t in bfloat16 every op computes the TPU kernels' bf16
+function. pf and A are rounded to bf16 (round to nearest even); the
+posedirs and blend contractions multiply bf16 values, exactly, and sum in
+f32; the backward rounds gm = g . [vp; 1] and gvp to bf16 before its gA
+and gpf contractions, and gvsh sums the unrounded gvp; the pair mode
+stores vp in bf16. v_shaped_t, the cotangents and every other output stay
+f32. On a CUDA tensor the ``_bf16`` kernels run it, the posedirs
+contractions on ``mma.sync`` bf16 in one pass, and count their launches
+under the ``_bf16`` keys of LAUNCHES; on the CPU the plain versions below
+do. With f32 tables nothing changes.
 """
 
 from __future__ import annotations
@@ -47,8 +60,10 @@ NUM_POSE_FEATURES = 207
 NUM_JOINTS = 24
 VJP_MODES = ("fused", "pair", "pair_vp")
 
-LAUNCHES = {"v2v_grad": 0, "v2v_fwd": 0, "v2v_pair": 0, "skin_fwd": 0,
-            "skin_bwd": 0, "skin_bwd_vp": 0}
+_KERNELS = ("v2v_grad", "v2v_fwd", "v2v_pair", "skin_fwd", "skin_bwd",
+            "skin_bwd_vp")
+BF16 = "_bf16"   # the bf16 tables' kernels: C entry points and counters
+LAUNCHES = {k + sfx: 0 for sfx in ("", BF16) for k in _KERNELS}
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -56,6 +71,25 @@ Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (CPU path and the kernels' reference)
 # ---------------------------------------------------------------------------
+
+def is_bf16(table: torch.Tensor) -> bool:
+    """Whether a table (posedirs_t) selects the bf16 computation."""
+    return table.dtype == torch.bfloat16
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to the nearest bf16 (ties to even), back in f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _operands(pf, A34, posedirs_t, W_t):
+    """(pf, A34, posedirs_t, W_t) as the kernels multiply them: as given
+    with f32 tables; with bf16 tables pf and A34 rounded to bf16 and all
+    four in f32, where a product of two bf16 values is exact."""
+    if not is_bf16(posedirs_t):
+        return pf, A34, posedirs_t, W_t
+    return bf16_round(pf), bf16_round(A34), posedirs_t.float(), W_t.float()
+
 
 def _posed(pf, posedirs_t, v_shaped_t) -> torch.Tensor:
     """Posed rest vertices vp (B, 3, V)."""
@@ -75,7 +109,8 @@ def _homogeneous(vposed) -> torch.Tensor:
 
 def skin_verts_t_plain(pf, A34, v_shaped_t, posedirs_t, W_t) -> torch.Tensor:
     """verts_t (B, 3, V) from pf (B, 207), A34 (B, 24, 12), v_shaped_t
-    (3, V), posedirs_t (207, 3, V), W_t (24, V)."""
+    (3, V), posedirs_t (207, 3, V), W_t (24, V) (f32 or bf16 tables)."""
+    pf, A34, posedirs_t, W_t = _operands(pf, A34, posedirs_t, W_t)
     vph = _homogeneous(_posed(pf, posedirs_t, v_shaped_t))
     return torch.einsum('bikv,bkv->biv', _blend(A34, W_t), vph)
 
@@ -83,15 +118,36 @@ def skin_verts_t_plain(pf, A34, v_shaped_t, posedirs_t, W_t) -> torch.Tensor:
 def skin_bwd_plain(pf, A34, v_shaped_t, posedirs_t, W_t, g,
                    vp: Optional[torch.Tensor] = None) -> Grads:
     """(gpf, gA, gvsh) of skin_verts_t_plain under the cotangent g (B,3,V).
-    vp: the posed vertices stored by the forward, or None to recompute."""
+    vp: the posed vertices stored by the forward (in the tables' dtype), or
+    None to recompute. With bf16 tables gm = g . [vp; 1] and gvp are
+    rounded to bf16 before the gA and gpf contractions."""
+    return _skin_bwd(pf, A34, v_shaped_t, posedirs_t, W_t, g, vp, None)
+
+
+def _skin_bwd(pf, A34, v_shaped_t, posedirs_t, W_t, g, vp, moved) -> Grads:
+    """skin_bwd_plain, or with bf16 tables skin_bwd_misrounded's variant."""
     B = pf.shape[0]
-    vposed = _posed(pf, posedirs_t, v_shaped_t) if vp is None else vp
+    lowp = is_bf16(posedirs_t)
+    pf_in, A_in = pf, A34
+    pf, A34, posedirs_t, W_t = _operands(pf, A34, posedirs_t, W_t)
+    if moved == "pf":
+        pf = pf_in
+    elif moved == "A":
+        A34 = A_in
+    if vp is None:
+        vposed = _posed(pf, posedirs_t, v_shaped_t)
+    else:
+        vposed = vp.float() if is_bf16(vp) else vp
     M4 = _blend(A34, W_t)
     gM4 = torch.einsum('biv,bkv->bikv', g, _homogeneous(vposed))
+    if lowp and moved != "gm":
+        gM4 = bf16_round(gM4)
     ga = torch.einsum('bikv,jv->bjik', gM4, W_t).reshape(B, NUM_JOINTS, 12)
     gvposed = torch.einsum('bikv,biv->bkv', M4[:, :, :3], g)
-    gpf = torch.einsum('bkv,pkv->bp', gvposed, posedirs_t)
-    gvsh = gvposed.sum(dim=0)
+    gpf = torch.einsum('bkv,pkv->bp',
+                       bf16_round(gvposed) if lowp and moved != "gvp"
+                       else gvposed, posedirs_t)
+    gvsh = (bf16_round(gvposed) if moved == "gvsh" else gvposed).sum(dim=0)
     return gpf, ga, gvsh
 
 
@@ -108,12 +164,16 @@ def v2v_l1_plain(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
 def v2v_pair_plain(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
                    want_vp: bool
                    ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """(total, sign(rec - orig) (B, 3, V), orig-side vp (B, 3, V) or None)."""
+    """(total, sign(rec - orig) (B, 3, V), orig-side vp (B, 3, V) or None;
+    vp in the tables' dtype, as the kernel stores it)."""
+    r = skin_verts_t_plain(pf_r, A_r, v_shaped_t, posedirs_t, W_t)
+    table_dtype = posedirs_t.dtype
+    pf_o, A_o, posedirs_t, W_t = _operands(pf_o, A_o, posedirs_t, W_t)
     vp_o = _posed(pf_o, posedirs_t, v_shaped_t)
     o = torch.einsum('bikv,bkv->biv', _blend(A_o, W_t), _homogeneous(vp_o))
-    r = skin_verts_t_plain(pf_r, A_r, v_shaped_t, posedirs_t, W_t)
     diff = r - o
-    return diff.abs().sum(), torch.sign(diff), (vp_o if want_vp else None)
+    return diff.abs().sum(), torch.sign(diff), \
+        (vp_o.to(table_dtype) if want_vp else None)
 
 
 # ---------------------------------------------------------------------------
@@ -255,68 +315,120 @@ def v2v_pair_split_emulation(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r,
     return total, torch.sign(diff), (vp if want_vp else None)
 
 
+# skin_bwd_misrounded's variants: "pf" and "A" left in f32, "gm" and "gvp"
+# not rounded before their contractions, "gvsh" summing the rounded gvp
+MISROUNDINGS = ("pf", "A", "gm", "gvp", "gvsh")
+# the most misrounding_shares may read for gradients that round where the
+# plain version does, their f32 sums taken in another order
+MISROUNDED_SHARE = 0.2
+
+
+def skin_bwd_misrounded(pf, A34, v_shaped_t, posedirs_t, W_t, g,
+                        vp: Optional[torch.Tensor], moved: str) -> Grads:
+    """skin_bwd_plain with bf16 tables and one rounding point moved
+    (MISROUNDINGS). Nothing on the main path calls it: the card tests hold
+    each bf16 kernel much nearer skin_bwd_plain than to every variant that
+    changes a gradient, so a kernel that rounds at another point than the
+    TPU kernel does not pass."""
+    if moved not in MISROUNDINGS or not is_bf16(posedirs_t):
+        raise ValueError(f"moved {moved!r} with {posedirs_t.dtype} tables")
+    return _skin_bwd(pf, A34, v_shaped_t, posedirs_t, W_t, g, vp, moved)
+
+
+def misrounding_shares(got: Grads, pf, A34, v_shaped_t, posedirs_t, W_t, g,
+                       vp: Optional[torch.Tensor] = None) -> dict:
+    """{(moved, gradient name): ||got - plain|| / ||variant - plain||} for
+    bf16 gradients ``got`` under the cotangent g, over every
+    skin_bwd_misrounded variant that changes that gradient (one that leaves
+    it bit-identical, as "pf" does with a stored vp, cannot tell the points
+    apart). Frobenius norms: the rare bf16 flips where two f32 sums taken
+    in other orders straddle a rounding boundary weigh little, a moved
+    rounding point shifts every term. Tests only."""
+    args = (pf, A34, v_shaped_t, posedirs_t, W_t, g)
+    plain = skin_bwd_plain(*args, vp=vp)
+    shares = {}
+    for moved in MISROUNDINGS:
+        variant = skin_bwd_misrounded(*args, vp, moved)
+        for name, k, p, w in zip(("gpf", "gA", "gvsh"), got, plain, variant):
+            dist = float((w - p).norm())
+            if dist > 0:
+                shares[moved, name] = float((k - p).norm()) / dist
+    return shares
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels (csrc/skin.cu, csrc/v2v.cu)
 # ---------------------------------------------------------------------------
 
 def _check_skin_inputs(pf, A34, v_shaped_t, posedirs_t, W_t, **extra):
-    """Validate the shared operands (and ``extra`` (B, 3, V) tensors);
-    returns (B, V, device)."""
+    """Validate the shared operands (and ``extra`` (B, 3, V) tensors: a
+    cotangent ``g`` in f32, a stored ``vp`` in the tables' dtype); returns
+    (B, V, device, the kernels' suffix: "" for f32 tables, BF16 for bf16
+    ones)."""
     B = pf.shape[0]
     V = v_shaped_t.shape[-1]
     dev = pf.device
     P, J = NUM_POSE_FEATURES, NUM_JOINTS
-    for name, t, shape in (("pf", pf, (B, P)), ("A34", A34, (B, J, 12)),
-                           ("v_shaped_t", v_shaped_t, (3, V)),
-                           ("posedirs_t", posedirs_t, (P, 3, V)),
-                           ("W_t", W_t, (J, V)),
-                           *((k, t, (B, 3, V)) for k, t in extra.items())):
-        _build.check_input(name, t, shape, dev)
-    return B, V, dev
+    tables = posedirs_t.dtype
+    if tables not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"posedirs_t: expected float32 or bfloat16 tables, "
+                        f"got {tables}")
+    f32 = torch.float32
+    for name, t, shape, dtype in (
+            ("pf", pf, (B, P), f32), ("A34", A34, (B, J, 12), f32),
+            ("v_shaped_t", v_shaped_t, (3, V), f32),
+            ("posedirs_t", posedirs_t, (P, 3, V), tables),
+            ("W_t", W_t, (J, V), tables),
+            *((k, t, (B, 3, V), tables if k == "vp" else f32)
+              for k, t in extra.items())):
+        _build.check_input(name, t, shape, dev, dtype)
+    return B, V, dev, BF16 if is_bf16(posedirs_t) else ""
 
 
 def skin_fwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t) -> torch.Tensor:
-    """Launch K3f (CUDA tensors only): verts_t (B, 3, V). A34 must start on
-    a 16-byte boundary and the tables, where V is even, on an 8-byte one."""
-    B, V, dev = _check_skin_inputs(pf, A34, v_shaped_t, posedirs_t, W_t)
+    """Launch K3f (CUDA tensors only; f32 or bf16 tables): verts_t (B, 3,
+    V). A34 must start on a 16-byte boundary and the tables, where V is
+    even, on a boundary of two of their elements."""
+    B, V, dev, sfx = _check_skin_inputs(pf, A34, v_shaped_t, posedirs_t, W_t)
     _check_alignment("K3f", V, A34=A34, v_shaped_t=v_shaped_t,
                      posedirs_t=posedirs_t, W_t=W_t)
     lib = _build.library()
     verts = torch.empty((B, 3, V), dtype=torch.float32, device=dev)
-    err = lib.nemo_skin_fwd(B, V, pf.data_ptr(), A34.data_ptr(),
-                            v_shaped_t.data_ptr(), posedirs_t.data_ptr(),
-                            W_t.data_ptr(), verts.data_ptr(),
-                            _build.stream_handle(dev))
-    _build.check(err, "nemo_skin_fwd")
-    LAUNCHES["skin_fwd"] += 1
+    err = getattr(lib, "nemo_skin_fwd" + sfx)(
+        B, V, pf.data_ptr(), A34.data_ptr(), v_shaped_t.data_ptr(),
+        posedirs_t.data_ptr(), W_t.data_ptr(), verts.data_ptr(),
+        _build.stream_handle(dev))
+    _build.check(err, "nemo_skin_fwd" + sfx)
+    LAUNCHES["skin_fwd" + sfx] += 1
     return verts
 
 
-def _alignment(name: str, V: int) -> int:
+def _alignment(name: str, t: torch.Tensor, V: int) -> int:
     """The byte boundary the kernels read an operand at: A as float4, the
-    tables (v_shaped_t, posedirs_t, W_t) 8 bytes at a time where V is
-    even, the rest (pose features, cotangents) 4 bytes at a time."""
+    tables (v_shaped_t, posedirs_t, W_t) two elements at a time where V is
+    even (8 bytes in f32, 4 in bf16), the rest (pose features, cotangents,
+    a stored vp) one element at a time."""
     if name.startswith("A"):
         return 16
     if name in ("v_shaped_t", "posedirs_t", "W_t"):
-        return 8 if V % 2 == 0 else 4
-    return 4
+        return t.element_size() * (2 if V % 2 == 0 else 1)
+    return t.element_size()
 
 
 def _kernel_operands(names, args):
     """The public ops' operands as the kernels read them: each tensor
     itself when it is contiguous and aligned, else one aligned copy."""
     V = args[names.index("W_t")].shape[-1]
-    return tuple(_build.kernel_operand(t, _alignment(n, V))
+    return tuple(_build.kernel_operand(t, _alignment(n, t, V))
                  for n, t in zip(names, args))
 
 
 def _check_alignment(kernel: str, V: int, **tensors):
     """A misaligned address would end the CUDA context, so refuse views the
     kernels cannot read (_alignment; a contiguous slice whose offset is not
-    a multiple of 4 floats for A, of 2 floats for the tables)."""
+    a multiple of 4 floats for A, of 2 elements for the tables)."""
     for name, t in tensors.items():
-        align = _alignment(name, V)
+        align = _alignment(name, t, V)
         if t.data_ptr() % align:
             raise ValueError(f"{name} must start on a {align}-byte boundary "
                              f"for the {kernel} kernel")
@@ -324,16 +436,16 @@ def _check_alignment(kernel: str, V: int, **tensors):
 
 def skin_bwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t, g,
                   vp: Optional[torch.Tensor] = None) -> Grads:
-    """Launch K3b (CUDA tensors only): (gpf, gA, gvsh) under the f32
-    cotangent g (B, 3, V), recomputing the posed vertices or reading the
-    stored ``vp`` (B, 3, V). One pass and a fixed-order reduction of its
-    per-block partials (about 17.5 MB of scratch at (512, 6890) on 132
-    SMs); no (B, 3, V) tensor. g and vp may start on any 4-byte boundary;
-    A34 must start on a 16-byte one and the tables, where V is even, on an
-    8-byte one."""
+    """Launch K3b (CUDA tensors only; f32 or bf16 tables): (gpf, gA, gvsh)
+    under the f32 cotangent g (B, 3, V), recomputing the posed vertices or
+    reading the stored ``vp`` (B, 3, V, in the tables' dtype). One pass and
+    a fixed-order reduction of its per-block partials (about 17.5 MB of
+    scratch at (512, 6890) on 132 SMs); no (B, 3, V) tensor. g and vp may
+    start on any boundary of one of their elements; A34 must start on a
+    16-byte one and the tables, where V is even, on one of two elements."""
     extra = {"g": g} if vp is None else {"g": g, "vp": vp}
-    B, V, dev = _check_skin_inputs(pf, A34, v_shaped_t, posedirs_t, W_t,
-                                   **extra)
+    B, V, dev, sfx = _check_skin_inputs(pf, A34, v_shaped_t, posedirs_t,
+                                        W_t, **extra)
     _check_alignment("K3b", V, A34=A34, v_shaped_t=v_shaped_t,
                      posedirs_t=posedirs_t, W_t=W_t)
     lib = _build.library()
@@ -345,30 +457,32 @@ def skin_bwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t, g,
     gpf = torch.empty((B, NUM_POSE_FEATURES), **f32)
     gA = torch.empty((B, NUM_JOINTS, 12), **f32)
     gvsh = torch.empty((3, V), **f32)
-    err = lib.nemo_skin_bwd(B, V, pf.data_ptr(), A34.data_ptr(),
-                            v_shaped_t.data_ptr(), posedirs_t.data_ptr(),
-                            W_t.data_ptr(), g.data_ptr(),
-                            None if vp is None else vp.data_ptr(),
-                            scratch.data_ptr(), gpf.data_ptr(),
-                            gA.data_ptr(), gvsh.data_ptr(),
-                            _build.stream_handle(dev))
-    _build.check(err, "nemo_skin_bwd")
-    LAUNCHES["skin_bwd" if vp is None else "skin_bwd_vp"] += 1
+    err = getattr(lib, "nemo_skin_bwd" + sfx)(
+        B, V, pf.data_ptr(), A34.data_ptr(), v_shaped_t.data_ptr(),
+        posedirs_t.data_ptr(), W_t.data_ptr(), g.data_ptr(),
+        None if vp is None else vp.data_ptr(), scratch.data_ptr(),
+        gpf.data_ptr(), gA.data_ptr(), gvsh.data_ptr(),
+        _build.stream_handle(dev))
+    _build.check(err, "nemo_skin_bwd" + sfx)
+    LAUNCHES[("skin_bwd" if vp is None else "skin_bwd_vp") + sfx] += 1
     return gpf, gA, gvsh
 
 
-def skin_fwd_attributes(pair: bool = False) -> dict:
+def skin_fwd_attributes(pair: bool = False, bf16: bool = False) -> dict:
     """The forward kernel's registers a thread, shared memory and spills:
-    K3f's instantiation, or (pair) K2's pair mode's."""
-    return _build.kernel_attributes("nemo_skin_fwd_attributes",
-                                    2 if pair else 1)
+    K3f's instantiation, or (pair) K2's pair mode's; of the f32 or (bf16)
+    the bf16 tables."""
+    return _build.kernel_attributes(
+        "nemo_skin_fwd_attributes" + (BF16 if bf16 else ""), 2 if pair else 1)
 
 
-def skin_bwd_attributes(stored_vp: bool = False) -> dict:
+def skin_bwd_attributes(stored_vp: bool = False, bf16: bool = False) -> dict:
     """The one-pass K3b kernel's registers a thread, shared memory and
-    spills, recomputing vp or (stored_vp) reading it."""
-    return _build.kernel_attributes("nemo_skin_bwd_attributes",
-                                    2 if stored_vp else 1)
+    spills, recomputing vp or (stored_vp) reading it; of the f32 or (bf16)
+    the bf16 tables."""
+    return _build.kernel_attributes(
+        "nemo_skin_bwd_attributes" + (BF16 if bf16 else ""),
+        2 if stored_vp else 1)
 
 
 def _v2v_launch(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
@@ -377,7 +491,8 @@ def _v2v_launch(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
     (total, sign, vp, (gpf, gA, gvsh)), with None for what the mode skips.
     Modes 0 and 1 take only the per-block partials as scratch (mode 1:
     about 17.5 MB at B=512 on 132 SMs); no (B, 3, V) tensor."""
-    B, V, dev = _check_skin_inputs(pf_o, A_o, v_shaped_t, posedirs_t, W_t)
+    B, V, dev, sfx = _check_skin_inputs(pf_o, A_o, v_shaped_t, posedirs_t,
+                                        W_t)
     _check_skin_inputs(pf_r, A_r, v_shaped_t, posedirs_t, W_t)
     lib = _build.library()
     _check_alignment("K2", V, A_o=A_o, A_r=A_r, v_shaped_t=v_shaped_t,
@@ -390,26 +505,27 @@ def _v2v_launch(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
     scratch = empty(n_scratch)
     total = empty()
     sign = empty(B, 3, V, on=mode == 2)
-    vp = empty(B, 3, V, on=mode == 2 and want_vp)
+    vp = torch.empty((B, 3, V), dtype=posedirs_t.dtype, device=dev) \
+        if mode == 2 and want_vp else None
     grads = (empty(B, NUM_POSE_FEATURES), empty(B, NUM_JOINTS, 12),
              empty(3, V)) if mode == 1 else None
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = lib.nemo_v2v_l1(B, V, pf_o.data_ptr(), A_o.data_ptr(),
-                          pf_r.data_ptr(), A_r.data_ptr(),
-                          v_shaped_t.data_ptr(), posedirs_t.data_ptr(),
-                          W_t.data_ptr(), mode, scratch.data_ptr(),
-                          ptr(sign), ptr(vp), total.data_ptr(),
-                          *(ptr(t) for t in (grads or (None,) * 3)),
-                          _build.stream_handle(dev))
-    _build.check(err, "nemo_v2v_l1")
-    LAUNCHES[("v2v_fwd", "v2v_grad", "v2v_pair")[mode]] += 1
+    err = getattr(lib, "nemo_v2v_l1" + sfx)(
+        B, V, pf_o.data_ptr(), A_o.data_ptr(), pf_r.data_ptr(),
+        A_r.data_ptr(), v_shaped_t.data_ptr(), posedirs_t.data_ptr(),
+        W_t.data_ptr(), mode, scratch.data_ptr(), ptr(sign), ptr(vp),
+        total.data_ptr(), *(ptr(t) for t in (grads or (None,) * 3)),
+        _build.stream_handle(dev))
+    _build.check(err, "nemo_v2v_l1" + sfx)
+    LAUNCHES[("v2v_fwd", "v2v_grad", "v2v_pair")[mode] + sfx] += 1
     return total, sign, vp, grads
 
 
-def v2v_fused_attributes() -> dict:
-    """The fused K2 kernel's registers a thread, shared memory and
-    spills."""
-    return _build.kernel_attributes("nemo_v2v_fused_attributes")
+def v2v_fused_attributes(bf16: bool = False) -> dict:
+    """The fused K2 kernel's registers a thread, shared memory and spills;
+    of the f32 or (bf16) the bf16 tables."""
+    return _build.kernel_attributes(
+        "nemo_v2v_fused_attributes" + (BF16 if bf16 else ""))
 
 
 def v2v_l1_cuda(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
@@ -424,7 +540,7 @@ def v2v_pair_cuda(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
                   want_vp: bool
                   ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Launch K2 in pair mode (CUDA tensors only): (total, sign, vp or
-    None), the counterpart of v2v_pair_plain."""
+    None; vp in the tables' dtype), the counterpart of v2v_pair_plain."""
     total, sign, vp, _ = _v2v_launch(pf_o, A_o, v_shaped_t, posedirs_t, W_t,
                                      pf_r, A_r, 2, want_vp=want_vp)
     return total, sign, vp

@@ -29,6 +29,10 @@ Configurations (chip_smoke.py):
                        lr_factor 1), full-mesh v2v prior through K2
   custom_video_subset  the same with the opt-in v2v prior on 1024 vertices
                        through K3 (chip_smoke.py's path A)
+  reference_bf16       reference with bf16 skinning tables (--skin_bf16:
+                       K2's bf16 kernels; chip_smoke.py's path H)
+  custom_video_subset_bf16  custom_video_subset with bf16 tables (K3f/K3b
+                       bf16)
 
 Prints one JSON line per timed run and per profile, then the nvidia-smi
 line (name, power limit).
@@ -44,13 +48,18 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (stdlib imports only at module level)
 
-# name -> (configuration, MotionNet mode)
+def _subset():
+    return chip_smoke.custom_video_config(vp_v2v_n_verts=1024)
+
+
+# name -> (configuration, MotionNet mode, bf16 skinning tables)
 CONFIGS = {
-    "reference": (chip_smoke.reference_config, "plain"),
-    "reference_fused": (chip_smoke.reference_config, "fused"),
-    "custom_video": (chip_smoke.custom_video_config, "plain"),
-    "custom_video_subset": (lambda: chip_smoke.custom_video_config(
-        vp_v2v_n_verts=1024), "plain"),
+    "reference": (chip_smoke.reference_config, "plain", False),
+    "reference_fused": (chip_smoke.reference_config, "fused", False),
+    "custom_video": (chip_smoke.custom_video_config, "plain", False),
+    "custom_video_subset": (_subset, "plain", False),
+    "reference_bf16": (chip_smoke.reference_config, "plain", True),
+    "custom_video_subset_bf16": (_subset, "plain", True),
 }
 
 
@@ -59,10 +68,14 @@ def make_fitters(configs):
     from nemo_tpu_torch.body.assets import synthetic_smpl_model
     from nemo_tpu_torch.data.synthetic import synthetic_problem
     device = torch.device("cuda", 0)
-    smpl = synthetic_smpl_model(6890, seed=0, device=device)
-    bundle, _ = synthetic_problem(smpl, num_views=8, num_frames=120, seed=0)
-    return {name: chip_smoke.make_fitter(device, smpl, bundle,
-                                         CONFIGS[name][0](),
+    smpl = {bf16: synthetic_smpl_model(
+        6890, seed=0, device=device,
+        skin_dtype=torch.bfloat16 if bf16 else torch.float32)
+        for bf16 in sorted({CONFIGS[name][2] for name in configs})}
+    bundle, _ = synthetic_problem(next(iter(smpl.values())), num_views=8,
+                                  num_frames=120, seed=0)
+    return {name: chip_smoke.make_fitter(device, smpl[CONFIGS[name][2]],
+                                         bundle, CONFIGS[name][0](),
                                          motion_mlp=CONFIGS[name][1])
             for name in configs}
 

@@ -2,7 +2,7 @@
 """K2, K3b and K3f of one checkout, timed on one GPU, with digests of outputs.
 
     python scripts/torch_v2v_times.py [--root DIR] [--batches 512 960]
-        [--reps 20] [--label NAME]
+        [--reps 20] [--label NAME] [--tables f32|bf16]
 
 Imports ``nemo_tpu_torch`` and ``chip_smoke`` from DIR (default: the
 checkout this script lies in) and builds its kernels there.
@@ -29,6 +29,11 @@ checkout this script lies in) and builds its kernels there.
   against ``lbs.skin_verts_t_plain`` (1e-5 of the largest entry), with a
   digest of the vertices.
 
+--tables bf16 builds the skinning tables in bf16 (a checkout with
+``skin_dtype``), so every call runs the kernels' bf16 instantiations; the
+vp K3b reads is then stored in bf16, the pair mode's vp is held to one
+bf16 step and K3b's gradients to 1e-3 of their largest entry.
+
 Each line has two times: ``ms``, the median of ``--reps`` CUDA-event
 timings of one call each after 3 warm-up calls (the wrapper's host work
 inside), and ``device_ms``, one call's share of ``--reps`` calls run back
@@ -54,8 +59,13 @@ K3B_SHAPES = ((512, 6890), (960, 1024))
 
 
 def digest(*tensors) -> str:
+    """sha256 of the tensors' bytes (a bf16 tensor's as int16: numpy has no
+    bf16)."""
+    import torch
     h = hashlib.sha256()
     for t in tensors:
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
         h.update(t.detach().cpu().contiguous().numpy().tobytes())
     return h.hexdigest()
 
@@ -85,6 +95,7 @@ def main(argv=None) -> int:
     p.add_argument("--batches", type=int, nargs="+", default=[512, 960])
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--label", default="")
+    p.add_argument("--tables", choices=("f32", "bf16"), default="f32")
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -101,15 +112,18 @@ def main(argv=None) -> int:
         raise RuntimeError(f"nemo_tpu_torch came from {nemo_tpu_torch.__file__}"
                            f", not from {root}")
     device = torch.device("cuda", 0)
-    smpl = synthetic_smpl_model(6890, seed=0, device=device)
+    bf16 = args.tables == "bf16"
+    smpl = synthetic_smpl_model(6890, seed=0, device=device, **(
+        {"skin_dtype": torch.bfloat16} if bf16 else {}))
     vsh = smpl.v_template.t().contiguous()
     label = args.label or root
+    vp_tol, grad_tol = (2.0 ** -8, 1e-3) if bf16 else (1e-5, 1e-4)
 
     def emit(fn, **rec):
         rec["ms"] = median_ms(fn, reps=args.reps)
         rec["device_ms"] = loop_ms(fn, args.reps)
-        print(json.dumps({"label": label, **rec, "reps": args.reps}),
-              flush=True)
+        print(json.dumps({"label": label, "tables": args.tables, **rec,
+                          "reps": args.reps}), flush=True)
 
     for B in args.batches:
         gen = torch.Generator().manual_seed(B)
@@ -133,10 +147,11 @@ def main(argv=None) -> int:
                                           / tot_p.abs()),
                    "sign_equal": bool(torch.equal(got[1], sign_p))}
             if want_vp:
-                err["vp_rel_err"] = float((got[2] - vp_p).abs().max()
-                                          / vp_p.abs().max())
+                err["vp_rel_err"] = float(
+                    (got[2].float() - vp_p.float()).abs().max()
+                    / vp_p.float().abs().max())
             if not (err["total_rel_err"] <= 1e-5 and err["sign_equal"] and
-                    err.get("vp_rel_err", 0.0) <= 1e-5):
+                    err.get("vp_rel_err", 0.0) <= vp_tol):
                 raise AssertionError(f"K2 pair at B={B}: {err}")
             emit(lambda: lbs.v2v_pair_cuda(*a, want_vp=want_vp), kernel="K2",
                  mode="pair_vp" if want_vp else "pair", B=B, V=6890, **err,
@@ -151,16 +166,17 @@ def main(argv=None) -> int:
             vidx, pd_s, W_s = subset_skin_tables(smpl, V)
             s = (pf, A, vsh[:, vidx].contiguous(), pd_s, W_s)
         g = torch.randn((B, 3, V), generator=gen).to(device)
-        vp = (torch.einsum('bp,pkv->bkv', pf, s[3]) + s[2]).contiguous()
+        vp = (torch.einsum('bp,pkv->bkv', pf, s[3].float()) + s[2]).to(
+            s[3].dtype).contiguous()
         for mode, stored in (("recompute", None), ("stored_vp", vp)):
             got = lbs.skin_bwd_cuda(*s, g, vp=stored)
             want = lbs.skin_bwd_plain(*s, g, vp=stored)
             rel = max(float((x - y).abs().max() / y.abs().max())
                       for x, y in zip(got, want))
-            if not rel <= 1e-4:
+            if not rel <= grad_tol:
                 raise AssertionError(f"K3b {mode} at ({B}, {V}): off by "
                                      f"{rel:.3e} of a gradient's largest "
-                                     f"entry (1e-4)")
+                                     f"entry ({grad_tol})")
             emit(lambda: lbs.skin_bwd_cuda(*s, g, vp=stored), kernel="K3b",
                  mode=mode, B=B, V=V, max_rel_err=rel, sha256=digest(*got))
         out = lbs.skin_fwd_cuda(*s)

@@ -72,12 +72,68 @@ def test_cli_outputs_match_jax_cli(tmp_path):
     assert sorted(final_t) == sorted(final_j)
 
 
-@pytest.mark.parametrize("extra", [["--dp", "2"], ["--skin_bf16"]])
+@pytest.mark.parametrize("extra", [["--dp", "2"]])
 def test_unported_flags_raise(tmp_path, extra):
     from nemo_tpu_torch.cli.fit import main
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(FLAGS + extra + ["--device", "cpu", "--out_dir",
                               str(tmp_path)])
+
+
+@pytest.mark.parametrize("subset", [0, 64])
+def test_skin_bf16_builds_bf16_tables(subset):
+    """--skin_bf16 parses in both CLIs; the port's load_assets builds the
+    body's skinning tables (and the v2v subset's) in bf16, every other
+    table in f32; without it, f32."""
+    import torch
+    from nemo_tpu.cli.fit import build_parser as jax_parser
+    from nemo_tpu_torch.body.assets import synthetic_smpl_model
+    from nemo_tpu_torch.cli.fit import build_parser, load_assets
+    from nemo_tpu_torch.data.synthetic import synthetic_problem
+    from nemo_tpu_torch.fit.model import NemoConfig
+    from nemo_tpu_torch.utils.exp import dataclass_from_namespace
+    argv = FLAGS + ["--vp_v2v_n_verts", str(subset)]
+    assert jax_parser().parse_args(argv + ["--skin_bf16"]).skin_bf16
+    argv = argv + ["--device", "cpu"]
+    for bf16 in (False, True):
+        args = build_parser().parse_args(argv + ["--skin_bf16"] * bf16)
+        assert args.skin_bf16 == bf16
+        cfg = dataclass_from_namespace(NemoConfig, args)
+        bundle, _ = synthetic_problem(synthetic_smpl_model(300, seed=0),
+                                      num_views=2, num_frames=4)
+        assets = load_assets(args, bundle, cfg, torch.device("cpu"))
+        want = torch.bfloat16 if bf16 else torch.float32
+        assert assets.smpl.posedirs_t.dtype == want
+        assert assets.smpl.lbs_weights_t.dtype == want
+        assert assets.smpl.posedirs.dtype == torch.float32
+        if subset:
+            assert assets.v2v_posedirs_t.dtype == want
+            assert assets.v2v_lbs_weights_t.dtype == want
+
+
+def test_skin_bf16_fit_matches_jax_cli_phases(tmp_path, monkeypatch):
+    """A 1 + 1 + 2-step fit with --skin_bf16 through both CLIs on the CPU:
+    the port writes config.json with the flag, and metrics.jsonl with the
+    JAX CLI's phases and keys, every value finite. The JAX CLI sets
+    NEMO_TPU_SKIN_BF16 itself; setting it here first has monkeypatch put it
+    back afterwards, so later tests in this process build f32 tiles."""
+    from nemo_tpu.cli.fit import main as jax_main
+    from nemo_tpu_torch.cli.fit import main
+    monkeypatch.setenv("NEMO_TPU_SKIN_BF16", "0")
+    flags = FLAGS + ["--skin_bf16"]
+    assert jax_main(flags + ["--out_dir", str(tmp_path / "jax")]) == 0
+    assert main(flags + ["--device", "cpu", "--out_dir",
+                         str(tmp_path / "port")]) == 0
+    jdir = tmp_path / "jax" / "000000"
+    tdir = tmp_path / "port" / "000000"
+    assert json.load(open(tdir / "config.json"))["args"]["skin_bf16"] is True
+    lines = lambda d: [json.loads(line) for line in open(d / "metrics.jsonl")]
+    lj, lt = lines(jdir), lines(tdir)
+    assert [m["phase"] for m in lt] == [m["phase"] for m in lj]
+    assert [sorted(m) for m in lt] == [sorted(m) for m in lj]
+    assert all(math.isfinite(v) for m in lt for v in m.values()
+               if isinstance(v, float))
+    assert lt[-1]["vp_recon_loss"] > 0
 
 
 SMALL = ["--model_version", "2", "--phase_rbf_dim", "8", "--rbf_kernel",

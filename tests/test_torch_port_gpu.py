@@ -432,10 +432,12 @@ def _strided(t, kind, cuda):
         view = leaf.transpose(0, -1)
         assert not view.is_contiguous()
     else:
-        leaf = torch.cat([torch.zeros(1), t.reshape(-1)]).to(cuda)
+        leaf = torch.cat([torch.zeros(1, dtype=t.dtype),
+                          t.reshape(-1)]).to(cuda)
         leaf.requires_grad_()
         view = leaf[1:].view(t.shape)
-        assert view.is_contiguous() and view.data_ptr() % 8 == 4
+        assert view.is_contiguous() and \
+            view.data_ptr() % 8 == t.element_size()
     return leaf, view
 
 
@@ -548,7 +550,8 @@ def test_skin_fwd_resources_and_scratch(cuda):
             n_bt * lbs.fwd_ranges(B, V, 2, sms)
 
 
-def _tiny_fitter(cuda, v2v_vjp="fused", motion_mlp="plain", **over):
+def _tiny_fitter(cuda, v2v_vjp="fused", motion_mlp="plain",
+                 skin_dtype=torch.float32, **over):
     from nemo_tpu_torch.body.assets import synthetic_smpl_model
     from nemo_tpu_torch.data.synthetic import synthetic_problem
     from nemo_tpu_torch.fit import NemoConfig, NemoFitter, build_assets
@@ -558,7 +561,7 @@ def _tiny_fitter(cuda, v2v_vjp="fused", motion_mlp="plain", **over):
         model_version=2, h_dim=32, instance_code_size=4, phase_rbf_dim=8,
         rbf_kernel="quadratic", monotonic_network_n_nodes=4, batch_size=16,
         weight_vp_loss=10.0, weight_vp_z_loss=1.0, label_type="gt"), **over})
-    smpl = synthetic_smpl_model(300, device=cuda)
+    smpl = synthetic_smpl_model(300, device=cuda, skin_dtype=skin_dtype)
     bundle, _ = synthetic_problem(smpl, num_views=2, num_frames=12)
     assets = build_assets(bundle, smpl, cfg, gmm=synthetic_gmm_prior(4),
                           vposer=init_vposer(), device=cuda, v2v_vjp=v2v_vjp,
@@ -628,6 +631,215 @@ def test_stage_steps_never_synchronise(cuda, case):
     try:
         for step in steps:
             step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+# ---------------------------------------------------------------------------
+# bf16 skinning tables: the _bf16 kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+BF = torch.bfloat16
+# bf16 gradients: the kernel and the plain version round gm = g . [vp; 1]
+# and gvp to bf16 after f32 sums taken in other orders; where the two sums
+# straddle a rounding boundary one term moves by a bf16 step (2^-8 of it),
+# which at these inputs (A ~ N(0, 1), so gvp reaches a few units) moves a
+# gradient entry by up to ~2e-4 of the tensor's largest entry. 1e-3 holds a
+# few such flips, and a wrong fragment or missing term moves entries by
+# much more; but a rounding point moved (pf or A left in f32, gm or gvp not
+# rounded, gvsh summing the rounded gvp) moves them by ~1e-3 as well, so
+# _rounds_where_plain also holds each gradient much nearer the plain version
+# than to every such variant. The CPU tests hold the plain version to the
+# JAX kernels at 1e-5 and to 1/20 of the bf16-vs-f32 gap.
+GRAD_BF16 = 1e-3
+
+
+def _bf16_tables(args):
+    """_skin_args' / _pair_args' operands with the tables in bf16."""
+    out = list(args)
+    out[3], out[4] = out[3].to(BF), out[4].to(BF)
+    return out
+
+
+def _rounds_where_plain(got, args, g, vp=None):
+    """Each gradient of a _bf16 kernel lies within lbs.MISROUNDED_SHARE of
+    the plain version's distance from every lbs.skin_bwd_misrounded variant
+    that changes it (the JAX kernels' own bf16 gradients pass the same
+    check on the CPU: tests/test_torch_port_skin_bf16.py)."""
+    shares = lbs.misrounding_shares(got, *args, g, vp=vp)
+    assert shares and max(shares.values()) <= lbs.MISROUNDED_SHARE, shares
+
+
+def _bf16_vp_close(got, want):
+    """A stored bf16 vp: the kernel and the plain version round f32 sums
+    taken in another order, so an entry may differ by one bf16 step (2^-8
+    relative) where the two sums straddle a rounding boundary."""
+    assert got.dtype == want.dtype == BF
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2.0 ** -8 * float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("V", [5, 300, 1024, 6890])
+@pytest.mark.parametrize("B", [1, 37, 512, 960])
+def test_bf16_kernels_match_plain(cuda, B, V):
+    """Every _bf16 kernel against its plain bf16 version at the grid's
+    shapes (ragged B and V; odd V copies bf16 one element at a time): K3f
+    (vertices within 1e-5 of the largest entry), K3b recomputing vp and
+    reading the pair mode's bf16 vp under a random cotangent (gradients
+    within GRAD_BF16), K2 fused and forward-only (the total within rtol
+    1e-5, gradients GRAD_BF16) and the pair mode (the total, the sign
+    exact, vp to one bf16 step). Every gradient is also much nearer the
+    plain version than to a variant with a rounding point moved
+    (_rounds_where_plain). Each reruns bit-identical, only the _bf16
+    counters move, and the f32 kernels' counters stay at 0."""
+    args, full = _pair_args(B, V, cuda, seed=B + V)
+    args, full = _bf16_tables(args), _bf16_tables(full)
+    g = torch.randn((B, 3, V), generator=torch.Generator().manual_seed(V)
+                    ).to(cuda)
+    reset_launches()
+    out = lbs.skin_fwd_cuda(*args)
+    _close_scaled(out, lbs.skin_verts_t_plain(*args), 1e-5)
+    assert torch.equal(lbs.skin_fwd_cuda(*args), out)
+    pair = lbs.v2v_pair_cuda(*full, want_vp=True)
+    tot_p, sign_p, vp_p = lbs.v2v_pair_plain(*full, want_vp=True)
+    torch.testing.assert_close(pair[0], tot_p, rtol=1e-5, atol=0)
+    assert torch.equal(pair[1], sign_p)
+    _bf16_vp_close(pair[2], vp_p)
+    assert all(torch.equal(a, b) for a, b in
+               zip(lbs.v2v_pair_cuda(*full, want_vp=True), pair))
+    for stored in (None, pair[2]):
+        got = lbs.skin_bwd_cuda(*args, g, vp=stored)
+        for a, b in zip(got, lbs.skin_bwd_plain(*args, g, vp=stored)):
+            _close_scaled(a, b, GRAD_BF16)
+        _rounds_where_plain(got, args, g, stored)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(lbs.skin_bwd_cuda(*args, g, vp=stored), got))
+    tot_k, gk = lbs.v2v_l1_cuda(*full, grad=True)
+    tot_pl, gp = lbs.v2v_l1_plain(*full, grad=True)
+    torch.testing.assert_close(tot_k, tot_pl, rtol=1e-5, atol=0)
+    for a, b in zip(gk, gp):
+        _close_scaled(a, b, GRAD_BF16)
+    _rounds_where_plain(gk, full[:5], sign_p)
+    tot_2, g2 = lbs.v2v_l1_cuda(*full, grad=True)
+    assert torch.equal(tot_2, tot_k)
+    assert all(torch.equal(a, b) for a, b in zip(g2, gk))
+    assert torch.equal(lbs.v2v_l1_cuda(*full, grad=False)[0], tot_k)
+    counts = launch_counts()
+    assert {k for k, v in counts.items() if v} == {
+        k + lbs.BF16 for k in lbs._KERNELS}, counts
+
+
+def test_bf16_kernel_resources(cuda):
+    """Every _bf16 instantiation fits one block an SM without spilling;
+    the fused K2 one, which holds 255 registers in f32, included."""
+    res = {"v2v_fused": lbs.v2v_fused_attributes(bf16=True)}
+    for pair in (False, True):
+        res[f"skin_fwd pair={pair}"] = lbs.skin_fwd_attributes(pair, True)
+    for stored in (False, True):
+        res[f"skin_bwd stored={stored}"] = lbs.skin_bwd_attributes(stored,
+                                                                   True)
+    for name, r in res.items():
+        assert r["local_bytes"] == 0, (name, r)
+        assert 0 < r["registers"] <= 255, (name, r)
+        assert r["static_smem_bytes"] + r["dynamic_smem_bytes"] <= 232448, \
+            (name, r)
+
+
+@pytest.mark.parametrize("name", ["posedirs_t", "W_t"])
+@pytest.mark.parametrize("V", [300, 301])
+def test_bf16_launchers_take_tables_on_their_boundary(cuda, name, V):
+    """The bf16 tables are read two elements (4 bytes) at a time where V is
+    even and one (2 bytes) where it is odd: a table 2 bytes off a 4-byte
+    boundary is refused at V = 300 and taken, matching the plain version,
+    at V = 301."""
+    args, full = _pair_args(37, V, cuda, seed=V)
+    args, full = _bf16_tables(args), _bf16_tables(full)
+    i = 3 if name == "posedirs_t" else 4
+    t = args[i]
+    shifted = torch.empty(t.numel() + 1, device=cuda, dtype=BF)[1:].view(
+        t.shape)
+    shifted.copy_(t)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 4 == 2
+    moved = args[:i] + [shifted] + args[i + 1:]
+    moved_full = moved + full[5:]
+    if V % 2 == 0:
+        with pytest.raises(ValueError, match="boundary"):
+            lbs.skin_fwd_cuda(*moved)
+        with pytest.raises(ValueError, match="boundary"):
+            lbs.v2v_l1_cuda(*moved_full, grad=True)
+    else:
+        _close_scaled(lbs.skin_fwd_cuda(*moved),
+                      lbs.skin_verts_t_plain(*args), 1e-5)
+        g = torch.sign(torch.randn(
+            (37, 3, V), generator=torch.Generator().manual_seed(V))).to(cuda)
+        for a, b in zip(lbs.skin_bwd_cuda(*moved, g),
+                        lbs.skin_bwd_plain(*args, g)):
+            _close_scaled(a, b, GRAD_BF16)
+        _, gk = lbs.v2v_l1_cuda(*moved_full, grad=True)
+        for a, b in zip(gk, lbs.v2v_l1_plain(*full, grad=True)[1]):
+            _close_scaled(a, b, GRAD_BF16)
+
+
+@pytest.mark.parametrize("kind", ["transposed", "offset"])
+def test_skin_verts_t_bf16_takes_strided_views(cuda, kind):
+    """skin_verts_t with bf16 tables (K3f, then K3b, both _bf16) on
+    transposed or offset views of every operand (a bf16 table 2 bytes off
+    its boundary) matches the plain bf16 version, forward and gradients."""
+    args, g = _skin_args(37, 300, cuda, seed=15)
+    args = _bf16_tables([a.cpu() for a in args])
+    leaves = [_strided(a, kind, cuda) for a in args]
+    reset_launches()
+    out = lbs.skin_verts_t(300, *(v for _, v in leaves))
+    out.backward(g)
+    assert launch_counts()["skin_fwd_bf16"] == 1
+    assert launch_counts()["skin_bwd_bf16"] == 1
+    _close_scaled(out.detach().cpu(), lbs.skin_verts_t_plain(*args), 1e-5)
+    for (leaf, _), a, w in zip(leaves, args,
+                               lbs.skin_bwd_plain(*args, g.cpu())):
+        _close_scaled(_grad_of(leaf, kind, a.shape).cpu(), w, GRAD_BF16)
+
+
+@pytest.mark.parametrize("vjp", lbs.VJP_MODES)
+@pytest.mark.parametrize("kind", ["transposed", "offset"])
+def test_skin_v2v_l1_bf16_takes_strided_views(cuda, kind, vjp):
+    """skin_v2v_l1 with bf16 tables in every vjp mode on transposed or
+    offset views of every operand matches the plain bf16 version: the total
+    and its gradients."""
+    _, full = _pair_args(37, 300, cuda, seed=16)
+    full = _bf16_tables([a.cpu() for a in full])
+    leaves = [_strided(a, kind, cuda) for a in full]
+    total = lbs.skin_v2v_l1(300, *(v for _, v in leaves), vjp=vjp)
+    total.backward()
+    want, grads = lbs.v2v_l1_plain(*full, grad=True)
+    torch.testing.assert_close(total.detach().cpu(), want, rtol=1e-5,
+                               atol=0)
+    for (leaf, _), a, w in zip(leaves[:3], full[:3], grads):
+        _close_scaled(_grad_of(leaf, kind, a.shape).cpu(), -w, GRAD_BF16)
+
+
+BF16_FIT_CASES = {c: (FIT_CASES[c][0], {
+    k + lbs.BF16 if k in lbs._KERNELS else k for k in FIT_CASES[c][1]})
+    for c in ("v2_fused", "v2_pair", "v2_pair_vp", "v3_subset_full_batch")}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_FIT_CASES))
+def test_fit_steps_launch_bf16_kernels(cuda, case):
+    """With bf16 tables each configuration's stages launch the _bf16
+    skinning kernels and no f32 one; no step synchronises."""
+    over, expected = BF16_FIT_CASES[case]
+    fitter = _tiny_fitter(cuda, skin_dtype=BF, **over)
+    reset_launches()
+    fitter.warmup(2)
+    fitter.opt_cam(2)
+    m = fitter.fit(3, chunk=3)
+    fitter.eval_loss()
+    counts = launch_counts()
+    assert {k for k, v in counts.items() if v > 0} == expected, counts
+    assert np.isfinite(m["total_loss"]).all()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fitter.main_step()
     finally:
         torch.cuda.set_sync_debug_mode("default")
 
