@@ -46,7 +46,18 @@ Run from the repository root with no arguments:
    f32 kernel's on the same inputs, and the bf16-vs-f32 gap of the
    vertices and the gradients; their bound counts the posedirs
    contractions as one bf16 pass at 989 TFLOP/s and the tables' bytes at
-   2 a value, and their one PyTorch call is a bf16 matmul. Each check
+   2 a value, and their one PyTorch call is a bf16 matmul. Then K6f and
+   K6b at the JAX package's other network precisions, "high" (bf16x3: three
+   bf16 mma.sync products a 16-deep step) and "bf16" (one), at B = 512, 960
+   and 1 against their plain versions at the same precision, each rerun
+   bit-identical, with every instantiation's resources, their bf16
+   tensor-core bound (three or one products at 989 TFLOP/s) and one bf16
+   product with an f32 result as the one PyTorch call; and K3f writing bf16
+   vertices and K3b reading a bf16 cotangent (--skin_io_bf16) with f32 and
+   bf16 tables at (960, 1024) and (512, 6890): bit for bit the f32-mesh
+   kernels' rounded vertices and their gradients on the widened cotangent,
+   within one bf16 step of the plain vertices, each rerun bit-identical,
+   with device time a launch beside the f32-mesh kernels'. Each check
    prints its max error beside its tolerance; each kernel's median CUDA-event time beside its plain
    version's, one PyTorch call's (where one computes the whole function or
    its largest contraction) and its bound (the least time the card could
@@ -67,6 +78,14 @@ Run from the repository root with no arguments:
      main step, no sync, steps/s beside slice 1's; the custom-video
      configuration's 1024-vertex subset in bf16 (K3f/K3b bf16); fused,
      pair and pair_vp in bf16 from the same parameters;
+   - path I: slice 1 at the JAX bench's precision (bf16 tables and
+     net_precision "high", bench.py:82-86): the plain MotionNet and K6 at
+     "high" (10/10/30 steps, card vs CPU, no sync, steps/s, fused vs
+     plain), five steps at "bf16" on each MLP mode, the custom-video
+     subset with bf16 meshes on either table type (K3's _io_bf16 kernels),
+     and the paired trajectory: slice 1, path H and path I drew the same
+     batches, and the median per-step relative |delta total_loss| of path
+     H and of path I against slice 1 stays under PAIRED_MEDIAN_BOUND (5%);
    - path A: the custom-video configuration (run_examples/
      custom-video-example.sh: NemoV3, full_batch so B=960, weight_3d_loss
      1000, lr_phase 0, lr_factor 1) with the opt-in v2v prior on 1024
@@ -157,6 +176,16 @@ KERNELS = {
 SKIN_KERNELS = ("v2v_grad", "v2v_fwd", "v2v_pair", "skin_fwd", "skin_bwd",
                 "skin_bwd_vp")
 KERNELS.update({k + "_bf16": KERNELS[k] for k in SKIN_KERNELS})
+# K6 at the JAX package's other network precisions (NEMO_TPU_NET_PRECISION:
+# "high" = bf16x3, "bf16"), and K3 writing and reading bf16 meshes
+# (NEMO_TPU_SKIN_IO_BF16) with f32 or bf16 tables: the same sources and TPU
+# kernels, the computations those knobs select
+NET_PRECISIONS = ("high", "bf16")
+KERNELS.update({f"{k}_{p}": KERNELS[k] for p in NET_PRECISIONS
+                for k in ("mlp_fwd", "mlp_bwd")})
+IO_KERNELS = tuple(k + t + "_io_bf16" for k in ("skin_fwd", "skin_bwd")
+                   for t in ("", "_bf16"))
+KERNELS.update({k: KERNELS[k.split("_io")[0]] for k in IO_KERNELS})
 # bf16 gradients, kernel against plain: where the two round gm = g . [vp; 1]
 # or gvp to bf16 after f32 sums taken in other orders, a term can move by
 # one bf16 step (2^-8 of it); 1e-3 of the tensor's largest entry holds a few
@@ -165,6 +194,16 @@ KERNELS.update({k + "_bf16": KERNELS[k] for k in SKIN_KERNELS})
 # within lbs.MISROUNDED_SHARE of the plain version's distance from every
 # variant with one point moved (lbs.misrounding_shares)
 GRAD_BF16 = 1e-3
+# K6 at "bf16", kernel against plain: both round the same operands and sum
+# exact products in f32 in other orders, and where a layer's f32 output
+# straddles a rounding point the next layer's operand is one bf16 step
+# (2^-7 of it) apart; the terms of a product exceed the outputs they
+# cancel into (|z_i Wo_ij| against |out_j|: measured 1.17e-3 of out's
+# largest entry at B = 512, H100), so each output is held within one bf16
+# rounding (2^-8) of its largest entry, and within mlp.MISROUNDED_SHARE of
+# the plain version's distance from every variant with a rounding point
+# moved (mlp.misrounding_shares)
+K6_BF16 = 2.0 ** -8
 
 # f32 operations per (batch row, vertex) of the skinning kernels (a MAC is
 # 2): posing 3x207 MACs + 3 adds, blending 12x24 MACs, transforming 9 MACs;
@@ -274,13 +313,15 @@ def bound_ms(flop: float, bytes_: float):
 
 
 def tc_bound_ms(flop: float, tc_flop: float, bytes_: float,
-                bf16: bool = False):
+                bf16: bool = False, passes: int = 0):
     """A one-pass kernel's least time with the contractions it may run on
     the tensor cores (tc_flop of the flop) there: the posedirs ones in
     3xTF32 (three TF32 products each) or, with bf16 tables, those and the
-    blend and gA in one bf16 pass; the rest in f32 on the CUDA cores: (ms,
-    "tensor cores", "CUDA cores" or "bytes")."""
-    tc = tc_flop / PEAK_BF16_FLOPS if bf16 else 3 * tc_flop / PEAK_TF32_FLOPS
+    blend and gA in one bf16 pass (K6: ``passes`` bf16 products each, 3 at
+    "high"); the rest in f32 on the CUDA cores: (ms, "tensor cores", "CUDA
+    cores" or "bytes")."""
+    passes = passes or (1 if bf16 else 3)
+    tc = passes * tc_flop / (PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS)
     times = {"tensor cores": tc,
              "CUDA cores": (flop - tc_flop) / PEAK_F32_FLOPS,
              "bytes": bytes_ / PEAK_HBM_BYTES}
@@ -302,7 +343,8 @@ def check(name: str, got, want, atol: float, results: dict) -> float:
 
 
 def time_kernel(rec, key, shape, kernel, plain, flop, bytes_, library=None,
-                plain_reps: int = 20, tc_flop=None, bf16: bool = False):
+                plain_reps: int = 20, tc_flop=None, bf16: bool = False,
+                passes: int = 0):
     """Median CUDA-event times of a kernel, its plain version and one
     PyTorch call, beside the bound; given the flop its tensor cores take,
     the bound is the tensor-core one (bf16: one bf16 pass) and the f32
@@ -310,7 +352,7 @@ def time_kernel(rec, key, shape, kernel, plain, flop, bytes_, library=None,
     f32_ms, by = bound_ms(flop, bytes_)
     b_ms = f32_ms
     if tc_flop is not None:
-        b_ms, tc_by = tc_bound_ms(flop, tc_flop, bytes_, bf16)
+        b_ms, tc_by = tc_bound_ms(flop, tc_flop, bytes_, bf16, passes)
         by = "bytes" if tc_by == "bytes" else "operations"
     r = {"ms": median_ms(kernel),
          "plain_ms": median_ms(plain, reps=plain_reps,
@@ -325,8 +367,8 @@ def time_kernel(rec, key, shape, kernel, plain, flop, bytes_, library=None,
           f"{bytes_ / 1e6:.3f} MB) (median of 20 CUDA-event timings, "
           f"{plain_reps} of the plain version)")
     if tc_flop is not None:
-        tc_text = (f"{tc_flop / 1e9:.3f} GFLOP in bf16 at 989 TFLOP/s"
-                   if bf16 else
+        tc_text = (f"{(passes or 1) * tc_flop / 1e9:.3f} GFLOP in bf16 at "
+                   f"989 TFLOP/s" if bf16 else
                    f"{3 * tc_flop / 1e9:.3f} GFLOP in 3xTF32 at 495 TFLOP/s")
         print(f"[time] {key} {shape}: tensor-core bound {b_ms:.4f} ms "
               f"({tc_by}; {tc_text}, {(flop - tc_flop) / 1e9:.3f} GFLOP "
@@ -1011,6 +1053,145 @@ def bf16_kernel_phase(device, smpl, smpl_b, rec):
             for k in SKIN_KERNELS}
 
 
+def io_bf16_phase(device, smpl, smpl_b, rec):
+    """K3f writing bf16 vertices and K3b reading a bf16 cotangent (the
+    _io_bf16 kernels, --skin_io_bf16, the JAX package's
+    NEMO_TPU_SKIN_IO_BF16) with f32 and with bf16 tables, at path I's subset
+    (960, 1024) and at (512, 6890). K3f's bf16 vertices must be the
+    f32-mesh kernel's rounded to nearest even, bit for bit, hence within
+    one bf16 step (2^-7 of the entry, plus the f32 kernel's 1e-5 of the
+    largest entry near 0) of the plain version's f32 vertices; the share of
+    entries whose bf16 value is not the plain version's rounded one is
+    printed. K3b's gradients under a bf16 cotangent must equal the
+    f32-cotangent kernel's under the widened cotangent bit for bit, and
+    hold the plain version under it as the f32 rows do (1e-4 of the largest
+    entry) or, with bf16 tables, as the bf16 rows do (GRAD_BF16 and
+    lbs.misrounding_shares). Each reruns bit-identical. Times as the other
+    K3 rows, the mesh or the cotangent at 2 bytes an entry, each kernel's
+    device time a launch beside the f32-mesh kernel's on the same inputs;
+    and K3f bf16's device time at (512, 6890). Returns {kernel:
+    max_abs_err}."""
+    import torch
+    from nemo_tpu_torch.body.smpl import subset_skin_tables
+    from nemo_tpu_torch.ops import lbs
+    gen = torch.Generator().manual_seed(16)
+    bf = torch.bfloat16
+    errs = {}
+    res = {f"{k} tables={t}": f(False, t == "bf16", True)
+           for t in ("f32", "bf16")
+           for k, f in (("skin_fwd", lbs.skin_fwd_attributes),
+                        ("skin_bwd", lbs.skin_bwd_attributes))}
+    print(f"[kernel] _io_bf16 instantiations' resources (cudaFuncGetAttributes"
+          f"; local_bytes are spills): {json.dumps(res)}")
+
+    def stable(key, fn, got):
+        again = fn()
+        again = again if isinstance(again, tuple) else (again,)
+        got = got if isinstance(got, tuple) else (got,)
+        if not all(torch.equal(a, b) for a, b in zip(again, got)):
+            raise AssertionError(f"{key} is not bit-stable run to run")
+
+    vsh = smpl.v_template.t().contiguous()
+    cases = []
+    for B, n in ((BATCH_A, 1024), (BATCH, None)):
+        pf, A = skin_side_inputs(smpl, B, gen, device)
+        for body, sfx in ((smpl, ""), (smpl_b, lbs.BF16)):
+            if n is None:
+                a = (pf, A, vsh, body.posedirs_t, body.lbs_weights_t)
+            else:
+                vidx, pd_s, W_s = subset_skin_tables(body, n)
+                a = (pf, A, vsh[:, vidx].contiguous(), pd_s, W_s)
+            cases.append((sfx, a))
+    smi = nvidia_smi_line()
+    for sfx, a in cases:
+        B, V = a[0].shape[0], a[2].shape[1]
+        tag = f"B={B}, V={V}"
+        kf, kb = "skin_fwd" + sfx + "_io_bf16", "skin_bwd" + sfx + "_io_bf16"
+        out = lbs.skin_fwd_cuda(*a, out_dtype=bf)
+        if out.dtype != bf or not torch.equal(out, lbs.skin_fwd_cuda(*a)
+                                              .to(bf)):
+            raise AssertionError(f"{kf} {tag}: not the f32 kernel's "
+                                 "vertices rounded to bf16")
+        want = lbs.skin_verts_t_plain(*a)
+        err = (out.float() - want).abs()
+        step = 2.0 ** -7 * want.abs() + 1e-5 * float(want.abs().max())
+        moved = float((out != want.to(bf)).float().mean())
+        ok = bool((err <= step).all())
+        print(f"[kernel] {kf} {tag}: max_abs_err {float(err.max()):.3e}, "
+              f"each entry within one bf16 step of the plain version's f32 "
+              f"vertex {'OK' if ok else 'FAIL'}; {100 * moved:.4f}% of the "
+              f"entries are not the plain vertex rounded; bit for bit the "
+              f"f32 kernel's rounded")
+        if not ok:
+            raise AssertionError(f"{kf} {tag}: off by more than a bf16 step")
+        errs[kf] = max(errs.get(kf, 0.0), float(err.max()))
+        stable(kf, lambda: lbs.skin_fwd_cuda(*a, out_dtype=bf), out)
+        g = torch.randn((B, 3, V), generator=gen).to(device).to(bf)
+        got = lbs.skin_bwd_cuda(*a, g)
+        if not all(torch.equal(x, y) for x, y in
+                   zip(got, lbs.skin_bwd_cuda(*a, g.float()))):
+            raise AssertionError(f"{kb} {tag}: not the f32-cotangent kernel's "
+                                 "gradients on the widened cotangent")
+        plain = lbs.skin_bwd_plain(*a, g.float())
+        rel = GRAD_BF16 if sfx else 1e-4
+        for name, x, y in zip(("gpf", "gA", "gvsh"), got, plain):
+            check(f"{kb} {name} {tag}", x, y, rel * float(y.abs().max()),
+                  errs)
+        if sfx:
+            shares = lbs.misrounding_shares(got, *a, g.float())
+            worst = max(shares.values())
+            print(f"[kernel] {kb} {tag}: |kernel - plain| over |variant - "
+                  f"plain| at most {worst:.3e} (limit "
+                  f"{lbs.MISROUNDED_SHARE})")
+            if worst > lbs.MISROUNDED_SHARE:
+                raise AssertionError(f"{kb}: rounds at other points than "
+                                     "plain")
+        stable(kb, lambda: lbs.skin_bwd_cuda(*a, g), got)
+
+        bv = B * V
+        pd2 = a[3].reshape(207, 3 * V)
+        pfx = a[0].to(bf) if sfx else a[0]
+        gx = g.reshape(B, 3 * V) if sfx else g.float().reshape(B, 3 * V)
+        kw = dict(bf16=True) if sfx else {}
+        time_kernel(rec, kf, tag, lambda: lbs.skin_fwd_cuda(*a, out_dtype=bf),
+                    lambda: lbs.skin_verts_t_plain(*a).to(bf),
+                    bv * SIDE_FLOP, nbytes(*a, out),
+                    library=lambda: torch.matmul(pfx, pd2),
+                    tc_flop=bv * (BF16_TC_SIDE_FLOP if sfx else POSE_TC_FLOP),
+                    **kw)
+        time_kernel(rec, kb, tag, lambda: lbs.skin_bwd_cuda(*a, g),
+                    lambda: lbs.skin_bwd_plain(*a, g.float()),
+                    bv * (POSE_FLOP + BWD_BLEND_FLOP + GRAD_FLOP),
+                    nbytes(*a, g, *got),
+                    library=lambda: torch.matmul(gx, pd2.t()),
+                    tc_flop=bv * (BF16_TC_BWD_FLOP if sfx
+                                  else 2 * POSE_TC_FLOP), **kw)
+        for key, name, fb, ff in (
+                (kf, "skin_fwd_kernel",
+                 lambda: lbs.skin_fwd_cuda(*a, out_dtype=bf),
+                 lambda: lbs.skin_fwd_cuda(*a)),
+                (kb, "skin_bwd_kernel", lambda: lbs.skin_bwd_cuda(*a, g),
+                 lambda: lbs.skin_bwd_cuda(*a, g.float()))):
+            db = profiled_ms(fb, (name,))[name]
+            df = profiled_ms(ff, (name,))[name]
+            rec[key].setdefault("device_ms", db)
+            print(f"[time] {key} {tag}: device time a launch "
+                  f"{device_ms_text(db)}, the f32-mesh kernel's "
+                  f"{device_ms_text(df)} on the same inputs ({smi})")
+    # K3f with bf16 tables and an f32 mesh at (512, 6890): its device time
+    a = cases[-1][1]
+    a_f = cases[-2][1]
+    db = profiled_ms(lambda: lbs.skin_fwd_cuda(*a),
+                     ("skin_fwd_kernel",))["skin_fwd_kernel"]
+    df = profiled_ms(lambda: lbs.skin_fwd_cuda(*a_f),
+                     ("skin_fwd_kernel",))["skin_fwd_kernel"]
+    print(f"[time] skin_fwd_bf16 B={BATCH}, V={smpl.num_vertices}: device "
+          f"time a launch {device_ms_text(db)}, the f32 tables' "
+          f"{device_ms_text(df)} on the same inputs ({smi})")
+    return {k: max(v for n, v in errs.items()
+                   if n == k or n.startswith(k + " ")) for k in IO_KERNELS}
+
+
 def posed_panels(smpl, bundle, device, views):
     """The synthetic problem's ground-truth mesh at frame 0 of each view, in
     that view's camera frame: (verts_cam (N, V, 3), focals, centers)."""
@@ -1238,111 +1419,178 @@ def chamfer_phase(device, smpl, rec):
     return {"chamfer_nn": max(errs.values())}
 
 
-def mlp_phase(device, rec):
-    """K6f and K6b against their plain versions on the card at the fit's
-    shapes: the reference MotionNet at B = 512 (slice 1, path F), 960 (the
-    custom-video full batch) and 1 (the phase-0 anchor of every predict),
-    weights drawn at the init's scale (U(+-1/sqrt(fan_in))), inputs in
-    [0, 1) like the RBF features, a random N(0, 1) cotangent. Both sides
-    of the backward read the kernel's saved activations, so the ReLU masks
-    are the same. Tolerances: sums of up to 1000 f32 products in another
-    order than cuBLAS's (the plain version, TF32 off), 1e-5 (forward) and
-    1e-4 (gradients) of each tensor's largest entry. A second run of each
-    kernel must be bit-identical (fixed-order sums, no atomics). Every
-    product runs on the tensor cores in 3xTF32, so the bound is the
-    tensor-core one; beside one PyTorch call (the largest product) the
-    same products as a chain of cuBLAS calls are timed, and at B = 512 the
-    kernels' distance from their CPU emulation (run here on the card) is
-    printed as a record, not a gate: mma.sync sums in its own order.
-    Returns {kernel: max_abs_err} and adds the times to rec (B = 512
-    first)."""
+def mlp_weights(device, gen):
+    """The reference MotionNet's weights and biases at the init's scale,
+    U(+-1/sqrt(fan_in)): (W1, b1, W2, b2, W3, b3, Wo, bo) on the card."""
     import torch
-    from nemo_tpu_torch.ops import mlp
-    gen = torch.Generator().manual_seed(6)
     D, H, O = MLP_D, MLP_H, MLP_O
 
     def init(*shape, fan_in):
         u = torch.rand(shape, generator=gen) * 2.0 - 1.0
         return (u / math.sqrt(fan_in)).to(device)
 
-    W = (init(D, H, fan_in=D), init(H, fan_in=D), init(H, H, fan_in=H),
-         init(H, fan_in=H), init(H, H, fan_in=H), init(H, fan_in=H),
-         init(H, O, fan_in=H), init(O, fan_in=H))
+    return (init(D, H, fan_in=D), init(H, fan_in=D), init(H, H, fan_in=H),
+            init(H, fan_in=H), init(H, H, fan_in=H), init(H, fan_in=H),
+            init(H, O, fan_in=H), init(O, fan_in=H))
+
+
+def bf16_product(a, b):
+    """One PyTorch call computing a . b with both operands in bf16 and an
+    f32 result (torch.mm with out_dtype), on bf16 copies made here."""
+    import torch
+    ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    return lambda: torch.mm(ab, bb, out_dtype=torch.float32)
+
+
+def mlp_phase(device, rec):
+    """K6f and K6b against their plain versions on the card at the fit's
+    shapes, at each of mlp.NET_PRECISIONS: "highest" (3xTF32), and the JAX
+    package's other network precisions, "high" (each operand split into hi
+    and lo bf16 parts, three bf16 mma.sync products a 16-deep step) and
+    "bf16" (one). The reference MotionNet at B = 512 (slice 1, path F), 960
+    (the custom-video full batch) and 1 (the phase-0 anchor of every
+    predict), weights drawn at the init's scale (U(+-1/sqrt(fan_in))),
+    inputs in [0, 1) like the RBF features, a random N(0, 1) cotangent, the
+    same at every precision. Both sides of the backward read the kernel's
+    saved activations, so the ReLU masks are the same. Tolerances:
+    "highest" and "high" 1e-5 (forward) and 1e-4 (gradients) of each
+    tensor's largest entry (sums of up to 1000 products in another order
+    than the plain version's, TF32 off; at "high" the same split and exact
+    bf16 products); "bf16" K6_BF16 for both. At "high" and "bf16" every
+    output is also held within mlp.MISROUNDED_SHARE of the plain version's
+    distance from each variant that moves a rounding point
+    (mlp.misrounding_shares: at "high" the outputs of one product of the
+    kernel's own operands against the f32 product, lo.lo added, lo.hi or
+    hi.lo dropped; at "bf16" every output against one kind of operand left
+    in f32), and each tensor's gap from the f32 kernel's on the same inputs
+    is printed. A second run of each kernel must be bit-identical
+    (fixed-order sums, no atomics). The bound is the tensor-core one: 3xTF32
+    at 495 TFLOP/s, or bf16 at 989 with three products at "high" and one at
+    "bf16". One PyTorch call: the largest contraction, in f32 (TF32 off) at
+    "highest", as one bf16 product with an f32 result (bf16_product)
+    otherwise; at "highest" the same products as a chain of cuBLAS calls
+    are timed, and at B = 512 the kernels' distance from their CPU
+    emulation (run here on the card) is printed as a record, not a gate:
+    mma.sync sums in its own order. Returns {kernel: max_abs_err} and adds
+    the times to rec (B = 512 first)."""
+    import torch
+    from nemo_tpu_torch.ops import mlp
+    gen = torch.Generator().manual_seed(6)
+    D, H, O = MLP_D, MLP_H, MLP_O
+    W = mlp_weights(device, gen)
+    inputs = {B: (torch.rand((B, D), generator=gen).to(device),
+                  torch.randn((B, O), generator=gen).to(device))
+              for B in (BATCH, BATCH_A, 1)}
+    names = ("out", "h1", "h2", "z", "gx", "gW1", "gb1", "gW2", "gb2", "gW3",
+             "gb3", "gWo", "gbo")
     errs = {}
     print(f"[kernel] TF32 in matmuls: {torch.backends.cuda.matmul.allow_tf32}")
-    print(f"[kernel] mlp_gemm_kernel resources (cudaFuncGetAttributes): "
-          f"{json.dumps({k: mlp.gemm_attributes(k == 'backward pair') for k in ('forward', 'backward pair')})}")
-    for B in (BATCH, BATCH_A, 1):
-        x = torch.rand((B, D), generator=gen).to(device)
-        gout = torch.randn((B, O), generator=gen).to(device)
+    res = {p: {k: mlp.gemm_attributes(k == "backward pair", p)
+               for k in ("forward", "backward pair")}
+           for p in mlp.NET_PRECISIONS}
+    print(f"[kernel] mlp_gemm_kernel resources by precision "
+          f"(cudaFuncGetAttributes; local_bytes are spills): "
+          f"{json.dumps(res)}")
+    for B, (x, gout) in inputs.items():
         args = (x, *W)
-        got = mlp.mlp_fwd_cuda(*args)
-        want = mlp.motion_net_mlp_plain(*args)
-        for name, a, b in zip(("out", "h1", "h2", "z"), got, want):
-            check(f"mlp_fwd {name} B={B}", a, b, 1e-5 * float(b.abs().max()),
-                  errs)
-        bwd_args = (gout, x, *got[1:], W[0], W[2], W[4], W[6])
-        gk = mlp.mlp_bwd_cuda(*bwd_args)
-        gp = mlp.motion_net_mlp_bwd_plain(*bwd_args)
-        for name, a, b in zip(("gx", "gW1", "gb1", "gW2", "gb2", "gW3", "gb3",
-                               "gWo", "gbo"), gk, gp):
-            check(f"mlp_bwd {name} B={B}", a, b, 1e-4 * float(b.abs().max()),
-                  errs)
-        again = mlp.mlp_fwd_cuda(*args) + mlp.mlp_bwd_cuda(*bwd_args)
-        if not all(torch.equal(a, b) for a, b in zip(again, got + gk)):
-            raise AssertionError(f"K6 is not bit-stable run to run (B={B})")
-        if B == BATCH:
-            em = (mlp.motion_net_mlp_split_emulation(*args),
-                  mlp.motion_net_mlp_bwd_split_emulation(*bwd_args))
-            diff = {name: float((a - b).abs().max() / b.abs().max())
-                    for name, a, b in zip(
-                        ("out", "h1", "h2", "z", "gx", "gW1", "gb1", "gW2",
-                         "gb2", "gW3", "gb3", "gWo", "gbo"),
-                        got + gk, em[0] + em[1])}
-            print(f"[kernel] K6 vs its 3xTF32 emulation on the card (B={B}; "
-                  f"largest difference / the tensor's largest entry; a "
-                  f"record, no gate): {json.dumps(diff)}")
-        flop = 2 * B * (D * H + 2 * H * H + H * O)
-        shape = f"B={B}, D={D}, H={H}, O={O}"
-        x_, h1, h2, z = args[0], got[1], got[2], got[3]
-        def fwd_chain():   # K6f's products, one cuBLAS call each
-            for a, w, b in ((x_, W[0], W[1]), (h1, W[2], W[3]),
-                            (h2, W[4], W[5]), (z, W[6], W[7])):
-                torch.addmm(b, a, w)
+        f32 = None
+        for p in mlp.NET_PRECISIONS:
+            fk, bk = mlp._key("mlp_fwd", p), mlp._key("mlp_bwd", p)
+            tol_f, tol_b = (K6_BF16,) * 2 if p == "bf16" else (1e-5, 1e-4)
+            got = mlp.mlp_fwd_cuda(*args, precision=p)
+            want = mlp.motion_net_mlp_plain(*args, precision=p)
+            for name, a, b in zip(names, got, want):
+                check(f"{fk} {name} B={B}", a, b,
+                      tol_f * float(b.abs().max()), errs)
+            bwd_args = (gout, x, *got[1:], W[0], W[2], W[4], W[6])
+            gk = mlp.mlp_bwd_cuda(*bwd_args, precision=p)
+            gp = mlp.motion_net_mlp_bwd_plain(*bwd_args, precision=p)
+            for name, a, b in zip(names[4:], gk, gp):
+                check(f"{bk} {name} B={B}", a, b,
+                      tol_b * float(b.abs().max()), errs)
+            again = (mlp.mlp_fwd_cuda(*args, precision=p)
+                     + mlp.mlp_bwd_cuda(*bwd_args, precision=p))
+            if not all(torch.equal(a, b) for a, b in zip(again, got + gk)):
+                raise AssertionError(f"K6 at {p} is not bit-stable run to "
+                                     f"run (B={B})")
+            if p == "highest":
+                f32 = got + gk
+            else:
+                shares = mlp.misrounding_shares(got, gk, args, bwd_args, p)
+                worst = max(shares, key=shares.get)
+                ok = shares[worst] <= mlp.MISROUNDED_SHARE
+                print(f"[kernel] K6 {p} B={B}: |kernel - plain| over "
+                      f"|variant - plain| at most {shares[worst]:.3e} (the "
+                      f"variant {worst[0]}, on {worst[1]}; {len(shares)} "
+                      f"variant-output pairs; limit {mlp.MISROUNDED_SHARE}) "
+                      f"{'OK' if ok else 'FAIL'}: {json.dumps({f'{v} {n}': s for (v, n), s in shares.items()})}")
+                if not ok:
+                    raise AssertionError(f"K6 at {p} rounds at other points "
+                                         f"than its plain version")
+                gap = {n: float((a - b).abs().max() / b.abs().max())
+                       for n, a, b in zip(names, got + gk, f32)}
+                print(f"[kernel] K6 at {p} vs the f32 kernel, B={B}, same "
+                      f"inputs (largest difference / the tensor's largest "
+                      f"entry): {json.dumps(gap)}")
+            if p == "highest" and B == BATCH:
+                em = (mlp.motion_net_mlp_split_emulation(*args),
+                      mlp.motion_net_mlp_bwd_split_emulation(*bwd_args))
+                diff = {name: float((a - b).abs().max() / b.abs().max())
+                        for name, a, b in zip(names, got + gk,
+                                              em[0] + em[1])}
+                print(f"[kernel] K6 vs its 3xTF32 emulation on the card "
+                      f"(B={B}; largest difference / the tensor's largest "
+                      f"entry; a record, no gate): {json.dumps(diff)}")
+            flop = 2 * B * (D * H + 2 * H * H + H * O)
+            shape = f"B={B}, D={D}, H={H}, O={O}"
+            h1, h2 = got[1], got[2]
+            if p == "highest":
+                # one call: the largest contraction, (B, 1000).(1000, 1000)
+                # forward and (1000, B).(B, 1000) backward, f32, TF32 off
+                lib_f = lambda: torch.addmm(W[3], h1, W[2])
+                lib_b = lambda: torch.mm(h1.t(), h2)
+            else:
+                lib_f, lib_b = bf16_product(h1, W[2]), bf16_product(h1.t(), h2)
+            bf16 = dict(bf16=p != "highest",
+                        passes={"highest": 0, "high": 3, "bf16": 1}[p])
+            r_f = time_kernel(
+                rec, fk, shape, lambda: mlp.mlp_fwd_cuda(*args, precision=p),
+                lambda: mlp.motion_net_mlp_plain(*args, precision=p), flop,
+                nbytes(*args, *got), library=lib_f, tc_flop=flop, **bf16)
+            r_b = time_kernel(
+                rec, bk, shape,
+                lambda: mlp.mlp_bwd_cuda(*bwd_args, precision=p),
+                lambda: mlp.motion_net_mlp_bwd_plain(*bwd_args, precision=p),
+                2 * flop, nbytes(*bwd_args, *gk), library=lib_b,
+                tc_flop=2 * flop, **bf16)
+            if p == "highest":
+                z = got[3]
 
-        def bwd_chain():   # K6b's products, one cuBLAS call each (any (B, H)
-            # tensor stands in for gz, gh2 and gh1)
-            for act, w, g in ((z, W[6], gout), (h2, W[4], z),
-                              (h1, W[2], h2), (x_, W[0], h1)):
-                torch.mm(act.t(), g)
-                torch.mm(g, w.t())
+                def fwd_chain():   # K6f's products, one cuBLAS call each
+                    for a, w, b in ((x, W[0], W[1]), (h1, W[2], W[3]),
+                                    (h2, W[4], W[5]), (z, W[6], W[7])):
+                        torch.addmm(b, a, w)
 
-        chain = {"mlp_fwd": median_ms(fwd_chain),
-                 "mlp_bwd": median_ms(bwd_chain)}
-        # one call: the largest contraction, (B, 1000).(1000, 1000) forward
-        # and (1000, B).(B, 1000) backward, f32 with TF32 off
-        for key, r in (
-                ("mlp_fwd", time_kernel(
-                    rec, "mlp_fwd", shape, lambda: mlp.mlp_fwd_cuda(*args),
-                    lambda: mlp.motion_net_mlp_plain(*args), flop,
-                    nbytes(*args, *got),
-                    library=lambda: torch.addmm(W[3], h1, W[2]),
-                    tc_flop=flop)),
-                ("mlp_bwd", time_kernel(
-                    rec, "mlp_bwd", shape,
-                    lambda: mlp.mlp_bwd_cuda(*bwd_args),
-                    lambda: mlp.motion_net_mlp_bwd_plain(*bwd_args),
-                    2 * flop, nbytes(*bwd_args, *gk),
-                    library=lambda: torch.mm(h1.t(), h2),
-                    tc_flop=2 * flop))):
-            print(f"[time] {key} {shape}: cuBLAS chain {chain[key]:.4f} ms "
-                  f"(the kernel's products, one torch.addmm/mm each, TF32 "
-                  f"off; median of 20) against the kernel's {r['ms']:.4f}")
-            rec[key].setdefault("chain_ms", chain[key])
-    print(f"[kernel] K6f and K6b bit-identical on a second run at B = "
-          f"{BATCH}, {BATCH_A} and 1")
-    return {k: max(v for name, v in errs.items() if name.startswith(k + " "))
-            for k in ("mlp_fwd", "mlp_bwd")}
+                def bwd_chain():   # K6b's products, one cuBLAS call each
+                    # (any (B, H) tensor stands in for gz, gh2 and gh1)
+                    for act, w, g in ((z, W[6], gout), (h2, W[4], z),
+                                      (h1, W[2], h2), (x, W[0], h1)):
+                        torch.mm(act.t(), g)
+                        torch.mm(g, w.t())
+
+                for key, r, chain in (("mlp_fwd", r_f, fwd_chain),
+                                      ("mlp_bwd", r_b, bwd_chain)):
+                    ms = median_ms(chain)
+                    print(f"[time] {key} {shape}: cuBLAS chain {ms:.4f} ms "
+                          f"(the kernel's products, one torch.addmm/mm "
+                          f"each, TF32 off; median of 20) against the "
+                          f"kernel's {r['ms']:.4f}")
+                    rec[key].setdefault("chain_ms", ms)
+    print(f"[kernel] K6f and K6b at {', '.join(mlp.NET_PRECISIONS)} "
+          f"bit-identical on a second run at B = {', '.join(map(str, inputs))}")
+    return {mlp._key(k, p): max(v for n, v in errs.items()
+                                if n.startswith(mlp._key(k, p) + " "))
+            for p in mlp.NET_PRECISIONS for k in ("mlp_fwd", "mlp_bwd")}
 
 
 # ---------------------------------------------------------------------------
@@ -1372,7 +1620,8 @@ def custom_video_config(**over):
 
 
 def make_fitter(device, smpl, bundle, cfg, v2v_vjp="fused",
-                motion_mlp="plain"):
+                motion_mlp="plain", net_precision="highest",
+                skin_io_bf16=False):
     import torch
     from nemo_tpu_torch.fit import NemoFitter, build_assets
     from nemo_tpu_torch.priors.gmm import synthetic_gmm_prior
@@ -1381,7 +1630,8 @@ def make_fitter(device, smpl, bundle, cfg, v2v_vjp="fused",
                           vposer=init_vposer(
                               generator=torch.Generator().manual_seed(7)),
                           device=device, v2v_vjp=v2v_vjp,
-                          motion_mlp=motion_mlp)
+                          motion_mlp=motion_mlp, net_precision=net_precision,
+                          skin_io_bf16=skin_io_bf16)
     return NemoFitter(cfg, assets, seed=0)
 
 
@@ -1417,6 +1667,15 @@ def stages(fitter, warmup, cam, main, chunk):
     steady = (main - chunk) / (stamps[-1] - stamps[0]) if len(stamps) > 1 \
         else float("nan")
     return (wm, cm, fm), steady, stamps[-1] - t0
+
+
+def main_run(metrics, fitter):
+    """(main-stage total_loss curve, the fitter's batch generator state):
+    two runs with equal states drew equal batches (the same seed, the same
+    number of draws)."""
+    import numpy as np
+    return (np.asarray(metrics["total_loss"], np.float64),
+            fitter.generator.get_state().clone())
 
 
 def check_finite(name, metrics, *evals):
@@ -1455,6 +1714,9 @@ def card_vs_cpu(name, fitter, bundle, smpl, batch=None):
                                           for k, v in assets.vposer.items()},
                                   device="cpu", v2v_vjp=assets.v2v_vjp,
                                   motion_mlp=assets.motion_mlp,
+                                  net_precision=assets.net_precision,
+                                  skin_io_bf16=assets.skin_io_dtype
+                                  == torch.bfloat16,
                                   humor=assets.humor,
                                   humor_cfg=assets.humor_cfg)
         params_cpu = NemoParams(cfg, V, assets.img_d0)
@@ -1491,17 +1753,20 @@ def no_sync_steps(name, fitter):
 
 
 def slice1_path(device, smpl, bundle):
-    """The reference configuration through K1 and K2's fused mode."""
+    """The reference configuration through K1 and K2's fused mode. Returns
+    (counts, steps/s, main_run of its main stage)."""
     import numpy as np
     import torch
     from nemo_tpu_torch.eval.metrics import eval_2d, eval_3d, write_csv
     from nemo_tpu_torch.fit import predict, project_to_views
     main = 30
+    paired = []
     fitter = make_fitter(device, smpl, bundle, reference_config())
 
     def run():
         init = fitter.eval_loss()
         ms, steady, main_s = stages(fitter, 10, 10, main, 10)
+        paired.append(main_run(ms[2], fitter))
         final = fitter.eval_loss()
         V, F = fitter.assets.num_views, fitter.assets.num_frames
         vi = torch.arange(V, device=device).repeat_interleave(F)
@@ -1539,7 +1804,7 @@ def slice1_path(device, smpl, bundle):
         raise AssertionError(f"eval_2d header {header!r}")
     no_sync_steps("slice 1", fitter)
     card_vs_cpu("slice 1", fitter, bundle, smpl)
-    return counts, steady
+    return counts, steady, paired[0]
 
 
 def path_a(device, smpl, bundle):
@@ -1610,7 +1875,7 @@ def path_h(device, smpl_b, bundle, steady1):
     loss within 1e-5 relative, gradients within GRAD_BF16 of each tensor's
     largest entry, for the bf16 roundings of g . vp that flip where the
     modes' vp differ in their last f32 bit). Returns ({run: counts},
-    steps/s)."""
+    steps/s, main_run of its main stage)."""
     import torch
     if smpl_b.posedirs_t.dtype != torch.bfloat16:
         raise AssertionError("path H needs bf16 tables")
@@ -1634,8 +1899,10 @@ def path_h(device, smpl_b, bundle, steady1):
         fm = fitter.fit(main, chunk=10,
                         on_chunk=lambda *_: stamps.append(time.perf_counter()))
         steady = (main - 10) / (stamps[-1] - stamps[0])
+        paired.append(main_run(fm, fitter))
         return fm, steady, stamps[-1] - t0, fitter.eval_loss()
 
+    paired = []
     counts, (fm, steady, main_s, final) = run_path(
         "path H", ("fk_fwd", "fk_bwd", "v2v_grad_bf16", "v2v_fwd_bf16"), run)
     no_f32_skinning("path H", counts)
@@ -1678,7 +1945,148 @@ def path_h(device, smpl_b, bundle, steady1):
           f"{BATCH_A}, v2v on {len(fitter_a.assets.v2v_vidx)} vertices, bf16)")
     check_finite("path H subset", ms)
     card_vs_cpu("path H subset", fitter_a, bundle, smpl_b)
-    return out, steady
+    return out, steady, paired[0]
+
+
+# The house trajectory gate (docs/precision_knobs.md, tests/test_fit.py:466),
+# set before path I first ran: two fits from the same seed, hence the same
+# parameters and batches, with the median per-step relative |delta
+# total_loss| of their main stages below 5%
+PAIRED_MEDIAN_BOUND = 0.05
+
+
+def path_i(device, smpl, smpl_b, bundle, steady1, steady_h, run1, run_h):
+    """The reference configuration at the JAX bench's precision (bench.py
+    :82-86: NEMO_TPU_SKIN_BF16=1 and NEMO_TPU_NET_PRECISION=high; here bf16
+    tables and net_precision="high") at full width, through the fit's
+    entry points:
+    1. the plain MotionNet (every network product in bf16x3): 10 warmup and
+       10 camera steps, card vs CPU at the first main step's parameters, 30
+       main steps, eval_loss, no sync, steps/s beside slice 1's and path
+       H's (this process); K2's bf16 kernels, no f32 skinning kernel, no K6;
+    2. the same with motion_mlp="fused": K6 at "high" (mlp_fwd_high,
+       mlp_bwd_high) and no other K6 instantiation; card vs CPU, and fused
+       vs plain from the same parameters and batch (modes_agree: the loss
+       within 1e-5 relative, gradients 1e-4, as path F: the same function);
+    3. five main steps from the init at "bf16" on each MLP mode (the fused
+       one through K6's bf16 instantiation only), beside the same five at
+       "highest";
+    4. the custom-video configuration with the 1024-vertex v2v subset and
+       bf16 meshes (skin_io_bf16), with bf16 tables at "high" and with f32
+       tables: 5 + 5 + 10 steps each through the _io_bf16 kernels and no
+       f32-mesh K3, card vs CPU;
+    5. the paired trajectory (ROADMAP Queue 3 gap 2): slice 1 (all f32,
+       "highest"), path H (bf16 tables alone) and run 1 (bf16 tables +
+       "high") drew the same batches (equal generator states after their
+       30 main steps); the median per-step relative |delta total_loss| of
+       path H and of run 1 against slice 1 must each be below
+       PAIRED_MEDIAN_BOUND.
+    Returns ({run: counts}, run 1's steps/s)."""
+    import numpy as np
+    import torch
+    out = {}
+    forbid_skin = set(SKIN_KERNELS) | set(IO_KERNELS)
+    mlp_keys = {"mlp_fwd", "mlp_bwd", *(f"mlp_{d}_{p}" for d in ("fwd", "bwd")
+                                        for p in NET_PRECISIONS)}
+
+    def only(name, counts, allowed, forbidden):
+        ran = [k for k in forbidden - set(allowed) if counts[k]]
+        if ran:
+            raise AssertionError(f"{name}: kernels {ran} ran")
+
+    steady = {}
+    for mode in ("plain", "fused"):
+        name = f"path I {mode}"
+        fitter = make_fitter(device, smpl_b, bundle, reference_config(),
+                             motion_mlp=mode, net_precision="high")
+        main = 30
+        paired = []
+
+        def run():
+            fitter.warmup(10)
+            fitter.opt_cam(10)
+            card_vs_cpu(name, fitter, bundle, smpl_b)
+            stamps = []
+            torch.cuda.synchronize()
+            fm = fitter.fit(main, chunk=10, on_chunk=lambda *_: stamps.append(
+                time.perf_counter()))
+            paired.append(main_run(fm, fitter))
+            return fm, (main - 10) / (stamps[-1] - stamps[0]), \
+                fitter.eval_loss()
+
+        k6 = ("mlp_fwd_high", "mlp_bwd_high") if mode == "fused" else ()
+        counts, (fm, steady[mode], final) = run_path(
+            name, ("fk_fwd", "fk_bwd", "v2v_grad_bf16", "v2v_fwd_bf16", *k6),
+            run)
+        only(name, counts, k6, forbid_skin | mlp_keys)
+        out[name] = counts
+        print(f"[{name}] main stage: the last {main - 10} of {main} steps at "
+              f"{steady[mode]:.3f} steps/s at the JAX bench's precision (bf16 "
+              f"tables, net_precision high, MotionNet {mode}); slice 1 (f32) "
+              f"{steady1:.3f}, path H (bf16 tables) {steady_h:.3f}, this "
+              f"process ({nvidia_smi_line()})")
+        print(f"[{name}] final {final}")
+        check_finite(name, [fm], final)
+        check_falls(name, fm["kp_loss"], 10)
+        no_sync_steps(name, fitter)
+        if mode == "plain":
+            run_i = paired[0]
+        else:
+            modes_agree(name, fitter, "motion_mlp", ("plain", "fused"), 1e-5,
+                        1e-4)
+
+    for mode, prec in (("plain", "highest"), ("plain", "bf16"),
+                       ("fused", "bf16")):
+        name = f"path I {prec} {mode}"
+        fitter = make_fitter(device, smpl_b, bundle, reference_config(),
+                             motion_mlp=mode, net_precision=prec)
+        k6 = ("mlp_fwd_bf16", "mlp_bwd_bf16") if mode == "fused" else ()
+        counts, fm = run_path(name, ("fk_fwd", "fk_bwd", "v2v_grad_bf16",
+                                     *k6), lambda: fitter.fit(5, chunk=5))
+        only(name, counts, k6, forbid_skin | mlp_keys)
+        check_finite(name, [fm])
+        out[name] = counts
+        print(f"[{name}] total_loss {fm['total_loss'][0]:.3f} -> "
+              f"{fm['total_loss'][-1]:.3f} (5 main steps from the init, "
+              f"network products at {prec})")
+
+    for body, sfx, prec in ((smpl_b, "_bf16", "high"), (smpl, "", "highest")):
+        name = f"path I subset io_bf16 tables{sfx or '_f32'}"
+        cfg = custom_video_config(vp_v2v_n_verts=1024)
+        fitter = make_fitter(device, body, bundle, cfg, net_precision=prec,
+                             skin_io_bf16=True)
+        io = ("skin_fwd" + sfx + "_io_bf16", "skin_bwd" + sfx + "_io_bf16")
+
+        def run_a():
+            ms, steady_a, _ = stages(fitter, 5, 5, 10, 5)
+            return ms, steady_a
+
+        counts, (ms, steady_a) = run_path(name, ("fk_fwd", "fk_bwd", *io),
+                                          run_a)
+        only(name, counts, io, forbid_skin)
+        out[name] = counts
+        print(f"[{name}] main stage at {steady_a:.3f} steps/s (B={BATCH_A}, "
+              f"v2v on {len(fitter.assets.v2v_vidx)} vertices, bf16 meshes, "
+              f"net_precision {prec})")
+        check_finite(name, ms)
+        card_vs_cpu(name, fitter, bundle, body)
+
+    base, state = run1
+    for label, (curve, st) in (("bf16 tables alone (path H)", run_h),
+                               ("bf16 tables + high (path I)", run_i)):
+        if not torch.equal(st, state):
+            raise AssertionError(f"path I paired: {label} drew other batches "
+                                 "than slice 1")
+        rel = np.abs(curve - base) / np.abs(base)
+        med = float(np.median(rel))
+        ok = med < PAIRED_MEDIAN_BOUND
+        print(f"[path I paired] {label} against slice 1 (f32, highest), the "
+              f"same seed and batches, {len(rel)} main steps: median per-step "
+              f"relative |delta total_loss| {med:.3e} (max {rel.max():.3e}; "
+              f"bound {PAIRED_MEDIAN_BOUND}) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"path I paired: {label} parts from f32")
+    return out, steady["plain"]
 
 
 def path_c(device, smpl, bundle):
@@ -2371,10 +2779,14 @@ def main() -> int:
     kernel_err.update(raster_phase(device, smpl, bundle, rec))
     kernel_err.update(chamfer_phase(device, smpl, rec))
     kernel_err.update(mlp_phase(device, rec))
+    kernel_err.update(io_bf16_phase(device, smpl, smpl_b, rec))
     paths = {}
-    paths["slice 1"], steady1 = slice1_path(device, smpl, bundle)
-    path_h_counts, steady_h = path_h(device, smpl_b, bundle, steady1)
+    paths["slice 1"], steady1, run1 = slice1_path(device, smpl, bundle)
+    path_h_counts, steady_h, run_h = path_h(device, smpl_b, bundle, steady1)
     paths.update(path_h_counts)
+    path_i_counts, steady_i = path_i(device, smpl, smpl_b, bundle, steady1,
+                                     steady_h, run1, run_h)
+    paths.update(path_i_counts)
     paths["path A"], steady_a = path_a(device, smpl, bundle)
     for k, c in path_b(device, smpl, bundle).items():
         paths[f"path B {k}"] = c
@@ -2390,7 +2802,8 @@ def main() -> int:
     print(f"[paths] render: {render['video_s']:.4f} s a video frame with the "
           f"PNG writes, {render['nopng_s']:.4f} s without")
     print(f"[paths] steps/s: slice 1 {steady1:.3f}, path H (slice 1 with "
-          f"bf16 tables) {steady_h:.3f}, path A {steady_a:.3f}, "
+          f"bf16 tables) {steady_h:.3f}, path I (bf16 tables and high "
+          f"network products) {steady_i:.3f}, path A {steady_a:.3f}, "
           f"path F {steady_f:.3f}, path G's custom-video configuration "
           f"{g['custom_steps_s']:.3f} without the HuMoR term and "
           f"{g['humor_steps_s']:.3f} with it; path G {g['seconds']:.1f} s; "

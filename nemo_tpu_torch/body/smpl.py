@@ -256,18 +256,19 @@ def _pose_inputs(model: SMPLModel, J: torch.Tensor, body_rot: torch.Tensor,
 
 
 def smpl_verts_t(model: SMPLModel, betas: torch.Tensor,
-                 body_rot: torch.Tensor, orient_rot: torch.Tensor
-                 ) -> torch.Tensor:
+                 body_rot: torch.Tensor, orient_rot: torch.Tensor,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Vertex-major SMPL vertices (B, 3, V) through K3: the same math as
     smpl_forward(want_vertices=True) minus the joint outputs. Shared betas
-    (1, 10). The JAX package's padded variant (zero lanes past V) has no
+    (1, 10). out_dtype: the mesh's, f32 or bf16 (ops.lbs.skin_verts_t).
+    The JAX package's padded variant (zero lanes past V) has no
     counterpart: the kernels mask the ragged edge, so there are no lanes
     to pad."""
     v_shaped, J = _skin_inputs(model, betas)
     pf, A34 = _pose_inputs(model, J, body_rot, orient_rot)
     return skin_verts_t(model.num_vertices, pf, A34,
                         v_shaped.t().contiguous(), model.posedirs_t,
-                        model.lbs_weights_t)
+                        model.lbs_weights_t, out_dtype)
 
 
 def subset_skin_tables(model: SMPLModel, n: int
@@ -289,16 +290,19 @@ def subset_skin_tables(model: SMPLModel, n: int
 def smpl_verts_t_subset(model: SMPLModel, betas: torch.Tensor,
                         body_rot: torch.Tensor, orient_rot: torch.Tensor,
                         vidx: torch.Tensor, posedirs_sub: torch.Tensor,
-                        weights_sub: torch.Tensor) -> torch.Tensor:
-    """smpl_verts_t on a vertex subset: (B, 3, len(vidx)), tables from
-    subset_skin_tables. The joints still come from the full v_shaped (the
-    kinematic tree does not change); only the skinned output is subsampled,
-    and the gradient of v_shaped reaches the betas through the gather."""
+                        weights_sub: torch.Tensor,
+                        out_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
+    """smpl_verts_t on a vertex subset: (B, 3, len(vidx)) in out_dtype,
+    tables from subset_skin_tables. The joints still come from the full
+    v_shaped (the kinematic tree does not change); only the skinned output
+    is subsampled, and the gradient of v_shaped reaches the betas through
+    the gather."""
     v_shaped, J = _skin_inputs(model, betas)
     pf, A34 = _pose_inputs(model, J, body_rot, orient_rot)
     vsh_sub = v_shaped.t()[:, vidx].contiguous()
     return skin_verts_t(int(vidx.shape[0]), pf, A34, vsh_sub, posedirs_sub,
-                        weights_sub)
+                        weights_sub, out_dtype)
 
 
 def smpl_v2v_l1_sum(model: SMPLModel, betas: torch.Tensor,

@@ -31,10 +31,15 @@ the custom entry's HuMoR dynamics term (--weight_humor_loss, --humor_fps,
 --humor_ckpt); --motion_mlp fused runs the MotionNet through the fused MLP
 kernels (K6); --skin_bf16 builds the skinning tables in bf16 (the JAX CLI's
 flag, bench.py's default), so the v2v prior runs the K2/K3 kernels' bf16
-computation, while the keypoints, evals and renders keep the f32 tables. --smpl_path (a .pkl or .npz file, or a directory holding
-one), --j_regressor_extra, --vposer_path and --gmm_path load the real
-assets; a named file that does not load raises. --synthetic_assets builds
-the synthetic body and random priors where no file is named.
+computation, while the keypoints, evals and renders keep the f32 tables;
+--net_precision {highest,high,bf16} sets every network product's precision
+(the JAX package's NEMO_TPU_NET_PRECISION: high is bf16x3, bench.py's
+default beside the bf16 tables) and --skin_io_bf16 makes the v2v vertex
+subset's meshes bf16 (NEMO_TPU_SKIN_IO_BF16). --smpl_path (a .pkl or .npz
+file, or a directory holding one), --j_regressor_extra, --vposer_path and
+--gmm_path load the real assets; a named file that does not load raises.
+--synthetic_assets builds the synthetic body and random priors where no
+file is named.
 Writes config.json, metrics.jsonl, ckpt/sd_NNNNNN/, losses.npz, the eval
 CSVs and, with --render_video / --render_rollout_figure / --render_every,
 the mesh renders (mesh_rollout.mp4 or its .frames directory,
@@ -59,6 +64,7 @@ import numpy as np
 import torch
 
 from ..modules.networks import MLP_MODES
+from ..ops.mlp import NET_PRECISIONS
 
 
 
@@ -71,6 +77,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the MotionNet's MLP: plain matmuls, or fused "
                         "through the K6 kernels (the JAX package's "
                         "NEMO_TPU_NET_FUSED=1)")
+    p.add_argument("--net_precision", type=str, default="highest",
+                   choices=NET_PRECISIONS,
+                   help="every network product's precision: f32, bf16x3 "
+                        "(the JAX package's NEMO_TPU_NET_PRECISION=high) "
+                        "or one bf16 pass")
+    p.add_argument("--skin_io_bf16", action="store_true", default=False,
+                   help="the v2v vertex subset's meshes in bf16 (the JAX "
+                        "package's NEMO_TPU_SKIN_IO_BF16); off by default")
     p.add_argument("--bundle", type=str, default="")
     p.add_argument("--nemo_cfg_path", type=str, default="",
                    help="per-action YAML (exp_dir + video names); read by "
@@ -213,7 +227,8 @@ def load_assets(args, bundle, cfg, device):
 
     return build_assets(bundle, smpl, cfg, gmm=gmm, vposer=vposer,
                         device=device, motion_mlp=args.motion_mlp,
-                        humor=humor)
+                        humor=humor, net_precision=args.net_precision,
+                        skin_io_bf16=args.skin_io_bf16)
 
 
 def _figure(paths, draw, *args, **kw) -> None:

@@ -75,6 +75,23 @@
 // launch sums the S partials in order s = 0..S-1 and applies the epilogue.
 // No atomics: S depends on the shapes only, every sum runs in a fixed
 // order, and repeated runs are bit-identical.
+//
+// Precision (_kdot's three policies, NEMO_TPU_NET_PRECISION in JAX; the
+// routine is a template on Arith). kTf32x3 ("highest") is the above.
+// kBf16x3 ("high") splits each operand value, as it is read from shared
+// memory, into hi = bf16(x) and lo = bf16(x - hi) (csrc/bf16_mma.cuh), two
+// k-neighbours a register, and runs three mma.sync m16n8k16 bf16 products
+// a 16-deep step, lo.hi, hi.lo, hi.hi, into the step's fresh registers
+// (lo.lo dropped, as _kdot drops it); kBf16 ("bf16") rounds both operands
+// and runs one. The staging, the tiles, the split-K plan and the
+// fixed-order sums are the f32 routine's; a k16 step is one kChain. At the
+// bf16 peak (989 TFLOP/s) "high" bounds at 3 x its flop, "bf16" at 1 x.
+// The bias gradients stay f32 column sums of the cotangent at these
+// precisions: a ones row split into bf16 parts would sum bf16(g) (or its
+// hi + lo, 16 bits), not g. So the gW product has no ones row there, and
+// the launch that reads a layer's cotangent g gets cdiv(N, 256) more blocks,
+// each summing 256 of g's columns over the batch, in order b = 0..B-1, in
+// f32 (ColSum below).
 
 #include <algorithm>
 #include <climits>
@@ -82,9 +99,13 @@
 
 #include <cuda_runtime.h>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
+
+// the products' arithmetic: "highest", "high", "bf16" (ops/mlp.py _ARITH)
+enum Arith : int { kTf32x3 = 0, kBf16x3 = 1, kBf16 = 2 };
 
 constexpr int kBM = 128;         // output rows a block
 constexpr int kBN = 64;          // output columns a block
@@ -135,6 +156,15 @@ struct Gemm {
 __host__ __device__ inline int out_rows(const Gemm& g) {
   return g.M + (g.gbias ? 1 : 0);
 }
+
+// The bias gradient of a backward launch at kBf16x3 and kBf16: out (cols)
+// = the column sums of g (rows, cols) in f32, in row order; out null for
+// none.
+struct ColSum {
+  const float* g;
+  float* out;
+  int rows, cols;
+};
 
 // A product as a launch runs it: its output tiles, and S contraction
 // ranges of kps slices each, one block a (tile, range); with S > 1 the
@@ -188,8 +218,20 @@ __device__ __forceinline__ bool vec_ok(const float* p, int ld, int edge,
          (!edge_is_column || edge % 4 == 0);
 }
 
-// One (kBM x kBN) output tile over one contraction range: block blk of p.
-template <bool kAT, bool kBT>
+// Column-sum block blk of cs: 256 columns, a thread each.
+__device__ __forceinline__ void col_sum(const ColSum& cs, int blk) {
+  const int n = blk * kThreads + threadIdx.x;
+  if (n >= cs.cols) return;
+  const float* g = cs.g + n;
+  float acc = 0.f;
+#pragma unroll 8
+  for (int b = 0; b < cs.rows; ++b) acc += g[(size_t)b * cs.cols];
+  cs.out[n] = acc;
+}
+
+// One (kBM x kBN) output tile over one contraction range: block blk of p,
+// in the arithmetic kArith.
+template <bool kAT, bool kBT, int kArith>
 __device__ __forceinline__ void gemm_tile(const Product& p, int blk,
                                           float* smem) {
   const Gemm& g = p.g;
@@ -268,33 +310,73 @@ __device__ __forceinline__ void gemm_tile(const Product& p, int blk,
         for (int j = 0; j < kFN; ++j)
 #pragma unroll
           for (int c = 0; c < 4; ++c) part[i][j][c] = 0.f;
+      if constexpr (kArith == kTf32x3) {
 #pragma unroll
-      for (int kk = kf; kk < kf + kChain; kk += 8) {
-        uint32_t ab[kFM][4], as[kFM][4], bb[kFN][2], bs[kFN][2];
+        for (int kk = kf; kk < kf + kChain; kk += 8) {
+          uint32_t ab[kFM][4], as[kFM][4], bb[kFN][2], bs[kFN][2];
+#pragma unroll
+          for (int i = 0; i < kFM; ++i) {
+            const int m = wm + 16 * i + gid, k = kk + tig;
+            const float v[4] = {
+                kAT ? a[k * kSM + m] : a[m * kSK + k],
+                kAT ? a[k * kSM + m + 8] : a[(m + 8) * kSK + k],
+                kAT ? a[(k + 4) * kSM + m] : a[m * kSK + k + 4],
+                kAT ? a[(k + 4) * kSM + m + 8] : a[(m + 8) * kSK + k + 4]};
+#pragma unroll
+            for (int c = 0; c < 4; ++c) split_tf32(v[c], ab[i][c], as[i][c]);
+          }
+#pragma unroll
+          for (int j = 0; j < kFN; ++j) {
+            const int n = wn + 8 * j + gid, k = kk + tig;
+            split_tf32(kBT ? b[n * kSK + k] : b[k * kSN + n], bb[j][0],
+                       bs[j][0]);
+            split_tf32(kBT ? b[n * kSK + k + 4] : b[(k + 4) * kSN + n],
+                       bb[j][1], bs[j][1]);
+          }
+#pragma unroll
+          for (int i = 0; i < kFM; ++i)
+#pragma unroll
+            for (int j = 0; j < kFN; ++j)
+              mma_3xtf32(part[i][j], part[i][j], ab[i], as[i], bb[j], bs[j]);
+        }
+      } else {
+        // one m16n8k16 step over the chain: A's (row, k) and B's (k, n)
+        // pairs split (or rounded) into packed bf16 as they are read
+        const auto A = [&](int m, int k) {
+          return kAT ? a[k * kSM + m] : a[m * kSK + k];
+        };
+        const auto Bv = [&](int k, int n) {
+          return kBT ? b[n * kSK + k] : b[k * kSN + n];
+        };
+        uint32_t ah[kFM][4], al[kFM][4], bh[kFN][2], bl[kFN][2];
+        const int k = kf + 2 * tig;
 #pragma unroll
         for (int i = 0; i < kFM; ++i) {
-          const int m = wm + 16 * i + gid, k = kk + tig;
-          const float v[4] = {
-              kAT ? a[k * kSM + m] : a[m * kSK + k],
-              kAT ? a[k * kSM + m + 8] : a[(m + 8) * kSK + k],
-              kAT ? a[(k + 4) * kSM + m] : a[m * kSK + k + 4],
-              kAT ? a[(k + 4) * kSM + m + 8] : a[(m + 8) * kSK + k + 4]};
+          const int m = wm + 16 * i + gid;
 #pragma unroll
-          for (int c = 0; c < 4; ++c) split_tf32(v[c], ab[i][c], as[i][c]);
+          for (int r = 0; r < 4; ++r) {
+            const int mr = m + 8 * (r & 1), kr = k + 8 * (r >> 1);
+            split_bf16x2(A(mr, kr), A(mr, kr + 1), ah[i][r], al[i][r]);
+          }
         }
 #pragma unroll
         for (int j = 0; j < kFN; ++j) {
-          const int n = wn + 8 * j + gid, k = kk + tig;
-          split_tf32(kBT ? b[n * kSK + k] : b[k * kSN + n], bb[j][0],
-                     bs[j][0]);
-          split_tf32(kBT ? b[n * kSK + k + 4] : b[(k + 4) * kSN + n],
-                     bb[j][1], bs[j][1]);
+          const int n = wn + 8 * j + gid;
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            split_bf16x2(Bv(k + 8 * r, n), Bv(k + 8 * r + 1, n), bh[j][r],
+                         bl[j][r]);
         }
 #pragma unroll
         for (int i = 0; i < kFM; ++i)
 #pragma unroll
-          for (int j = 0; j < kFN; ++j)
-            mma_3xtf32(part[i][j], part[i][j], ab[i], as[i], bb[j], bs[j]);
+          for (int j = 0; j < kFN; ++j) {
+            if constexpr (kArith == kBf16x3) {
+              mma_bf16(part[i][j], al[i], bh[j]);
+              mma_bf16(part[i][j], ah[i], bl[j]);
+            }
+            mma_bf16(part[i][j], ah[i], bh[j]);
+          }
       }
 #pragma unroll
       for (int i = 0; i < kFM; ++i)
@@ -326,19 +408,26 @@ __device__ __forceinline__ void gemm_tile(const Product& p, int blk,
 // == kAT1 and kBT0 == kBT1: p0 alone) or of two (the backward's gW and gact
 // of a layer); of two, the product with the longer contraction ranges
 // (second_first: p1) takes the first block indices, so its blocks start
-// first. Each layout's tile routine is inlined once.
-template <bool kAT0, bool kBT0, bool kAT1, bool kBT1>
+// first. Each layout's tile routine is inlined once. The blocks past the
+// products' are cs's column sums.
+template <bool kAT0, bool kBT0, bool kAT1, bool kBT1, int kArith>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-mlp_gemm_kernel(Product p0, Product p1, int second_first) {
+mlp_gemm_kernel(Product p0, Product p1, int second_first, ColSum cs) {
   extern __shared__ __align__(16) float smem[];
+  const int n0 = p0.tiles * p0.S, n1 = p1.tiles * p1.S;
+  const int blk = blockIdx.x;
+  if (blk >= n0 + n1) {
+    col_sum(cs, blk - n0 - n1);
+    return;
+  }
   if constexpr (kAT0 == kAT1 && kBT0 == kBT1) {
-    gemm_tile<kAT0, kBT0>(p0, blockIdx.x, smem);
+    gemm_tile<kAT0, kBT0, kArith>(p0, blk, smem);
   } else {
-    const int n0 = p0.tiles * p0.S, n1 = p1.tiles * p1.S;
-    const int blk = blockIdx.x;
     const bool in1 = second_first ? blk < n1 : blk >= n0;
-    if (in1) gemm_tile<kAT1, kBT1>(p1, second_first ? blk : blk - n0, smem);
-    else gemm_tile<kAT0, kBT0>(p0, second_first ? blk - n1 : blk, smem);
+    if (in1)
+      gemm_tile<kAT1, kBT1, kArith>(p1, second_first ? blk : blk - n0, smem);
+    else
+      gemm_tile<kAT0, kBT0, kArith>(p0, second_first ? blk - n1 : blk, smem);
   }
 }
 
@@ -390,12 +479,13 @@ size_t partial_floats(const Product& p) {
   return p.S > 1 ? (size_t)p.S * out_rows(p.g) * p.g.N : 0;
 }
 
-// Launch one product (n = 1) or a pair (n = 2), then the reduction where
-// either was split; partial holds both products' partials, p0's first.
-template <bool kAT0, bool kBT0, bool kAT1, bool kBT1>
-cudaError_t run(Product p0, Product p1, int n, float* partial,
+// Launch one product (n = 1) or a pair (n = 2) and cs's column sums (cs.out
+// null: none), then the reduction where either product was split; partial
+// holds both products' partials, p0's first.
+template <bool kAT0, bool kBT0, bool kAT1, bool kBT1, int kArith>
+cudaError_t run(Product p0, Product p1, int n, float* partial, ColSum cs,
                 cudaStream_t stream) {
-  auto kernel = mlp_gemm_kernel<kAT0, kBT0, kAT1, kBT1>;
+  auto kernel = mlp_gemm_kernel<kAT0, kBT0, kAT1, kBT1, kArith>;
   // the shared-memory limit, set once a device (a host call that costs
   // more than the launch)
   static bool raised[64];
@@ -410,8 +500,10 @@ cudaError_t run(Product p0, Product p1, int n, float* partial,
   if (n < 2) p1.tiles = p1.S = 0;
   p0.partial = p0.S > 1 ? partial : nullptr;
   p1.partial = p1.S > 1 ? partial + partial_floats(p0) : nullptr;
-  const int blocks = p0.tiles * p0.S + p1.tiles * p1.S;
-  kernel<<<blocks, kThreads, kSmemBytes, stream>>>(p0, p1, p1.kps > p0.kps);
+  const int blocks = p0.tiles * p0.S + p1.tiles * p1.S +
+                     (cs.out ? cdiv(cs.cols, kThreads) : 0);
+  kernel<<<blocks, kThreads, kSmemBytes, stream>>>(p0, p1, p1.kps > p0.kps,
+                                                   cs);
   if (cudaError_t err = cudaGetLastError()) return err;
   const size_t total = (p0.S > 1 ? (size_t)out_rows(p0.g) * p0.g.N : 0) +
                        (p1.S > 1 ? (size_t)out_rows(p1.g) * p1.g.N : 0);
@@ -447,7 +539,7 @@ void layers_of(int D, int H, int O, Layer out[4]) {
 }
 
 // The backward's pair of products for a layer (act (B,K_in), W (K_in,N)):
-// gW = act^T g with its ones row, and gact = g W^T.
+// gW = act^T g, with its ones row where gbias is set, and gact = g W^T.
 void backward_pair(int B, const Layer& l, const float* act, const float* W,
                    const float* g, float* gW, float* gbias, float* gact,
                    const float* mask, Product& pw, Product& pa) {
@@ -459,39 +551,13 @@ void backward_pair(int B, const Layer& l, const float* act, const float* W,
   pa = product(a, tiles_of(w));
 }
 
-}  // namespace
-
-// Floats of device scratch nemo_mlp_fwd and nemo_mlp_bwd need at (B, D, H,
-// O): the backward's two (B,H) intermediates and the largest split-K
-// partial buffer of any launch; -1 for a shape the kernels refuse.
-extern "C" int nemo_mlp_scratch_floats(int B, int D, int H, int O) {
-  if (bad_shape(B, D, H, O)) return -1;
-  Layer ls[4];
-  layers_of(D, H, O, ls);
-  size_t most = 0;
-  for (const Layer& l : ls) {
-    const Gemm f = gemm(B, l.N, l.K_in, nullptr, 0, nullptr, 0, nullptr, 0);
-    most = std::max(most, partial_floats(product(f, 0)));
-    Product pw, pa;
-    float ones_row;  // a gbias pointer only marks gW's ones row here
-    backward_pair(B, l, nullptr, nullptr, nullptr, nullptr, &ones_row,
-                  nullptr, nullptr, pw, pa);
-    most = std::max(most, partial_floats(pw) + partial_floats(pa));
-  }
-  const size_t total = 2 * (size_t)B * H + most;
-  return total > (size_t)INT_MAX ? -1 : (int)total;
-}
-
-// x (B,D), W1 (D,H), b1 (H), W2 and W3 (H,H), b2 and b3 (H), Wo (H,O),
-// bo (O), all f32 contiguous on one device; outputs out (B,O) and the
-// saved activations h1, h2, z (B,H); scratch of nemo_mlp_scratch_floats.
-extern "C" int nemo_mlp_fwd(int B, int D, int H, int O, const float* x,
-                            const float* W1, const float* b1, const float* W2,
-                            const float* b2, const float* W3, const float* b3,
-                            const float* Wo, const float* bo, float* out,
-                            float* h1, float* h2, float* z, float* scratch,
-                            cudaStream_t stream) {
-  if (bad_shape(B, D, H, O)) return (int)cudaErrorInvalidValue;
+template <int kArith>
+cudaError_t mlp_fwd(int B, int D, int H, int O, const float* x,
+                    const float* W1, const float* b1, const float* W2,
+                    const float* b2, const float* W3, const float* b3,
+                    const float* Wo, const float* bo, float* out, float* h1,
+                    float* h2, float* z, float* scratch,
+                    cudaStream_t stream) {
   const struct { const float *in, *W, *b; float* C; int relu; } io[] = {
       {x, W1, b1, h1, 1}, {h1, W2, b2, h2, 1}, {h2, W3, b3, z, 1},
       {z, Wo, bo, out, 0}};
@@ -503,24 +569,21 @@ extern "C" int nemo_mlp_fwd(int B, int D, int H, int O, const float* x,
     g.bias = io[i].b;
     g.relu = io[i].relu;
     const Product p = product(g, 0);
-    if (cudaError_t err = run<false, false, false, false>(p, p, 1, scratch,
-                                                          stream))
-      return (int)err;
+    if (cudaError_t err = run<false, false, false, false, kArith>(
+            p, p, 1, scratch, ColSum{nullptr, nullptr, 0, 0}, stream))
+      return err;
   }
-  return (int)cudaSuccess;
+  return cudaSuccess;
 }
 
-// The saved x, h1, h2, z and the weights as nemo_mlp_fwd takes them, the
-// cotangent gout (B,O); outputs gx (B,D) and the gradients of W1, b1, W2,
-// b2, W3, b3, Wo, bo in their shapes; scratch of nemo_mlp_scratch_floats.
-extern "C" int nemo_mlp_bwd(int B, int D, int H, int O, const float* gout,
-                            const float* x, const float* h1, const float* h2,
-                            const float* z, const float* W1, const float* W2,
-                            const float* W3, const float* Wo, float* gx,
-                            float* gW1, float* gb1, float* gW2, float* gb2,
-                            float* gW3, float* gb3, float* gWo, float* gbo,
-                            float* scratch, cudaStream_t stream) {
-  if (bad_shape(B, D, H, O)) return (int)cudaErrorInvalidValue;
+template <int kArith>
+cudaError_t mlp_bwd(int B, int D, int H, int O, const float* gout,
+                    const float* x, const float* h1, const float* h2,
+                    const float* z, const float* W1, const float* W2,
+                    const float* W3, const float* Wo, float* gx, float* gW1,
+                    float* gb1, float* gW2, float* gb2, float* gW3,
+                    float* gb3, float* gWo, float* gbo, float* scratch,
+                    cudaStream_t stream) {
   float* ga = scratch;                    // gz, then gh1 (B,H)
   float* gb = scratch + (size_t)B * H;    // gh2 (B,H)
   float* partial = scratch + 2 * (size_t)B * H;
@@ -539,28 +602,126 @@ extern "C" int nemo_mlp_bwd(int B, int D, int H, int O, const float* gout,
   Layer ls[4];
   layers_of(D, H, O, ls);
   for (int i = 0; i < 4; ++i) {
+    const Layer& l = ls[3 - i];
+    // 3xTF32: the bias gradient as gW's ones row; else g's column sums
+    const bool ones_row = kArith == kTf32x3;
     Product pw, pa;
-    backward_pair(B, ls[3 - i], io[i].act, io[i].W, io[i].g, io[i].gW,
-                  io[i].gbias, io[i].gact, io[i].mask, pw, pa);
-    if (cudaError_t err = run<true, false, false, true>(pw, pa, 2, partial,
-                                                        stream))
-      return (int)err;
+    backward_pair(B, l, io[i].act, io[i].W, io[i].g, io[i].gW,
+                  ones_row ? io[i].gbias : nullptr, io[i].gact, io[i].mask,
+                  pw, pa);
+    const ColSum cs{io[i].g, ones_row ? nullptr : io[i].gbias, B, l.N};
+    if (cudaError_t err = run<true, false, false, true, kArith>(
+            pw, pa, 2, partial, cs, stream))
+      return err;
   }
-  return (int)cudaSuccess;
+  return cudaSuccess;
 }
 
-// out int[4]: the GEMM kernel's registers a thread, static and dynamic
-// shared memory bytes and local (spill) bytes, for the forward's
-// instantiation (pair = 0) or the backward's pair (pair = 1).
-extern "C" int nemo_mlp_attributes(int pair, int* out) {
+template <int kArith>
+int gemm_attributes(int pair, int* out) {
   cudaFuncAttributes a;
   cudaError_t err =
-      pair ? cudaFuncGetAttributes(&a, mlp_gemm_kernel<true, false, false, true>)
-           : cudaFuncGetAttributes(&a, mlp_gemm_kernel<false, false, false, false>);
+      pair ? cudaFuncGetAttributes(
+                 &a, mlp_gemm_kernel<true, false, false, true, kArith>)
+           : cudaFuncGetAttributes(
+                 &a, mlp_gemm_kernel<false, false, false, false, kArith>);
   if (err) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = kSmemBytes;
   out[3] = (int)a.localSizeBytes;
   return 0;
+}
+
+}  // namespace
+
+// Floats of device scratch nemo_mlp_fwd and nemo_mlp_bwd need at (B, D, H,
+// O), at any arith: the backward's two (B,H) intermediates and the largest
+// split-K partial buffer of any launch, with or without gW's ones row; -1
+// for a shape the kernels refuse.
+extern "C" int nemo_mlp_scratch_floats(int B, int D, int H, int O) {
+  if (bad_shape(B, D, H, O)) return -1;
+  Layer ls[4];
+  layers_of(D, H, O, ls);
+  size_t most = 0;
+  for (const Layer& l : ls) {
+    const Gemm f = gemm(B, l.N, l.K_in, nullptr, 0, nullptr, 0, nullptr, 0);
+    most = std::max(most, partial_floats(product(f, 0)));
+    float ones_row;  // a gbias pointer only marks gW's ones row here
+    for (float* gbias : {&ones_row, (float*)nullptr}) {
+      Product pw, pa;
+      backward_pair(B, l, nullptr, nullptr, nullptr, nullptr, gbias, nullptr,
+                    nullptr, pw, pa);
+      most = std::max(most, partial_floats(pw) + partial_floats(pa));
+    }
+  }
+  const size_t total = 2 * (size_t)B * H + most;
+  return total > (size_t)INT_MAX ? -1 : (int)total;
+}
+
+// arith: 0 3xTF32 ("highest"), 1 bf16x3 ("high"), 2 bf16. x (B,D), W1
+// (D,H), b1 (H), W2 and W3 (H,H), b2 and b3 (H), Wo (H,O), bo (O), all f32
+// contiguous on one device; outputs out (B,O) and the saved activations
+// h1, h2, z (B,H); scratch of nemo_mlp_scratch_floats.
+extern "C" int nemo_mlp_fwd(int arith, int B, int D, int H, int O,
+                            const float* x, const float* W1, const float* b1,
+                            const float* W2, const float* b2, const float* W3,
+                            const float* b3, const float* Wo, const float* bo,
+                            float* out, float* h1, float* h2, float* z,
+                            float* scratch, cudaStream_t stream) {
+  if (bad_shape(B, D, H, O)) return (int)cudaErrorInvalidValue;
+  switch (arith) {
+    case kTf32x3:
+      return (int)mlp_fwd<kTf32x3>(B, D, H, O, x, W1, b1, W2, b2, W3, b3, Wo,
+                                   bo, out, h1, h2, z, scratch, stream);
+    case kBf16x3:
+      return (int)mlp_fwd<kBf16x3>(B, D, H, O, x, W1, b1, W2, b2, W3, b3, Wo,
+                                   bo, out, h1, h2, z, scratch, stream);
+    case kBf16:
+      return (int)mlp_fwd<kBf16>(B, D, H, O, x, W1, b1, W2, b2, W3, b3, Wo,
+                                 bo, out, h1, h2, z, scratch, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// arith as nemo_mlp_fwd's. The saved x, h1, h2, z and the weights as
+// nemo_mlp_fwd takes them, the cotangent gout (B,O); outputs gx (B,D) and
+// the gradients of W1, b1, W2, b2, W3, b3, Wo, bo in their shapes; scratch
+// of nemo_mlp_scratch_floats.
+extern "C" int nemo_mlp_bwd(int arith, int B, int D, int H, int O,
+                            const float* gout, const float* x,
+                            const float* h1, const float* h2, const float* z,
+                            const float* W1, const float* W2, const float* W3,
+                            const float* Wo, float* gx, float* gW1,
+                            float* gb1, float* gW2, float* gb2, float* gW3,
+                            float* gb3, float* gWo, float* gbo,
+                            float* scratch, cudaStream_t stream) {
+  if (bad_shape(B, D, H, O)) return (int)cudaErrorInvalidValue;
+  switch (arith) {
+    case kTf32x3:
+      return (int)mlp_bwd<kTf32x3>(B, D, H, O, gout, x, h1, h2, z, W1, W2, W3,
+                                   Wo, gx, gW1, gb1, gW2, gb2, gW3, gb3, gWo,
+                                   gbo, scratch, stream);
+    case kBf16x3:
+      return (int)mlp_bwd<kBf16x3>(B, D, H, O, gout, x, h1, h2, z, W1, W2, W3,
+                                   Wo, gx, gW1, gb1, gW2, gb2, gW3, gb3, gWo,
+                                   gbo, scratch, stream);
+    case kBf16:
+      return (int)mlp_bwd<kBf16>(B, D, H, O, gout, x, h1, h2, z, W1, W2, W3,
+                                 Wo, gx, gW1, gb1, gW2, gb2, gW3, gb3, gWo,
+                                 gbo, scratch, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// out int[4]: the GEMM kernel's registers a thread, static and dynamic
+// shared memory bytes and local (spill) bytes, for the forward's
+// instantiation (pair = 0) or the backward's pair (pair = 1), at arith.
+extern "C" int nemo_mlp_attributes(int pair, int arith, int* out) {
+  switch (arith) {
+    case kTf32x3: return gemm_attributes<kTf32x3>(pair, out);
+    case kBf16x3: return gemm_attributes<kBf16x3>(pair, out);
+    case kBf16: return gemm_attributes<kBf16>(pair, out);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -84,6 +84,17 @@
 // blend, g . [vp; 1] rounded for gA. Mode 2 reads a stored bf16 vp: its
 // tiles are staged by cp.async into the upper half of the vp buffers and
 // widened to f32 beside the blend.
+//
+// bf16 meshes (the JAX package's NEMO_TPU_SKIN_IO_BF16; the entry points'
+// mesh_bf16 = 1, either table type): K3f is skin_fwd_kernel<1,
+// T, bf16>, which rounds the f32 vertices to bf16 as it stores them. K3b
+// (mode 1) is skin_bwd_kernel<1, T, bf16>, which reads the bf16 cotangent
+// itself, half the bytes of an f32 one: its tiles are staged by cp.async
+// (4 bytes where V is even) into the first half of the cotangent buffers
+// and widened to f32 into one more buffer beside the blend (exact: a bf16
+// is the top half of an f32). So its gradients are the f32-cotangent
+// kernel's on the widened cotangent, as _bwd_kernel's g.astype(f32). The
+// stored-vp mode only ever takes K2's f32 sign and has no bf16 twin.
 
 #include "skin_fwd.cuh"
 
@@ -112,9 +123,15 @@ constexpr int kBOffG = kBOffVs + 2 * 3 * kFV;     // [2][kFB][kSX]
 constexpr int kBOffX = kBOffG + 2 * kFB * kSX;    // [2][kFB][kSX]
 constexpr int kBOffGvp = kBOffX + 2 * kFB * kSX;  // [kFB][kSX]
 constexpr int kBSmemFloats = kBOffGvp + kFB * kSX;
-constexpr size_t kBSmemBytes = sizeof(float) * kBSmemFloats;
-static_assert(kBOffA % 4 == 0 && kBOffG % 4 == 0 && kBOffX % 4 == 0,
+// a bf16 cotangent (G = bf16): the widened tile after the rest, [kFB][kSX]
+constexpr int kBOffGw = kBSmemFloats;
+template <typename G>
+constexpr size_t kBSmemBytes =
+    sizeof(float) * (kBSmemFloats + (kIsBf16<G> ? kFB * kSX : 0));
+static_assert(kBOffA % 4 == 0 && kBOffG % 4 == 0 && kBOffX % 4 == 0 &&
+                  kBOffGw % 4 == 0,
               "float4 and float2 views of shared memory need 16-byte rows");
+static_assert(kBSmemBytes<bf16> <= 232448, "a block may have 227 KB");
 
 // Queue the copies of vertex tile v0 of rows b0 .. b0 + 31 of a (B,3,V)
 // tensor (f32, or a bf16 vp) into dst [kFB][kSX] (coordinate k at k * kFV),
@@ -141,13 +158,14 @@ __device__ __forceinline__ void load_rows_cw(int cw, E* dst,
 }
 
 // kMode 1: vp recomputed from pf; 2: vp read from vp_in (in the table type
-// T). g_cw, vp_cw: the copy width (elements) of the cotangent and of vp_in.
-template <int kMode, typename T>
+// T). G: the cotangent's type (f32, or bf16 in mode 1). g_cw, vp_cw: the
+// copy width (elements) of the cotangent and of vp_in.
+template <int kMode, typename T, typename G = float>
 __global__ void __launch_bounds__(kFT, 1)
 skin_bwd_kernel(int B, int V, int R, int g_cw, int vp_cw,
                 const float* __restrict__ pf, const float* __restrict__ A,
                 const float* __restrict__ vsh, const T* __restrict__ pd,
-                const T* __restrict__ W, const float* __restrict__ g,
+                const T* __restrict__ W, const G* __restrict__ g,
                 const T* __restrict__ vp_in,
                 float* __restrict__ gpf_part, float* __restrict__ ga_part,
                 float* __restrict__ gvsh_part) {
@@ -172,11 +190,15 @@ skin_bwd_kernel(int B, int V, int R, int g_cw, int vp_cw,
   const auto w_buf = [&](int buf) {
     return reinterpret_cast<T*>(smem + kBOffW) + buf * kJ * kSW;
   };
+  // the staged cotangent tiles, [2][kFB][kSX] elements of G
+  const auto g_buf = [&](int buf) {
+    return reinterpret_cast<G*>(smem + kBOffG) + buf * kFB * kSX;
+  };
   const auto load = [&](int buf, int t) {
     float* s_vs = smem + kBOffVs + buf * 3 * kFV;
     if (V & 1) load_tile<1>(pd_buf(buf), w_buf(buf), s_vs, t, V, vsh, pd, W);
     else       load_tile<2>(pd_buf(buf), w_buf(buf), s_vs, t, V, vsh, pd, W);
-    load_rows_cw(g_cw, smem + kBOffG + buf * kFB * kSX, g, B, V, b0, t * kFV);
+    load_rows_cw(g_cw, g_buf(buf), g, B, V, b0, t * kFV);
     if (kMode == 2)
       load_rows_cw(vp_cw, s_vpt + buf * kFB * kSX, vp_in, B, V, b0, t * kFV);
   };
@@ -232,7 +254,10 @@ skin_bwd_kernel(int B, int V, int R, int g_cw, int vp_cw,
     const T* s_pd = pd_buf(buf);
     const T* s_w = w_buf(buf);
     const float* s_vs = smem + kBOffVs + buf * 3 * kFV;
-    const float* s_g = smem + kBOffG + buf * kFB * kSX;
+    // the f32 cotangent tile: the staged one, or (bf16) the widened copy
+    // step 2 writes
+    float* s_g = kIsBf16<G> ? smem + kBOffGw
+                            : reinterpret_cast<float*>(g_buf(buf));
     float* s_vo = kMode == 1 || kIsBf16<T> ? s_x : s_x + buf * kFB * kSX;
 
     // 1. mode 1: the two halves of vph (32 x 48) = pf (32 x 208) . pd
@@ -273,7 +298,16 @@ skin_bwd_kernel(int B, int V, int R, int g_cw, int vp_cw,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int o = sb * kSX + sv + e;
-        const float g0 = s_g[o], g1 = s_g[o + kFV], g2 = s_g[o + 2 * kFV];
+        float g0, g1, g2;
+        if constexpr (kIsBf16<G>) {
+          const G* sg = g_buf(buf);
+          g0 = __bfloat162float(sg[o]);
+          g1 = __bfloat162float(sg[o + kFV]);
+          g2 = __bfloat162float(sg[o + 2 * kFV]);
+          s_g[o] = g0; s_g[o + kFV] = g1; s_g[o + 2 * kFV] = g2;
+        } else {
+          g0 = s_g[o]; g1 = s_g[o + kFV]; g2 = s_g[o + 2 * kFV];
+        }
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
           s_gvp[o + k * kFV] = m[e][k] * g0 + m[e][3 + k] * g1 + m[e][6 + k] * g2;
@@ -305,51 +339,59 @@ int copy_width(const E* p, int V) {
              ? 2 : 1;
 }
 
-template <int kMode, typename T>
+template <int kMode, typename T, typename G>
 cudaError_t launch_bwd(int B, int V, int R, const float* pf, const float* A,
                        const float* vsh, const T* pd, const T* W,
-                       const float* g, const T* vp_in, float* gpf_part,
+                       const G* g, const T* vp_in, float* gpf_part,
                        float* ga_part, float* gvsh_part, cudaStream_t stream) {
+  constexpr size_t smem = kBSmemBytes<G>;
   if (cudaError_t err = cudaFuncSetAttribute(
-          skin_bwd_kernel<kMode, T>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBSmemBytes))
+          skin_bwd_kernel<kMode, T, G>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
     return err;
-  skin_bwd_kernel<kMode, T><<<dim3(R, cdiv(B, kFB)), kFT, kBSmemBytes, stream>>>(
+  skin_bwd_kernel<kMode, T, G><<<dim3(R, cdiv(B, kFB)), kFT, smem, stream>>>(
       B, V, R, copy_width(g, V), vp_in ? copy_width(vp_in, V) : 1, pf, A, vsh,
       pd, W, g, vp_in, gpf_part, ga_part, gvsh_part);
   return cudaGetLastError();
 }
 
-template <typename T>
+// mode 1 with G = bf16: the bf16-cotangent instantiation
+template <typename T, typename G = float>
 int bwd_attributes(int mode, int* out) {
-  if (mode != 1 && mode != 2) return (int)cudaErrorInvalidValue;
+  if (mode != 1 && (mode != 2 || kIsBf16<G>))
+    return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   const cudaError_t err =
-      mode == 1 ? cudaFuncGetAttributes(&a, skin_bwd_kernel<1, T>)
+      mode == 1 ? cudaFuncGetAttributes(&a, skin_bwd_kernel<1, T, G>)
                 : cudaFuncGetAttributes(&a, skin_bwd_kernel<2, T>);
   if (err) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
-  out[2] = (int)kBSmemBytes;
+  out[2] = (int)kBSmemBytes<G>;
   out[3] = (int)a.localSizeBytes;
   return 0;
 }
 
-template <typename T>
+template <typename T, typename G>
 int skin_bwd(int B, int V, const float* pf, const float* A, const float* vsh,
-             const T* pd, const T* W, const float* g, const T* vp_in,
+             const T* pd, const T* W, const G* g, const T* vp_in,
              float* scratch, float* gpf, float* gA, float* gvsh,
              cudaStream_t stream) {
   if (bad_shape(B, V)) return (int)cudaErrorInvalidValue;
+  if (kIsBf16<G> && vp_in) return (int)cudaErrorInvalidValue;
   const int R = fused_ranges(B, V), n_bt = cdiv(B, kFB);
   float* gpf_part = scratch;
   float* ga_part = gpf_part + (size_t)R * B * kP;
   float* gvsh_part = ga_part + (size_t)R * B * kGL;
-  const cudaError_t err =
-      vp_in ? launch_bwd<2, T>(B, V, R, pf, A, vsh, pd, W, g, vp_in, gpf_part,
-                               ga_part, gvsh_part, stream)
-            : launch_bwd<1, T>(B, V, R, pf, A, vsh, pd, W, g, nullptr,
-                               gpf_part, ga_part, gvsh_part, stream);
+  cudaError_t err;
+  if constexpr (kIsBf16<G>)
+    err = launch_bwd<1, T, G>(B, V, R, pf, A, vsh, pd, W, g, nullptr,
+                              gpf_part, ga_part, gvsh_part, stream);
+  else
+    err = vp_in ? launch_bwd<2, T, G>(B, V, R, pf, A, vsh, pd, W, g, vp_in,
+                                      gpf_part, ga_part, gvsh_part, stream)
+                : launch_bwd<1, T, G>(B, V, R, pf, A, vsh, pd, W, g, nullptr,
+                                      gpf_part, ga_part, gvsh_part, stream);
   if (err) return (int)err;
   const int n_gpf = B * kP, n_ga = B * kGL, n_gvsh = 3 * V;
   range_reduce_kernel<<<cdiv(n_gpf + n_ga + n_gvsh, 256), 256, 0, stream>>>(
@@ -360,45 +402,99 @@ int skin_bwd(int B, int V, const float* pf, const float* A, const float* vsh,
 
 }  // namespace
 
-// pf (B,207), A (B,24,12) on a 16-byte boundary, vsh (3,V), pd (207,3,V),
-// W (24,V) (on 8-byte boundaries where V is even), all f32 contiguous on
-// one device; output verts (B,3,V).
-extern "C" int nemo_skin_fwd(int B, int V, const float* pf, const float* A,
-                             const float* vsh, const float* pd, const float* W,
-                             float* verts, cudaStream_t stream) {
-  if (bad_shape(B, V)) return (int)cudaErrorInvalidValue;
-  return (int)launch_skin_fwd<1, float>(B, V, pf, A, nullptr, nullptr, vsh,
-                                        pd, W, verts, nullptr, nullptr,
-                                        stream);
-}
-
-// The same with bf16 tables: pd and W bf16 (on 4-byte boundaries where V
-// is even); the output stays f32.
-extern "C" int nemo_skin_fwd_bf16(int B, int V, const float* pf,
-                                  const float* A, const float* vsh,
-                                  const bf16* pd, const bf16* W, float* verts,
-                                  cudaStream_t stream) {
-  if (bad_shape(B, V)) return (int)cudaErrorInvalidValue;
-  return (int)launch_skin_fwd<1, bf16>(B, V, pf, A, nullptr, nullptr, vsh,
-                                       pd, W, verts, nullptr, nullptr, stream);
-}
-
 extern "C" int nemo_v2v_pair_attributes(int* out);       // csrc/v2v.cu
 extern "C" int nemo_v2v_pair_attributes_bf16(int* out);  // csrc/v2v.cu
 
-// Registers, shared memory and local memory (spills) of the forward kernel
-// skin_fwd_kernel<sides, T> (1: K3f, 2: K2's pair mode), as the CUDA
-// runtime reports them: out[0..3] = registers, static and dynamic shared
-// memory bytes, local bytes. The _bf16 twin: T = bf16.
-extern "C" int nemo_skin_fwd_attributes(int sides, int* out) {
-  if (sides == 1) return skin_fwd_attributes<1, float>(out);
-  if (sides == 2) return nemo_v2v_pair_attributes(out);
+// mesh_bf16: the mesh (K3f's vertices, K3b's cotangent) in f32 (0) or
+// bf16 (1), each entry point's instantiations picked by it as nemo_mlp_fwd's
+// by arith; the _bf16 twins take bf16 tables.
+
+namespace {
+
+template <typename T>
+int skin_fwd_mesh(int mesh_bf16, int B, int V, const float* pf,
+                  const float* A, const float* vsh, const T* pd, const T* W,
+                  void* verts, cudaStream_t stream) {
+  if (bad_shape(B, V) || (mesh_bf16 != 0 && mesh_bf16 != 1))
+    return (int)cudaErrorInvalidValue;
+  return mesh_bf16
+             ? (int)launch_skin_fwd<1, T>(B, V, pf, A, nullptr, nullptr, vsh,
+                                          pd, W, static_cast<bf16*>(verts),
+                                          nullptr, nullptr, stream)
+             : (int)launch_skin_fwd<1, T>(B, V, pf, A, nullptr, nullptr, vsh,
+                                          pd, W, static_cast<float*>(verts),
+                                          nullptr, nullptr, stream);
+}
+
+template <typename T>
+int skin_fwd_mesh_attributes(int sides, int mesh_bf16, int* out) {
+  if (sides == 1 && mesh_bf16 == 0) return skin_fwd_attributes<1, T>(out);
+  if (sides == 1 && mesh_bf16 == 1)
+    return skin_fwd_attributes<1, T, bf16>(out);
+  if (sides == 2 && mesh_bf16 == 0)
+    return kIsBf16<T> ? nemo_v2v_pair_attributes_bf16(out)
+                      : nemo_v2v_pair_attributes(out);
   return (int)cudaErrorInvalidValue;
 }
-extern "C" int nemo_skin_fwd_attributes_bf16(int sides, int* out) {
-  if (sides == 1) return skin_fwd_attributes<1, bf16>(out);
-  if (sides == 2) return nemo_v2v_pair_attributes_bf16(out);
+
+template <typename T>
+int skin_bwd_mesh(int mesh_bf16, int B, int V, const float* pf,
+                  const float* A, const float* vsh, const T* pd, const T* W,
+                  const void* g, const T* vp_in, float* scratch, float* gpf,
+                  float* gA, float* gvsh, cudaStream_t stream) {
+  if (mesh_bf16 == 1)
+    return skin_bwd<T, bf16>(B, V, pf, A, vsh, pd, W,
+                             static_cast<const bf16*>(g), vp_in, scratch, gpf,
+                             gA, gvsh, stream);
+  if (mesh_bf16 != 0) return (int)cudaErrorInvalidValue;
+  return skin_bwd<T, float>(B, V, pf, A, vsh, pd, W,
+                            static_cast<const float*>(g), vp_in, scratch, gpf,
+                            gA, gvsh, stream);
+}
+
+// mode 1 or 2 of the f32-mesh kernel, mode 1 of the bf16-mesh one
+template <typename T>
+int skin_bwd_mesh_attributes(int mode, int mesh_bf16, int* out) {
+  if (mesh_bf16 == 0) return bwd_attributes<T>(mode, out);
+  if (mesh_bf16 == 1) return bwd_attributes<T, bf16>(mode, out);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// pf (B,207), A (B,24,12) on a 16-byte boundary, vsh (3,V), pd (207,3,V),
+// W (24,V) (on 8-byte boundaries where V is even), all f32 contiguous on
+// one device; output verts (B,3,V) in the mesh's type (bf16: the f32
+// vertices rounded to nearest even).
+extern "C" int nemo_skin_fwd(int mesh_bf16, int B, int V, const float* pf,
+                             const float* A, const float* vsh,
+                             const float* pd, const float* W, void* verts,
+                             cudaStream_t stream) {
+  return skin_fwd_mesh<float>(mesh_bf16, B, V, pf, A, vsh, pd, W, verts,
+                              stream);
+}
+
+// The same with bf16 tables: pd and W bf16 (on 4-byte boundaries where V
+// is even).
+extern "C" int nemo_skin_fwd_bf16(int mesh_bf16, int B, int V,
+                                  const float* pf, const float* A,
+                                  const float* vsh, const bf16* pd,
+                                  const bf16* W, void* verts,
+                                  cudaStream_t stream) {
+  return skin_fwd_mesh<bf16>(mesh_bf16, B, V, pf, A, vsh, pd, W, verts,
+                             stream);
+}
+
+// Registers, shared memory and local memory (spills) of the forward kernel
+// skin_fwd_kernel<sides, T> (1: K3f, 2: K2's pair mode, which writes no
+// mesh), as the CUDA runtime reports them: out[0..3] = registers, static
+// and dynamic shared memory bytes, local bytes. The _bf16 twin: T = bf16.
+extern "C" int nemo_skin_fwd_attributes(int sides, int mesh_bf16, int* out) {
+  return skin_fwd_mesh_attributes<float>(sides, mesh_bf16, out);
+}
+extern "C" int nemo_skin_fwd_attributes_bf16(int sides, int mesh_bf16,
+                                             int* out) {
+  return skin_fwd_mesh_attributes<bf16>(sides, mesh_bf16, out);
 }
 
 // Floats of scratch nemo_skin_bwd needs at (B, V): the per-block gpf, gA
@@ -410,37 +506,41 @@ extern "C" int nemo_skin_bwd_scratch_floats(int B, int V) {
 }
 
 // Registers, shared memory and local memory (spills) of the one-pass
-// backward kernel (mode 1: vp recomputed, 2: stored), as the CUDA runtime
-// reports them: out[0..3] = registers, static and dynamic shared memory
-// bytes, local bytes. The _bf16 twin: bf16 tables.
-extern "C" int nemo_skin_bwd_attributes(int mode, int* out) {
-  return bwd_attributes<float>(mode, out);
+// backward kernel (mode 1: vp recomputed, 2: stored, f32 mesh only), as the
+// CUDA runtime reports them: out[0..3] = registers, static and dynamic
+// shared memory bytes, local bytes. The _bf16 twin: bf16 tables.
+extern "C" int nemo_skin_bwd_attributes(int mode, int mesh_bf16, int* out) {
+  return skin_bwd_mesh_attributes<float>(mode, mesh_bf16, out);
 }
-extern "C" int nemo_skin_bwd_attributes_bf16(int mode, int* out) {
-  return bwd_attributes<bf16>(mode, out);
+extern "C" int nemo_skin_bwd_attributes_bf16(int mode, int mesh_bf16,
+                                             int* out) {
+  return skin_bwd_mesh_attributes<bf16>(mode, mesh_bf16, out);
 }
 
 // Inputs as nemo_skin_fwd (A on a 16-byte boundary) plus the cotangent g
-// (B,3,V). vp_in: the stored posed vertices (B,3,V), or null to recompute
-// them. scratch: nemo_skin_bwd_scratch_floats(B, V) floats. Outputs gpf
-// (B,207), gA (B,24,12), gvsh (3,V).
-extern "C" int nemo_skin_bwd(int B, int V, const float* pf, const float* A,
-                             const float* vsh, const float* pd, const float* W,
-                             const float* g, const float* vp_in,
-                             float* scratch, float* gpf, float* gA,
-                             float* gvsh, cudaStream_t stream) {
-  return skin_bwd<float>(B, V, pf, A, vsh, pd, W, g, vp_in, scratch, gpf, gA,
-                         gvsh, stream);
+// (B,3,V) in the mesh's type (bf16: read in bf16, on a 4-byte boundary
+// where V is even, else any). vp_in: the stored posed vertices (B,3,V), or
+// null to recompute them (null with a bf16 mesh). scratch:
+// nemo_skin_bwd_scratch_floats(B, V) floats. Outputs gpf (B,207), gA
+// (B,24,12), gvsh (3,V).
+extern "C" int nemo_skin_bwd(int mesh_bf16, int B, int V, const float* pf,
+                             const float* A, const float* vsh,
+                             const float* pd, const float* W, const void* g,
+                             const float* vp_in, float* scratch, float* gpf,
+                             float* gA, float* gvsh, cudaStream_t stream) {
+  return skin_bwd_mesh<float>(mesh_bf16, B, V, pf, A, vsh, pd, W, g, vp_in,
+                              scratch, gpf, gA, gvsh, stream);
 }
 
 // The same with bf16 tables: pd, W and a stored vp_in bf16 (pd and W on
-// 4-byte boundaries where V is even); g and the outputs stay f32.
-extern "C" int nemo_skin_bwd_bf16(int B, int V, const float* pf,
-                                  const float* A, const float* vsh,
-                                  const bf16* pd, const bf16* W,
-                                  const float* g, const bf16* vp_in,
-                                  float* scratch, float* gpf, float* gA,
-                                  float* gvsh, cudaStream_t stream) {
-  return skin_bwd<bf16>(B, V, pf, A, vsh, pd, W, g, vp_in, scratch, gpf, gA,
-                        gvsh, stream);
+// 4-byte boundaries where V is even).
+extern "C" int nemo_skin_bwd_bf16(int mesh_bf16, int B, int V,
+                                  const float* pf, const float* A,
+                                  const float* vsh, const bf16* pd,
+                                  const bf16* W, const void* g,
+                                  const bf16* vp_in, float* scratch,
+                                  float* gpf, float* gA, float* gvsh,
+                                  cudaStream_t stream) {
+  return skin_bwd_mesh<bf16>(mesh_bf16, B, V, pf, A, vsh, pd, W, g, vp_in,
+                             scratch, gpf, gA, gvsh, stream);
 }

@@ -45,14 +45,12 @@
 #include <cstdint>
 #include <type_traits>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 // true for the bf16 tables' instantiations
 template <typename T>
@@ -95,17 +93,6 @@ __device__ __forceinline__ float rnd(float x) {
   else return x;
 }
 
-// two f32 rounded to bf16 in one register, lo in the low half (the lower
-// index, as mma.sync's fragments take them)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
-}
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
 // Two bf16 in one register as f32 (exact: a bf16 is the top half of an f32).
 __device__ __forceinline__ float2 bf16x2_to_float2(uint32_t u) {
   return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
@@ -126,15 +113,6 @@ __device__ __forceinline__ float4 ld4(const bf16* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   const float2 a = bf16x2_to_float2(u.x), b = bf16x2_to_float2(u.y);
   return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// d += a . b on mma.sync m16n8k16, bf16 operands, f32 accumulation.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Copy CW (1 or 2) table elements from global to shared memory; only the

@@ -49,6 +49,12 @@
 // mma.sync m16n8k16 in one pass, its two pairs of warps splitting the
 // features at 112; the blend reads W as bf16 and widens it; the pair mode
 // stores vp in bf16. The groups, barriers and buffers are the f32 kernel's.
+//
+// bf16 vertices (skin_fwd_kernel<1, T, bf16>, the JAX package's
+// NEMO_TPU_SKIN_IO_BF16, for either table type): the f32 vertices are
+// rounded to nearest even as they are stored (acc.astype(out_ref.dtype) in
+// _fwd_kernel), 8, 4 or 2 bytes a store (store4); nothing else changes, so
+// they are the f32-output kernel's vertices rounded.
 
 #pragma once
 
@@ -186,17 +192,17 @@ __device__ __forceinline__ void store4(bf16* dst, const float x[4], int nv,
   }
 }
 
-// kSides 1: out = verts. kSides 2: out = sign, vp_out = vp (or null; in
-// the table type T), tot_part[bt * R + r] = the block's |diff| sum. ow: the
-// store width (store4). Launched with kXT threads and kXSmemBytes of shared
-// memory.
-template <int kSides, typename T>
+// kSides 1: out = verts (in TO: f32, or bf16 rounded to nearest even).
+// kSides 2: out = sign (TO = f32), vp_out = vp (or null; in the table type
+// T), tot_part[bt * R + r] = the block's |diff| sum. ow: the store width
+// (store4). Launched with kXT threads and kXSmemBytes of shared memory.
+template <int kSides, typename T, typename TO = float>
 __global__ void __launch_bounds__(kXT, 1)
 skin_fwd_kernel(int B, int V, int R, int ow, const float* __restrict__ pf0,
                 const float* __restrict__ A0, const float* __restrict__ pf1,
                 const float* __restrict__ A1, const float* __restrict__ vsh,
                 const T* __restrict__ pd, const T* __restrict__ W,
-                float* __restrict__ out, T* __restrict__ vp_out,
+                TO* __restrict__ out, T* __restrict__ vp_out,
                 float* __restrict__ tot_part) {
   constexpr int kRows = kXR / kSides;  // batch rows a block
   extern __shared__ __align__(16) float smem[];
@@ -425,13 +431,13 @@ inline int fwd_ranges(int n_bt, int V) {
 }
 
 // The widest store (4, 2 or 1 elements) that V and every output address
-// allow: a (f32) and b (T, may be null).
-template <typename T>
-inline int out_width(int V, const float* a, const T* b) {
+// allow: a (TO) and b (T, may be null).
+template <typename TO, typename T>
+inline int out_width(int V, const TO* a, const T* b) {
   const uintptr_t pa = reinterpret_cast<uintptr_t>(a);
   const uintptr_t pb = reinterpret_cast<uintptr_t>(b);
   for (int w = 4; w > 1; w /= 2)
-    if (V % w == 0 && pa % (w * sizeof(float)) == 0 &&
+    if (V % w == 0 && pa % (w * sizeof(TO)) == 0 &&
         pb % (w * sizeof(T)) == 0)
       return w;
   return 1;
@@ -441,30 +447,31 @@ inline int out_width(int V, const float* a, const T* b) {
 template <int kSides>
 inline int fwd_batch_tiles(int B) { return cdiv(B, kXR / kSides); }
 
-template <int kSides, typename T>
+template <int kSides, typename T, typename TO>
 cudaError_t launch_skin_fwd(int B, int V, const float* pf0, const float* A0,
                             const float* pf1, const float* A1,
                             const float* vsh, const T* pd, const T* W,
-                            float* out, T* vp_out, float* tot_part,
+                            TO* out, T* vp_out, float* tot_part,
                             cudaStream_t stream) {
   if (cudaError_t err = cudaFuncSetAttribute(
-          skin_fwd_kernel<kSides, T>,
+          skin_fwd_kernel<kSides, T, TO>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kXSmemBytes))
     return err;
   const int n_bt = fwd_batch_tiles<kSides>(B), R = fwd_ranges(n_bt, V);
-  skin_fwd_kernel<kSides, T><<<dim3(R, n_bt), kXT, kXSmemBytes, stream>>>(
+  skin_fwd_kernel<kSides, T, TO><<<dim3(R, n_bt), kXT, kXSmemBytes, stream>>>(
       B, V, R, out_width(V, out, vp_out), pf0, A0, pf1, A1, vsh, pd, W, out,
       vp_out, tot_part);
   return cudaGetLastError();
 }
 
 // Registers, shared memory and local memory (spills) of skin_fwd_kernel
-// <kSides, T>: out[0..3] = registers, static and dynamic shared memory
+// <kSides, T, TO>: out[0..3] = registers, static and dynamic shared memory
 // bytes, local bytes.
-template <int kSides, typename T>
+template <int kSides, typename T, typename TO = float>
 int skin_fwd_attributes(int* out) {
   cudaFuncAttributes a;
-  if (cudaError_t err = cudaFuncGetAttributes(&a, skin_fwd_kernel<kSides, T>))
+  if (cudaError_t err =
+          cudaFuncGetAttributes(&a, skin_fwd_kernel<kSides, T, TO>))
     return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;

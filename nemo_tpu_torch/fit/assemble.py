@@ -11,6 +11,7 @@ from ..body.smpl import SMPLModel, subset_skin_tables
 from ..models.humor import HumorConfig, humor_to
 from ..modules.networks import MLP_MODES
 from ..ops.lbs import VJP_MODES
+from ..ops.mlp import check_precision
 from ..priors.gmm import GMMPrior
 from .model import NemoAssets, NemoConfig
 
@@ -20,7 +21,9 @@ def build_assets(bundle, smpl: SMPLModel, cfg: NemoConfig,
                  vposer: Optional[Dict[str, torch.Tensor]] = None,
                  device=None, v2v_vjp: str = "fused",
                  motion_mlp: str = "plain", humor=None,
-                 humor_cfg: Optional[HumorConfig] = None) -> NemoAssets:
+                 humor_cfg: Optional[HumorConfig] = None,
+                 net_precision: str = "highest",
+                 skin_io_bf16: bool = False) -> NemoAssets:
     """Collate the 2D supervision (reference collate_gt_2d :2908-2961) and
     move everything to ``device`` once. ``bundle`` is a MultiViewBundle of
     either package (both are numpy). With cfg.vp_v2v_n_verts > 0 the v2v
@@ -31,12 +34,17 @@ def build_assets(bundle, smpl: SMPLModel, cfg: NemoConfig,
     MotionNet and ignores it). humor: the HuMoR parameter tree of the
     weight_humor_loss term, with humor_cfg (default HumorConfig()). The
     skinning tables, the subset's included, keep the body's table dtype
-    (f32, or bf16 for a body built with skin_dtype=torch.bfloat16)."""
+    (f32, or bf16 for a body built with skin_dtype=torch.bfloat16).
+    net_precision: every network product's (ops.mlp.NET_PRECISIONS, the
+    JAX package's NEMO_TPU_NET_PRECISION; another name raises);
+    skin_io_bf16: the v2v subset's meshes in bf16 (NEMO_TPU_SKIN_IO_BF16;
+    the full-mesh prior builds no mesh)."""
     if v2v_vjp not in VJP_MODES:
         raise ValueError(f"v2v_vjp {v2v_vjp!r}: expected one of {VJP_MODES}")
     if motion_mlp not in MLP_MODES:
         raise ValueError(f"motion_mlp {motion_mlp!r}: expected one of "
                          f"{MLP_MODES}")
+    check_precision(net_precision)
     device = torch.device(device) if device is not None else smpl.device
     thr = cfg.label_intersection_threshold
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
@@ -62,6 +70,8 @@ def build_assets(bundle, smpl: SMPLModel, cfg: NemoConfig,
         spin_theta=None if spin is None else t(spin),
         v2v_vjp=v2v_vjp,
         motion_mlp=motion_mlp,
+        net_precision=net_precision,
+        skin_io_dtype=torch.bfloat16 if skin_io_bf16 else torch.float32,
         humor=None if humor is None else humor_to(humor, device),
         humor_cfg=humor_cfg,
         **subset,

@@ -128,6 +128,12 @@ class NemoAssets:
     # the MotionNet's MLP: "plain" matmuls or "fused" through K6
     # (modules.networks.MotionNet.forward)
     motion_mlp: str = "plain"
+    # every network product's precision (ops.mlp.NET_PRECISIONS: "highest",
+    # "high", "bf16"; the JAX package's NEMO_TPU_NET_PRECISION)
+    net_precision: str = "highest"
+    # the v2v subset's meshes and their cotangents: f32, or bf16 (the JAX
+    # package's NEMO_TPU_SKIN_IO_BF16)
+    skin_io_dtype: torch.dtype = torch.float32
     # the frozen HuMoR CVAE of the weight_humor_loss term
     # (models.humor parameter tree) and its config
     humor: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
@@ -198,15 +204,16 @@ def _embed(params: NemoParams, cfg: NemoConfig, phases: torch.Tensor,
 
 
 def _trans_at_phase0(params: NemoParams, cfg: NemoConfig,
-                     mlp: str = "plain") -> torch.Tensor:
+                     mlp: str = "plain",
+                     precision: str = "highest") -> torch.Tensor:
     """MotionNet translation at phase 0 (through the RBF) with a ZERO
     instance code (reference :3754-3764), a batch of one through the
-    MotionNet's ``mlp`` mode."""
+    MotionNet's ``mlp`` mode at ``precision``."""
     dev = params.cameras.device
     zero_phase = torch.zeros((1, 1), device=dev)
     codes = torch.zeros((1, cfg.instance_code_size), device=dev)
     _, _, trans0 = params.motion(_embed(params, cfg, zero_phase, codes),
-                                 mlp=mlp)
+                                 mlp=mlp, precision=precision)
     return trans0
 
 
@@ -229,18 +236,22 @@ def predict(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
     """
     raw = frame_idx_to_raw_phase(frame_idx, assets.num_frames)[:, None]
     warped = apply_monotonic_gather(params.phase, view_idx, raw)
+    prec = assets.net_precision
     if cfg.model_version == 0:
         # separate networks (get_preds_given_phases :3005-3034)
-        pose_d = params.poses(warped)
-        orient_d = params.orient(warped)
-        trans = params.trans(warped) - params.trans(warped.new_zeros((1, 1)))
+        pose_d = params.poses(warped, prec)
+        orient_d = params.orient(warped, prec)
+        trans = params.trans(warped, prec) - params.trans(
+            warped.new_zeros((1, 1)), prec)
     else:
         codes = params.instance[view_idx] if cfg.uses_instance_code else None
         if codes is not None and noise is not None and cfg.code_noise > 0:
             codes = codes + cfg.code_noise * noise
         pose_d, orient_d, trans = params.motion(
-            _embed(params, cfg, warped, codes), mlp=assets.motion_mlp)
-        trans = trans - _trans_at_phase0(params, cfg, assets.motion_mlp)
+            _embed(params, cfg, warped, codes), mlp=assets.motion_mlp,
+            precision=prec)
+        trans = trans - _trans_at_phase0(params, cfg, assets.motion_mlp,
+                                         prec)
 
     body_rotmat = pose_d["rotmat"]
     if detach_pose:
@@ -282,13 +293,33 @@ def project_to_views(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
                                   cam.focal_length, cam.center)
 
 
+class _AbsJax(torch.autograd.Function):
+    """|x| with jnp.abs's derivative: +1 at x = 0 (including -0), where
+    torch's abs has 0. Elsewhere the same gradient, bit for bit. The subset
+    v2v prior's meshes tie (rec == orig) at a few entries in bf16, and
+    there JAX's gradient is -1/n on the orig side."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x.abs()
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
 def vposer_losses(params: NemoParams, assets: NemoAssets,
                   poses: torch.Tensor, orient6d: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(v2v recon L1, KL): the VPoser mean-latent reconstruction, compared
     mesh to mesh with the reconstruction detached (:2775-2804). The full
     mesh goes through K2 (in the assets' v2v_vjp mode); a vertex subset
-    through K3, the rec side forward only."""
+    through K3, the rec side forward only, both meshes in the assets'
+    skin_io_dtype and widened to f32 before their difference, as the JAX
+    package does, |.| differentiated as jnp.abs is (so a bf16 mesh's
+    cotangent is bf16(+-weight / n) at every entry, ties included)."""
     vp = assets.vposer
     B = poses.shape[0]
     mu, scale = vposer_encode(vp, poses[:, :63])
@@ -305,12 +336,14 @@ def vposer_losses(params: NemoParams, assets: NemoAssets,
     else:
         sub = (assets.v2v_vidx, assets.v2v_posedirs_t,
                assets.v2v_lbs_weights_t)
+        io = assets.skin_io_dtype
         verts_o = smpl_verts_t_subset(smpl, params.betas, rot_o, orient_rot,
-                                      *sub)
+                                      *sub, io)
         with torch.no_grad():
             verts_r = smpl_verts_t_subset(smpl, params.betas, rot_r,
-                                          orient_rot, *sub)
-        v2v = (verts_r - verts_o).abs().sum() / (B * 3 * sub[0].shape[0])
+                                          orient_rot, *sub, io)
+        v2v = _AbsJax.apply(verts_r.float() - verts_o.float()).sum() / (
+            B * 3 * sub[0].shape[0])
     return v2v, vposer_kl_to_std_normal(mu, scale)
 
 

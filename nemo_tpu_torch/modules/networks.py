@@ -9,6 +9,14 @@ sends its trunk and heads through K6 (``ops.mlp.motion_net_mlp``), the
 counterpart of the JAX package's ``NEMO_TPU_NET_FUSED=1``. RotNet and FCNN
 stay plain, as in JAX.
 
+Every network product goes through :func:`net_dot` at one of
+``ops.mlp.NET_PRECISIONS``, the counterpart of the JAX package's
+``NEMO_TPU_NET_PRECISION`` (``networks._dot``): "highest" (f32, the
+default), "high" (the bf16x3 split of ``mlp_pallas._kdot``) or "bf16" (one
+bf16 pass, f32 accumulation). JAX's fourth name, "default", is the TPU
+compiler's choice of passes, not a function the JAX code writes down, and
+is refused.
+
 Initializers follow torch's defaults as the JAX package does, drawing from an
 explicit ``torch.Generator``; they cannot reproduce jax.random's numbers, so
 parity tests start from converted JAX parameters.
@@ -23,10 +31,70 @@ import torch
 from torch import nn
 
 from ..geometry.rotations import rot6d_to_rotmat, rotmat_to_aa
-from ..ops.mlp import motion_net_mlp
+from ..ops.lbs import bf16_round
+from ..ops.mlp import bf16_parts, check_precision, mm_parts, motion_net_mlp
 
 IDENTITY_6D = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
 MLP_MODES = ("plain", "fused")
+
+
+class _NetDotHigh(torch.autograd.Function):
+    """x @ W in bf16x3 (ops.mlp.mm_parts); the backward applies the same
+    split to g W^T and x^T g, as JAX's autodiff carries precision=HIGH into
+    the transposes. The forward's parts of x and W are saved, and g is split
+    once, so each tensor is split once a step."""
+
+    @staticmethod
+    def forward(ctx, x, W):
+        xp, Wp = bf16_parts(x), bf16_parts(W)
+        ctx.save_for_backward(*xp, *Wp)
+        return mm_parts(xp, Wp)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_hi, x_lo, W_hi, W_lo = ctx.saved_tensors
+        gp = bf16_parts(g)
+        gx = (mm_parts(gp, (W_hi.t(), W_lo.t()))
+              if ctx.needs_input_grad[0] else None)
+        gW = (mm_parts((x_hi.t(), x_lo.t()), gp)
+              if ctx.needs_input_grad[1] else None)
+        return gx, gW
+
+
+class _NetDotBf16(torch.autograd.Function):
+    """bf16(x) @ bf16(W), f32 accumulation and output: ``networks._dot``'s
+    function at bf16. Its backward is what JAX's autodiff of that dot
+    computes: the f32 cotangent g times the bf16 operand in f32, the result
+    rounded to bf16 (gx = bf16(g bf16(W)^T), gW = bf16(bf16(x)^T g)). K6b
+    rounds the operands instead (ops.mlp.motion_net_mlp_bwd_plain): the two
+    are different functions, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, x, W):
+        xb, Wb = bf16_round(x), bf16_round(W)
+        ctx.save_for_backward(xb, Wb)
+        return xb @ Wb
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, Wb = ctx.saved_tensors
+        gx = bf16_round(g @ Wb.t()) if ctx.needs_input_grad[0] else None
+        gW = bf16_round(xb.t() @ g) if ctx.needs_input_grad[1] else None
+        return gx, gW
+
+
+def net_dot(x: torch.Tensor, W: torch.Tensor,
+            precision: str = "highest") -> torch.Tensor:
+    """x @ W at one of NET_PRECISIONS, with its gradient. On the card the
+    bf16 forms are f32 products of the bf16-rounded parts with TF32 off:
+    each product of two bf16 values is exact in f32, so that is the
+    function of bf16 operands with an f32 result."""
+    check_precision(precision)
+    if precision == "highest":
+        return x @ W
+    if precision == "high":
+        return _NetDotHigh.apply(x, W)
+    return _NetDotBf16.apply(x, W)
 
 
 def _uniform(shape, bound: float, generator) -> torch.Tensor:
@@ -52,10 +120,11 @@ class FCNN(nn.Module):
             setattr(self, f"W{i}", nn.Parameter(W))
             setattr(self, f"b{i}", nn.Parameter(bias))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = torch.relu(x @ self.W1 + self.b1)
-        h = torch.relu(h @ self.W2 + self.b2)
-        return h @ self.W3 + self.b3
+    def forward(self, x: torch.Tensor, precision: str = "highest"
+                ) -> torch.Tensor:
+        h = torch.relu(net_dot(x, self.W1, precision) + self.b1)
+        h = torch.relu(net_dot(h, self.W2, precision) + self.b2)
+        return net_dot(h, self.W3, precision) + self.b3
 
 
 class MotionNet(nn.Module):
@@ -78,18 +147,21 @@ class MotionNet(nn.Module):
         self.W_lin = nn.Parameter(W_lin)
         self.b_lin = nn.Parameter(b_lin)
 
-    def forward(self, x: torch.Tensor, mlp: str = "plain"
+    def forward(self, x: torch.Tensor, mlp: str = "plain",
+                precision: str = "highest"
                 ) -> Tuple[dict, dict, torch.Tensor]:
         """(pose_dict, orient_dict, trans); the dicts carry 'rot6d',
         'rotmat' and 'pose' (axis-angle). Joint 0 is the global orient.
-        mlp: "plain" (torch matmuls) or "fused" (K6, the same function)."""
+        mlp: "plain" (torch matmuls) or "fused" (K6, the same forward);
+        precision: the products' (net_dot). At "bf16" the two modes'
+        backwards differ as JAX's do (_NetDotBf16)."""
         B = x.shape[0]
         if mlp == "fused":
-            rot6d, trans = motion_net_mlp(self, x)
+            rot6d, trans = motion_net_mlp(self, x, precision)
         elif mlp == "plain":
-            z = torch.relu(self.trunk(x))
-            rot6d = z @ self.W_rot + self.b_rot
-            trans = z @ self.W_lin + self.b_lin
+            z = torch.relu(self.trunk(x, precision))
+            rot6d = net_dot(z, self.W_rot, precision) + self.b_rot
+            trans = net_dot(z, self.W_lin, precision) + self.b_lin
         else:
             raise ValueError(f"mlp {mlp!r}: expected one of {MLP_MODES}")
         rotmat = rot6d_to_rotmat(rot6d.reshape(B, self.n_joints, 6))
@@ -118,10 +190,12 @@ class RotNet(nn.Module):
             torch.tensor(IDENTITY_6D).repeat(n_joints) if init_last_layer_zero
             else torch.zeros(n_joints * 6))
 
-    def forward(self, x: torch.Tensor) -> dict:
-        """{'rot6d', 'rotmat', 'pose' (axis-angle)} over all n_joints."""
+    def forward(self, x: torch.Tensor, precision: str = "highest") -> dict:
+        """{'rot6d', 'rotmat', 'pose' (axis-angle)} over all n_joints;
+        precision: the products' (net_dot)."""
         B = x.shape[0]
-        rot6d = torch.relu(self.trunk(x)) @ self.W_rot + self.b_rot
+        rot6d = net_dot(torch.relu(self.trunk(x, precision)), self.W_rot,
+                        precision) + self.b_rot
         rotmat = rot6d_to_rotmat(rot6d.reshape(B, self.n_joints, 6))
         pose = rotmat_to_aa(rotmat).reshape(B, self.n_joints * 3)
         return {"rot6d": rot6d, "rotmat": rotmat, "pose": pose}

@@ -59,27 +59,26 @@ _SIGNATURES = {
     # dynamic shared memory bytes, local (spill) bytes
     "nemo_v2v_fused_attributes": [_P],
     "nemo_v2v_fused_attributes_bf16": [_P],
-    # B, V, pf, A, vsh_t, posedirs_t, W_t, verts, stream
-    "nemo_skin_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P],
-    "nemo_skin_fwd_bf16": [_I, _I, _P, _P, _P, _P, _P, _P, _P],
-    # sides (1 K3f, 2 K2's pair mode), out int[4]: the forward kernel's
-    # registers a thread, static and dynamic shared memory bytes, local
-    # (spill) bytes
-    "nemo_skin_fwd_attributes": [_I, _P],
-    "nemo_skin_fwd_attributes_bf16": [_I, _P],
-    # B, V, pf, A, vsh_t, posedirs_t, W_t, g, vp_in, scratch, gpf, gA,
-    # gvsh, stream
-    "nemo_skin_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _P],
-    "nemo_skin_bwd_bf16": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _P],
-    # floats of scratch nemo_skin_bwd needs at (B, V), -1 if refused
-    "nemo_skin_bwd_scratch_floats": [_I, _I],
-    # mode (1 recompute vp, 2 stored vp), out int[4]: the one-pass K3b
+    # mesh_bf16 (the mesh's type: 0 f32, 1 bf16), B, V, pf, A, vsh_t,
+    # posedirs_t, W_t, verts, stream
+    "nemo_skin_fwd": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "nemo_skin_fwd_bf16": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    # sides (1 K3f, 2 K2's pair mode), mesh_bf16, out int[4]: the forward
     # kernel's registers a thread, static and dynamic shared memory bytes,
     # local (spill) bytes
-    "nemo_skin_bwd_attributes": [_I, _P],
-    "nemo_skin_bwd_attributes_bf16": [_I, _P],
+    "nemo_skin_fwd_attributes": [_I, _I, _P],
+    "nemo_skin_fwd_attributes_bf16": [_I, _I, _P],
+    # mesh_bf16, B, V, pf, A, vsh_t, posedirs_t, W_t, g, vp_in, scratch,
+    # gpf, gA, gvsh, stream
+    "nemo_skin_bwd": [_I, _I, _I] + [_P] * 12,
+    "nemo_skin_bwd_bf16": [_I, _I, _I] + [_P] * 12,
+    # floats of scratch nemo_skin_bwd needs at (B, V), -1 if refused
+    "nemo_skin_bwd_scratch_floats": [_I, _I],
+    # mode (1 recompute vp, 2 stored vp), mesh_bf16, out int[4]: the
+    # one-pass K3b kernel's registers a thread, static and dynamic shared
+    # memory bytes, local (spill) bytes
+    "nemo_skin_bwd_attributes": [_I, _I, _P],
+    "nemo_skin_bwd_attributes_bf16": [_I, _I, _P],
     # N, T, H, W, th, tw, ntx, attr, codes, starts, counts, ints, keys, z,
     # fid, bary, stream
     "nemo_raster_stream": [_I] * 7 + [_P] * 10,
@@ -101,16 +100,16 @@ _SIGNATURES = {
     "nemo_chamfer_attributes": [_I, _P],
     # floats of scratch nemo_mlp_fwd/_bwd need at (B, D, H, O), -1 if refused
     "nemo_mlp_scratch_floats": [_I, _I, _I, _I],
-    # B, D, H, O, x, W1, b1, W2, b2, W3, b3, Wo, bo, out, h1, h2, z, scratch,
-    # stream
-    "nemo_mlp_fwd": [_I] * 4 + [_P] * 15,
-    # B, D, H, O, gout, x, h1, h2, z, W1, W2, W3, Wo, gx, gW1, gb1, gW2, gb2,
-    # gW3, gb3, gWo, gbo, scratch, stream
-    "nemo_mlp_bwd": [_I] * 4 + [_P] * 20,
-    # pair (0 the forward's instantiation, 1 the backward's), out int[4]:
-    # the K6 GEMM kernel's registers a thread, static and dynamic shared
-    # memory bytes, local (spill) bytes
-    "nemo_mlp_attributes": [_I, _P],
+    # arith (0 3xTF32, 1 bf16x3, 2 bf16: ops/mlp.py _ARITH), B, D, H, O, x,
+    # W1, b1, W2, b2, W3, b3, Wo, bo, out, h1, h2, z, scratch, stream
+    "nemo_mlp_fwd": [_I] * 5 + [_P] * 15,
+    # arith, B, D, H, O, gout, x, h1, h2, z, W1, W2, W3, Wo, gx, gW1, gb1,
+    # gW2, gb2, gW3, gb3, gWo, gbo, scratch, stream
+    "nemo_mlp_bwd": [_I] * 5 + [_P] * 20,
+    # pair (0 the forward's instantiation, 1 the backward's), arith, out
+    # int[4]: the K6 GEMM kernel's registers a thread, static and dynamic
+    # shared memory bytes, local (spill) bytes
+    "nemo_mlp_attributes": [_I, _I, _P],
 }
 
 build_seconds = None  # wall time of the build this process ran, if any

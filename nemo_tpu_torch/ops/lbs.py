@@ -43,6 +43,15 @@ f32. On a CUDA tensor the ``_bf16`` kernels run it, the posedirs
 contractions on ``mma.sync`` bf16 in one pass, and count their launches
 under the ``_bf16`` keys of LAUNCHES; on the CPU the plain versions below
 do. With f32 tables nothing changes.
+
+bf16 meshes. ``skin_verts_t(..., out_dtype=torch.bfloat16)`` is the JAX
+package's NEMO_TPU_SKIN_IO_BF16 (``skin_io_dtype``): K3f rounds the f32
+vertices to bf16 (nearest even) as it stores them, and K3b reads the bf16
+cotangent its autograd hands back, as ``_bwd_kernel`` upcasts it; either
+table type. On a CUDA tensor the bf16-mesh instantiations run it (the C
+entry points' mesh_bf16 = 1) and count under the ``_io_bf16`` keys of
+LAUNCHES (after the tables' suffix); on the CPU the plain versions round
+the output and widen the cotangent.
 """
 
 from __future__ import annotations
@@ -63,7 +72,11 @@ VJP_MODES = ("fused", "pair", "pair_vp")
 _KERNELS = ("v2v_grad", "v2v_fwd", "v2v_pair", "skin_fwd", "skin_bwd",
             "skin_bwd_vp")
 BF16 = "_bf16"   # the bf16 tables' kernels: C entry points and counters
+IO_BF16 = "_io_bf16"  # K3's bf16-mesh kernels, after the tables' suffix
 LAUNCHES = {k + sfx: 0 for sfx in ("", BF16) for k in _KERNELS}
+LAUNCHES.update({k + sfx + IO_BF16: 0 for sfx in ("", BF16)
+                 for k in ("skin_fwd", "skin_bwd")})
+MESH_DTYPES = (torch.float32, torch.bfloat16)
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -362,7 +375,8 @@ def misrounding_shares(got: Grads, pf, A34, v_shaped_t, posedirs_t, W_t, g,
 
 def _check_skin_inputs(pf, A34, v_shaped_t, posedirs_t, W_t, **extra):
     """Validate the shared operands (and ``extra`` (B, 3, V) tensors: a
-    cotangent ``g`` in f32, a stored ``vp`` in the tables' dtype); returns
+    cotangent ``g`` in f32 or bf16, a stored ``vp`` in the tables' dtype);
+    returns
     (B, V, device, the kernels' suffix: "" for f32 tables, BF16 for bf16
     ones)."""
     B = pf.shape[0]
@@ -379,27 +393,37 @@ def _check_skin_inputs(pf, A34, v_shaped_t, posedirs_t, W_t, **extra):
             ("v_shaped_t", v_shaped_t, (3, V), f32),
             ("posedirs_t", posedirs_t, (P, 3, V), tables),
             ("W_t", W_t, (J, V), tables),
-            *((k, t, (B, 3, V), tables if k == "vp" else f32)
+            *((k, t, (B, 3, V), tables if k == "vp" else
+               t.dtype if t.dtype in MESH_DTYPES else f32)
               for k, t in extra.items())):
         _build.check_input(name, t, shape, dev, dtype)
     return B, V, dev, BF16 if is_bf16(posedirs_t) else ""
 
 
-def skin_fwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t) -> torch.Tensor:
+def _check_mesh_dtype(dtype: torch.dtype) -> None:
+    if dtype not in MESH_DTYPES:
+        raise TypeError(f"mesh dtype {dtype}: expected one of {MESH_DTYPES}")
+
+
+def skin_fwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Launch K3f (CUDA tensors only; f32 or bf16 tables): verts_t (B, 3,
-    V). A34 must start on a 16-byte boundary and the tables, where V is
-    even, on a boundary of two of their elements."""
+    V) in out_dtype (bf16: the f32 vertices rounded to nearest even). A34
+    must start on a 16-byte boundary and the tables, where V is even, on a
+    boundary of two of their elements."""
+    _check_mesh_dtype(out_dtype)
     B, V, dev, sfx = _check_skin_inputs(pf, A34, v_shaped_t, posedirs_t, W_t)
     _check_alignment("K3f", V, A34=A34, v_shaped_t=v_shaped_t,
                      posedirs_t=posedirs_t, W_t=W_t)
+    mesh_bf16 = out_dtype == torch.bfloat16
     lib = _build.library()
-    verts = torch.empty((B, 3, V), dtype=torch.float32, device=dev)
+    verts = torch.empty((B, 3, V), dtype=out_dtype, device=dev)
     err = getattr(lib, "nemo_skin_fwd" + sfx)(
-        B, V, pf.data_ptr(), A34.data_ptr(), v_shaped_t.data_ptr(),
-        posedirs_t.data_ptr(), W_t.data_ptr(), verts.data_ptr(),
-        _build.stream_handle(dev))
+        int(mesh_bf16), B, V, pf.data_ptr(), A34.data_ptr(),
+        v_shaped_t.data_ptr(), posedirs_t.data_ptr(), W_t.data_ptr(),
+        verts.data_ptr(), _build.stream_handle(dev))
     _build.check(err, "nemo_skin_fwd" + sfx)
-    LAUNCHES["skin_fwd" + sfx] += 1
+    LAUNCHES["skin_fwd" + sfx + (IO_BF16 if mesh_bf16 else "")] += 1
     return verts
 
 
@@ -437,8 +461,9 @@ def _check_alignment(kernel: str, V: int, **tensors):
 def skin_bwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t, g,
                   vp: Optional[torch.Tensor] = None) -> Grads:
     """Launch K3b (CUDA tensors only; f32 or bf16 tables): (gpf, gA, gvsh)
-    under the f32 cotangent g (B, 3, V), recomputing the posed vertices or
-    reading the stored ``vp`` (B, 3, V, in the tables' dtype). One pass and
+    under the cotangent g (B, 3, V), recomputing the posed vertices or
+    reading the stored ``vp`` (B, 3, V, in the tables' dtype). g is f32, or
+    bf16 (the bf16 mesh's cotangent, read in bf16; no stored vp). One pass and
     a fixed-order reduction of its per-block partials (about 17.5 MB of
     scratch at (512, 6890) on 132 SMs); no (B, 3, V) tensor. g and vp may
     start on any boundary of one of their elements; A34 must start on a
@@ -448,6 +473,9 @@ def skin_bwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t, g,
                                         W_t, **extra)
     _check_alignment("K3b", V, A34=A34, v_shaped_t=v_shaped_t,
                      posedirs_t=posedirs_t, W_t=W_t)
+    mesh_bf16 = g.dtype == torch.bfloat16
+    if mesh_bf16 and vp is not None:
+        raise ValueError("K3b takes a bf16 cotangent only recomputing vp")
     lib = _build.library()
     n_scratch = lib.nemo_skin_bwd_scratch_floats(B, V)
     if n_scratch < 0:
@@ -458,31 +486,39 @@ def skin_bwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t, g,
     gA = torch.empty((B, NUM_JOINTS, 12), **f32)
     gvsh = torch.empty((3, V), **f32)
     err = getattr(lib, "nemo_skin_bwd" + sfx)(
-        B, V, pf.data_ptr(), A34.data_ptr(), v_shaped_t.data_ptr(),
-        posedirs_t.data_ptr(), W_t.data_ptr(), g.data_ptr(),
-        None if vp is None else vp.data_ptr(), scratch.data_ptr(),
-        gpf.data_ptr(), gA.data_ptr(), gvsh.data_ptr(),
+        int(mesh_bf16), B, V, pf.data_ptr(), A34.data_ptr(),
+        v_shaped_t.data_ptr(), posedirs_t.data_ptr(), W_t.data_ptr(),
+        g.data_ptr(), None if vp is None else vp.data_ptr(),
+        scratch.data_ptr(), gpf.data_ptr(), gA.data_ptr(), gvsh.data_ptr(),
         _build.stream_handle(dev))
     _build.check(err, "nemo_skin_bwd" + sfx)
-    LAUNCHES[("skin_bwd" if vp is None else "skin_bwd_vp") + sfx] += 1
+    LAUNCHES[("skin_bwd" if vp is None else "skin_bwd_vp") + sfx
+             + (IO_BF16 if mesh_bf16 else "")] += 1
     return gpf, gA, gvsh
 
 
-def skin_fwd_attributes(pair: bool = False, bf16: bool = False) -> dict:
+def skin_fwd_attributes(pair: bool = False, bf16: bool = False,
+                        io_bf16: bool = False) -> dict:
     """The forward kernel's registers a thread, shared memory and spills:
     K3f's instantiation, or (pair) K2's pair mode's; of the f32 or (bf16)
-    the bf16 tables."""
+    the bf16 tables; (io_bf16) K3f's bf16-mesh one."""
+    if io_bf16 and pair:
+        raise ValueError("the pair mode writes no mesh")
     return _build.kernel_attributes(
-        "nemo_skin_fwd_attributes" + (BF16 if bf16 else ""), 2 if pair else 1)
+        "nemo_skin_fwd_attributes" + (BF16 if bf16 else ""), 2 if pair else 1,
+        int(io_bf16))
 
 
-def skin_bwd_attributes(stored_vp: bool = False, bf16: bool = False) -> dict:
+def skin_bwd_attributes(stored_vp: bool = False, bf16: bool = False,
+                        io_bf16: bool = False) -> dict:
     """The one-pass K3b kernel's registers a thread, shared memory and
     spills, recomputing vp or (stored_vp) reading it; of the f32 or (bf16)
-    the bf16 tables."""
+    the bf16 tables; (io_bf16) the bf16-cotangent one (recomputing vp)."""
+    if io_bf16 and stored_vp:
+        raise ValueError("K3b takes a bf16 cotangent only recomputing vp")
     return _build.kernel_attributes(
         "nemo_skin_bwd_attributes" + (BF16 if bf16 else ""),
-        2 if stored_vp else 1)
+        2 if stored_vp else 1, int(io_bf16))
 
 
 def _v2v_launch(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
@@ -551,43 +587,49 @@ def v2v_pair_cuda(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
 # ---------------------------------------------------------------------------
 
 class SkinVertsT(torch.autograd.Function):
-    """K3f forward, K3b backward (recomputing the posed vertices). A
-    transposed or misaligned CUDA view is copied once before the kernels
-    (_kernel_operands)."""
+    """K3f forward, K3b backward (recomputing the posed vertices), the mesh
+    and its cotangent in the dtype given last. A transposed or misaligned
+    CUDA view is copied once before the kernels (_kernel_operands)."""
 
     @staticmethod
-    def forward(ctx, pf, A34, v_shaped_t, posedirs_t, W_t):
+    def forward(ctx, pf, A34, v_shaped_t, posedirs_t, W_t, out_dtype):
         args = (pf, A34, v_shaped_t, posedirs_t, W_t)
         if _build.route(*args) == "cpu":
             ctx.save_for_backward(*args)
-            return skin_verts_t_plain(*args)
+            return skin_verts_t_plain(*args).to(out_dtype)
         args = _kernel_operands(("pf", "A34", "v_shaped_t", "posedirs_t",
                                  "W_t"), args)
         ctx.save_for_backward(*args)
-        return skin_fwd_cuda(*args)
+        return skin_fwd_cuda(*args, out_dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         args = ctx.saved_tensors
         g = g.contiguous()
-        bwd = skin_bwd_plain if _build.route(*args, g) == "cpu" \
-            else skin_bwd_cuda
-        return (*bwd(*args, g), None, None)
+        if _build.route(*args, g) == "cpu":
+            grads = skin_bwd_plain(*args, g.float())
+        else:
+            grads = skin_bwd_cuda(*args, g)
+        return (*grads, None, None, None)
 
 
 def skin_verts_t(V: int, pf: torch.Tensor, A34: torch.Tensor,
                  v_shaped_t: torch.Tensor, posedirs_t: torch.Tensor,
-                 W_t: torch.Tensor) -> torch.Tensor:
+                 W_t: torch.Tensor,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Pose blend shapes + skinning, vertex-major: verts_t (B, 3, V).
 
     V: the vertex count (checked against the tables). pf: (B, 207) pose
     features; A34: (B, 24, 12) top three rows of the FK transforms;
     v_shaped_t (3, V); posedirs_t (207, 3, V) and W_t (24, V) are frozen
-    tables. Gradients flow to pf, A34 and v_shaped_t.
+    tables. Gradients flow to pf, A34 and v_shaped_t. out_dtype: the
+    mesh's (MESH_DTYPES; bf16 is the f32 mesh rounded to nearest even,
+    the JAX package's NEMO_TPU_SKIN_IO_BF16), and so its cotangent's.
     """
     if v_shaped_t.shape[-1] != V or W_t.shape[-1] != V:
         raise ValueError(f"tables hold {W_t.shape[-1]} vertices, expected {V}")
-    return SkinVertsT.apply(pf, A34, v_shaped_t, posedirs_t, W_t)
+    _check_mesh_dtype(out_dtype)
+    return SkinVertsT.apply(pf, A34, v_shaped_t, posedirs_t, W_t, out_dtype)
 
 
 class SkinV2VL1(torch.autograd.Function):

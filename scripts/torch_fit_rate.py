@@ -33,6 +33,10 @@ Configurations (chip_smoke.py):
                        K2's bf16 kernels; chip_smoke.py's path H)
   custom_video_subset_bf16  custom_video_subset with bf16 tables (K3f/K3b
                        bf16)
+  reference_bench      reference at the JAX bench's precision: bf16 tables
+                       and "high" (bf16x3) network products
+                       (--net_precision high; chip_smoke.py's path I)
+  reference_bench_fused  the same with the MotionNet through K6 at "high"
 
 Prints one JSON line per timed run and per profile, then the nvidia-smi
 line (name, power limit).
@@ -52,14 +56,20 @@ def _subset():
     return chip_smoke.custom_video_config(vp_v2v_n_verts=1024)
 
 
-# name -> (configuration, MotionNet mode, bf16 skinning tables)
+# name -> (configuration, MotionNet mode, bf16 skinning tables, network
+# precision)
 CONFIGS = {
-    "reference": (chip_smoke.reference_config, "plain", False),
-    "reference_fused": (chip_smoke.reference_config, "fused", False),
-    "custom_video": (chip_smoke.custom_video_config, "plain", False),
-    "custom_video_subset": (_subset, "plain", False),
-    "reference_bf16": (chip_smoke.reference_config, "plain", True),
-    "custom_video_subset_bf16": (_subset, "plain", True),
+    "reference": (chip_smoke.reference_config, "plain", False, "highest"),
+    "reference_fused": (chip_smoke.reference_config, "fused", False,
+                        "highest"),
+    "custom_video": (chip_smoke.custom_video_config, "plain", False,
+                     "highest"),
+    "custom_video_subset": (_subset, "plain", False, "highest"),
+    "reference_bf16": (chip_smoke.reference_config, "plain", True, "highest"),
+    "custom_video_subset_bf16": (_subset, "plain", True, "highest"),
+    "reference_bench": (chip_smoke.reference_config, "plain", True, "high"),
+    "reference_bench_fused": (chip_smoke.reference_config, "fused", True,
+                              "high"),
 }
 
 
@@ -76,7 +86,8 @@ def make_fitters(configs):
                                   num_frames=120, seed=0)
     return {name: chip_smoke.make_fitter(device, smpl[CONFIGS[name][2]],
                                          bundle, CONFIGS[name][0](),
-                                         motion_mlp=CONFIGS[name][1])
+                                         motion_mlp=CONFIGS[name][1],
+                                         net_precision=CONFIGS[name][3])
             for name in configs}
 
 

@@ -4,6 +4,7 @@ on one GPU, with digests of its outputs.
 
     python scripts/torch_mlp_times.py [--root DIR] [--batches 512 960 1]
         [--reps 20] [--label NAME] [--profile]
+        [--precision highest|high|bf16]
 
 Imports ``nemo_tpu_torch`` and ``chip_smoke`` from DIR (default: the
 checkout this script lies in) and builds its kernels there.
@@ -25,6 +26,14 @@ seeded inputs. With --profile, torch.profiler traces 20 more calls of each
 kernel and the line adds the device time a call and each launch's device
 time in launch order.
 
+--precision runs both sides at one of the port's network precisions
+(ops/mlp.py NET_PRECISIONS; a checkout from before them has "highest"
+only, which is passed as no argument at all, so equal digests across
+checkouts there mean the same bits). At "high" the tolerances are those of
+f32; at "bf16" both are chip_smoke.py's K6_BF16 (one bf16 rounding,
+2^-8), and the f64 errors are not computed (the function rounds its
+operands to bf16).
+
 A time is the median of ``--reps`` CUDA-event timings of one call each
 after 3 warm-up calls. To compare two commits on one card, unpack the other
 with ``git archive`` into a directory that .gitignore lists and run, in one
@@ -45,6 +54,8 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# chip_smoke.py's K6_BF16 (kept here: an older checkout's smoke lacks it)
+K6_BF16 = 2.0 ** -8
 
 
 def digest(*tensors) -> str:
@@ -61,7 +72,11 @@ def main(argv=None) -> int:
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--label", default="")
     p.add_argument("--profile", action="store_true")
+    p.add_argument("--precision", default="highest",
+                   choices=("highest", "high", "bf16"))
     args = p.parse_args(argv)
+    prec = {} if args.precision == "highest" else {
+        "precision": args.precision}
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
@@ -125,27 +140,33 @@ def main(argv=None) -> int:
         x = torch.rand((B, D), generator=gen).to(device)
         gout = torch.randn((B, O), generator=gen).to(device)
         fwd_args = (x, *W)
-        got = mlp.mlp_fwd_cuda(*fwd_args)
+        got = mlp.mlp_fwd_cuda(*fwd_args, **prec)
         bwd_args = (gout, x, *got[1:], W[0], W[2], W[4], W[6])
-        grads = mlp.mlp_bwd_cuda(*bwd_args)
-        for kernel, fn, plain, out, tol in (
+        grads = mlp.mlp_bwd_cuda(*bwd_args, **prec)
+        tols = (K6_BF16,) * 2 if args.precision == "bf16" else (1e-5, 1e-4)
+        for kernel, k_fn, p_fn, out, tol in (
                 ("K6f", mlp.mlp_fwd_cuda, mlp.motion_net_mlp_plain, got,
-                 1e-5),
+                 tols[0]),
                 ("K6b", mlp.mlp_bwd_cuda, mlp.motion_net_mlp_bwd_plain,
-                 grads, 1e-4)):
+                 grads, tols[1])):
             a = fwd_args if kernel == "K6f" else bwd_args
+            fn = lambda *t, k_fn=k_fn: k_fn(*t, **prec)
+            plain = lambda *t, p_fn=p_fn: p_fn(*t, **prec)
             want = plain(*a)
             rel = rel_err(out, want)
             if not rel <= tol:
                 raise AssertionError(f"{kernel} at B={B}: off by {rel:.3e} of "
                                      f"a tensor's largest entry ({tol:g})")
-            exact = plain(*(t.double() for t in a))
-            rec = {"label": label, "kernel": kernel, "B": B, "D": D, "H": H,
+            exact = p_fn(*(t.double() for t in a)) \
+                if args.precision == "highest" else None
+            rec = {"label": label, "kernel": kernel,
+                   "precision": args.precision, "B": B, "D": D, "H": H,
                    "O": O, "ms": median_ms(lambda: fn(*a), reps=args.reps),
                    "plain_ms": median_ms(lambda: plain(*a), reps=args.reps),
                    "host_ms": host_ms(lambda: fn(*a)),
-                   "max_rel_err": rel, "f64_rel_err": rel_err(out, exact),
-                   "plain_f64_rel_err": rel_err(want, exact),
+                   "max_rel_err": rel,
+                   "f64_rel_err": exact and rel_err(out, exact),
+                   "plain_f64_rel_err": exact and rel_err(want, exact),
                    "sha256": digest(*out), "reps": args.reps}
             if args.profile:
                 rec["device_ms"], rec["launches_us"] = device_profile(

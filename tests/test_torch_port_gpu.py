@@ -551,7 +551,8 @@ def test_skin_fwd_resources_and_scratch(cuda):
 
 
 def _tiny_fitter(cuda, v2v_vjp="fused", motion_mlp="plain",
-                 skin_dtype=torch.float32, **over):
+                 skin_dtype=torch.float32, net_precision="highest",
+                 skin_io_bf16=False, **over):
     from nemo_tpu_torch.body.assets import synthetic_smpl_model
     from nemo_tpu_torch.data.synthetic import synthetic_problem
     from nemo_tpu_torch.fit import NemoConfig, NemoFitter, build_assets
@@ -565,7 +566,8 @@ def _tiny_fitter(cuda, v2v_vjp="fused", motion_mlp="plain",
     bundle, _ = synthetic_problem(smpl, num_views=2, num_frames=12)
     assets = build_assets(bundle, smpl, cfg, gmm=synthetic_gmm_prior(4),
                           vposer=init_vposer(), device=cuda, v2v_vjp=v2v_vjp,
-                          motion_mlp=motion_mlp)
+                          motion_mlp=motion_mlp, net_precision=net_precision,
+                          skin_io_bf16=skin_io_bf16)
     return NemoFitter(cfg, assets)
 
 
@@ -591,6 +593,27 @@ FIT_CASES = {
     # model version 0 has no MotionNet: no K6, as in JAX
     "v0_fused_mlp": (dict(model_version=0, motion_mlp="fused"),
                      {"fk_fwd", "fk_bwd", "v2v_grad", "v2v_fwd"}),
+    # the JAX bench's precision: bf16 tables and "high" network products,
+    # K6 at "high" only; and K6 at "bf16"
+    "v2_fused_mlp_bench": (
+        dict(motion_mlp="fused", net_precision="high",
+             skin_dtype=torch.bfloat16),
+        {"fk_fwd", "fk_bwd", "v2v_grad_bf16", "v2v_fwd_bf16", "mlp_fwd_high",
+         "mlp_bwd_high"}),
+    "v2_fused_mlp_bf16": (dict(motion_mlp="fused", net_precision="bf16"),
+                          {"fk_fwd", "fk_bwd", "v2v_grad", "v2v_fwd",
+                           "mlp_fwd_bf16", "mlp_bwd_bf16"}),
+    # bf16 meshes on the subset: K3's _io_bf16 kernels, either table type
+    "v3_subset_io_bf16": (
+        dict(model_version=3, vp_v2v_n_verts=64, full_batch=True,
+             weight_3d_loss=1.0, skin_io_bf16=True, net_precision="high"),
+        {"fk_fwd", "fk_bwd", "skin_fwd_io_bf16", "skin_bwd_io_bf16"}),
+    "v3_subset_bf16_io_bf16": (
+        dict(model_version=3, vp_v2v_n_verts=64, full_batch=True,
+             weight_3d_loss=1.0, skin_io_bf16=True,
+             skin_dtype=torch.bfloat16),
+        {"fk_fwd", "fk_bwd", "skin_fwd_bf16_io_bf16",
+         "skin_bwd_bf16_io_bf16"}),
 }
 
 
@@ -1146,7 +1169,7 @@ def test_mlp_kernels_match_plain(cuda, case):
     assert all(torch.equal(a, b) for a, b in zip(again, got + gk))
     leaves = [a.detach().requires_grad_() for a in args]
     reset_launches()
-    out = mlp.MotionNetMLP.apply(*leaves)
+    out = mlp.MotionNetMLP.apply("highest", *leaves)
     (out * gout).sum().backward()
     counts = launch_counts()
     assert (counts["mlp_fwd"], counts["mlp_bwd"]) == (1, 1)
@@ -1180,3 +1203,142 @@ def test_motion_net_fused_card_vs_cpu(cuda, case):
                       *(p.grad for p in m.parameters()))])
     for i, (k, c) in enumerate(zip(*outs)):
         _close_scaled(k, c, 1e-5 if i < 2 else 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K6 at "high" (bf16x3) and "bf16", K3 with bf16 meshes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("precision", ["high", "bf16"])
+@pytest.mark.parametrize("case", sorted(MLP_CASES))
+def test_mlp_kernels_match_plain_at_precision(cuda, case, precision):
+    """K6f and K6b at "high" and "bf16" against their plain versions at the
+    same precision. "high": the same split and products as the plain
+    version, f32 sums in another order: 1e-5 (values) and 1e-4 (gradients)
+    of each tensor's largest entry, as in f32, and each output that takes
+    one product of the kernel's own operands within mlp.MISROUNDED_SHARE
+    of the plain version's distance from each variant that moves one point
+    of the split (mlp.split_shares). "bf16": a sum straddling a rounding
+    point moves the next layer's operand by one bf16 step, so one bf16
+    rounding (2^-8) of the largest entry (chip_smoke.py's K6_BF16), and
+    every output within mlp.MISROUNDED_SHARE of the plain version's
+    distance from each variant with one kind of operand unrounded. A
+    second run is bit-identical; the
+    public op launches each kernel once, under the precision's counters
+    only."""
+    from nemo_tpu_torch.ops import mlp
+    args, gout = _mlp_inputs(case, cuda)
+    got = mlp.mlp_fwd_cuda(*args, precision=precision)
+    want = mlp.motion_net_mlp_plain(*args, precision=precision)
+    saved = (args[0], *got[1:], args[1], args[3], args[5], args[7])
+    gk = mlp.mlp_bwd_cuda(gout, *saved, precision=precision)
+    gp = mlp.motion_net_mlp_bwd_plain(gout, *saved, precision=precision)
+    tol_f, tol_b = (1e-5, 1e-4) if precision == "high" else (2.0 ** -8,) * 2
+    for a, b in zip(got, want):
+        _close_scaled(a, b, tol_f)
+    for a, b in zip(gk, gp):
+        assert a.shape == b.shape
+        _close_scaled(a, b, tol_b)
+    shares = mlp.misrounding_shares(got, gk, args, (gout, *saved),
+                                    precision)
+    assert max(shares.values()) <= mlp.MISROUNDED_SHARE, shares
+    again = (mlp.mlp_fwd_cuda(*args, precision=precision)
+             + mlp.mlp_bwd_cuda(gout, *saved, precision=precision))
+    assert all(torch.equal(a, b) for a, b in zip(again, got + gk))
+    leaves = [a.detach().requires_grad_() for a in args]
+    reset_launches()
+    out = mlp.MotionNetMLP.apply(precision, *leaves)
+    (out * gout).sum().backward()
+    counts = launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        f"mlp_fwd_{precision}": 1, f"mlp_bwd_{precision}": 1}, counts
+    assert torch.equal(out.detach(), got[0])
+    for leaf, g in zip(leaves, gk):
+        assert torch.equal(leaf.grad, g)
+
+
+def test_mlp_kernel_resources_every_precision(cuda):
+    """Every instantiation of K6's GEMM kernel (forward and backward pair,
+    3xTF32, bf16x3 and bf16) fits two blocks an SM without spilling."""
+    from nemo_tpu_torch.ops import mlp
+    for precision in mlp.NET_PRECISIONS:
+        for pair in (False, True):
+            r = mlp.gemm_attributes(pair, precision)
+            assert r["local_bytes"] == 0, (precision, pair, r)
+            assert 0 < r["registers"] <= 128, (precision, pair, r)
+            assert 2 * (r["static_smem_bytes"] + r["dynamic_smem_bytes"]) \
+                <= 228 * 1024, (precision, pair, r)
+
+
+def _bf16_step(want):
+    """One bf16 step of each entry (2^-7 of it), plus the f32 kernels'
+    1e-5 of the largest entry for entries near 0: where the kernel's and
+    the plain version's f32 vertices straddle a rounding point, their bf16
+    values are one step apart."""
+    return 2.0 ** -7 * want.abs() + 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("tables", ["f32", "bf16"])
+@pytest.mark.parametrize("B,V", [(1, 5), (37, 300), (37, 301), (960, 1024),
+                                 (512, 6890)])
+def test_skin_io_bf16_kernels(cuda, B, V, tables):
+    """K3f writing bf16 vertices gives the f32 kernel's vertices rounded to
+    nearest even, bit for bit, so at most one bf16 step from the plain
+    version's; K3b under a bf16 cotangent gives the f32-cotangent kernel's
+    gradients on the widened cotangent, bit for bit (the widening is
+    exact), each rerun bit-identical; only the _io_bf16 counters move."""
+    args, _ = _skin_args(B, V, cuda, seed=B + V)
+    if tables == "bf16":
+        args = _bf16_tables(args)
+    sfx = lbs.BF16 if tables == "bf16" else ""
+    g = torch.randn((B, 3, V), generator=torch.Generator().manual_seed(V)
+                    ).to(cuda).to(BF)
+    f32 = lbs.skin_fwd_cuda(*args)
+    reset_launches()
+    out = lbs.skin_fwd_cuda(*args, out_dtype=BF)
+    assert out.dtype == BF and torch.equal(out, f32.to(BF))
+    want = lbs.skin_verts_t_plain(*args)
+    assert bool(((out.float() - want).abs() <= _bf16_step(want)).all())
+    assert torch.equal(lbs.skin_fwd_cuda(*args, out_dtype=BF), out)
+    got = lbs.skin_bwd_cuda(*args, g)
+    assert all(torch.equal(a, b) for a, b in
+               zip(lbs.skin_bwd_cuda(*args, g), got))
+    counts = launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "skin_fwd" + sfx + lbs.IO_BF16: 2,
+        "skin_bwd" + sfx + lbs.IO_BF16: 2}, counts
+    ref = lbs.skin_bwd_cuda(*args, g.float())
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    with pytest.raises(ValueError):
+        lbs.skin_bwd_cuda(*args, g, vp=f32.to(args[3].dtype))
+    for io in (lbs.skin_fwd_attributes(False, tables == "bf16", True),
+               lbs.skin_bwd_attributes(False, tables == "bf16", True)):
+        assert io["local_bytes"] == 0, io
+        assert io["static_smem_bytes"] + io["dynamic_smem_bytes"] <= 232448
+
+
+@pytest.mark.parametrize("tables", ["f32", "bf16"])
+def test_skin_verts_t_io_bf16_card_vs_cpu(cuda, tables):
+    """skin_verts_t(out_dtype=bf16) and its gradients on the card against
+    the CPU (the plain versions): the bf16 mesh within one bf16 step, the
+    gradients under the same bf16 cotangent within 1e-4 (f32 tables) or
+    GRAD_BF16 (bf16 tables) of each tensor's largest entry."""
+    B, V = 37, 300
+    args = [a.cpu() for a in _skin_args(B, V, cuda, seed=5)[0]]
+    if tables == "bf16":
+        args = _bf16_tables(args)
+    w = torch.randn((B, 3, V), generator=torch.Generator().manual_seed(6))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [a.to(dev).requires_grad_() for a in args[:3]]
+        out = lbs.skin_verts_t(V, *leaves, args[3].to(dev), args[4].to(dev),
+                               out_dtype=BF)
+        assert out.dtype == BF
+        (out.float() * w.to(dev)).sum().backward()
+        outs.append([out.detach().float().cpu()]
+                    + [x.grad.cpu() for x in leaves])
+    (ok, *gk), (oc, *gc) = outs
+    assert bool(((ok - oc).abs() <= _bf16_step(oc)).all())
+    tol = GRAD_BF16 if tables == "bf16" else 1e-4
+    for a, b in zip(gk, gc):
+        _close_scaled(a, b, tol)

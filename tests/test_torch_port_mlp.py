@@ -355,9 +355,9 @@ def test_predict_reaches_k6_twice_except_v0(version, calls):
     seen = []
     real = mlp.motion_net_mlp
 
-    def spy(motion, x):
+    def spy(motion, x, *precision):
         seen.append(x.shape[0])
-        return real(motion, x)
+        return real(motion, x, *precision)
 
     with mock.patch.object(tnet, "motion_net_mlp", spy):
         outs = {}
