@@ -104,7 +104,10 @@ Run from the repository root with no arguments:
    - path F: slice 1's reference configuration with the MotionNet through
      K6 (motion_mlp="fused"), two K6f launches a predict (the batch and the
      B = 1 phase-0 anchor), and fit_loss with its gradients against the
-     plain MotionNet on the card from the same parameters and batch;
+     plain MotionNet on the card from the same parameters and batch (as on
+     path I, less the samples whose ReLU gates the two modes take
+     differently, each at a pre-activation within its rounding bound and
+     at most 1% of the batch: gate_flips);
    - path G: the recipes from asset files in the real layouts, written
      into a temporary directory from the smoke's body and priors (the SMPL
      chumpy pickle and npz, J_regressor_extra.npy, a V02_05 VPoser
@@ -114,7 +117,21 @@ Run from the repository root with no arguments:
      CLI on a bundle with vs, pare and GLAMR baselines (5/5/10 steps,
      every 4th video frame; the eval CSVs' baseline and GLAMR columns
      finite), then the custom-video configuration without and with the
-     HuMoR dynamics term (card vs CPU on the full grid, no sync, steps/s).
+     HuMoR dynamics term (card vs CPU on the full grid, no sync, steps/s);
+   - path J: the recipe from raw files, in path G's directory: the
+     reference's per-view layout written from the 8-view x 120-frame
+     bundle (OpenPose JSONs with empty and two-person frames, GT 2D, VIBE
+     pickles with two tracklets, a MoSh mocap pickle, a joblib camera a
+     view fitted by fit_gt_camera on the card), then python -m
+     nemo_tpu_torch.cli.preprocess with the native OpenPose parser and with
+     the json module (the packed labels, hmr_theta/mask and gt3d arrays
+     bit-identical to the in-memory bundle's, the hand slots zero), the
+     doctor on the layout and path G's asset files (READY), the fit CLI on
+     the packed bundle at slice 1's configuration (5/5/10 steps; its init
+     loss equal to the in-memory bundle's), the export CLI on the card
+     against the CPU and against its own smpl_forward rebuild, and one
+     view's camera fit card vs CPU with no sync in its loop; each stage's
+     host seconds.
    Losses must be finite, main-stage kp_loss must fall on slice 1 and paths
    A and F (stage 2's loss on path E), fit_loss on the card must agree with the
    port's CPU path from the same parameters (points3d_loss and the stage-3
@@ -1967,7 +1984,9 @@ def path_i(device, smpl, smpl_b, bundle, steady1, steady_h, run1, run_h):
     2. the same with motion_mlp="fused": K6 at "high" (mlp_fwd_high,
        mlp_bwd_high) and no other K6 instantiation; card vs CPU, and fused
        vs plain from the same parameters and batch (modes_agree: the loss
-       within 1e-5 relative, gradients 1e-4, as path F: the same function);
+       within 1e-5 relative, gradients 1e-4, as path F: the same function;
+       the samples where a pre-activation's rounding puts a ReLU gate on
+       different sides in the two modes are left out and counted);
     3. five main steps from the init at "bf16" on each MLP mode (the fused
        one through K6's bf16 instantiation only), beside the same five at
        "highest";
@@ -2402,6 +2421,102 @@ def path_e(device, files):
     return counts
 
 
+# gate_flips: a ReLU gate that the plain products and K6 take differently is
+# a rounding at 0 only where the flipped unit's plain pre-activation p obeys
+#   |p| <= (2 GATE_EPS[precision] + 2 (K + 1) 2^-24) (|a| |W| + |b|)
+#          + |a' - a| |W|,
+# a and a' the layer's input in the plain mode and in K6 (the trunk's input
+# at the first layer, each mode's activations after), K its depth.
+# GATE_EPS is one product's relative error at each precision, taken by
+# each mode: 3xTF32's dropped lo.lo and split residuals (3 x 2^-22), bf16x3's
+# (3 x 2^-16), bf16's two rounded operands (2 x 2^-8); 2 (K + 1) 2^-24 are
+# two f32 sums of K products and the bias in different orders.
+GATE_EPS = {"highest": 2.0 ** -20, "high": 2.0 ** -14, "bf16": 2.0 ** -7}
+# the largest share of modes_agree's batch that such flips may take out
+GATE_FLIP_SHARE = 0.01
+
+
+def agree_batch(fitter):
+    """modes_agree's batch: (view, frame) indices from a fixed seed."""
+    import torch
+    V, F = fitter.assets.num_views, fitter.assets.num_frames
+    g = torch.Generator().manual_seed(5)
+    vi = torch.randint(0, V, (fitter.cfg.batch_size,), generator=g)
+    fi = torch.randint(0, F, (fitter.cfg.batch_size,), generator=g)
+    return vi.to(fitter.device), fi.to(fitter.device)
+
+
+def gate_flips(name, fitter, vi, fi):
+    """The batch's samples at which the MotionNet's plain products and K6,
+    at the assets' precision, take a ReLU gate differently: the trunk's
+    inputs from one plain forward, then each mode's activations (h1, h2, z)
+    from them. A pre-activation at 0 may round to either sign; that moves
+    the unit's gradient by a whole term, and only there do the two modes
+    compute different functions. Fails if the phase-0 anchor flips, if a
+    flipped unit's plain pre-activation lies outside its rounding bound
+    (GATE_EPS), or if more than GATE_FLIP_SHARE of the batch flips."""
+    import dataclasses
+    import torch
+    from nemo_tpu_torch.fit import fit_loss
+    from nemo_tpu_torch.modules.networks import net_dot
+    from nemo_tpu_torch.ops import mlp
+    motion, prec = fitter.params.motion, fitter.assets.net_precision
+    inputs = []
+    hook = motion.trunk.register_forward_pre_hook(
+        lambda mod, args: inputs.append(args[0].detach().contiguous()))
+    try:
+        with torch.no_grad():
+            fit_loss(fitter.params, fitter.cfg, dataclasses.replace(
+                fitter.assets, motion_mlp="plain"), vi, fi)
+    finally:
+        hook.remove()
+    if [x.shape[0] for x in inputs[:2]] != [len(vi), 1]:
+        raise AssertionError(f"{name}: the trunk's calls are not the batch "
+                             "and the phase-0 anchor")
+    t = motion.trunk
+    layers = [(W.detach(), b.detach()) for W, b in
+              ((t.W1, t.b1), (t.W2, t.b2), (t.W3, t.b3))]
+    weights = [w.detach().contiguous() for w in (
+        t.W1, t.b1, t.W2, t.b2, t.W3, t.b3,
+        torch.cat([motion.W_rot, motion.W_lin], dim=1),
+        torch.cat([motion.b_rot, motion.b_lin]))]
+    fused = mlp.mlp_fwd_cuda if inputs[0].is_cuda else \
+        mlp.motion_net_mlp_plain
+    flips, worst = [], 0.0
+    with torch.no_grad():
+        for x in inputs[:2]:        # the batch, then the phase-0 anchor
+            _, *kernel = fused(x, *weights, precision=prec)
+            a = ak = x
+            flipped = torch.zeros(len(x), dtype=torch.bool, device=x.device)
+            for (W, b), k in zip(layers, kernel):
+                p = net_dot(a, W, prec) + b
+                rel = 2 * GATE_EPS[prec] + 2 * (W.shape[0] + 1) * 2.0 ** -24
+                bound = rel * (a.abs() @ W.abs() + b.abs()) + \
+                    (ak - a).abs() @ W.abs()
+                flip = (p > 0) != (k > 0)
+                if bool(flip.any()):    # a flip at a bound of 0 is not one
+                    ratio = (p.abs() / bound).nan_to_num(nan=math.inf)
+                    worst = max(worst, float(ratio[flip].max()))
+                flipped |= flip.any(1)
+                a, ak = torch.relu(p), k
+            flips.append(flipped)
+    batch, anchor = flips
+    n, most = int(batch.sum()), int(GATE_FLIP_SHARE * len(vi))
+    print(f"[{name}] {n} of {len(vi)} samples left out (at most {most}): a "
+          f"MotionNet ReLU gate open in one mode and shut in the other; the "
+          f"flipped pre-activations reach {worst:.3g} of their rounding bound")
+    if bool(anchor.any()):
+        raise AssertionError(f"{name}: the modes gate the phase-0 anchor "
+                             "differently")
+    if worst > 1.0:
+        raise AssertionError(f"{name}: a ReLU gate flips at a pre-activation "
+                             f"{worst:.3g} times its rounding bound")
+    if n > most:
+        raise AssertionError(f"{name}: {n} of {len(vi)} samples flip a "
+                             f"ReLU gate, more than {most}")
+    return batch
+
+
 def modes_agree(name, fitter, field, modes, loss_rtol, grad_rel):
     """fit_loss and its parameter gradients with the assets' ``field`` set
     to each of two ``modes``, on the card, from the same parameters and
@@ -2409,15 +2524,17 @@ def modes_agree(name, fitter, field, modes, loss_rtol, grad_rel):
     within grad_rel of its tensor's largest entry. b_lin's gradient is 0
     (trans - trans0 cancels it): what each mode computes there is the
     difference of two equal column sums taken in different orders, held to
-    the scale of W_lin's gradient."""
+    the scale of W_lin's gradient. For the MotionNet's two modes the batch
+    leaves out the samples where gate_flips finds a ReLU gate that the two
+    modes take differently, each flip within its rounding bound and at
+    most GATE_FLIP_SHARE of the batch."""
     import dataclasses
-    import torch
     from nemo_tpu_torch.fit import fit_loss
     cfg, params = fitter.cfg, fitter.params
-    V, F = fitter.assets.num_views, fitter.assets.num_frames
-    g = torch.Generator().manual_seed(5)
-    vi = torch.randint(0, V, (cfg.batch_size,), generator=g).to(fitter.device)
-    fi = torch.randint(0, F, (cfg.batch_size,), generator=g).to(fitter.device)
+    vi, fi = agree_batch(fitter)
+    if field == "motion_mlp":
+        flipped = gate_flips(name, fitter, vi, fi)
+        vi, fi = vi[~flipped], fi[~flipped]
     res = {}
     for mode in modes:
         assets = dataclasses.replace(fitter.assets, **{field: mode})
@@ -2745,6 +2862,374 @@ def path_g(device, smpl, bundle, files, sources):
     return counts, out
 
 
+# path J: the recipe from raw files
+J_CAM_STEPS = 500       # fit_gt_camera steps a view
+J_CAM_ATOL = 1e-4       # cam9, card against CPU
+J_LOSS_RTOL = 1e-6      # init fit_loss from the packed bundle, relative
+J_EXPORT_ATOL = 1e-5    # exported pose, trans, joints15: card against CPU
+J_RECON_ATOL = 2e-4     # joints15 against smpl_forward of the payload
+J_EMPTY_EVERY, J_DOUBLE_EVERY = 9, 7    # frames with nobody / two people
+
+
+def raw_view_people(op, rng):
+    """One view's OpenPose detections from its (F, 25, 3) labels: nobody
+    on every J_EMPTY_EVERY-th frame, a second person 700 px to the right
+    after the first on every J_DOUBLE_EVERY-th. Returns (detections, the
+    labels the packer must read: zeros where nobody was detected)."""
+    import numpy as np
+    people, want = [], op.copy()
+    for f in range(op.shape[0]):
+        if f % J_EMPTY_EVERY == 4:
+            people.append([])
+            want[f] = 0
+        elif f % J_DOUBLE_EVERY == 2:
+            other = op[f].copy()
+            other[:, 0] += 700 + 20 * rng.standard_normal(25)
+            people.append([op[f], other])
+        else:
+            people.append([op[f]])
+    return people, want.astype(np.float32)
+
+
+def write_raw_recipe(d, bundle, smpl, device):
+    """The reference's raw per-view layout of an 8-view action, from the
+    smoke's bundle (nemo_tpu_torch/utils/raw_layout.py): per view an
+    OpenPose JSON directory (<name>.frames.op/), <name>_gt_2d.npy, a
+    <name>_vibe/vibe_output.pkl with two tracklets (the one on the 2D
+    labels, and another person 700 px away on every other frame), a joblib
+    {'rot6d', 'tran', 'K'} camera from fit_gt_camera on the card
+    (J_CAM_STEPS steps from the true camera moved by 0.05, the re-fit of
+    nemomocap_utils.py:111-211), and one MoSh mocap pickle (SMPL-H fullpose
+    width 156, trans) of the unwarped motion. Returns the action YAML, the
+    camera paths, the mocap path, the in-memory bundle the packer must
+    reproduce, and the camera fits' host seconds a view."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.data.camera_fit import fit_gt_camera
+    from nemo_tpu_torch.data.synthetic import smooth_motion
+    from nemo_tpu_torch.utils import raw_layout as rl
+    rng = np.random.default_rng(17)
+    V, F = bundle.num_views, bundle.num_frames
+    exp = os.path.join(d, "exp")
+    names = [f"cam{v}.mp4" for v in range(V)]
+    pose, trans = smooth_motion(F, seed=0)
+    pose = pose.reshape(F, 72)
+    fullpose = np.concatenate(
+        [pose[:, :66], 0.1 * rng.standard_normal((F, 90))], 1)
+    mocap = rl.write_pickle(os.path.join(d, "mocap.pkl"), {
+        "fullpose": fullpose.astype(np.float32), "trans": trans})
+    ops, cams, cam_s = [], [], []
+    world = world_joints(bundle, smpl, device)
+    for v, name in enumerate(names):
+        base = os.path.join(exp, name)
+        people, op = raw_view_people(bundle.labels["op"][v], rng)
+        ops.append(op)
+        rl.write_openpose_dir(base + ".frames.op", people)
+        np.save(base + "_gt_2d.npy", bundle.labels["gt"][v])
+        j2d = np.concatenate([bundle.labels["op"][v][..., :2],
+                              np.zeros((F, 24, 2), np.float32)], 1)
+        other = np.arange(0, F, 2)
+        theta = np.concatenate([bundle.gt3d_pose[v][:, :3],
+                                bundle.hmr_theta[v]], 1)
+        rl.write_pickle(os.path.join(exp, name + "_vibe",
+                                     "vibe_output.pkl"), {
+            1: {"pose": (0.3 * rng.standard_normal((len(other), 72))
+                         ).astype(np.float32),
+                "betas": np.zeros((len(other), 10), np.float32),
+                "joints2d_img_coord": (j2d[other] + 700).astype(np.float32),
+                "frame_ids": other},
+            2: {"pose": theta.astype(np.float32),
+                "betas": np.zeros((F, 10), np.float32),
+                "joints2d_img_coord": j2d, "frame_ids": np.arange(F),
+                "orig_cam": np.tile(np.float32([1.0, 1.0, 0.0, 0.0]),
+                                    (F, 1))}})
+        init = torch.as_tensor(bundle.gt_cameras[v] + 0.05
+                               * rng.standard_normal(9),
+                               dtype=torch.float32, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit = fit_gt_camera(world[v], torch.as_tensor(
+            bundle.labels["gt"][v], device=device), bundle.img_d0,
+            bundle.img_d1, num_steps=J_CAM_STEPS, init=init, device=device)
+        cam9 = fit["cam9"].cpu().numpy()
+        cam_s.append(time.perf_counter() - t0)
+        cams.append(rl.write_camera(os.path.join(d, "cams", name + ".pkl"),
+                                    cam9))
+    cfg = rl.write_action_yaml(os.path.join(d, "action.yml"), exp, names)
+    mem = dataclasses.replace(
+        bundle, labels={"op": np.stack(ops), "gt": bundle.labels["gt"]},
+        gt3d_pose=np.stack([pose] * V), gt3d_trans=np.stack([trans] * V))
+    return cfg, cams, mocap, mem, cam_s
+
+
+def world_joints(bundle, smpl, device):
+    """(V, F, 25, 3) world joints of each view's warped motion: the points
+    synthetic_problem projects to the 2D labels."""
+    import torch
+    from nemo_tpu_torch.body.constants import PROJ_JOINT_IDX_V0
+    from nemo_tpu_torch.body.smpl import smpl_forward
+    V, F = bundle.num_views, bundle.num_frames
+    pose = torch.as_tensor(bundle.gt3d_pose, device=device).reshape(V * F, 72)
+    _, j49 = smpl_forward(smpl, torch.zeros((1, 10), device=device),
+                          pose[:, 3:], pose[:, :3], pose2rot=True,
+                          want_vertices=False,
+                          transl=torch.as_tensor(bundle.gt3d_trans,
+                                                 device=device).reshape(V * F, 3))
+    return j49[:, PROJ_JOINT_IDX_V0].reshape(V, F, 25, 3)
+
+
+def run_module(module, argv):
+    """python -m <module> argv from the repository root; returns (host
+    seconds, stdout). Fails on a nonzero exit."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", module, *argv], cwd=root,
+                         env=env, capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"{module} exited {out.returncode}: "
+                             f"{out.stdout[-2000:]}{out.stderr[-4000:]}")
+    return dt, out.stdout
+
+
+def cli_flags(parser, cfg):
+    """The fit CLI's flags for every field of cfg it has a flag for."""
+    import dataclasses
+    dests = {a.dest for a in parser._actions}
+    argv = []
+    for k, v in dataclasses.asdict(cfg).items():
+        if k not in dests:
+            continue
+        if isinstance(v, bool):
+            argv += [f"--{k}"] if v else []
+        else:
+            argv += [f"--{k}", str(v)]
+    return argv
+
+
+def path_j(device, smpl, bundle, files, d):
+    """The recipe from raw files, at full width (8 views x 120 frames).
+
+    1. The raw layout (write_raw_recipe), the cameras fitted on the card.
+    2. python -m nemo_tpu_torch.cli.preprocess: its report says the native
+       OpenPose parser read every view; in this process the native parser
+       reads every file bit for bit as parse_openpose_json (both timed); the
+       packed op and gt labels, hmr_theta and hmr_mask and gt3d_trans are
+       bit-identical to the in-memory bundle's, gt3d_pose too but for the
+       hand slots, which are zero.
+    3. The doctor on the layout and path G's asset files, --device cuda:
+       READY, exit 0.
+    4. The fit CLI on the packed bundle at slice 1's reference
+       configuration (5/5/10 steps, a checkpoint at 10): its init fit_loss
+       equal to a fitter's on the in-memory bundle within J_LOSS_RTOL; K1f,
+       K1b and K2's fused mode launched.
+    5. The export CLI on the card from that checkpoint: joints15 equal to
+       the port's smpl_forward of the payload within J_RECON_ATOL; pose,
+       trans and joints15 equal to the CPU export's within J_EXPORT_ATOL;
+       K1f launched.
+    6. One view's camera fit on the card against the CPU: cam9 within
+       J_CAM_ATOL, the final loss under 1% of the first; the card's loop
+       runs with every synchronising call an error.
+    """
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.body.smpl import smpl_forward
+    from nemo_tpu_torch.cli import doctor, export
+    from nemo_tpu_torch.cli import fit as fit_cli
+    from nemo_tpu_torch.data import MultiViewBundle, fit_gt_camera
+    from nemo_tpu_torch.data.openpose import (openpose_json_paths,
+                                              parse_openpose_json)
+    from nemo_tpu_torch.ops import launch_counts
+    from nemo_tpu_torch.ops.native import (get_native,
+                                           parse_openpose_batch_native)
+    times = {}
+    assets = ["--smpl_path", files["smpl_dir"],
+              "--j_regressor_extra", files["jre"],
+              "--vposer_path", files["vposer"], "--gmm_path", files["gmm"]]
+
+    def delta(before, names, what):
+        torch.cuda.synchronize()
+        now = launch_counts()
+        got = {k: now[k] - before[k] for k in names}
+        if any(n <= 0 for n in got.values()):
+            raise AssertionError(f"path J {what}: kernels not launched: {got}")
+        return got
+
+    def run():
+        # 1. the raw layout
+        cfg, cams, mocap, mem, cam_s = write_raw_recipe(d, bundle, smpl,
+                                                        device)
+        times["camera fit a view"] = float(np.mean(cam_s))
+        print(f"[path J] raw layout written; fit_gt_camera on the card, "
+              f"{J_CAM_STEPS} steps a view: "
+              f"{', '.join(f'{t:.3f}' for t in cam_s)} s")
+        # 2. preprocess (the library built and loaded first, so that the
+        # timed run does not pay for g++)
+        t0 = time.perf_counter()
+        if get_native() is None:
+            raise AssertionError("path J: the native library did not build")
+        times["native build"] = time.perf_counter() - t0
+        path = os.path.join(d, "bundle.npz")
+        times["preprocess"], out = run_module(
+            "nemo_tpu_torch.cli.preprocess",
+            ["--nemo_cfg_path", cfg, "--img_h", str(bundle.img_d0),
+             "--img_w", str(bundle.img_d1), "--mocap_pkl", mocap,
+             "--gt_cam_paths", ",".join(cams), "--out", path])
+        line = [ln for ln in out.splitlines() if "OpenPose parser" in ln]
+        if len(line) != 1 or \
+                f"native {bundle.num_views} view(s)" not in line[0] or \
+                "json 0 view(s)" not in line[0]:
+            raise AssertionError(f"path J: the native parser did not read "
+                                 f"every view: {line}")
+        packed = MultiViewBundle.load(path)
+        views = [openpose_json_paths(os.path.join(
+            d, "exp", f"cam{v}.mp4.frames.op"))
+            for v in range(bundle.num_views)]
+        t0 = time.perf_counter()
+        got = [parse_openpose_batch_native(paths) for paths in views]
+        times["native parser, every view"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = [np.stack([parse_openpose_json(p) for p in paths])
+                for paths in views]
+        times["json module, every view"] = time.perf_counter() - t0
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("path J: the native parser differs from "
+                                 "parse_openpose_json")
+        n_files = sum(len(paths) for paths in views)
+        checks = {"labels op": (packed.labels["op"], mem.labels["op"]),
+                  "labels gt": (packed.labels["gt"], mem.labels["gt"]),
+                  "hmr_theta": (packed.hmr_theta, mem.hmr_theta),
+                  "hmr_mask": (packed.hmr_mask, mem.hmr_mask),
+                  "gt3d_trans": (packed.gt3d_trans, mem.gt3d_trans),
+                  "gt3d_pose body": (packed.gt3d_pose[..., :66],
+                                     mem.gt3d_pose[..., :66]),
+                  "gt3d_pose hands": (packed.gt3d_pose[..., 66:],
+                                      np.zeros_like(mem.gt3d_pose[..., 66:]))}
+        for k, (x, y) in checks.items():
+            if not (x.dtype == y.dtype and np.array_equal(x, y)):
+                raise AssertionError(f"path J: packed {k} differs")
+        print(f"[path J] preprocess: {times['preprocess']:.3f} s (host "
+              f"seconds of python -m, {bundle.num_views} views x "
+              f"{bundle.num_frames} JSONs; {line[0].strip()}; the library "
+              f"built and loaded before in {times['native build']:.3f} s); "
+              f"the parsers alone, every "
+              f"view: native {times['native parser, every view']:.4f} s, "
+              f"json {times['json module, every view']:.4f} s; the native "
+              f"parser read all {n_files} files bit for bit as "
+              f"parse_openpose_json; bit-identical to the in-memory bundle: "
+              f"{', '.join(checks)}")
+        # 3. the doctor
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = doctor.main(["--nemo_cfg_path", cfg, *assets,
+                              "--gt_cam_paths", ",".join(cams),
+                              "--mocap_pkl", mocap, "--device", str(device)])
+        times["doctor"] = time.perf_counter() - t0
+        verdict = buf.getvalue().strip().splitlines()[-1]
+        print(f"[path J] doctor: rc {rc}, {len(doctor._ROWS)} rows, "
+              f"{times['doctor']:.3f} s: {verdict}")
+        if rc != 0 or not verdict.startswith("READY"):
+            raise AssertionError(f"path J: doctor not ready:\n"
+                                 f"{buf.getvalue()[-3000:]}")
+        # 4. the fit CLI on the packed bundle
+        cfg_ref = reference_config(n_steps=10, warmup_step=5, opt_cam_step=5)
+        out_dir = os.path.join(d, "fit")
+        before = launch_counts()
+        t0 = time.perf_counter()
+        if fit_cli.main(cli_flags(fit_cli.build_parser(), cfg_ref) + [
+                "--bundle", os.path.join(d, "bundle.npz"), *assets,
+                "--save_every", "10", "--out_dir", out_dir,
+                "--device", str(device)]) != 0:
+            raise AssertionError("path J: the fit CLI failed")
+        times["fit CLI"] = time.perf_counter() - t0
+        fit_counts = delta(before, ("fk_fwd", "fk_bwd", "v2v_grad"), "fit")
+        run_dir = os.path.join(out_dir, "000000")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            init = json.loads(f.readline())
+        want = make_fitter(device, smpl, mem, cfg_ref).eval_loss(full=True)
+        print(f"[path J] fit CLI {times['fit CLI']:.2f} s, launches "
+              f"{json.dumps(fit_counts)}; init fit_loss, packed vs in "
+              f"memory: " + json.dumps({k: (init[k], want[k])
+                                        for k in want}))
+        for k, w in want.items():
+            if not abs(init[k] - w) <= J_LOSS_RTOL * abs(w):
+                raise AssertionError(f"path J: init {k} differs")
+        # 5. export on the card and on the CPU
+        ckpt = os.path.join(run_dir, "ckpt", "sd_000010")
+        motion = {}
+        for where, dev in (("card", str(device)), ("cpu", "cpu")):
+            path = os.path.join(d, f"motion_{where}.npz")
+            before = launch_counts()
+            t0 = time.perf_counter()
+            if export.main(["--load_ckpt_path", ckpt, "--bundle",
+                            os.path.join(d, "bundle.npz"), *assets,
+                            "--out", path, "--device", dev]) != 0:
+                raise AssertionError("path J: the export CLI failed")
+            times[f"export ({where})"] = time.perf_counter() - t0
+            if where == "card":
+                delta(before, ("fk_fwd",), "export")
+            motion[where] = export.load_motion(path)
+        card, cpu = motion["card"], motion["cpu"]
+        V, F = bundle.num_views, bundle.num_frames
+        pose = torch.as_tensor(card["pose"], device=device).reshape(V * F, 72)
+        with torch.no_grad():       # cli/export.py's reconstruction recipe
+            _, j49 = smpl_forward(
+                smpl, torch.as_tensor(card["betas"], device=device)[None],
+                pose[:, 3:], pose[:, :3], pose2rot=True, want_vertices=False,
+                transl=torch.as_tensor(card["trans"],
+                                       device=device).reshape(V * F, 3))
+        errs = {"recon joints15": float(np.abs(
+            j49[:, :15].cpu().numpy().reshape(V, F, 15, 3)
+            - card["joints15"]).max())}
+        errs.update({f"{k} card-cpu": float(np.abs(card[k] - cpu[k]).max())
+                     for k in ("pose", "trans", "joints15")})
+        print(f"[path J] export: card {times['export (card)']:.3f} s, CPU "
+              f"{times['export (cpu)']:.3f} s; max errors "
+              f"{json.dumps(errs)} (tolerances: recon {J_RECON_ATOL}, "
+              f"card-cpu {J_EXPORT_ATOL})")
+        if errs["recon joints15"] > J_RECON_ATOL or any(
+                e > J_EXPORT_ATOL for k, e in errs.items() if "card" in k):
+            raise AssertionError("path J: the export disagrees")
+        # 6. one view's camera fit, card against CPU, without a sync
+        j3 = world_joints(bundle, smpl, device)[0]
+        j2 = torch.as_tensor(bundle.labels["gt"][0], device=device)
+        init = torch.as_tensor(bundle.gt_cameras[0] + 0.05, device=device)
+        fit_gt_camera(j3, j2, bundle.img_d0, bundle.img_d1, num_steps=1,
+                      init=init, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            on_card = fit_gt_camera(j3, j2, bundle.img_d0, bundle.img_d1,
+                                    num_steps=J_CAM_STEPS, init=init,
+                                    device=device)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        on_cpu = fit_gt_camera(j3.cpu(), j2.cpu(), bundle.img_d0,
+                               bundle.img_d1, num_steps=J_CAM_STEPS,
+                               init=init.cpu(), device="cpu")
+        err = float((on_card["cam9"].cpu() - on_cpu["cam9"]).abs().max())
+        loss = on_card["loss"].cpu()
+        print(f"[path J] fit_gt_camera view 0 ({J_CAM_STEPS} steps, no "
+              f"sync on the card): cam9 card-cpu {err:.3e} (tolerance "
+              f"{J_CAM_ATOL}); loss {float(loss[0]):.4f} -> "
+              f"{float(loss[-1]):.6f}")
+        if not err <= J_CAM_ATOL or not float(loss[-1]) < 0.01 * float(
+                loss[0]):
+            raise AssertionError("path J: the camera fit disagrees or did "
+                                 "not converge")
+
+    t_start = time.perf_counter()
+    counts, _ = run_path("path J", ("fk_fwd", "fk_bwd", "v2v_grad"), run)
+    times["all"] = time.perf_counter() - t_start
+    print(f"[path J] host seconds: {json.dumps(times)}; {nvidia_smi_line()}")
+    return counts, times
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2798,6 +3283,7 @@ def main() -> int:
         paths["path E"] = path_e(device, files)
         paths["path F"], steady_f = path_f(device, smpl, bundle)
         paths["path G"], g = path_g(device, smpl, bundle, files, sources)
+        paths["path J"], j = path_j(device, smpl, bundle, files, d)
     launches = {k: sum(c[k] for c in paths.values()) for k in KERNELS}
     print(f"[paths] render: {render['video_s']:.4f} s a video frame with the "
           f"PNG writes, {render['nopng_s']:.4f} s without")
@@ -2807,6 +3293,7 @@ def main() -> int:
           f"path F {steady_f:.3f}, path G's custom-video configuration "
           f"{g['custom_steps_s']:.3f} without the HuMoR term and "
           f"{g['humor_steps_s']:.3f} with it; path G {g['seconds']:.1f} s; "
+          f"path J {j['all']:.1f} s; "
           f"launches summed over the paths {json.dumps(launches)}; "
           f"{time.perf_counter() - t_start:.1f} s in all")
 

@@ -1,5 +1,6 @@
 """Packed multi-view action bundles (numpy; a re-home of
-nemo_tpu/data/bundle.py's MultiViewBundle, which documents the layout).
+nemo_tpu/data/bundle.py's MultiViewBundle, which documents the layout, and
+of its resampling helpers).
 
 Every array is dense and fixed-shape; ``build_assets`` moves the ones a fit
 needs to the device once.
@@ -140,3 +141,23 @@ class MultiViewBundle:
                    hmr_mask=data["hmr_mask"], img_hw=data["img_hw"],
                    name=str(data["name"]) if "name" in data.files else "bundle",
                    **kwargs)
+
+
+def resample_to_common_frames(per_view_arrays, num_frames: int,
+                              start_phase: float = 0.0) -> np.ndarray:
+    """Resample per-view (F_v, ...) sequences of differing lengths to a
+    common (V, num_frames, ...) grid: phase p -> source index
+    floor(p * F_v) with p = linspace(start_phase, 1, num_frames), clamped
+    to the last frame (multi_view_sequence.py:411-414)."""
+    return np.stack([arr[resample_indices(arr.shape[0], num_frames,
+                                          start_phase)]
+                     for arr in per_view_arrays])
+
+
+def resample_indices(n_view_frames: int, num_frames: int,
+                     start_phase: float = 0.0) -> np.ndarray:
+    """The source indices resample_to_common_frames gathers, for per-frame
+    data that is not an array (image paths)."""
+    phases = np.linspace(start_phase, 1.0, num_frames)
+    return np.minimum((phases * n_view_frames).astype(np.int64),
+                      n_view_frames - 1)

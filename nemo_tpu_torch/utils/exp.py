@@ -1,5 +1,6 @@
 """Run directories, timers and the JSONL metric log (port of
-nemo_tpu/utils/exp.py and the config merge of nemo_tpu/utils/config.py)."""
+nemo_tpu/utils/exp.py), and the config merge and per-action YAML of
+nemo_tpu/utils/config.py."""
 
 from __future__ import annotations
 
@@ -87,3 +88,11 @@ def dataclass_from_namespace(cls, ns) -> Any:
     """Populate a dataclass from a namespace, ignoring unknown fields."""
     fields = {f.name for f in dataclasses.fields(cls)}
     return cls(**{k: v for k, v in vars(ns).items() if k in fields})
+
+
+def load_action_config(path: str) -> Dict[str, Any]:
+    """Per-action dataset YAML (the reference's nemo/config/*.yml: exp_dir
+    and videos.names, or a Penn Action seq_names list)."""
+    import yaml
+    with open(path) as f:
+        return yaml.safe_load(f)
