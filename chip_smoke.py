@@ -30,7 +30,8 @@ Run from the repository root with no arguments:
    K5s and K5g (the tile rasterizer's stream and gather
    modes) on the synthetic problem's posed mesh at 1000 x 1900, one panel
    and a batch of four; K4 (the one-way nearest-neighbour chamfer) at
-   (60, 512, 6890) and (60, 6890, 512), each rerun bit-identical, with its
+   (60, 512, 6890) and (60, 6890, 512), and at path K's (60, 4096, 6890)
+   2 m from the origin, each rerun bit-identical, with its
    split, registers, shared memory and spills and each direction's device
    time a launch beside the launch floor and its instruction figure; K6f
    and K6b (the fused MotionNet MLP, forward and backward) at (B, D, H,
@@ -131,7 +132,18 @@ Run from the repository root with no arguments:
      loss equal to the in-memory bundle's), the export CLI on the card
      against the CPU and against its own smpl_forward rebuild, and one
      view's camera fit card vs CPU with no sync in its loop; each stage's
-     host seconds.
+     host seconds;
+   - path K: HuMoR fitting from video through humor_tool, in path G's
+     directory with its SMPL .npz and HuMoR checkpoint (6890 vertices,
+     latent 48, 60-frame windows, 4096 scan points; 10/10/5 steps): an
+     OpenPose directory of 110 frames with its 1080p frames, fit-rgb (two
+     windows stitched, with the prior-frame file), viz-fit --final_only
+     --prior_frame --obs_2d --every 10 (K5s), a quantitative PROX
+     recording (Kinect depth, masks, calibration, MoSh fits) and fit-prox
+     --quant --rgbd (K4 at (60, 4096, 6890) in every step of every stage),
+     fit-eval equal to fit-prox's eval; the RGB stage-1, first stage-3 and
+     fit_proxd stage-2 losses card vs CPU, a step of each stage with no
+     sync, each stage's host seconds.
    Losses must be finite, main-stage kp_loss must fall on slice 1 and paths
    A and F (stage 2's loss on path E), fit_loss on the card must agree with the
    port's CPU path from the same parameters (points3d_loss and the stage-3
@@ -288,6 +300,10 @@ LANE_INSTR_PER_S = 132 * 128 * 1.98e9
 # path E: fit-amass's defaults (seq_len 60, num_samp_pts 512, steps 30 70
 # 70, lr 1e-2, latent 48) on the 6890-vertex synthetic SMPL
 SEQ_LEN, SAMP_PTS = 60, 512
+# path K: fit-prox --rgbd's --max_pts (its default), and where its scans lie:
+# the person about 2 m in front of the Kinect
+PROX_PTS = 4096
+PROX_OFFSET = (0.3, -0.2, 2.0)
 # the reference MotionNet (bench.py:101): input RBF 100 + instance code 5,
 # width 1000, heads 24 x 6 rotations + 3 translations
 MLP_D, MLP_H, MLP_O = 105, 1000, 147
@@ -1362,7 +1378,10 @@ def raster_phase(device, smpl, bundle, rec):
 def chamfer_phase(device, smpl, rec):
     """K4 against its plain version on the card at path E's shapes: 60
     frames of a 512-point scan near the 6890-vertex mesh, scan -> mesh (the
-    direction the loss reads) and mesh -> scan. The kernel rounds every
+    direction the loss reads) and mesh -> scan; and at path K's, 60 frames
+    of a 4096-point scan -> mesh (fit-prox --rgbd --max_pts 4096) with
+    both about 2 m from the origin, where a PROX scan lies. The kernel
+    rounds every
     operation in the plain version's order, so distances and indices must
     be identical (tolerance 0), and a rerun must give the same bits. Prints
     the kernel's split, its registers, shared memory and spills, and each
@@ -1383,13 +1402,20 @@ def chamfer_phase(device, smpl, rec):
     scan = (torch.gather(mesh, 1, pick[..., None].expand(T, N, 3))
             + 0.01 * torch.randn((T, N, 3), generator=gen).to(device)
             ).contiguous()
+    far = mesh + torch.tensor(PROX_OFFSET, device=device)
+    pick = torch.randint(0, V, (T, PROX_PTS), generator=gen).to(device)
+    scan_far = (torch.gather(far, 1, pick[..., None].expand(T, PROX_PTS, 3))
+                + 0.01 * torch.randn((T, PROX_PTS, 3), generator=gen).to(
+                    device)).contiguous()
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     print("[kernel] nn_one_way_split_kernel<4>, <2>, <1> resources "
           "(cudaFuncGetAttributes): " + json.dumps(
               [chamfer.nn_attributes(q) for q in (4, 2, 1)]))
     errs = {}
     for a, b, shape in ((scan, mesh, f"T={T}, N={N}, M={V}"),
-                        (mesh, scan, f"T={T}, N={V}, M={N}")):
+                        (mesh, scan, f"T={T}, N={V}, M={N}"),
+                        (scan_far, far, f"T={T}, N={PROX_PTS}, M={V}, "
+                                        "2 m out")):
         Tk, Nk, Mk = a.shape[0], a.shape[1], b.shape[1]
         dk, ik = chamfer.nn_one_way_cuda(a, b)
         dp, ip = chamfer.nn_one_way_plain(a, b)
@@ -3230,6 +3256,381 @@ def path_j(device, smpl, bundle, files, d):
     return counts, times
 
 
+K_FRAMES = 110          # path K's video: two 60-frame windows, overlap 10
+K_EMPTY = (17, 53, 54, 98)   # frames where OpenPose found nobody
+K_STEPS = ("10", "10", "5")  # the cut --steps of fit-rgb and fit-prox
+K_CAM_T = (0.0, 0.0, 2.5)    # humor_tool's fit-rgb / fit-prox cam_t
+
+
+def k_motion(smpl, T, device, seed):
+    """A swaying, stepping synthetic motion of T frames, upright in the
+    camera frame (root turned by pi about x, facing the camera): (pose72,
+    trans) on the card."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 2 * np.pi, T)[:, None]
+    pose = np.zeros((T, 72), np.float32)
+    pose[:, 0] = np.pi
+    pose[:, 1] = 0.15 * np.sin(t[:, 0])
+    pose[:, 3:66] = 0.2 * np.sin(t + rng.uniform(0, np.pi, (1, 63)))
+    trans = np.stack([0.2 * np.sin(t[:, 0]), 0.02 * np.cos(2 * t[:, 0]),
+                      0.1 * t[:, 0] / np.pi], 1).astype(np.float32)
+    f = lambda a: torch.tensor(a, device=device)
+    return f(pose), f(trans)
+
+
+def k_project(points, focal, center, cam_t=(0.0, 0.0, 0.0)):
+    """(T, J, 3) camera-frame points -> (T, J, 2) pixels, the pinhole the
+    HuMoR fit's 2D term uses (identity rotation, translation cam_t)."""
+    import torch
+    from nemo_tpu_torch.geometry.camera import perspective_projection
+    T = points.shape[0]
+    return perspective_projection(
+        points, torch.eye(3, device=points.device).expand(T, 3, 3),
+        torch.tensor(cam_t, device=points.device).expand(T, 3),
+        torch.tensor(float(focal), device=points.device),
+        torch.tensor(center, device=points.device).expand(T, 2))
+
+
+def write_prox_scene(root, smpl, device):
+    """A quantitative PROX recording of SEQ_LEN frames, written with
+    utils/raw_layout.write_prox_tree from the synthetic body PROX_OFFSET in
+    front of the Kinect: 424 x 512 16-bit depth (the body's vertices
+    splatted 3 x 3 into the depth camera's z-buffer, a wall 3.5 m out
+    elsewhere, stored mirrored as PROX stores it), 1080 x 1920
+    BodyIndexColor masks (0 on the person's box in the colour camera),
+    OpenPose keypoints of its joints through the colour camera and the
+    MoSh fits of the motion (the tree's calibration is
+    kinect_calibration())."""
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.body.smpl import smpl_forward
+    from nemo_tpu_torch.utils import raw_layout as rl
+    calib = rl.kinect_calibration()
+    T = SEQ_LEN
+    pose, trans = k_motion(smpl, T, device, seed=5)
+    trans = trans + torch.tensor(PROX_OFFSET, device=device)
+    with torch.no_grad():
+        verts, j49 = smpl_forward(smpl, torch.zeros((1, 10), device=device),
+                                  pose[:, 3:], pose[:, :3], pose2rot=True,
+                                  transl=trans)
+    v = verts.cpu().numpy().astype(np.float64)
+    dc, cc = calib["depth_cam"], calib["color_cam"]
+    K = np.asarray(dc["camera_mtx"])
+    view = np.asarray(cc["view_mtx"])
+    Kc = np.asarray(cc["camera_mtx"])
+    depths, masks = [], []
+    for f in range(T):
+        u = np.round(K[0, 0] * v[f, :, 0] / v[f, :, 2] + K[0, 2]).astype(int)
+        w = np.round(K[1, 1] * v[f, :, 1] / v[f, :, 2] + K[1, 2]).astype(int)
+        z = np.full((424, 512), 3.5)
+        for du in (-1, 0, 1):
+            for dw in (-1, 0, 1):
+                ok = (u + du >= 0) & (u + du < 512) & (w + dw >= 0) & \
+                    (w + dw < 424)
+                np.minimum.at(z, (w[ok] + dw, u[ok] + du), v[f, ok, 2])
+        depths.append(np.round(z[:, ::-1] * 8000.0).astype(np.uint16))
+        pc = v[f] @ view[:, :3].T + view[:, 3]
+        uc = Kc[0, 0] * pc[:, 0] / pc[:, 2] + Kc[0, 2]
+        vc = Kc[1, 1] * pc[:, 1] / pc[:, 2] + Kc[1, 2]
+        m = np.full((1080, 1920), 255, np.uint8)
+        x0, x1 = np.clip([uc.min() - 20, uc.max() + 20], 0, 1920).astype(int)
+        y0, y1 = np.clip([vc.min() - 20, vc.max() + 20], 0, 1080).astype(int)
+        m[y0:y1, x0:x1] = 0
+        masks.append(m)
+    uv = k_project(j49[:, :25], Kc[0, 0], (Kc[0, 2], Kc[1, 2]))
+    kp = np.concatenate([uv.cpu().numpy(), np.full((T, 25, 1), 0.9)], -1)
+    p = pose.cpu().numpy()
+    fits = [{"transl": trans[f:f + 1].cpu().numpy(),
+             "betas": np.zeros((1, 10), np.float32),
+             "body_pose": p[f:f + 1, 3:66], "global_orient": p[f:f + 1, :3]}
+            for f in range(T)]
+    rl.write_prox_tree(root, kp, lambda f: depths[f], lambda f: masks[f],
+                       fits)
+    return root
+
+
+def path_k(device, smpl, files, d):
+    """HuMoR fitting from video through the port's humor_tool, at full
+    width: the 6890-vertex body from path G's SMPL .npz, the reference
+    HuMoR widths at latent 48 from its checkpoint, 60-frame windows, 4096
+    scan points; the step counts cut to K_STEPS.
+
+    1. An OpenPose directory of K_FRAMES frames (utils/raw_layout
+       write_video_keypoints; K_EMPTY empty) from the synthetic body's
+       joints through DEFAULT_FOCAL_LEN at the 1920 x 1080 centre and the
+       fitting's cam_t, with the 1080p video frames.
+    2. fit-rgb --seq_len 60 --overlap_len 10: two windows, stitched into
+       final_results with stage3_results_prior.npz.
+    3. viz-fit --final_only --prior_frame --obs_2d --every 10 over the
+       video frames (read with PIL): K5s.
+    4. A quantitative PROX recording (write_prox_scene), then fit-prox
+       --quant --rgbd --seq_len 60 --max_pts 4096: K4 at (60, 4096, 6890)
+       once a loss evaluation, every step of every stage; its eval CSVs
+       finite.
+    5. fit-eval on fit-prox's results_out: the CSVs equal to fit-prox's
+       own eval_out.
+    6. Card against CPU from the same parameters: the RGB fit's stage-1
+       loss at its result, the first stage-3 loss (its initial state from
+       the card's stage 2), the fit_proxd stage-2 loss with points3d at
+       its stage-2 result; each within path E's tolerance.
+    7. One Adam step of each stage of the fit_proxd fit with every
+       synchronising call an error.
+    Prints each stage's host seconds and path K's launches."""
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.body.smpl import smpl_forward
+    from nemo_tpu_torch.cli import humor_tool
+    from nemo_tpu_torch.data.humor_rgb import DEFAULT_FOCAL_LEN
+    from nemo_tpu_torch.models import humor_fit
+    from nemo_tpu_torch.models.humor import humor_to
+    from nemo_tpu_torch.ops import chamfer, launch_counts
+    from nemo_tpu_torch.utils import raw_layout as rl
+    times, fits, stage_s, k4_shapes = {}, [], [], []
+    real_fit, real_adam = humor_fit.humor_motion_fit, humor_fit._run_adam
+    real_k4 = chamfer.nn_one_way_cuda
+    root = os.path.join(d, "path_k")
+
+    def recording_fit(*a, **k):
+        out = real_fit(*a, **k)
+        fits.append((a, k, out))
+        return out
+
+    def timed_stage(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_adam(*a, **k)
+        torch.cuda.synchronize()
+        stage_s.append(time.perf_counter() - t0)
+        return out
+
+    def shaped_k4(a, b):
+        k4_shapes.append((tuple(a.shape), tuple(b.shape)))
+        return real_k4(a, b)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    def tool(argv, what):
+        if humor_tool.main(argv) != 0:
+            raise AssertionError(f"path K: {what} failed")
+
+    common = ["--smpl_path", files["smpl_npz"], "--humor_ckpt",
+              files["humor"]]
+
+    def write_video():
+        pose, trans = k_motion(smpl, K_FRAMES, device, seed=4)
+        with torch.no_grad():
+            _, j49 = smpl_forward(smpl, torch.zeros((1, 10), device=device),
+                                  pose[:, 3:], pose[:, :3], pose2rot=True,
+                                  want_vertices=False, transl=trans)
+        uv = k_project(j49[:, :25], DEFAULT_FOCAL_LEN[0], (960.0, 540.0),
+                       K_CAM_T).cpu().numpy()
+        rng = np.random.default_rng(6)
+        kp = np.concatenate([uv + 2.0 * rng.standard_normal(uv.shape),
+                             0.6 + 0.4 * rng.random(uv.shape[:2] + (1,))],
+                            -1)
+        return rl.write_video_keypoints(
+            os.path.join(root, "keypoints"), kp, empty=K_EMPTY,
+            frames_dir=os.path.join(root, "frames"), frame_hw=(1080, 1920))
+
+    def run():
+        humor_fit.humor_motion_fit = recording_fit
+        humor_fit._run_adam = timed_stage
+        chamfer.nn_one_way_cuda = shaped_k4
+        try:
+            kp_dir = timed("write video", write_video)
+            rgb = os.path.join(root, "rgb")
+            timed("fit-rgb", lambda: tool(
+                ["fit-rgb", "--joints2d", kp_dir, "--img_dir",
+                 os.path.join(root, "frames"), "--out", rgb, "--seq_len",
+                 str(SEQ_LEN), "--overlap_len", "10", "--steps", *K_STEPS]
+                + common, "fit-rgb"))
+            res = os.path.join(rgb, "results_out")
+            before = launch_counts()
+            viz = os.path.join(root, "viz")
+            timed("viz-fit", lambda: tool(
+                ["viz-fit", "--results", res, "--out", viz, "--final_only",
+                 "--prior_frame", "--obs_2d", "--every", "10",
+                 "--smpl_path", files["smpl_npz"]], "viz-fit"))
+            k5 = launch_counts()["raster_stream"] - before["raster_stream"]
+            prox = timed("write PROX", lambda: write_prox_scene(
+                os.path.join(root, "prox"), smpl, device))
+            px = os.path.join(root, "prox_fit")
+            n_k4 = len(k4_shapes)
+            timed("fit-prox", lambda: tool(
+                ["fit-prox", "--prox", prox, "--quant", "--rgbd", "--out",
+                 px, "--seq_len", str(SEQ_LEN), "--max_pts",
+                 str(PROX_PTS), "--steps", *K_STEPS] + common, "fit-prox"))
+            prox_k4 = k4_shapes[n_k4:]
+            ev = os.path.join(root, "fit_eval")
+            timed("fit-eval", lambda: tool(
+                ["fit-eval", "--results", os.path.join(px, "results_out"),
+                 "--out", ev, "--smpl_path", files["smpl_npz"]],
+                "fit-eval"))
+            return rgb, viz, px, ev, k5, prox_k4
+        finally:
+            humor_fit.humor_motion_fit = real_fit
+            humor_fit._run_adam = real_adam
+            chamfer.nn_one_way_cuda = real_k4
+
+    counts, (rgb, viz, px, ev, k5, prox_k4) = run_path(
+        "path K", ("fk_fwd", "fk_bwd", "chamfer_nn", "raster_stream"), run)
+
+    # the outputs
+    final = os.path.join(rgb, "results_out", "final_results")
+    names = sorted(os.listdir(os.path.join(rgb, "results_out")))
+    with np.load(os.path.join(final, "stage3_results_prior.npz")) as f:
+        prior_ok = f["trans"].shape == (K_FRAMES, 3) and all(
+            np.isfinite(f[k]).all() for k in f.files)
+    frames = {n: len(os.listdir(os.path.join(viz, n)))
+              for n in sorted(os.listdir(viz)) if n.endswith(".frames")}
+    print(f"[path K] fit-rgb results {names}; the _prior motion finite "
+          f"{prior_ok}; viz-fit frames {json.dumps(frames)}, K5s launches "
+          f"{k5}")
+    want_frames = len(range(0, K_FRAMES, 10))
+    if names != ["final_results", "keypoints_0000", "keypoints_0001"] or \
+            not prior_ok or frames != {
+                "final_results.frames": want_frames,
+                "final_results_prior.frames": want_frames} or k5 <= 0:
+        raise AssertionError("path K: fit-rgb / viz-fit outputs")
+    steps = sum(int(s) for s in K_STEPS)
+    k4_want = ((SEQ_LEN, PROX_PTS, 3), (SEQ_LEN, smpl.num_vertices, 3))
+    print(f"[path K] fit-prox K4 launches {len(prox_k4)} (one a loss "
+          f"evaluation: {steps}), shapes {sorted(set(prox_k4))}")
+    if len(prox_k4) != steps or set(prox_k4) != {k4_want}:
+        raise AssertionError("path K: K4 did not run at (60, 4096, 6890) "
+                             "in every step of fit-prox")
+    with open(os.path.join(px, "eval_out",
+                           "stage3_results_agg_mean.csv")) as f:
+        head, vals = f.read().splitlines()[:2]
+    agg = dict(zip(head.split(","), map(float, vals.split(","))))
+    print("[path K] fit-prox eval (mean): " + ", ".join(
+        f"{k} {agg[k]:.4f}" for k in ("joints3d_all", "verts3d_all",
+                                       "mesh3d_all", "accel_mag")))
+    if not all(math.isfinite(v) for v in agg.values()):
+        raise AssertionError("path K: fit-prox eval not finite")
+    got, want = sorted(os.listdir(ev)), sorted(os.listdir(
+        os.path.join(px, "eval_out")))
+    same = got == want and all(
+        open(os.path.join(ev, n)).read()
+        == open(os.path.join(px, "eval_out", n)).read() for n in want)
+    print(f"[path K] fit-eval CSVs ({len(got)}) equal to fit-prox's "
+          f"eval_out: {same}")
+    if not same:
+        raise AssertionError("path K: fit-eval differs from fit-prox's eval")
+    (rgb_a, rgb_k, rgb_fit), (_, _, rgb_fit2), (px_a, px_k, px_fit) = fits
+    if len(stage_s) != 9:
+        raise AssertionError("path K: three fits of three stages expected")
+    for i, (name, fit) in enumerate((("fit-rgb window 0", rgb_fit),
+                                     ("fit-rgb window 1", rgb_fit2),
+                                     ("fit-prox", px_fit))):
+        losses = [fit[f"stage{s}_loss"].cpu().numpy() for s in (1, 2, 3)]
+        print(f"[path K] {name}: " + "; ".join(
+            f"stage {s + 1}: {len(v)} steps in {t:.2f} s, loss "
+            f"{v[0]:.4f} -> {v[-1]:.4f}" for s, (v, t) in enumerate(
+                zip(losses, stage_s[3 * i:3 * i + 3]))))
+        if not all(np.isfinite(v).all() for v in losses):
+            raise AssertionError(f"path K {name}: non-finite loss")
+
+    # card against CPU from the same parameters
+    cpu = torch.device("cpu")
+
+    def on(dev, a, k):
+        mv = lambda t: t.to(dev) if torch.is_tensor(t) else t
+        smpl_d = a[0].to(dev)
+        kp = humor_fit.KeypointObs(mv(a[3]), mv(a[6]), torch.full(
+            (), float(k["focal_length"]), device=dev))
+        obs = {n: mv(v) for n, v in (k["obs3d"] or {}).items()}
+        return smpl_d, kp, mv(a[5]), obs, mv
+
+    def rgb_losses(dev):
+        smpl_d, kp, cam_t, obs, mv = on(dev, rgb_a, rgb_k)
+        cfg, hcfg, fit = rgb_k["cfg"], rgb_a[2], rgb_fit
+        with torch.no_grad():
+            s1 = humor_fit.stage1_loss(
+                smpl_d, cfg, {"orient": mv(fit["pose"][:, :3]),
+                              "trans": mv(fit["trans"])}, mv(rgb_a[4]), obs,
+                kp, cam_t)
+            betas = mv(fit["betas"])
+            p2, t2 = mv(fit["stage2_pose"]), mv(fit["stage2_trans"])
+            x0 = humor_fit.state_from(smpl_d, betas, p2[0], t2[0], p2[0],
+                                      t2[0])[None]
+            fp = obs["floor_plane"].reshape(-1)
+            floor0 = fp[:3] * fp[3]
+            p3 = {"x0": x0, "z": torch.zeros(
+                (1, p2.shape[0] - 1, hcfg.latent_size), device=dev),
+                "floor": floor0}
+            s3 = humor_fit.stage3_loss(
+                smpl_d, humor_to(rgb_a[1], dev), hcfg, cfg, p3, betas,
+                floor0, obs, None, kp, None, cam_t)
+        return float(s1), float(s3)
+
+    def prox_loss(dev):
+        smpl_d, kp, cam_t, obs, mv = on(dev, px_a, px_k)
+        with torch.no_grad():
+            return float(humor_fit.stage2_loss(
+                smpl_d, px_k["cfg"], {"pose": mv(px_fit["stage2_pose"]),
+                                      "trans": mv(px_fit["stage2_trans"]),
+                                      "betas": mv(px_fit["betas"])},
+                obs, kp, None, cam_t))
+
+    t0 = time.perf_counter()
+    vals = [rgb_losses(dev) + (prox_loss(dev),) for dev in (device, cpu)]
+    times["card vs CPU"] = round(time.perf_counter() - t0, 3)
+    first3 = float(rgb_fit["stage3_loss"][0])
+    for name, a, b in zip(("RGB stage-1 loss", "first stage-3 loss",
+                           "fit_proxd stage-2 loss (points3d)"), *vals):
+        print(f"[path K] {name}: cuda {a:.6f} cpu {b:.6f}")
+        if not abs(a - b) <= 1e-4 * abs(b) + 1e-6:
+            raise AssertionError(f"path K {name}: card and CPU disagree")
+    print(f"[path K] first stage-3 loss in the fit's history {first3:.6f}")
+    if not abs(first3 - vals[0][1]) <= 1e-4 * abs(first3) + 1e-6:
+        raise AssertionError("path K: the first stage-3 loss differs from "
+                             "the fit's")
+
+    # a step of each stage with no synchronisation (the fit_proxd fit)
+    smpl_d, kp, cam_t, obs, _ = on(device, px_a, px_k)
+    cfg, hp, hcfg = px_k["cfg"], px_a[1], px_a[2]
+    p1 = {"orient": px_fit["pose"][:, :3].clone(),
+          "trans": px_fit["trans"].clone()}
+    p2 = {"pose": px_fit["stage2_pose"].clone(),
+          "trans": px_fit["stage2_trans"].clone(),
+          "betas": px_fit["betas"].clone()}
+    with torch.no_grad():
+        x0 = humor_fit.state_from(smpl_d, p2["betas"], p2["pose"][0],
+                                  p2["trans"][0], p2["pose"][0],
+                                  p2["trans"][0])[None]
+    floor0 = px_fit["floor"].clone()
+    p3 = {"x0": x0, "z": px_fit["z"][None].clone(), "floor": floor0}
+    init_pose = px_a[4]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        real_adam(lambda p: humor_fit.stage1_loss(
+            smpl_d, cfg, p, init_pose, obs, kp, cam_t), p1, 1, cfg.lr)
+        real_adam(lambda p: humor_fit.stage2_loss(
+            smpl_d, cfg, p, obs, kp, None, cam_t), p2, 1, cfg.lr)
+        real_adam(lambda p: humor_fit.stage3_loss(
+            smpl_d, hp, hcfg, cfg, p, p2["betas"], floor0, obs, None, kp,
+            None, cam_t), p3, 1, cfg.lr)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("[path K] a step of each stage (fit_proxd: kp2d, points3d "
+          "through K4, the floor) ran without a device synchronisation")
+    mine = {k: counts[k] for k in ("fk_fwd", "fk_bwd", "chamfer_nn",
+                                   "raster_stream")}
+    print(f"[path K] launches {json.dumps(mine)}; host seconds "
+          f"{json.dumps(times)}; {nvidia_smi_line()}")
+    return counts, times
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3284,6 +3685,7 @@ def main() -> int:
         paths["path F"], steady_f = path_f(device, smpl, bundle)
         paths["path G"], g = path_g(device, smpl, bundle, files, sources)
         paths["path J"], j = path_j(device, smpl, bundle, files, d)
+        paths["path K"], k = path_k(device, smpl, files, d)
     launches = {k: sum(c[k] for c in paths.values()) for k in KERNELS}
     print(f"[paths] render: {render['video_s']:.4f} s a video frame with the "
           f"PNG writes, {render['nopng_s']:.4f} s without")
@@ -3293,7 +3695,8 @@ def main() -> int:
           f"path F {steady_f:.3f}, path G's custom-video configuration "
           f"{g['custom_steps_s']:.3f} without the HuMoR term and "
           f"{g['humor_steps_s']:.3f} with it; path G {g['seconds']:.1f} s; "
-          f"path J {j['all']:.1f} s; "
+          f"path J {j['all']:.1f} s; path K "
+          f"{sum(k.values()):.1f} s; "
           f"launches summed over the paths {json.dumps(launches)}; "
           f"{time.perf_counter() - t_start:.1f} s in all")
 

@@ -3,9 +3,10 @@
 Port of nemo_tpu/render/video.py. The mesh video renders all views of a
 frame in one batched call on the render device, copies them to the host
 once, composites them with numpy and writes the frame with a PNG encoder
-built on ``zlib`` and ``struct`` alone, so it needs neither PIL nor
-matplotlib. Frames become an mp4 through ffmpeg, or stay as a ``.frames``
-directory where ffmpeg is missing.
+built on ``zlib`` and ``struct`` alone, so writing needs neither PIL nor
+matplotlib; the video frames behind a mesh are read with PIL. Frames
+become an mp4 through ffmpeg, or stay as a ``.frames`` directory where
+ffmpeg is missing.
 """
 
 from __future__ import annotations
@@ -107,12 +108,13 @@ def _write_png(path: str, img: np.ndarray) -> None:
 
 def _load_frame(path: str, img_hw) -> Optional[np.ndarray]:
     """One video frame as float [0, 1] (H, W, 3), cropped or padded (white)
-    to the bundle's (D0, D1); None when it cannot be read (matplotlib
-    reads it, so None wherever matplotlib is missing)."""
+    to the bundle's (D0, D1); None when the file is missing or not an
+    image. PIL reads it, with plt.imread's values (data/images.py); without
+    PIL this raises."""
+    from ..data.images import imread
     try:
-        import matplotlib.pyplot as plt
-        img = plt.imread(path)
-    except Exception:
+        img = imread(path)
+    except (OSError, ValueError):
         return None
     if img.dtype == np.uint8:
         img = img.astype(np.float32) / 255.0

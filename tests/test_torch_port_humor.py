@@ -510,12 +510,13 @@ def test_motion_fit_outputs_match_jax(fit_problem, port_fit):
 
 
 def test_motion_fit_refuses_unported_paths(humor_pair):
+    """optimizer="lbfgs" raises and names its ROADMAP item (the 2D term,
+    refused before it was ported, is held against JAX in
+    tests/test_torch_port_humor_rgb_fit.py)."""
     _, tcfg, _, tp = humor_pair
     smpl = smpl_from_numpy(jax_synthetic_smpl(num_vertices=150, seed=0))
     pose = torch.zeros((4, 72))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfit.humor_motion_fit(smpl, tp, tcfg, torch.zeros((4, 25, 3)), pose)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*7.4"):
         tfit.humor_motion_fit(smpl, tp, tcfg, None, pose,
                               cfg=tfit.MotionOptConfig(optimizer="lbfgs"))
 
@@ -773,15 +774,28 @@ def test_humor_tool_from_files_matches_defaults(tmp_path, humor_file):
 
 
 def test_humor_tool_defaults_to_the_card(tmp_path):
-    """Without --device the CLI asks for CUDA: on a machine without a card
-    it raises instead of running on the CPU."""
+    """Without --device every subcommand asks for CUDA, with the JAX CLI's
+    other defaults: on a machine without a card each raises instead of
+    running on the CPU."""
+    from nemo_tpu.cli.humor_tool import build_parser as jax_parser
     from nemo_tpu_torch.cli.humor_tool import build_parser, main
     args = build_parser().parse_args(["fit-amass", "--amass", "x",
                                       "--out", "y"])
     assert args.device == "cuda" and args.steps == [30, 70, 70]
     assert args.seq_len == 60 and args.num_samp_pts == 512
+    d = str(tmp_path)
+    new = {"fit-rgb": ["--joints2d", d], "fit-prox": ["--prox", d],
+           "viz-fit": ["--results", d], "fit-eval": ["--results", d]}
+    for cmd, argv in new.items():
+        got = vars(build_parser().parse_args([cmd, "--out", d] + argv))
+        want = vars(jax_parser().parse_args([cmd, "--out", d] + argv))
+        assert got.pop("device") == "cuda"
+        assert got == want, cmd
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs on it")
     with pytest.raises(RuntimeError, match="--device cpu"):
         main(["process-amass", "--amass_root", str(tmp_path),
               "--out", str(tmp_path / "o")])
+    for cmd, argv in new.items():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            main([cmd, "--out", str(tmp_path / "o")] + argv)
