@@ -143,7 +143,19 @@ Run from the repository root with no arguments:
      --quant --rgbd (K4 at (60, 4096, 6890) in every step of every stage),
      fit-eval equal to fit-prox's eval; the RGB stage-1, first stage-3 and
      fit_proxd stage-2 losses card vs CPU, a step of each stage with no
-     sync, each stage's host seconds.
+     sync, each stage's host seconds;
+   - path L: the VIBE demo (the custom-video recipe's step 3) through
+     python -m nemo_tpu_torch.cli.vibe_demo's main, in path G's directory
+     with its SMPL .npz and GMM, at full width (224 crops, ResNet-50, the
+     2048 GRU, 3 regressor iterations, 6890 vertices, batch_time 64): a
+     100-frame 1280 x 720 video of two crossing people (one unseen for 5
+     frames) with STAF-id OpenPose JSONs, detections and a seeded
+     SPIN-layout checkpoint with a GRU; bbox tracking, then pose tracking
+     with --run_smplify (1 x 20) and --render_out (K1f, K1b, K5s);
+     vibe_forward and two L-BFGS iterations of each SMPLify stage card vs
+     CPU; both pickles read back through data/vibe.py; ResNet-50 and GRU
+     + regressor + SMPL ms a 64-crop chunk, SMPLify s a track with its
+     linesearch host reads, render s a frame.
    Losses must be finite, main-stage kp_loss must fall on slice 1 and paths
    A and F (stage 2's loss on path E), fit_loss on the card must agree with the
    port's CPU path from the same parameters (points3d_loss and the stage-3
@@ -3631,6 +3643,366 @@ def path_k(device, smpl, files, d):
     return counts, times
 
 
+L_FRAMES = 100          # path L's video, 1280 x 720
+L_HW = (720, 1280)
+L_GAP = range(46, 51)   # frames where person 1 is not detected
+L_FOCAL = 1000.0        # the pinhole the video is drawn with
+L_CARD_CROPS = 16       # crops of vibe_forward card against CPU
+L_RTOL = 1e-4           # card against CPU, relative to the largest entry
+L_CHUNK = 8             # panels a render_demo_video rasterizer call
+# one overlay chunk card (K5s) against the CPU's plain fold on the same
+# vertices: a pixel differs when a channel or the mask differs by more than
+# one 8-bit level (what the written PNG holds); at most this share may
+# (a silhouette pixel whose centre lies within rounding of an edge)
+L_PIX_TOL = 1.0 / 255
+L_PIX_SHARE = 1e-4
+
+
+def count_video_frames(path):
+    """The frames a rendered video holds: the PNGs of its .frames
+    directory, or the mp4's frames as ffprobe decodes them (-1 when
+    ffprobe cannot count them)."""
+    if os.path.isdir(path):
+        return sum(n.endswith(".png") for n in os.listdir(path))
+    try:
+        out = subprocess.run(
+            ["ffprobe", "-v", "error", "-count_frames", "-select_streams",
+             "v:0", "-show_entries", "stream=nb_read_frames", "-of",
+             "csv=p=0", path], capture_output=True, text=True, timeout=120)
+        return int(out.stdout.strip())
+    except (OSError, ValueError, subprocess.TimeoutExpired):
+        return -1
+
+
+def l_video(smpl, device, root):
+    """Path L's input in root: L_FRAMES JPEG frames of two people crossing
+    (the synthetic body's 6890 vertices splatted 3 x 3 in the person's
+    colour, the farther first), their OpenPose JSONs with STAF person ids
+    (person 1 missing over L_GAP), a --detections .npy of both people's
+    keypoint boxes, and a SPIN-layout checkpoint with a GRU from seeded
+    weights (backbone batch norms calibrated on 32 of the video's crops).
+    Returns the paths."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from nemo_tpu_torch.body.smpl import smpl_forward
+    from nemo_tpu_torch.data.crops import (bbox_from_keypoints,
+                                           get_single_image_crop)
+    from nemo_tpu_torch.models import init_gru, init_hmr_head, init_resnet50
+    from nemo_tpu_torch.utils import asset_files as af
+    from nemo_tpu_torch.utils import raw_layout as rl
+    H, W = L_HW
+    center = (W / 2.0, H / 2.0)
+    s = np.linspace(-1.0, 1.0, L_FRAMES, dtype=np.float32)[:, None]
+    uv_v, uv_j, depth = [], [], []
+    for p, (x0, z) in enumerate(((-1.6, 6.0), (1.6, 6.6))):
+        pose, trans = k_motion(smpl, L_FRAMES, device, seed=20 + p)
+        trans = trans + torch.as_tensor(np.concatenate(
+            [-x0 * s, np.zeros_like(s), np.full_like(s, z)], 1),
+            device=device)
+        with torch.no_grad():
+            v, j = smpl_forward(smpl, torch.zeros((1, 10), device=device),
+                                pose[:, 3:], pose[:, :3], pose2rot=True,
+                                transl=trans)
+        uv_v.append(k_project(v, L_FOCAL, center).cpu().numpy())
+        uv_j.append(k_project(j[:, :25], L_FOCAL, center).cpu().numpy())
+        depth.append(z)
+    rng = np.random.default_rng(8)
+    frames_dir = os.path.join(root, "frames")
+    os.makedirs(frames_dir)
+    ramp = (np.arange(W, dtype=np.float32)[None] / W * 0.3
+            + np.arange(H, dtype=np.float32)[:, None] / H * 0.2)
+    colours = (np.array([0.9, 0.4, 0.2]), np.array([0.2, 0.5, 0.9]))
+    people, ids, dets = [], [], []
+    for f in range(L_FRAMES):
+        img = np.repeat(ramp[..., None] + 0.2, 3, axis=2)
+        for p in np.argsort(depth)[::-1]:
+            px = np.round(uv_v[p][f]).astype(np.int64)
+            for dy in (-1, 0, 1):
+                for dx in (-1, 0, 1):
+                    x, y = px[:, 0] + dx, px[:, 1] + dy
+                    ok = (x >= 0) & (x < W) & (y >= 0) & (y < H)
+                    img[y[ok], x[ok]] = colours[p]
+        Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(
+            os.path.join(frames_dir, f"{f:06d}.jpg"), quality=92)
+        here = [p for p in (0, 1) if not (p == 1 and f in L_GAP)]
+        kps = [np.concatenate([uv_j[p][f] + 2.0 * rng.standard_normal(
+            (25, 2)), 0.6 + 0.4 * rng.random((25, 1))], 1) for p in here]
+        people.append(kps)
+        ids.append(here)
+        boxes = []
+        for kp in kps:
+            cx, cy, size = bbox_from_keypoints(kp)
+            boxes.append([cx - size / 2, cy - size / 2, cx + size / 2,
+                          cy + size / 2])
+        dets.append(np.asarray(boxes, np.float32).reshape(-1, 4))
+    op_dir = rl.write_openpose_dir(os.path.join(root, "openpose"), people,
+                                   person_ids=ids)
+    det_path = os.path.join(root, "detections.npy")
+    det_arr = np.empty(L_FRAMES, dtype=object)
+    det_arr[:] = dets
+    np.save(det_path, det_arr, allow_pickle=True)
+
+    frames = [np.asarray(Image.open(os.path.join(frames_dir, f"{f:06d}.jpg"))
+                         .convert("RGB")) for f in range(0, L_FRAMES, 3)]
+    crops = np.stack([get_single_image_crop(
+        img, bbox_from_keypoints(people[3 * i][0])) for i, img in
+        enumerate(frames[:32])])
+    backbone = init_resnet50(torch.Generator().manual_seed(0)).to(device)
+    af.calibrate_batch_norm(backbone, torch.from_numpy(crops).to(device)
+                            .permute(0, 3, 1, 2))
+    ckpt = af.write_spin_ckpt(
+        os.path.join(root, "spin_model.pth.tar"), backbone,
+        init_hmr_head(torch.Generator().manual_seed(1)),
+        init_gru(torch.Generator().manual_seed(2)))
+    return {"frames": frames_dir, "openpose": op_dir,
+            "detections": det_path, "ckpt": ckpt}
+
+
+def path_l(device, smpl, files, d):
+    """The VIBE demo (custom-video recipe step 3) through the port's
+    vibe_demo CLI at full width: 224 crops, ResNet-50, the 2048 GRU, the
+    3-iteration regressor, 6890-vertex SMPL from path G's .npz,
+    batch_time 64, TemporalSMPLify at the CLI's 1 x 20.
+
+    1. l_video writes a 100-frame 1280 x 720 video of two crossing people
+       (one unseen for 5 frames), their OpenPose JSONs and detections,
+       and a seeded SPIN-layout checkpoint with a GRU.
+    2. vibe_demo with bbox tracking over --detections, then with
+       --tracking_method pose --run_smplify --render_out: K1f in every
+       SMPL pass, K1b in SMPLify's gradients, K5s in the overlay.
+    3. Card against CPU from the same checkpoint: vibe_forward on
+       L_CARD_CROPS crops (theta, kp_3d, kp_2d and verts, which K1f
+       poses), and two L-BFGS iterations of each SMPLify stage on a track
+       (their losses), within L_RTOL; one overlay chunk (L_CHUNK panels at
+       the frame size) through render_demo_video's panel function, the
+       card's against the CPU's plain fold on the same vertices within
+       L_PIX_TOL on all but L_PIX_SHARE of the pixels, and K5s against
+       its plain version on the card on that chunk, bit for bit.
+    4. Both pickles read back through data/vibe.py (load_vibe_pickle,
+       densify_person): per-frame pose, betas and orig_cam equal the
+       pickle's; tracks, shapes and values as expected; the written video
+       holds a frame for every video frame.
+    5. Prints ResNet-50 ms a 64-crop chunk and GRU + regressor + SMPL ms a
+       chunk (CUDA events), SMPLify s a track with its linesearch host
+       reads, render s a frame, path L's host seconds."""
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.cli import vibe_demo
+    from nemo_tpu_torch.data.crops import get_single_image_crop
+    from nemo_tpu_torch.data.openpose import load_openpose_dir
+    from nemo_tpu_torch.data.vibe import densify_person, load_vibe_pickle
+    from nemo_tpu_torch.models import load_spin_checkpoint, vibe_forward
+    from nemo_tpu_torch.models.vibe import hmr_forward_from_features
+    from nemo_tpu_torch.ops import raster
+    from nemo_tpu_torch.priors import temporal_smplify
+    from nemo_tpu_torch.priors.gmm import load_gmm_prior
+    from nemo_tpu_torch.render.mesh import make_mesh_panel_fn
+    from nemo_tpu_torch.utils import pickles
+    t_start = time.perf_counter()
+    root = os.path.join(d, "path_l")
+    times, smplify_runs = {}, []
+    t0 = time.perf_counter()
+    inp = l_video(smpl, device, root)
+    times["write video"] = round(time.perf_counter() - t0, 3)
+    real_ts = temporal_smplify.run_temporal_smplify
+    real_render = vibe_demo.render_demo_video
+
+    def timed_ts(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_ts(*a, **k)
+        torch.cuda.synchronize()
+        smplify_runs.append((a[2].shape[0], time.perf_counter() - t0,
+                             k["stats"]))
+        return out
+
+    rendered = []
+
+    def timed_render(*a, **k):
+        t0 = time.perf_counter()
+        out = real_render(*a, **k)
+        times["render"] = round(time.perf_counter() - t0, 3)
+        rendered.append(out)
+        return out
+
+    common = ["--frames_dir", inp["frames"], "--spin_ckpt", inp["ckpt"],
+              "--smpl_path", files["smpl_npz"]]
+    pkl_bbox = os.path.join(root, "vibe_bbox.pkl")
+    pkl_pose = os.path.join(root, "vibe_pose.pkl")
+    render = os.path.join(root, "vibe_render.mp4")
+
+    def run():
+        temporal_smplify.run_temporal_smplify = timed_ts
+        vibe_demo.render_demo_video = timed_render
+        try:
+            for name, argv in (
+                    ("vibe_demo bbox", ["--detections", inp["detections"],
+                                        "--out", pkl_bbox]),
+                    ("vibe_demo pose + SMPLify + render", [
+                        "--openpose_dir", inp["openpose"],
+                        "--tracking_method", "pose", "--run_smplify",
+                        "--gmm_path", files["gmm"], "--render_out", render,
+                        "--out", pkl_pose])):
+                t0 = time.perf_counter()
+                if vibe_demo.main(common + argv) != 0:
+                    raise AssertionError(f"path L: {name} failed")
+                torch.cuda.synchronize()
+                times[name] = round(time.perf_counter() - t0, 3)
+        finally:
+            temporal_smplify.run_temporal_smplify = real_ts
+            vibe_demo.render_demo_video = real_render
+
+    counts, _ = run_path("path L", ("fk_fwd", "fk_bwd", "raster_stream"),
+                         run)
+
+    # the outputs, read back as the recipe's next step reads them
+    out_bbox, out_pose = pickles.load(pkl_bbox), pickles.load(pkl_pose)
+    print(f"[path L] bbox tracks {sorted(out_bbox)} of "
+          f"{[len(p['frame_ids']) for p in out_bbox.values()]} frames; pose "
+          f"tracks {sorted(out_pose)} of "
+          f"{[len(p['frame_ids']) for p in out_pose.values()]} frames, "
+          f"SMPLify updated "
+          f"{[int(p['smplify_update'].sum()) for p in out_pose.values()]}")
+    if sorted(out_pose) != [0, 1] or any(
+            len(p["frame_ids"]) != L_FRAMES for p in out_pose.values()) \
+            or not out_bbox:
+        raise AssertionError("path L: unexpected tracks")
+    for name, out, path in (("bbox", out_bbox, pkl_bbox),
+                            ("pose", out_pose, pkl_pose)):
+        for pid, p in out.items():
+            T = len(p["frame_ids"])
+            shapes = {k: p[k].shape for k in ("pose", "betas", "orig_cam",
+                                              "joints2d_img_coord")}
+            if shapes != {"pose": (T, 72), "betas": (T, 10),
+                          "orig_cam": (T, 4),
+                          "joints2d_img_coord": (T, 49, 2)} or not all(
+                    np.isfinite(v).all() for v in p.values()
+                    if v.dtype.kind == "f"):
+                raise AssertionError(f"path L {name} track {pid}: {shapes}")
+            dense = densify_person(p, L_FRAMES)
+            fids = p["frame_ids"]
+            if not (np.array_equal(dense["pose"][fids], p["pose"])
+                    and np.array_equal(dense["betas"], p["betas"])
+                    and np.array_equal(dense["orig_cam"][fids],
+                                       p["orig_cam"])):
+                raise AssertionError(f"path L {name}: data/vibe.py reads "
+                                     f"track {pid} otherwise")
+        chosen = load_vibe_pickle(path, L_FRAMES)
+        longest = max(out.values(), key=lambda p: len(p["frame_ids"]))
+        if not np.array_equal(chosen["pose"][longest["frame_ids"]],
+                              longest["pose"]):
+            raise AssertionError(f"path L {name}: load_vibe_pickle")
+    if len(rendered) != 1:
+        raise AssertionError("path L: --render_out rendered no video")
+    n_rendered = count_video_frames(rendered[0])
+    print(f"[path L] pickles read back through data/vibe.py equal; "
+          f"{rendered[0]} holds {n_rendered} frames")
+    if n_rendered != L_FRAMES:
+        raise AssertionError("path L: --render_out frames missing")
+
+    # card against CPU from the same checkpoint
+    cpu = torch.device("cpu")
+    mods = {dev: [m.to(dev) for m in load_spin_checkpoint(inp["ckpt"])]
+            for dev in (device, cpu)}
+    smpl_cpu = smpl.to(cpu)
+    track = out_pose[0]
+    frames = vibe_demo.load_frames(inp["frames"], L_FRAMES)
+    fids = track["frame_ids"][:L_CARD_CROPS]
+    crops = torch.from_numpy(np.stack([get_single_image_crop(
+        frames[f], cs) for f, cs in zip(fids, track["bbox_cs"])])
+        ).permute(0, 3, 1, 2)[None]
+    t0 = time.perf_counter()
+    fwd = {}
+    for dev, sm in ((device, smpl), (cpu, smpl_cpu)):
+        b, h, g = mods[dev]
+        with torch.no_grad():
+            fwd[dev] = {k: v.cpu().numpy() for k, v in vibe_forward(
+                b, g, h, sm, crops.to(dev)).items()}
+    for k in ("theta", "kp_3d", "kp_2d", "verts"):
+        err = float(np.abs(fwd[device][k] - fwd[cpu][k]).max())
+        scale = float(np.abs(fwd[cpu][k]).max())
+        print(f"[path L] vibe_forward {k} on {L_CARD_CROPS} crops: card "
+              f"vs CPU {err:.3e} (tolerance {L_RTOL} x {scale:.3f})")
+        if not err <= L_RTOL * scale:
+            raise AssertionError(f"path L: vibe_forward {k} card and CPU "
+                                 f"disagree")
+    # one overlay chunk of render_demo_video at the frame size
+    verts, trans, cam0 = vibe_demo.person_overlay(track, smpl, L_HW)
+    verts, trans = verts[:L_CHUNK].cpu(), trans[:L_CHUNK].cpu()
+    eye = torch.eye(3).expand(L_CHUNK, 3, 3)
+    panels = {}
+    for dev in (device, cpu):
+        fn = make_mesh_panel_fn(smpl.faces, [cam0] * L_CHUNK, L_HW,
+                                device=dev, method="raster")
+        with torch.no_grad():
+            imgs, masks = fn(verts.to(dev), eye.to(dev), trans.to(dev))
+        panels[dev] = torch.cat([imgs, masks[..., None]], -1).cpu().numpy()
+    diff = np.abs(panels[device] - panels[cpu]).max(-1)
+    share = float((diff > L_PIX_TOL).mean())
+    covered = float(panels[cpu][..., 3].mean())
+    print(f"[path L] overlay chunk of {L_CHUNK} panels {L_HW[1]}x{L_HW[0]}: "
+          f"card vs CPU plain fold, {share:.2e} of the pixels differ by more "
+          f"than {L_PIX_TOL:.5f} (tolerance {L_PIX_SHARE}), largest "
+          f"{float(diff.max()):.3e}; the mesh covers {covered:.4f}")
+    if not (share <= L_PIX_SHARE and covered > 1e-3):
+        raise AssertionError("path L: overlay card and CPU disagree")
+    faces = torch.as_tensor(smpl.faces, device=device).long()
+    ent = raster.prepare((verts + trans[:, None]).to(device).contiguous(),
+                         faces, [float(cam0.focal_length)] * L_CHUNK,
+                         [(float(cam0.center[0]), float(cam0.center[1]))]
+                         * L_CHUNK, L_HW)
+    got = raster.raster_stream_cuda(ent, raster.stream_inputs(ent), L_HW)
+    want = raster.rasterize_plain(ent, L_HW, stream=True)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("path L: K5s differs from its plain version "
+                             "on the overlay chunk")
+    print("[path L] K5s on the overlay chunk: bit-identical to its plain "
+          "version on the card")
+    op_kps = load_openpose_dir(inp["openpose"], L_FRAMES)
+    kp49 = vibe_demo.crop_keypoints(track, op_kps)
+    fits = {}
+    for dev, sm in ((device, smpl), (cpu, smpl_cpu)):
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        out, _ = real_ts(sm, load_gmm_prior(files["gmm"], dev),
+                         t(track["pose"]), t(track["betas"]),
+                         t(track["pred_cam"]), t(kp49), max_iter=2)
+        fits[dev] = [out[k].cpu().numpy() for k in ("cam_losses", "losses")]
+    for name, a, b in zip(("camera stage", "body stage"), fits[device],
+                          fits[cpu]):
+        err = float(np.abs(a - b).max() / np.abs(b).max())
+        print(f"[path L] SMPLify {name}, 2 L-BFGS iterations: card "
+              f"{a.tolist()} CPU {b.tolist()} ({err:.2e} relative)")
+        if not err <= L_RTOL:
+            raise AssertionError(f"path L: SMPLify {name} card and CPU "
+                                 f"disagree")
+    times["card vs CPU"] = round(time.perf_counter() - t0, 3)
+
+    # the networks a 64-crop chunk, CUDA events
+    b, h, g = mods[device]
+    chunk = torch.randn((64, 3, 224, 224), device=device)
+    with torch.no_grad():
+        feats = b(chunk)
+        resnet_ms = median_ms(lambda: b(chunk), reps=10)
+        head_ms = median_ms(lambda: hmr_forward_from_features(
+            h, smpl, g(feats[None])[0]), reps=10)
+    for n, s, st in smplify_runs:
+        print(f"[path L] SMPLify a track of {n} frames: {s:.3f} s, "
+              f"host reads " + ", ".join(
+                  f"{k} {v.get('host_reads', 0)}" for k, v in st.items()))
+    times["path L"] = round(time.perf_counter() - t_start, 3)
+    render_s = times["render"] / L_FRAMES
+    mine = {k: counts[k] for k in ("fk_fwd", "fk_bwd", "raster_stream")}
+    print(f"[path L] ResNet-50 {resnet_ms:.4f} ms a 64-crop chunk; GRU + "
+          f"regressor + SMPL {head_ms:.4f} ms a chunk; render "
+          f"{render_s:.4f} s a frame (2 people); launches "
+          f"{json.dumps(mine)}; host seconds {json.dumps(times)}; "
+          f"{nvidia_smi_line()}")
+    return counts, {"seconds": times["path L"], "resnet_ms": resnet_ms,
+                    "head_ms": head_ms, "render_s": render_s,
+                    "smplify": [(n, s) for n, s, _ in smplify_runs]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3686,6 +4058,7 @@ def main() -> int:
         paths["path G"], g = path_g(device, smpl, bundle, files, sources)
         paths["path J"], j = path_j(device, smpl, bundle, files, d)
         paths["path K"], k = path_k(device, smpl, files, d)
+        paths["path L"], lv = path_l(device, smpl, files, d)
     launches = {k: sum(c[k] for c in paths.values()) for k in KERNELS}
     print(f"[paths] render: {render['video_s']:.4f} s a video frame with the "
           f"PNG writes, {render['nopng_s']:.4f} s without")
@@ -3696,7 +4069,7 @@ def main() -> int:
           f"{g['custom_steps_s']:.3f} without the HuMoR term and "
           f"{g['humor_steps_s']:.3f} with it; path G {g['seconds']:.1f} s; "
           f"path J {j['all']:.1f} s; path K "
-          f"{sum(k.values()):.1f} s; "
+          f"{sum(k.values()):.1f} s; path L {lv['seconds']:.1f} s; "
           f"launches summed over the paths {json.dumps(launches)}; "
           f"{time.perf_counter() - t_start:.1f} s in all")
 

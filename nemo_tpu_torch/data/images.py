@@ -8,7 +8,8 @@ does on top of PIL (matplotlib 3.x ``image.imread``:
 else), so the arrays, and every value computed from them, are
 the JAX path's. The two callers' conversions sit beside it: ``read_mask``
 (a uint8 mask, channel 0 of a colour one) and ``read_depth`` (the stored
-16-bit integers, as float32).
+16-bit integers, as float32). ``read_rgb`` reads a frame as the VIBE demo
+does, PIL's uint8 RGB.
 """
 
 from __future__ import annotations
@@ -81,3 +82,12 @@ def read_depth(path: str) -> np.ndarray:
     if img.dtype != np.uint16 and img.max() <= 1.0:
         img = img * 65535.0
     return img
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """A video frame as uint8 RGB (H, W, 3), ``Image.open(path)
+    .convert("RGB")``: what the JAX package's vibe_demo reads its frames
+    with."""
+    Image, _ = _pil()
+    with Image.open(path) as img:
+        return np.asarray(img.convert("RGB"))

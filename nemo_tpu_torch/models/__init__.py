@@ -1,9 +1,16 @@
-"""HuMoR motion prior, 3D motion fitting and its evaluation (port of
-nemo_tpu.models, the parts the AMASS fitting driver runs)."""
+"""HuMoR motion prior, 3D motion fitting and its evaluation, and the VIBE
+demo's networks (port of nemo_tpu.models, the parts the AMASS fitting
+driver and the VIBE demo run)."""
 
+from .hmr import (HMRHead, hmr_forward, hmr_head_from_jax,
+                  imagenet_normalize, init_hmr_head, load_spin_checkpoint,
+                  spin_projection, weak_perspective_projection)
 from .humor import (HumorConfig, STATE_DIM, STATE_FIELDS, humor_decode,
                     humor_from_numpy, humor_infer_seq, humor_prior,
                     humor_roll_out, humor_transition_prior_loss, init_humor,
                     load_humor, pack_state, split_state)
 from .humor_fit import (MotionOptConfig, humor_motion_fit,
                         load_init_motion_prior, points3d_loss)
+from .resnet import ResNet50, init_resnet50, resnet50_from_jax
+from .vibe import (TemporalEncoder, gru_from_jax, hmr_forward_from_features,
+                   init_gru, vibe_forward)

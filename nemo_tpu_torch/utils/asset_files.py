@@ -18,7 +18,12 @@ without them:
   * ``write_gmm_pkl``: a gmm_08.pkl dict (means, covars, weights);
   * ``write_humor_ckpt``: ``{"model": state_dict}`` in the reference
     module layout, and ``write_humor_npz``: humor_tool's flat 'module.key'
-    arrays.
+    arrays;
+  * ``write_spin_ckpt``: a SPIN checkpoint, ``{"model": state_dict}`` with
+    the ResNet-50 and regressor keys (and VIBE's ``encoder.gru.*`` when a
+    temporal encoder is given), from the port's VIBE modules;
+    ``calibrate_batch_norm`` gives a seeded backbone the running statistics
+    of real crops first.
 """
 
 from __future__ import annotations
@@ -163,3 +168,53 @@ def write_humor_npz(path: str, params) -> str:
     np.savez(path, **{f"{g}.{k}": v.detach().cpu().numpy()
                       for g, sub in params.items() for k, v in sub.items()})
     return path
+
+
+def spin_state_dict(resnet, head, gru=None) -> Dict[str, torch.Tensor]:
+    """A SPIN checkpoint's state dict: the torchvision ResNet-50 keys (each
+    batch norm with its ``num_batches_tracked``, as torchvision saves it)
+    and SPIN's regressor keys at the top level, and with a temporal
+    encoder VIBE's ``encoder.gru.*`` keys."""
+    sd = {k: v.detach().cpu().clone() for k, v in resnet.state_dict().items()}
+    for k in [k for k in sd if k.endswith(".running_var")]:
+        sd[k[:-len("running_var")] + "num_batches_tracked"] = \
+            torch.zeros((), dtype=torch.long)
+    sd.update({k: v.detach().cpu().clone()
+               for k, v in head.state_dict().items()})
+    if gru is not None:
+        sd.update({f"encoder.{k}": v.detach().cpu().clone()
+                   for k, v in gru.state_dict().items()})
+    return sd
+
+
+def write_spin_ckpt(path: str, resnet, head, gru=None) -> str:
+    """{'model': spin_state_dict(...)}, the layout vibe_demo reads with
+    --spin_ckpt."""
+    torch.save({"model": spin_state_dict(resnet, head, gru)}, path)
+    return path
+
+
+@torch.no_grad()
+def calibrate_batch_norm(backbone, images: torch.Tensor):
+    """Set every batch norm's running statistics to the per-channel mean
+    and variance of its input on images (B, 3, H, W), in one forward pass,
+    layer after layer: what a trained network's statistics are. Random
+    weights calibrated so keep unit-scale activations through the 16
+    residual blocks (raw He-init features reach ~2e3), so a network drawn
+    from a seed regresses plausible cameras and poses. For the seeded
+    backbones written with ``write_spin_ckpt``."""
+    from ..models.resnet import FrozenBatchNorm2d
+
+    def hook(bn, args):
+        x = args[0]
+        bn.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+        bn.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+
+    handles = [m.register_forward_pre_hook(hook) for m in backbone.modules()
+               if isinstance(m, FrozenBatchNorm2d)]
+    try:
+        backbone(images)
+    finally:
+        for h in handles:
+            h.remove()
+    return backbone

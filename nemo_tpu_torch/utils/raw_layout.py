@@ -45,17 +45,21 @@ import numpy as np
 from . import pickles
 
 
-def write_openpose_dir(path: str, people: Sequence[Sequence[np.ndarray]]
+def write_openpose_dir(path: str, people: Sequence[Sequence[np.ndarray]],
+                       person_ids: Optional[Sequence[Sequence[int]]] = None
                        ) -> str:
     """One view's OpenPose JSON directory. people[f] lists frame f's
     detections, each a (25, 3) array (person 0 first); an empty list
-    writes a frame with nobody. Values are written as float32."""
+    writes a frame with nobody. Values are written as float32. With
+    person_ids (parallel to people), each detection carries its tracked
+    id, as STAF's output does; else [-1], plain OpenPose's."""
     os.makedirs(path, exist_ok=True)
     for f, dets in enumerate(people):
+        ids = person_ids[f] if person_ids is not None else [-1] * len(dets)
         rec = {"version": 1.3, "people": [
-            {"person_id": [-1],
+            {"person_id": [int(i)],
              "pose_keypoints_2d": np.asarray(d, np.float32).ravel().tolist()}
-            for d in dets]}
+            for d, i in zip(dets, ids)]}
         with open(os.path.join(path, f"{f:06d}_keypoints.json"), "w") as fh:
             json.dump(rec, fh)
     return path
