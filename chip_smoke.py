@@ -155,7 +155,20 @@ Run from the repository root with no arguments:
      vibe_forward and two L-BFGS iterations of each SMPLify stage card vs
      CPU; both pickles read back through data/vibe.py; ResNet-50 and GRU
      + regressor + SMPL ms a 64-crop chunk, SMPLify s a track with its
-     linesearch host reads, render s a frame.
+     linesearch host reads, render s a frame;
+   - path M: VIBE training through python -m
+     nemo_tpu_torch.cli.vibe_train's main on configs/vibe/config.yaml at
+     full width (batch 32 = 19 2D + 13 3D windows of 16 frames, features
+     2048, the 2048 GRU and the regressor, the 2-layer 1024 GRU
+     discriminator with 3-layer attention, the 6890-vertex body with
+     per-frame betas), reading 2D, 3D, eval and motion shards written
+     from seeded numpy, 2 epochs x 10 steps: finite losses, K1b once a
+     step and K1f once a step and a validation batch; one step from its
+     checkpoint card vs CPU (exactly one K1f and one K1b on the card),
+     steps/s over back-to-back steps and the step's device time from
+     torch.profiler; vibe_eval on the checkpoint with a packed npz that
+     has theta, card vs CPU; build_vibe_db on small 3DPW and AMASS trees,
+     the db read back.
    Losses must be finite, main-stage kp_loss must fall on slice 1 and paths
    A and F (stage 2's loss on path E), fit_loss on the card must agree with the
    port's CPU path from the same parameters (points3d_loss and the stage-3
@@ -4003,6 +4016,394 @@ def path_l(device, smpl, files, d):
                     "smplify": [(n, s) for n, s, _ in smplify_runs]}
 
 
+M_T = 16                # window length (configs/vibe/config.yaml SEQLEN)
+M_FEAT = 2048           # ResNet-50 features
+M_EPOCHS, M_ITERS = 2, 10
+M_ROWS = {"2d": 48, "3d": 32, "eval": 64, "motion": 64}
+M_SHARD = 20            # rows a shard: batches carry rows across shards
+M_EVAL_SEQS = 32        # vibe_eval's packed test set, 2 batches of 16
+M_TIMED = 10            # back-to-back steps timed on the card
+M_LOSS_RTOL = 1e-5      # loss terms, card vs CPU, relative
+M_PARAM_RTOL = 1e-4     # updated tensors, of each one's largest entry
+M_EVAL_RTOL = 1e-5      # vibe_eval's metrics, card vs CPU, relative
+
+
+def m_shards(root, rng):
+    """The trainer's four feeds as data/sharded.py shards, from seeded
+    numpy: ResNet-like (non-negative) features, crop-normalized 2D
+    keypoints with confidences, common-14 joints in metres, per-window
+    betas, and smooth AMASS-like body poses for the discriminator.
+    Returns {feed: directory}."""
+    import numpy as np
+    from nemo_tpu_torch.data.sharded import write_shards
+
+    def feats(n):
+        return np.abs(rng.standard_normal((n, M_T, M_FEAT))).astype(
+            np.float32) * 0.5
+
+    def kp2d(n):
+        kp = rng.uniform(-0.8, 0.8, (n, M_T, 49, 3)).astype(np.float32)
+        kp[..., 2] = rng.uniform(0, 1, (n, M_T, 49)) > 0.3
+        return kp
+
+    def smooth(n, d, scale):
+        steps = 0.03 * rng.standard_normal((n, M_T, d))
+        return (scale * rng.standard_normal((n, 1, d)) +
+                np.cumsum(steps, axis=1)).astype(np.float32)
+
+    def three_d(n):
+        return {"kp_3d": (0.25 * rng.standard_normal((n, M_T, 14, 3)))
+                .astype(np.float32),
+                "pose": smooth(n, 72, 0.2),
+                "betas": np.repeat(0.5 * rng.standard_normal(
+                    (n, 1, 10)), M_T, 1).astype(np.float32)}
+
+    feeds = {
+        "2d": {"features": feats(M_ROWS["2d"]), "kp_2d": kp2d(M_ROWS["2d"])},
+        "3d": dict(features=feats(M_ROWS["3d"]), kp_2d=kp2d(M_ROWS["3d"]),
+                   **three_d(M_ROWS["3d"])),
+        "eval": dict(features=feats(M_ROWS["eval"]),
+                     kp_2d=kp2d(M_ROWS["eval"]), **three_d(M_ROWS["eval"])),
+        "motion": {"pose_body": smooth(M_ROWS["motion"], 69, 0.2)},
+    }
+    dirs = {}
+    for name, arrays in feeds.items():
+        dirs[name] = os.path.join(root, f"shards_{name}")
+        write_shards(arrays, dirs[name], shard_size=M_SHARD)
+    return dirs
+
+
+def m_raw_trees(root, rng):
+    """Small raw trees for build_vibe_db: two 3DPW sequence files (two
+    people, then one) and an AMASS subject at 100 fps."""
+    import pickle
+    import numpy as np
+    pw = os.path.join(root, "3dpw", "sequenceFiles", "train")
+    os.makedirs(pw)
+    for name, people, F in (("courtyard_a_00", 2, 40), ("downtown_b", 1, 24)):
+        p2d = rng.uniform(0, 1000, (people, F, 3, 18))
+        p2d[:, :, 2] = rng.uniform(0, 1, (people, F, 18)) > 0.2
+        with open(os.path.join(pw, f"{name}.pkl"), "wb") as f:
+            pickle.dump({"poses": [0.2 * rng.standard_normal((F, 72))
+                                   for _ in range(people)],
+                         "betas": [rng.standard_normal(300)
+                                   for _ in range(people)],
+                         "poses2d": list(p2d),
+                         "campose_valid": [np.ones(F)] * people}, f,
+                        protocol=2)
+    am = os.path.join(root, "amass", "CMU", "01")
+    os.makedirs(am)
+    np.savez(os.path.join(am, "01_01_poses.npz"),
+             poses=0.3 * rng.standard_normal((800, 156)),
+             trans=rng.standard_normal((800, 3)),
+             betas=rng.standard_normal(16), mocap_framerate=np.array(100.0))
+    return os.path.join(root, "3dpw"), os.path.join(root, "amass")
+
+
+def m_profile(fn, reps: int = 5) -> dict:
+    """Device time of a train step from torch.profiler: fn run twice
+    unmeasured, then reps times inside a mark; every device event after
+    the mark (kernels and copies) summed a step, their count a step, the
+    largest six by name, and K1f's and K1b's time a launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        with record_function("path_m_steps"):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    t0 = next(e.time_range.start for e in events
+              if e.name == "path_m_steps" and e.device_type == DeviceType.CPU)
+    # the mark itself is traced on the device's timeline too: leave it out
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and e.time_range.start >= t0 and e.name != "path_m_steps"]
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+
+    def k1(tag):
+        mine = [e.time_range.elapsed_us() for e in dev if tag in e.name]
+        return sum(mine) / len(mine) / 1e3 if len(mine) == reps else None
+
+    return {"device_ms": sum(by_name.values()) / reps / 1e3,  # a step
+            "device_events": len(dev) / reps,
+            "top": [(n[:60], us / reps / 1e3) for n, us in top],
+            "k1f_ms": k1("fk_fwd"), "k1b_ms": k1("fk_bwd")}
+
+
+def path_m(device, d):
+    """VIBE training (the custom-video recipe's network, trained) through
+    the port's CLIs at full width: configs/vibe/config.yaml (batch 32 =
+    19 2D + 13 3D windows of 16 frames, features 2048, the 2048 GRU and
+    the SPIN regressor, the 2-layer 1024 GRU discriminator with 3-layer
+    attention, Adam at 5e-5 and 1e-4), the 6890-vertex synthetic body.
+
+    1. m_shards writes the 2D, 3D, eval and motion feeds with the port's
+       write_shards; python -m nemo_tpu_torch.cli.vibe_train's main runs
+       2 epochs of 10 steps (K1f in each step's and each validation
+       batch's SMPL pass, K1b in each step's backward) and writes its
+       checkpoint; every step's losses must be finite, and K1b must have
+       launched once a step, K1f once a step and once a validation batch.
+    2. From that checkpoint, one train step on the last batch the CLI
+       trained on, on the card (exactly one K1f and one K1b launch) and
+       on the CPU's plain path: every loss term within M_LOSS_RTOL, every
+       updated tensor within M_PARAM_RTOL of its largest entry; then
+       M_TIMED back-to-back steps on the card (steps/s) and 5 more under
+       torch.profiler (m_profile: device ms a step, the largest kernels,
+       K1f and K1b a launch).
+    3. vibe_eval's main on the checkpoint with a packed npz that has
+       theta (M_EVAL_SEQS sequences, the 6890-vertex body, the GT
+       vertices through K1f), on the card and with --device cpu: every
+       metric within M_EVAL_RTOL.
+    4. build_vibe_db's main on small 3DPW and AMASS trees: the db read
+       back through utils/pickles equals the reader's, the shards hold
+       its windows.
+    Prints steps/s, ms a step, each stage's host seconds."""
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.body.assets import synthetic_smpl_model
+    from nemo_tpu_torch.cli import build_vibe_db, vibe_eval, vibe_train
+    from nemo_tpu_torch.data.sharded import ShardedDataset
+    from nemo_tpu_torch.data.vibe_db import make_windows, read_3dpw
+    from nemo_tpu_torch.data.vibe_readers import read_amass
+    from nemo_tpu_torch.models import vibe_train as vt
+    from nemo_tpu_torch.ops import launch_counts
+    from nemo_tpu_torch.utils import pickles
+
+    t_start = time.perf_counter()
+    root = os.path.join(d, "path_m")
+    os.makedirs(root)
+    rng = np.random.default_rng(0)
+    times = {}
+    cfg_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "configs", "vibe", "config.yaml")
+    cfg = vibe_train.load_cfg(cfg_path)
+    b2d = int(cfg["TRAIN.BATCH_SIZE"] * cfg["TRAIN.DATA_2D_RATIO"])
+    print(f"[path M] {cfg_path}: batch {cfg['TRAIN.BATCH_SIZE']} ({b2d} 2D "
+          f"+ {cfg['TRAIN.BATCH_SIZE'] - b2d} 3D windows) x "
+          f"{cfg['DATASET.SEQLEN']} frames, discriminator "
+          f"{cfg['TRAIN.MOT_DISCR.FEATURE_POOL']} x "
+          f"{cfg['TRAIN.MOT_DISCR.NUM_LAYERS']} layers")
+    t0 = time.perf_counter()
+    dirs = m_shards(root, rng)
+    times["write shards"] = round(time.perf_counter() - t0, 3)
+
+    real_make = vt.make_vibe_train_step
+    seen = []
+
+    def recording_make(*a, **k):
+        step = real_make(*a, **k)
+
+        def recorded(state, batch, real_motion, generator=None,
+                     lr_scale=1.0):
+            state, m = step(state, batch, real_motion, generator, lr_scale)
+            seen.append(({k: float(v) for k, v in m.items()}, batch,
+                         real_motion, lr_scale))
+            return state, m
+        return recorded
+
+    run_dir = os.path.join(root, "run")
+    ck = os.path.join(run_dir, "vibe_train_state")
+    out = {}
+
+    def run():
+        torch.cuda.synchronize()
+        c0 = launch_counts()
+        t0 = time.perf_counter()
+        vt.make_vibe_train_step = recording_make
+        try:
+            rc = vibe_train.main([
+                "--cfg", cfg_path, "--out", run_dir,
+                "--shards_2d", dirs["2d"], "--shards_3d", dirs["3d"],
+                "--shards_eval", dirs["eval"],
+                "--shards_motion", dirs["motion"],
+                "--epochs", str(M_EPOCHS), "--iters_per_epoch",
+                str(M_ITERS)])
+        finally:
+            vt.make_vibe_train_step = real_make
+        torch.cuda.synchronize()
+        times["vibe_train"] = round(time.perf_counter() - t0, 3)
+        c1 = launch_counts()
+        if rc != 0:
+            raise AssertionError(f"path M: vibe_train exited {rc}")
+        steps = len(seen)
+        fwd, bwd = (c1[k] - c0[k] for k in ("fk_fwd", "fk_bwd"))
+        print(f"[path M] vibe_train: {steps} steps, {times['vibe_train']} s; "
+              f"K1f {fwd} (want {steps} + {M_EPOCHS * M_ITERS} validation "
+              f"batches), K1b {bwd} (want {steps}); losses first "
+              f"{json.dumps(seen[0][0])}, last {json.dumps(seen[-1][0])}")
+        if steps != M_EPOCHS * M_ITERS or bwd != steps \
+                or fwd != steps + M_EPOCHS * M_ITERS:
+            raise AssertionError("path M: K1 launches are not one a step "
+                                 "and one a validation batch")
+        if not all(np.isfinite(v) for m, *_ in seen for v in m.values()):
+            raise AssertionError("path M: a loss is not finite")
+        if sorted(os.listdir(ck)) != ["disc.npz", "disc_opt.npz", "gen.npz",
+                                      "gen_opt.npz"]:
+            raise AssertionError("path M: checkpoint files missing")
+
+        # one step from the checkpoint, card against CPU
+        t0 = time.perf_counter()
+        w = vt.VibeLossWeights(
+            kp_2d=float(cfg["LOSS.KP_2D_W"]),
+            kp_3d=float(cfg["LOSS.KP_3D_W"]),
+            shape=float(cfg["LOSS.SHAPE_W"]),
+            pose=float(cfg["LOSS.POSE_W"]),
+            adv=float(cfg["LOSS.D_MOTION_LOSS_W"]),
+            disc_motion_lr=float(cfg["TRAIN.MOT_DISCR.LR"]))
+        _, batch, real, _ = seen[-1]
+        res = {}
+        for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            sm = synthetic_smpl_model(device=dev)
+            tmpl = vt.init_vibe_train_state(
+                torch.Generator().manual_seed(1), sm,
+                feature_pool=str(cfg["TRAIN.MOT_DISCR.FEATURE_POOL"]),
+                disc_num_layers=int(cfg["TRAIN.MOT_DISCR.NUM_LAYERS"]),
+                attention_size=int(cfg["TRAIN.MOT_DISCR.ATT.SIZE"]),
+                attention_layers=int(cfg["TRAIN.MOT_DISCR.ATT.LAYERS"]))
+            state = vt.load_vibe_state(ck, tmpl)
+            del tmpl
+            step = real_make(sm, w)
+            if where == "card":
+                torch.cuda.synchronize()
+                c0 = launch_counts()
+            state, m = step(state, batch, real)
+            res[where] = ({k: float(v) for k, v in m.items()},
+                          vt.vibe_train_state_to_jax(state))
+            if where == "card":
+                torch.cuda.synchronize()
+                c1 = launch_counts()
+                one = {k: c1[k] - c0[k] for k in ("fk_fwd", "fk_bwd")}
+                print(f"[path M] one train step on the card: launches "
+                      f"{json.dumps(one)}")
+                if one != {"fk_fwd": 1, "fk_bwd": 1}:
+                    raise AssertionError("path M: a train step launched "
+                                         "other than one K1f and one K1b")
+                t1 = time.perf_counter()
+                for _ in range(M_TIMED):
+                    state, _ = step(state, batch, real)
+                torch.cuda.synchronize()
+                out["step_ms"] = (time.perf_counter() - t1) * 1e3 / M_TIMED
+                out.update(m_profile(lambda: step(state, batch, real)))
+            del state
+        card = res["card"][1]
+        worst_loss = 0.0
+        for k, v in res["cpu"][0].items():
+            e = abs(res["card"][0][k] - v) / max(abs(v), 1e-30)
+            worst_loss = max(worst_loss, e)
+            print(f"[path M] {k}: card {res['card'][0][k]!r} CPU {v!r} "
+                  f"({e:.2e} relative, tolerance {M_LOSS_RTOL})")
+        errs = []
+        for net in ("gen", "disc"):
+            for k, v in res["cpu"][1][net].items():
+                e = float(np.abs(card[net][k] - v).max())
+                errs.append((e / max(float(np.abs(v).max()), 1e-30), e,
+                             float(np.abs(v).max()), f"{net}/{k}"))
+        errs.sort(reverse=True)
+        print("[path M] updated tensors, card vs CPU, worst: " + "; ".join(
+            f"{n} {e:.3e} of {s:.3e} ({r:.2e})" for r, e, s, n in errs[:6]))
+        times["step card vs CPU"] = round(time.perf_counter() - t0, 3)
+        out.update(loss_err=worst_loss, param_err=errs[0][0])
+        if not worst_loss <= M_LOSS_RTOL:
+            raise AssertionError("path M: loss terms card and CPU disagree")
+        if not errs[0][0] <= M_PARAM_RTOL:
+            raise AssertionError("path M: updated tensors card and CPU "
+                                 "disagree")
+
+        # vibe_eval on the checkpoint, card and CPU
+        t0 = time.perf_counter()
+        N = M_EVAL_SEQS
+        theta = np.concatenate([
+            np.tile([0.9, 0.0, 0.0], (N, M_T, 1)),
+            np.cumsum(0.03 * rng.standard_normal((N, M_T, 72)), 1)
+            + 0.2 * rng.standard_normal((N, 1, 72)),
+            np.repeat(0.5 * rng.standard_normal((N, 1, 10)), M_T, 1)],
+            -1).astype(np.float32)
+        db = os.path.join(root, "test_db.npz")
+        np.savez(db, features=np.abs(rng.standard_normal(
+            (N, M_T, M_FEAT))).astype(np.float32) * 0.5,
+            kp_3d=(0.25 * rng.standard_normal((N, M_T, 14, 3))).astype(
+                np.float32), theta=theta)
+        metrics = {}
+        for dev in ("cuda", "cpu"):
+            csv = os.path.join(root, f"eval_{dev}.csv")
+            c0 = launch_counts()
+            if vibe_eval.main(["--ckpt", ck, "--db", db, "--batch_size", "16",
+                               "--num_vertices", "6890", "--device", dev,
+                               "--out_csv", csv]) != 0:
+                raise AssertionError(f"path M: vibe_eval on {dev} failed")
+            c1 = launch_counts()
+            if dev == "cuda":
+                out["eval_k1f"] = c1["fk_fwd"] - c0["fk_fwd"]
+            head, row = open(csv).read().strip().split("\n")
+            metrics[dev] = dict(zip(head.split(","),
+                                    map(float, row.split(","))))
+        worst = max(abs(metrics["cuda"][k] - v) / abs(v)
+                    for k, v in metrics["cpu"].items())
+        times["vibe_eval card and CPU"] = round(time.perf_counter() - t0, 3)
+        print(f"[path M] vibe_eval on {N} x {M_T} frames: card "
+              f"{json.dumps(metrics['cuda'])}; CPU "
+              f"{json.dumps(metrics['cpu'])}; worst {worst:.2e} relative "
+              f"(tolerance {M_EVAL_RTOL}); K1f launches {out['eval_k1f']} "
+              f"(want 3: 2 batches + the GT vertices)")
+        out["eval_err"] = worst
+        if list(metrics["cuda"]) != ["mpjpe", "pa-mpjpe", "accel",
+                                     "accel_err", "pve"] \
+                or not worst <= M_EVAL_RTOL or out["eval_k1f"] != 3 \
+                or not all(np.isfinite(list(metrics["cuda"].values()))):
+            raise AssertionError("path M: vibe_eval card and CPU disagree")
+
+    counts, _ = run_path("path M", ("fk_fwd", "fk_bwd"), run)
+
+    # build_vibe_db on raw trees, on the host
+    t0 = time.perf_counter()
+    pw, am = m_raw_trees(root, rng)
+    for name, src, ref in (
+            ("3dpw", pw, lambda: read_3dpw(pw).build()),
+            ("amass", am, lambda: read_amass(am))):
+        pt = os.path.join(root, f"{name}_db.pt")
+        sh = os.path.join(root, f"{name}_shards")
+        if build_vibe_db.main(["--dataset", name, "--dir", src, "--out", pt,
+                               "--shards_out", sh, "--seqlen", "16"]) != 0:
+            raise AssertionError(f"path M: build_vibe_db {name} failed")
+        got, want = pickles.load(pt), ref()
+        if list(got) != list(want) or not all(
+                np.array_equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"path M: the {name} db reads back "
+                                 f"otherwise")
+        n_win = len(make_windows(want["vid_name"], 16))
+        if len(ShardedDataset(sh)) != n_win or n_win == 0:
+            raise AssertionError(f"path M: {name} shards")
+        print(f"[path M] build_vibe_db {name}: "
+              f"{len(want['vid_name'])} frames, {n_win} windows; the db "
+              f"read back through utils/pickles equals the reader's")
+    times["build_vibe_db"] = round(time.perf_counter() - t0, 3)
+    times["path M"] = round(time.perf_counter() - t_start, 3)
+    out["steps_s"] = 1e3 / out["step_ms"]
+    out["seconds"] = times["path M"]
+    print(f"[path M] a train step on the card (torch.profiler, 5 steps): "
+          f"device {out['device_ms']:.3f} ms in {out['device_events']:.0f} "
+          f"kernels and copies, busy {out['device_ms'] / out['step_ms']:.1%}"
+          f" of the back-to-back step; largest "
+          + "; ".join(f"{n} {ms:.3f} ms" for n, ms in out["top"])
+          + "; " + ", ".join(
+              f"{k} " + ("not measured" if out[f"{k.lower()}_ms"] is None
+                         else f"{out[f'{k.lower()}_ms']:.4f} ms")
+              for k in ("K1f", "K1b")) + " a launch")
+    print(f"[path M] {out['steps_s']:.3f} steps/s ({out['step_ms']:.2f} ms "
+          f"a step, {M_TIMED} back-to-back steps at batch 32 x 16); "
+          f"launches {json.dumps({k: counts[k] for k in ('fk_fwd', 'fk_bwd')})}"
+          f"; host seconds {json.dumps(times)}; {nvidia_smi_line()}")
+    return counts, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4059,6 +4460,7 @@ def main() -> int:
         paths["path J"], j = path_j(device, smpl, bundle, files, d)
         paths["path K"], k = path_k(device, smpl, files, d)
         paths["path L"], lv = path_l(device, smpl, files, d)
+        paths["path M"], mv = path_m(device, d)
     launches = {k: sum(c[k] for c in paths.values()) for k in KERNELS}
     print(f"[paths] render: {render['video_s']:.4f} s a video frame with the "
           f"PNG writes, {render['nopng_s']:.4f} s without")
@@ -4070,6 +4472,8 @@ def main() -> int:
           f"{g['humor_steps_s']:.3f} with it; path G {g['seconds']:.1f} s; "
           f"path J {j['all']:.1f} s; path K "
           f"{sum(k.values()):.1f} s; path L {lv['seconds']:.1f} s; "
+          f"path M {mv['seconds']:.1f} s ({mv['steps_s']:.3f} VIBE train "
+          f"steps/s); "
           f"launches summed over the paths {json.dumps(launches)}; "
           f"{time.perf_counter() - t_start:.1f} s in all")
 

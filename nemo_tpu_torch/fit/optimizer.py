@@ -113,8 +113,12 @@ class GroupAdam:
         self.count = 0
 
     @torch.no_grad()
-    def step(self, scale: Optional[torch.Tensor] = None) -> None:
-        """Apply one update from the parameters' ``.grad`` (None = 0)."""
+    def step(self, scale: Optional[torch.Tensor] = None,
+             lr: Optional[float] = None) -> None:
+        """Apply one update from the parameters' ``.grad`` (None = 0), at
+        ``lr`` when given in place of the rate given at construction (an
+        optax transform carries its rate; its state, which this object
+        also stands for, does not)."""
         ps = self.params
         g = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in ps]
@@ -134,7 +138,7 @@ class GroupAdam:
         u = torch._foreach_div(mhat, denom)
         if self.wd and self.decoupled:
             torch._foreach_add_(u, ps, alpha=self.wd)
-        torch._foreach_mul_(u, -self.lr)
+        torch._foreach_mul_(u, -(self.lr if lr is None else lr))
         if scale is not None:
             torch._foreach_mul_(u, scale)
         torch._foreach_add_(ps, u)

@@ -1,6 +1,6 @@
-"""HuMoR motion prior, 3D motion fitting and its evaluation, and the VIBE
-demo's networks (port of nemo_tpu.models, the parts the AMASS fitting
-driver and the VIBE demo run)."""
+"""HuMoR motion prior, 3D motion fitting and its evaluation, and VIBE's
+networks and training (port of nemo_tpu.models, the parts the AMASS
+fitting driver, the VIBE demo and VIBE training run)."""
 
 from .hmr import (HMRHead, hmr_forward, hmr_head_from_jax,
                   imagenet_normalize, init_hmr_head, load_spin_checkpoint,
@@ -14,3 +14,12 @@ from .humor_fit import (MotionOptConfig, humor_motion_fit,
 from .resnet import ResNet50, init_resnet50, resnet50_from_jax
 from .vibe import (TemporalEncoder, gru_from_jax, hmr_forward_from_features,
                    init_gru, vibe_forward)
+from .vibe_train import (MotionDiscriminator, SelfAttention, VibeGenerator,
+                         VibeLossWeights, compute_accel, compute_error_accel,
+                         evaluate_vibe, init_motion_discriminator,
+                         init_vibe_train_state, load_vibe_state,
+                         make_discriminator_train_step, make_vibe_train_step,
+                         motion_discriminator_from_jax, save_vibe_state,
+                         vibe_discriminator_loss, vibe_generator_loss,
+                         vibe_predict, vibe_train_state_from_jax,
+                         vibe_train_state_to_jax, vibe_trainer_fit)

@@ -150,6 +150,38 @@ def render_dynamic_velocity_plots(out_dir: str, gt_joints15: np.ndarray,
         plt.close(fig)
 
 
+def render_vibe_debug_panel(path: str, pred_kp2d: np.ndarray,
+                            gt_kp2d: np.ndarray, max_frames: int = 8,
+                            crop_size: int = 224) -> None:
+    """Pred-vs-GT skeleton panel for VIBE training's debug mode
+    (VIBE/lib/utils/vis.py:324 batch_visualize_vid_preds): feature-based
+    training has no frames, so each of the first max_frames panels plots
+    both OP25 skeletons in crop coordinates (kp * size/2 + size/2,
+    vis.py:381). pred_kp2d: (T, 49, 2) normalized SPIN keypoints; gt_kp2d:
+    (T, 49, 3) with confidence."""
+    plt = _plt()
+    T = min(max_frames, pred_kp2d.shape[0])
+
+    def unnorm(kp):
+        return kp * (crop_size / 2.0) + crop_size / 2.0
+
+    fig, axes = plt.subplots(1, T, figsize=(2.2 * T, 2.6), squeeze=False)
+    for t in range(T):
+        ax = axes[0, t]
+        gt = gt_kp2d[t]
+        draw_skeleton(ax, unnorm(gt[:25, :2]), color="C2",
+                      conf=gt[:25, 2:3])
+        draw_skeleton(ax, unnorm(pred_kp2d[t, :25, :2]), color="C3")
+        ax.set_xlim(0, crop_size), ax.set_ylim(crop_size, 0)
+        ax.set_xticks([]), ax.set_yticks([])
+        ax.set_title(f"t={t}", fontsize=8)
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    fig.savefig(path, bbox_inches="tight", dpi=80)
+    plt.close(fig)
+
+
 def render_loss_curves(out_dir: str, losses: dict) -> None:
     """One PNG per loss channel, out_dir/{name}.png."""
     plt = _plt()
