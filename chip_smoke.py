@@ -168,7 +168,19 @@ Run from the repository root with no arguments:
      steps/s over back-to-back steps and the step's device time from
      torch.profiler; vibe_eval on the checkpoint with a packed npz that
      has theta, card vs CPU; build_vibe_db on small 3DPW and AMASS trees,
-     the db read back.
+     the db read back;
+   - path N: VPoser training, the IK engine and the L-BFGS HuMoR stages
+     at full width: ik_fit on 512 targets through the 512 x 32 VPoser and
+     the 6890-vertex body by Adam (100 steps) and L-BFGS (34; its loss
+     evaluations and host reads), K1f and K1b once an evaluation, Adam's
+     first 10 steps card vs CPU; prepare_vposer_dataset on a seeded
+     AMASS-layout tree (4032 frames), train_vposer for 2 epochs at batch
+     128 (two K1f and one K1b a step), one step card vs CPU from the
+     second epoch's start, steps/s and a torch.profiler breakdown;
+     humor_motion_fit(optimizer="lbfgs") at 3/5/2 steps on path K's
+     fit-prox --rgbd window (K4 once a loss evaluation), each stage's
+     loss and gradient where it starts card vs CPU; the geometry helpers
+     card vs CPU.
    Losses must be finite, main-stage kp_loss must fall on slice 1 and paths
    A and F (stage 2's loss on path E), fit_loss on the card must agree with the
    port's CPU path from the same parameters (points3d_loss and the stage-3
@@ -3653,7 +3665,7 @@ def path_k(device, smpl, files, d):
                                    "raster_stream")}
     print(f"[path K] launches {json.dumps(mine)}; host seconds "
           f"{json.dumps(times)}; {nvidia_smi_line()}")
-    return counts, times
+    return counts, times, (px_a, px_k)
 
 
 L_FRAMES = 100          # path L's video, 1280 x 720
@@ -4100,11 +4112,13 @@ def m_raw_trees(root, rng):
     return os.path.join(root, "3dpw"), os.path.join(root, "amass")
 
 
-def m_profile(fn, reps: int = 5) -> dict:
+def m_profile(fn, reps: int = 5, mark: str = "path_m_steps",
+              k1_per_step=(1, 1)) -> dict:
     """Device time of a train step from torch.profiler: fn run twice
     unmeasured, then reps times inside a mark; every device event after
     the mark (kernels and copies) summed a step, their count a step, the
-    largest six by name, and K1f's and K1b's time a launch."""
+    largest six by name, and K1f's and K1b's time a launch (a step
+    launching k1_per_step of each)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -4113,29 +4127,31 @@ def m_profile(fn, reps: int = 5) -> dict:
         for _ in range(2):
             fn()
         torch.cuda.synchronize()
-        with record_function("path_m_steps"):
+        with record_function(mark):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
     events = prof.events()
     t0 = next(e.time_range.start for e in events
-              if e.name == "path_m_steps" and e.device_type == DeviceType.CPU)
+              if e.name == mark and e.device_type == DeviceType.CPU)
     # the mark itself is traced on the device's timeline too: leave it out
     dev = [e for e in events if e.device_type == DeviceType.CUDA
-           and e.time_range.start >= t0 and e.name != "path_m_steps"]
+           and e.time_range.start >= t0 and e.name != mark]
     by_name = {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
 
-    def k1(tag):
+    def k1(tag, per_step):
         mine = [e.time_range.elapsed_us() for e in dev if tag in e.name]
-        return sum(mine) / len(mine) / 1e3 if len(mine) == reps else None
+        return sum(mine) / len(mine) / 1e3 if len(mine) == reps * per_step \
+            else None
 
     return {"device_ms": sum(by_name.values()) / reps / 1e3,  # a step
             "device_events": len(dev) / reps,
             "top": [(n[:60], us / reps / 1e3) for n, us in top],
-            "k1f_ms": k1("fk_fwd"), "k1b_ms": k1("fk_bwd")}
+            "k1f_ms": k1("fk_fwd", k1_per_step[0]),
+            "k1b_ms": k1("fk_bwd", k1_per_step[1])}
 
 
 def path_m(device, d):
@@ -4404,6 +4420,506 @@ def path_m(device, d):
     return counts, out
 
 
+N_IK_B = 512            # IK targets (the VPoser draw of tests/test_ik.py)
+N_IK_LBFGS = 34         # L-BFGS steps, about a third of Adam's 100
+N_IK_CHECKED = 10       # Adam steps run on the card and the CPU
+N_IK_LOSS_RTOL = 1e-4   # their losses, card vs CPU, relative
+N_IK_JOINT_RTOL = 1e-3  # their fitted joints, of the largest entry, in
+N_IK_ROW_SHARE = 0.99   # at least this share of the rows
+N_IK_DESCENT = 0.1      # each fit's final loss, of its first
+N_VP_BATCH = 128        # VPoser training batch
+N_VP_SEQ_T = 1050       # frames an AMASS sequence: 16 keep 4032 frames
+N_VP_RTOL = 1e-5        # loss terms (relative) and updated tensors (of
+#                         each one's largest entry), card vs CPU
+N_VP_TIMED = 10         # back-to-back VPoser train steps timed on the card
+N_HUMOR_STEPS = (3, 5, 2)   # L-BFGS steps of the three HuMoR stages
+N_HUMOR_RTOL = 1e-4     # stages 1-2's starting loss, card vs CPU
+N_HUMOR_GRAD_RTOL = 1e-3  # and its gradient, in norm over the norm
+N_HELPER_RTOL = 1e-5    # geometry helpers, card vs CPU, of the largest
+N_SVD_RTOL = 1e-4       # entry; the SVD-based ones (cuSOLVER vs LAPACK)
+
+
+def n_amass_tree(root, rng):
+    """An AMASS-layout tree <root>/<dataset>/<subject>/*_poses.npz: two
+    training datasets of 4 subjects with 2 sequences of N_VP_SEQ_T frames
+    (prepare_vposer_dataset keeps 0.24 of each, 4032 frames in all) and a
+    validation one; 156 columns of smooth seeded SMPL-H axis-angle."""
+    import numpy as np
+    splits = {"train": ["CMU", "KIT"], "vald": ["HumanEva"]}
+    for ds in splits["train"] + splits["vald"]:
+        for s in range(4 if ds != "HumanEva" else 1):
+            d = os.path.join(root, ds, f"s{s:02d}")
+            os.makedirs(d)
+            for q in range(2):
+                t = np.linspace(0, 6 * np.pi, N_VP_SEQ_T)[:, None]
+                poses = 0.4 * np.sin(t * rng.uniform(0.5, 2.0, (1, 156))
+                                     + rng.uniform(0, np.pi, (1, 156))) \
+                    + 0.05 * rng.standard_normal((N_VP_SEQ_T, 156))
+                np.savez(os.path.join(d, f"seq{q}_poses.npz"),
+                         poses=poses.astype(np.float32),
+                         trans=np.zeros((N_VP_SEQ_T, 3), np.float32))
+    return splits
+
+
+def n_rel(got, want):
+    """Largest |got - want| over want's largest entry."""
+    import numpy as np
+    got, want = (np.asarray(x.detach().cpu().numpy() if hasattr(x, "detach")
+                            else x, np.float64) for x in (got, want))
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()),
+                                                 1e-30)
+
+
+def path_n_ik(device, smpl, out):
+    """N1: ik_fit on B = N_IK_B targets posed, as tests/test_ik.py's
+    fixture poses them, from a seeded VPoser draw and translation through
+    a 512 x 32 VPoser and the 6890-vertex body. Adam at IKConfig's
+    defaults and L-BFGS for N_IK_LBFGS steps (with its statistics) on the
+    card: K1f and K1b once a loss evaluation, each fit's loss below
+    N_IK_DESCENT of its first. Card vs CPU over Adam's first N_IK_CHECKED
+    steps: Adam at lr 0.1 amplifies f32 order noise in a few rows
+    (scripts/torch_ik_spread.py: the CPU at 1 and 4 threads parts 2 rows
+    of 512 past 1e-3 m after 10 steps, 358 after 100), so the losses are
+    held within N_IK_LOSS_RTOL and the joints within N_IK_JOINT_RTOL of
+    their largest entry in N_IK_ROW_SHARE of the rows. tests/test_ik.py's
+    criteria (L-BFGS's final loss within 1.05 of Adam's, mean joint error
+    under 0.05 m), which that test takes at B = 2 after 150 Adam and 50
+    L-BFGS steps, are printed: at this batch and these step counts they
+    do not hold in either package (PERF.md §6)."""
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.body.smpl import smpl_forward
+    from nemo_tpu_torch.geometry import batch_rodrigues
+    from nemo_tpu_torch.ops import launch_counts
+    from nemo_tpu_torch.priors import IKConfig, ik_fit
+    from nemo_tpu_torch.priors.vposer import init_vposer, vposer_decode
+    cpu = torch.device("cpu")
+    B = N_IK_B
+    vp_cpu = init_vposer(generator=torch.Generator().manual_seed(2))
+    vp = {k: v.to(device) for k, v in vp_cpu.items()}
+    rng = np.random.RandomState(0)
+    z_true = torch.tensor(0.5 * rng.randn(B, 32), dtype=torch.float32,
+                          device=device)
+    trans_true = torch.tensor(0.3 * rng.randn(B, 3), dtype=torch.float32,
+                              device=device)
+    with torch.no_grad():
+        pose63 = vposer_decode(vp, z_true)["pose_body"].reshape(B, 63)
+        rot = batch_rodrigues(torch.cat([pose63, pose63.new_zeros((B, 6))],
+                                        1).reshape(B, 23, 3))
+        orient = batch_rodrigues(pose63.new_zeros((B, 1, 3)))
+        _, target = smpl_forward(smpl, pose63.new_zeros((1, 10)), rot,
+                                 orient, want_vertices=False,
+                                 transl=trans_true)
+    smpl_cpu = smpl.to(cpu)
+    runs = {}
+
+    def run(name, sm, v, tgt, cfg, stats=None):
+        torch.cuda.synchronize()
+        c0 = launch_counts()
+        t0 = time.perf_counter()
+        res = ik_fit(sm, v, tgt, cfg=cfg, stats=stats)
+        torch.cuda.synchronize()
+        c1 = launch_counts()
+        runs[name] = (res, time.perf_counter() - t0,
+                      {k: c1[k] - c0[k] for k in ("fk_fwd", "fk_bwd")})
+        return res
+
+    adam = run("adam card", smpl, vp, target, IKConfig())
+    first = run("first card", smpl, vp, target,
+                IKConfig(num_steps=N_IK_CHECKED))
+    first_cpu = run("first cpu", smpl_cpu, vp_cpu, target.to(cpu),
+                    IKConfig(num_steps=N_IK_CHECKED))
+    stats = {}
+    lbfgs = run("lbfgs card", smpl, vp, target,
+                IKConfig(num_steps=N_IK_LBFGS, optimizer="lbfgs"), stats)
+    la, ll = adam["loss"].cpu().numpy(), lbfgs["loss"].cpu().numpy()
+    lf, lc = first["loss"].cpu().numpy(), first_cpu["loss"].numpy()
+    loss_err = float(np.max(np.abs(lf - lc) / np.abs(lc)))
+    row_err = ((first["joints"].cpu() - first_cpu["joints"]).abs().amax(
+        dim=(1, 2)) / first_cpu["joints"].abs().max()).numpy()
+    row_share = float(np.mean(row_err <= N_IK_JOINT_RTOL))
+    joint_err = float(row_err.max())
+    mean_err = {k: float((r["joints"] - target).abs().mean())
+                for k, r in (("adam", adam), ("lbfgs", lbfgs))}
+    evals = stats["loss_evals"]
+    print(f"[path N] N1 IK, B {B}: Adam {len(la)} steps loss {la[0]:.4f} -> "
+          f"{la[-1]:.6f} in {runs['adam card'][1]:.2f} s, L-BFGS "
+          f"{len(ll)} steps {ll[0]:.4f} "
+          f"-> {ll[-1]:.6f} in {runs['lbfgs card'][1]:.2f} s, {evals} loss "
+          f"evaluations, {stats['host_reads']} host reads; mean joint error "
+          f"Adam {mean_err['adam']:.5f} m, L-BFGS {mean_err['lbfgs']:.5f} "
+          f"m; card vs CPU over {N_IK_CHECKED} Adam steps ({runs['first card'][1]:.2f}"
+          f" s and {runs['first cpu'][1]:.2f} s): losses {loss_err:.2e} "
+          f"relative (tolerance {N_IK_LOSS_RTOL}), joints within "
+          f"{N_IK_JOINT_RTOL} of their largest entry in {row_share:.2%} of "
+          f"the rows (at least {N_IK_ROW_SHARE:.0%}), worst row "
+          f"{joint_err:.2e}; tests/test_ik.py's criteria, not gated "
+          f"here: L-BFGS's final loss {ll[-1] / la[-1]:.3f} of Adam's "
+          f"(1.05 there), mean joint errors (0.05 there); K1 launches Adam "
+          f"{json.dumps(runs['adam card'][2])}, L-BFGS "
+          f"{json.dumps(runs['lbfgs card'][2])}")
+    if not all(np.isfinite(x).all() for x in (la, lf, lc, ll)):
+        raise AssertionError("path N1: a loss is not finite")
+    if not loss_err <= N_IK_LOSS_RTOL or not row_share >= N_IK_ROW_SHARE:
+        raise AssertionError("path N1: Adam's fit, card and CPU disagree")
+    if not (la[-1] < N_IK_DESCENT * la[0] and ll[-1] < N_IK_DESCENT * ll[0]):
+        raise AssertionError("path N1: a fit did not descend")
+    # each loss evaluation one K1f and, under its gradient, one K1b; and
+    # one K1f for the fitted joints
+    if runs["adam card"][2] != {"fk_fwd": 101, "fk_bwd": 100} or \
+            runs["lbfgs card"][2] != {"fk_fwd": evals + 1, "fk_bwd": evals}:
+        raise AssertionError("path N1: K1 launches do not match the loss "
+                             "evaluations")
+    out["n1"] = dict(adam_s=runs["adam card"][1],
+                     lbfgs_s=runs["lbfgs card"][1], evals=evals,
+                     host_reads=stats["host_reads"], loss_err=loss_err,
+                     joint_err=joint_err, row_share=row_share,
+                     adam_final=float(la[-1]),
+                     lbfgs_final=float(ll[-1]), mean_err=mean_err)
+
+
+def path_n_vposer(device, smpl, root, out):
+    """N2: VPoser training. n_amass_tree's AMASS layout through
+    prepare_vposer_dataset into shards, read back; train_vposer for 2
+    epochs at batch N_VP_BATCH with the extra terms in the first only
+    (both step variants), VPoser at 512 x 32 against the 6890-vertex
+    body: two K1f and one K1b a step. Then one step, card and CPU, from
+    the state at the start of the second epoch with that step's batch and
+    draw; N_VP_TIMED back-to-back steps and a torch.profiler breakdown."""
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.data.sharded import ShardedDataset
+    from nemo_tpu_torch.ops import launch_counts
+    from nemo_tpu_torch.priors import vposer_train as vpt
+    from nemo_tpu_torch.priors.vposer import init_vposer
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    amass = os.path.join(root, "amass")
+    splits = n_amass_tree(amass, np.random.default_rng(8))
+    counts = vpt.prepare_vposer_dataset(os.path.join(root, "vposer_ds"),
+                                        splits, amass, seed=0)
+    ds = ShardedDataset(os.path.join(root, "vposer_ds", "train"))
+    data = np.concatenate([ds.load_shard(i)["pose_body"]
+                           for i in range(ds.num_shards)])
+    prep_s = time.perf_counter() - t0
+    if data.shape != (counts["train"], 63) or counts["train"] != 4032:
+        raise AssertionError(f"path N2: {counts} frames prepared, "
+                             f"{data.shape} read back")
+    cfg = vpt.VPoserTrainConfig(batch_size=N_VP_BATCH,
+                                keep_extra_loss_terms_until_epoch=1)
+    params = {k: v.to(device) for k, v in init_vposer(
+        generator=torch.Generator().manual_seed(3)).items()}
+    real_make = vpt.make_vposer_train_step
+    seen = {"steps": 0}
+
+    def recording_make(cfg_, smpl_=None, include_extra_terms=True):
+        init_opt, step = real_make(cfg_, smpl_, include_extra_terms)
+
+        def recorded(p, opt, pose_body, noise):
+            if not include_extra_terms and "state" not in seen:
+                seen["state"] = vpt.vposer_train_state_to_jax(p, opt)
+                seen["batch"] = (pose_body.cpu(), noise.cpu())
+            seen["steps"] += 1
+            return step(p, opt, pose_body, noise)
+        return init_opt, recorded
+
+    torch.cuda.synchronize()
+    c0 = launch_counts()
+    t0 = time.perf_counter()
+    vpt.make_vposer_train_step = recording_make
+    try:
+        trained, hist = vpt.train_vposer(params, data, cfg, num_epochs=2,
+                                         seed=0, smpl=smpl)
+    finally:
+        vpt.make_vposer_train_step = real_make
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    c1 = launch_counts()
+    k1 = {k: c1[k] - c0[k] for k in ("fk_fwd", "fk_bwd")}
+    steps = seen["steps"]
+    print(f"[path N] N2 VPoser training: {counts} frames prepared from "
+          f"{N_VP_SEQ_T}-frame sequences in {prep_s:.2f} s; train_vposer 2 "
+          f"epochs x {steps // 2} steps at batch {N_VP_BATCH} in "
+          f"{train_s:.2f} s, history {json.dumps({k: [round(float(x), 6) for x in v] for k, v in hist.items()})}"
+          f"; K1 launches {json.dumps(k1)} (want 2 and 1 a step)")
+    if steps != 2 * (4032 // N_VP_BATCH) or \
+            k1 != {"fk_fwd": 2 * steps, "fk_bwd": steps}:
+        raise AssertionError("path N2: K1 launches are not two K1f and one "
+                             "K1b a step")
+    if not all(np.isfinite(v).all() for v in hist.values()) or \
+            not all(torch.isfinite(v).all() for v in trained.values()) or \
+            len(hist["matrot"]) != 1 or len(hist["v2v"]) != 2:
+        raise AssertionError("path N2: train_vposer's history")
+
+    # one step from the second epoch's starting state, card and CPU
+    jp, jo = seen["state"]
+    res, k1_one = {}, None
+    for where, dev, sm in (("card", device, smpl),
+                           ("cpu", cpu, smpl.to(cpu))):
+        p, opt = vpt.vposer_train_state_from_jax(jp, jo, cfg.lr, dev)
+        _, step = real_make(cfg, sm, False)
+        batch, noise = (x.to(dev) for x in seen["batch"])
+        if where == "card":
+            torch.cuda.synchronize()
+            c0 = launch_counts()
+        p, opt, m = step(p, opt, batch, noise)
+        res[where] = ({k: float(v) for k, v in m.items()},
+                      vpt.vposer_train_state_to_jax(p, opt))
+        if where == "card":
+            torch.cuda.synchronize()
+            c1 = launch_counts()
+            k1_one = {k: c1[k] - c0[k] for k in ("fk_fwd", "fk_bwd")}
+            t1 = time.perf_counter()
+            for _ in range(N_VP_TIMED):
+                p, opt, m = step(p, opt, batch, noise)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t1) * 1e3 / N_VP_TIMED
+            prof = m_profile(lambda: step(p, opt, batch, noise),
+                             mark="path_n_steps", k1_per_step=(2, 1))
+    loss_err = max(abs(res["card"][0][k] - v) / max(abs(v), 1e-30)
+                   for k, v in res["cpu"][0].items())
+    errs = sorted(((n_rel(res["card"][1][0][k], v), k)
+                   for k, v in res["cpu"][1][0].items()), reverse=True)
+    mom = sorted(((n_rel(res["card"][1][1][k], v), k)
+                  for k, v in res["cpu"][1][1].items()), reverse=True)
+    print(f"[path N] N2 one step card vs CPU: losses card "
+          f"{json.dumps(res['card'][0])} CPU {json.dumps(res['cpu'][0])}, "
+          f"worst {loss_err:.2e} relative; updated tensors worst "
+          + "; ".join(f"{k} {e:.2e}" for e, k in errs[:4])
+          + f"; Adam moments worst " + "; ".join(f"{k} {e:.2e}"
+                                                 for e, k in mom[:3])
+          + f" (tolerance {N_VP_RTOL}); launches {json.dumps(k1_one)}")
+    print(f"[path N] N2 a train step on the card: {1e3 / step_ms:.3f} "
+          f"steps/s ({step_ms:.3f} ms, {N_VP_TIMED} back-to-back steps); "
+          f"torch.profiler (5 steps): device {prof['device_ms']:.3f} ms in "
+          f"{prof['device_events']:.0f} kernels and copies, busy "
+          f"{prof['device_ms'] / step_ms:.1%} of the step; largest "
+          + "; ".join(f"{n} {ms:.3f} ms" for n, ms in prof["top"])
+          + "; " + ", ".join(
+              f"{k} " + ("not measured" if prof[f"{k.lower()}_ms"] is None
+                         else f"{prof[f'{k.lower()}_ms']:.4f} ms")
+              for k in ("K1f", "K1b")) + " a launch")
+    if k1_one != {"fk_fwd": 2, "fk_bwd": 1}:
+        raise AssertionError("path N2: a step launched other than two K1f "
+                             "and one K1b")
+    if not loss_err <= N_VP_RTOL or not errs[0][0] <= N_VP_RTOL:
+        raise AssertionError("path N2: the step on the card and the CPU "
+                             "disagree")
+    out["n2"] = dict(prep_s=prep_s, train_s=train_s, steps=steps,
+                     step_ms=step_ms, steps_s=1e3 / step_ms,
+                     loss_err=loss_err, param_err=errs[0][0],
+                     param_worst=errs[0][1], moment_err=mom[0][0], **prof)
+
+
+def path_n_humor(device, prox, out):
+    """N3: humor_motion_fit with optimizer="lbfgs" at N_HUMOR_STEPS on
+    path K's fit-prox --rgbd window (latent 48, T 60, 4096 scan points,
+    the 6890-vertex body, K4 at (60, 4096, 6890) once a loss evaluation
+    of every stage); each stage's L-BFGS statistics. Card vs CPU: the
+    loss and its gradient where stages 1 and 2 start, stage 2 from the
+    card's stage-1 output; the gradient in norm, since a scan point whose
+    nearest vertex differs between the two meshes moves its part of the
+    gradient to another vertex (the count is printed). Steps are not
+    compared: stages 1 and 2 take about 12 loss evaluations a step here,
+    each many seconds on the CPU with its gradient, and a linesearch that
+    fails after its 20 iterations ends at a step set by rounding (PERF.md
+    §6)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.fit.lbfgs import value_and_grad
+    from nemo_tpu_torch.models import humor_fit
+    from nemo_tpu_torch.ops import launch_counts
+    from nemo_tpu_torch.ops.chamfer import nn_one_way
+    cpu = torch.device("cpu")
+    px_a, px_k = prox
+    s1, s2, s3 = N_HUMOR_STEPS
+    cfg = dataclasses.replace(px_k["cfg"], optimizer="lbfgs",
+                              steps_stage1=s1, steps_stage2=s2,
+                              steps_stage3=s3)
+    real_opt = humor_fit._run_opt
+    stages = []
+
+    def recording_opt(loss_fn, params0, steps, lr, optimizer="adam",
+                      stats=None):
+        stats = {}
+        torch.cuda.synchronize()
+        c0 = launch_counts()
+        t0 = time.perf_counter()
+        p, losses = real_opt(loss_fn, params0, steps, lr, optimizer, stats)
+        torch.cuda.synchronize()
+        stages.append(dict(params0=params0, loss_fn=loss_fn, stats=stats,
+                           seconds=time.perf_counter() - t0,
+                           k4=launch_counts()["chamfer_nn"]
+                           - c0["chamfer_nn"], losses=losses))
+        return p, losses
+
+    torch.cuda.synchronize()
+    c0 = launch_counts()
+    t0 = time.perf_counter()
+    humor_fit._run_opt = recording_opt
+    try:
+        fit = humor_fit.humor_motion_fit(*px_a, **dict(px_k, cfg=cfg))
+    finally:
+        humor_fit._run_opt = real_opt
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    k4 = launch_counts()["chamfer_nn"] - c0["chamfer_nn"]
+    evals = [st["stats"]["loss_evals"] for st in stages]
+    for i, st in enumerate(stages):
+        v = st["losses"].cpu().numpy()
+        print(f"[path N] N3 HuMoR L-BFGS stage {i + 1}: {len(v)} steps in "
+              f"{st['seconds']:.2f} s, loss before each step "
+              f"{[round(float(x), 4) for x in v]}, "
+              f"{st['stats']['loss_evals']} loss evaluations, "
+              f"{st['stats']['host_reads']} host reads, K4 launches "
+              f"{st['k4']}")
+    l2 = fit["stage2_loss"].cpu().numpy()
+    if len(stages) != 3 or not all(
+            torch.isfinite(v).all() for v in fit.values()) \
+            or not l2[-1] < l2[0]:
+        raise AssertionError("path N3: the L-BFGS fit is not finite or "
+                             "stage 2 did not descend")
+    if k4 != sum(evals) or [st["k4"] for st in stages] != evals:
+        raise AssertionError("path N3: K4 launches do not match the loss "
+                             "evaluations")
+
+    # card against CPU: each stage's loss and gradient where it starts,
+    # stage 2's from the card's stage-1 output (a CPU evaluation with its
+    # gradient takes seconds at this size, and a step tens of them)
+    t0 = time.perf_counter()
+    mv = lambda t: t.to(cpu) if torch.is_tensor(t) else t
+    smpl_c = px_a[0].to(cpu)
+    kp = humor_fit.KeypointObs(mv(px_a[3]), mv(px_a[6]), torch.full(
+        (), float(px_k["focal_length"])))
+    obs = {n: mv(v) for n, v in px_k["obs3d"].items()}
+    cam_t = mv(px_a[5])
+    cpu_fns = (lambda p: humor_fit.stage1_loss(smpl_c, cfg, p, mv(px_a[4]),
+                                               obs, kp, cam_t),
+               lambda p: humor_fit.stage2_loss(smpl_c, cfg, p, obs, kp, None,
+                                               cam_t))
+    start = []
+    flat = lambda d: torch.cat([d[k].detach().cpu().reshape(-1).double()
+                                for k in sorted(d)])
+    # the scan points whose nearest vertex differs between the card's mesh
+    # (K4) and the CPU's (the plain version) where stage 2 starts
+    p2 = stages[1]["params0"]
+    with torch.no_grad():
+        _, i_card = nn_one_way(px_k["obs3d"]["points3d"], humor_fit.body_verts(
+            px_a[0], p2["pose"], p2["trans"], p2["betas"]))
+        _, i_cpu = nn_one_way(obs["points3d"], humor_fit.body_verts(
+            smpl_c, mv(p2["pose"]), mv(p2["trans"]), mv(p2["betas"])))
+    flips = int((i_card.cpu() != i_cpu).sum())
+    for i, (st, fn) in enumerate(zip(stages, cpu_fns)):
+        v, g = value_and_grad(st["loss_fn"], st["params0"])
+        _, g2 = value_and_grad(st["loss_fn"], st["params0"])  # card again
+        vc, gc = value_and_grad(fn, {k: mv(x) for k, x in
+                                     st["params0"].items()})
+        print(f"[path N] N3 stage {i + 1}'s gradient, card vs CPU (card vs "
+              f"card) of each tensor's largest entry: " + ", ".join(
+                  f"{k} {n_rel(g[k], gc[k]):.2e} ({n_rel(g[k], g2[k]):.2e})"
+                  for k in sorted(g)) + f"; in norm "
+              f"{float((flat(g) - flat(gc)).norm() / flat(gc).norm()):.2e} "
+              f"({float((flat(g) - flat(g2)).norm() / flat(gc).norm()):.2e})")
+        start.append((float(v), float(vc), abs(float(v) - float(vc))
+                      / abs(float(vc)), float((flat(g) - flat(gc)).norm()
+                                              / flat(gc).norm())))
+    cmp_s = time.perf_counter() - t0
+    card1 = stages[0]["losses"].cpu().numpy()
+    print("[path N] N3 card vs CPU where each stage starts (stage 2 from "
+          "the card's stage-1 output): " + "; ".join(
+              f"stage {i + 1} loss {a:.4f} / {b:.4f} ({e:.2e} relative), "
+              f"gradient {ge:.2e} in norm"
+              for i, (a, b, e, ge) in enumerate(start))
+          + f"; at stage 2's start {flips} of {i_cpu.numel()} scan points "
+          f"take another nearest vertex on the card's mesh than on the "
+          f"CPU's"
+          + f" (tolerances {N_HUMOR_RTOL} and {N_HUMOR_GRAD_RTOL}); the "
+          f"card's stage-1 history "
+          f"{card1.tolist()}; {cmp_s:.2f} s")
+    if not all(e <= N_HUMOR_RTOL and ge <= N_HUMOR_GRAD_RTOL
+               for _, _, e, ge in start):
+        raise AssertionError("path N3: card and CPU disagree")
+    out["n3"] = dict(fit_s=fit_s, evals=evals, k4=k4,
+                     host_reads=[st["stats"]["host_reads"] for st in stages],
+                     stage_s=[st["seconds"] for st in stages],
+                     start=start, flips=flips, cmp_s=cmp_s)
+
+
+def path_n_helpers(device, out):
+    """N4: estimate_translation, the torch Procrustes functions and
+    rot6d_to_aa on seeded inputs, card against CPU."""
+    import numpy as np
+    import torch
+    from nemo_tpu_torch import geometry as geo
+    rng = np.random.default_rng(11)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32))
+    B = 960
+    S = f32(0.3 * rng.standard_normal((B, 49, 3)))
+    t_true = f32(np.stack([0.2 * rng.standard_normal(B),
+                           0.2 * rng.standard_normal(B),
+                           8 + rng.random(B)], 1))
+    p = S + t_true[:, None]
+    j2d = 5000.0 * p[..., :2] / p[..., 2:] + 112.0 + f32(
+        rng.standard_normal((B, 49, 2)))
+    conf = f32(rng.random((B, 49)))
+    S2 = f32(1.2 * S.numpy() @ np.linalg.qr(rng.standard_normal((3, 3)))[0]
+             + 0.01 * rng.standard_normal((B, 49, 3)))
+    x6 = f32(rng.standard_normal((B, 24, 6)))
+    cases = {
+        "estimate_translation": (lambda d: geo.estimate_translation(
+            S.to(d), j2d.to(d), conf.to(d)), N_SVD_RTOL),
+        "similarity_transform": (lambda d: geo.similarity_transform(
+            S.to(d), S2.to(d))[0], N_SVD_RTOL),
+        "rigid_transform": (lambda d: geo.apply_rigid_transform(
+            S.to(d), *geo.rigid_transform(S.to(d), S2.to(d))), N_SVD_RTOL),
+        "reconstruction_error": (lambda d: geo.reconstruction_error(
+            S.to(d), S2.to(d), reduction=None), N_SVD_RTOL),
+        "rot6d_to_aa": (lambda d: geo.rot6d_to_aa(x6.to(d)), N_HELPER_RTOL),
+    }
+    errs = {}
+    for name, (fn, tol) in cases.items():
+        errs[name] = n_rel(fn(device), fn(torch.device("cpu")))
+        if not errs[name] <= tol:
+            raise AssertionError(f"path N4: {name} card and CPU disagree "
+                                 f"({errs[name]:.2e} > {tol})")
+    print("[path N] N4 helpers at B = 960, card vs CPU (of the largest "
+          "entry): " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (tolerance {N_SVD_RTOL} with an SVD or a solve, else "
+          f"{N_HELPER_RTOL})")
+    out["n4"] = errs
+
+
+def path_n(device, smpl, d, prox):
+    """VPoser training, the IK engine and the L-BFGS HuMoR stages on the
+    card, each step at full width: N1 path_n_ik, N2 path_n_vposer, N3
+    path_n_humor (prox: path K's fit-prox arguments), N4 path_n_helpers.
+    K1f, K1b and K4 must have launched. Prints each part's seconds."""
+    root = os.path.join(d, "path_n")
+    os.makedirs(root)
+    out, secs = {}, {}
+
+    def run():
+        import torch
+        for name, fn in (("N1", lambda: path_n_ik(device, smpl, out)),
+                         ("N2", lambda: path_n_vposer(device, smpl, root,
+                                                      out)),
+                         ("N3", lambda: path_n_humor(device, prox, out)),
+                         ("N4", lambda: path_n_helpers(device, out))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs[name] = round(time.perf_counter() - t0, 3)
+
+    counts, _ = run_path("path N", ("fk_fwd", "fk_bwd", "chamfer_nn"), run)
+    out["seconds"] = sum(secs.values())
+    mine = {k: counts[k] for k in ("fk_fwd", "fk_bwd", "chamfer_nn")}
+    print(f"[path N] launches {json.dumps(mine)}; seconds {json.dumps(secs)}"
+          f", {out['seconds']:.1f} in all; {nvidia_smi_line()}")
+    return counts, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4458,9 +4974,10 @@ def main() -> int:
         paths["path F"], steady_f = path_f(device, smpl, bundle)
         paths["path G"], g = path_g(device, smpl, bundle, files, sources)
         paths["path J"], j = path_j(device, smpl, bundle, files, d)
-        paths["path K"], k = path_k(device, smpl, files, d)
+        paths["path K"], k, prox = path_k(device, smpl, files, d)
         paths["path L"], lv = path_l(device, smpl, files, d)
         paths["path M"], mv = path_m(device, d)
+        paths["path N"], nv = path_n(device, smpl, d, prox)
     launches = {k: sum(c[k] for c in paths.values()) for k in KERNELS}
     print(f"[paths] render: {render['video_s']:.4f} s a video frame with the "
           f"PNG writes, {render['nopng_s']:.4f} s without")
@@ -4473,7 +4990,8 @@ def main() -> int:
           f"path J {j['all']:.1f} s; path K "
           f"{sum(k.values()):.1f} s; path L {lv['seconds']:.1f} s; "
           f"path M {mv['seconds']:.1f} s ({mv['steps_s']:.3f} VIBE train "
-          f"steps/s); "
+          f"steps/s); path N {nv['seconds']:.1f} s "
+          f"({nv['n2']['steps_s']:.3f} VPoser train steps/s); "
           f"launches summed over the paths {json.dumps(launches)}; "
           f"{time.perf_counter() - t_start:.1f} s in all")
 

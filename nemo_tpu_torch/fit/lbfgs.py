@@ -379,4 +379,6 @@ def lbfgs_run(loss_fn: Callable[[Params], torch.Tensor], params: Params,
         losses.append(value)
         params = {k: params[k] + stepsize * updates[k] for k in params}
         value, grad = new_value, new_grad
+    if not losses:
+        return params, next(iter(params.values())).new_zeros((0,))
     return params, torch.stack(losses)

@@ -80,6 +80,51 @@ def project(points: torch.Tensor, camera: Camera) -> torch.Tensor:
                                   camera.focal_length, camera.center)
 
 
+def apply_extrinsics(points: torch.Tensor, rotation: torch.Tensor,
+                     translation: torch.Tensor, inverse: bool = False
+                     ) -> torch.Tensor:
+    """World -> camera (R p + t), or camera -> world with inverse=True
+    (R^T (p - t): the rotation is orthonormal). points (..., N, 3),
+    rotation (..., 3, 3), translation (..., 3)."""
+    if not inverse:
+        pts = torch.einsum('...ij,...kj->...ki', rotation, points)
+        return pts + translation[..., None, :]
+    pts = points - translation[..., None, :]
+    return torch.einsum('...ji,...kj->...ki', rotation, pts)
+
+
+def estimate_translation(S: torch.Tensor, joints_2d: torch.Tensor,
+                         joints_conf: torch.Tensor,
+                         focal_length: float = 5000.0,
+                         img_size: float = 224.0) -> torch.Tensor:
+    """The camera translation t that best fits project(S + t) to joints_2d
+    in weighted least squares, for a fixed intrinsic camera (HMR's
+    estimate_translation, one batched 3x3 solve of the normal equations;
+    the weights are sqrt(max(conf, 0)) on each joint's two rows). S (..., N,
+    3), joints_2d (..., N, 2), joints_conf (..., N) -> (..., 3)."""
+    f = focal_length
+    cx = cy = img_size / 2.0
+    w = torch.sqrt(torch.clamp_min(joints_conf, 0.0))
+    X, Y, Z = S[..., 0], S[..., 1], S[..., 2]
+    u, v = joints_2d[..., 0], joints_2d[..., 1]
+    # per joint:  [f, 0, cx - u] t = (u - cx) Z - f X
+    #             [0, f, cy - v] t = (v - cy) Z - f Y
+    a1 = torch.stack([torch.full_like(u, f), torch.zeros_like(u), cx - u],
+                     dim=-1)
+    a2 = torch.stack([torch.zeros_like(v), torch.full_like(v, f), cy - v],
+                     dim=-1)
+    b1 = (u - cx) * Z - f * X
+    b2 = (v - cy) * Z - f * Y
+    A = torch.cat([a1, a2], dim=-2)
+    b = torch.cat([b1, b2], dim=-1)
+    W = torch.cat([w, w], dim=-1)
+    Aw = A * W[..., None]
+    bw = b * W
+    AtA = torch.einsum('...ni,...nj->...ij', Aw, Aw)
+    Atb = torch.einsum('...ni,...n->...i', Aw, bw)
+    return torch.linalg.solve(AtA, Atb[..., None])[..., 0]
+
+
 def camera_from_params_np(params9, img_d0: float, img_d1: float,
                           focal_length: float = FOCAL_LENGTH) -> Camera:
     """Numpy twin of camera_from_params for host-side render prep: the same

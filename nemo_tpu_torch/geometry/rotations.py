@@ -143,6 +143,30 @@ def aa_to_quat(aa: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.cos(half), torch.sin(half) * normalized], dim=-1)
 
 
+def euler_to_quat(r: torch.Tensor) -> torch.Tensor:
+    """Euler angles (x, y, z) -> (w, x, y, z) quaternion."""
+    x, y, z = r[..., 0] / 2, r[..., 1] / 2, r[..., 2] / 2
+    cx, sx = torch.cos(x), torch.sin(x)
+    cy, sy = torch.cos(y), torch.sin(y)
+    cz, sz = torch.cos(z), torch.sin(z)
+    return torch.stack([
+        cx * cy * cz - sx * sy * sz,
+        cx * sy * sz + cy * cz * sx,
+        cx * cz * sy - sx * cy * sz,
+        cx * cy * sz + sx * cz * sy,
+    ], dim=-1)
+
+
+def euler_to_rotmat(r: torch.Tensor) -> torch.Tensor:
+    """Euler angles (x, y, z) -> rotation matrix."""
+    return quat_to_rotmat(euler_to_quat(r))
+
+
+def rot6d_to_aa(x: torch.Tensor) -> torch.Tensor:
+    """6D rotation -> axis-angle."""
+    return rotmat_to_aa(rot6d_to_rotmat(x))
+
+
 def rot6d_to_rotmat_np(x):
     """Numpy twin of rot6d_to_rotmat for host-side render and eval prep:
     (..., 6) viewed as (..., 3, 2) columns, Gram-Schmidt, output columns

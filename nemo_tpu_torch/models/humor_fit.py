@@ -16,11 +16,13 @@ schedule the HuMoR fitting scripts run:
 against the 2D reprojection term (Geman-McClure robustified, confidence
 weighted; the RGB fits) and the 3D energies (masked L2 on joints and
 marker vertices, the one-way scan->mesh chamfer through kernel K4, joint
-smoothness). Each stage is a Python loop of Adam steps with optax.adam's
-arithmetic (``fit.optimizer.GroupAdam``); the loss histories stay on the
-device until the stage ends. The camera->prior frame utilities
-(``compute_cam2prior``, ``apply_cam2prior``) serve the RGB stitcher.
-``optimizer="lbfgs"`` is still to port (ROADMAP.md Queue 1, item 7.4).
+smoothness). Each stage is a Python loop of optimizer steps: Adam with
+optax.adam's arithmetic (``fit.optimizer.GroupAdam``), or, with
+``optimizer="lbfgs"``, optax.lbfgs with its zoom linesearch
+(``fit.lbfgs.lbfgs_run``, one host read a linesearch iteration); the loss
+histories stay on the device until the stage ends. The camera->prior
+frame utilities (``compute_cam2prior``, ``apply_cam2prior``) serve the RGB
+stitcher.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from .. import device_index
 from ..body.smpl import SMPLModel, smpl_forward
+from ..fit.lbfgs import lbfgs_run
 from ..fit.optimizer import GroupAdam
 from ..geometry.camera import perspective_projection
 from ..geometry.rotations import batch_rodrigues, rot6d_to_rotmat, rotmat_to_aa
@@ -454,6 +457,18 @@ def _run_adam(loss_fn: Callable, params0: Dict[str, torch.Tensor],
     return {k: v.detach() for k, v in params.items()}, hist
 
 
+def _run_opt(loss_fn: Callable, params0: Dict[str, torch.Tensor],
+             steps: int, lr: float, optimizer: str = "adam",
+             stats: Optional[dict] = None):
+    """steps of Adam at lr, or of optax.lbfgs() (lr unused) with
+    optimizer="lbfgs": (the final parameters, the loss before each step).
+    stats, when a dict, gathers L-BFGS's loss evaluations and host reads
+    (fit.lbfgs.lbfgs_run)."""
+    if optimizer == "lbfgs":
+        return lbfgs_run(loss_fn, params0, steps, stats)
+    return _run_adam(loss_fn, params0, steps, lr)
+
+
 def humor_motion_fit(smpl: SMPLModel, humor_params: Params,
                      humor_cfg: HumorConfig,
                      kp2d: Optional[torch.Tensor],
@@ -482,11 +497,6 @@ def humor_motion_fit(smpl: SMPLModel, humor_params: Params,
     pose and trans, 'floor' when the floor is optimized and 'cam_R',
     'cam_t' with optimize_camera, as nemo_tpu's.
     """
-    if cfg.optimizer != "adam":
-        raise NotImplementedError(
-            f"humor_motion_fit: optimizer={cfg.optimizer!r} is not ported "
-            "yet (no humor_tool entry point selects it); see ROADMAP.md "
-            "Queue 1, item 7.4")
     T = kp2d.shape[0] if kp2d is not None else init_pose.shape[0]
     dev = init_pose.device
     cam_t = init_pose.new_zeros(3) if cam_t is None else cam_t
@@ -505,17 +515,17 @@ def humor_motion_fit(smpl: SMPLModel, humor_params: Params,
     if cfg.optimize_camera:
         s1_0["cam_rot6d"] = init_pose.new_tensor([1., 0., 0., 1., 0., 0.])
         s1_0["cam_t"] = cam_t
-    s1, l1 = _run_adam(
+    s1, l1 = _run_opt(
         lambda p: stage1_loss(smpl, cfg, p, init_pose, obs3d, kp, cam_t),
-        s1_0, cfg.steps_stage1, cfg.lr)
+        s1_0, cfg.steps_stage1, cfg.lr, cfg.optimizer)
     cam_R_fit, cam_t_fit = camera_of(cfg, s1, cam_t)
 
     # ---- stage 2: full pose sequence + betas + smoothness ----
-    s2, l2 = _run_adam(
+    s2, l2 = _run_opt(
         lambda p: stage2_loss(smpl, cfg, p, obs3d, kp, cam_R_fit, cam_t_fit),
         {"pose": torch.cat([s1["orient"], init_pose[:, 3:]], dim=1),
          "trans": s1["trans"], "betas": init_pose.new_zeros(10)},
-        cfg.steps_stage2, cfg.lr)
+        cfg.steps_stage2, cfg.lr, cfg.optimizer)
     betas_fit = s2["betas"]
 
     # ---- stage 3: latent-space motion (initial state + z sequence) ----
@@ -540,11 +550,11 @@ def humor_motion_fit(smpl: SMPLModel, humor_params: Params,
     if use_floor:
         s3_0["floor"] = floor0
 
-    s3, l3 = _run_adam(
+    s3, l3 = _run_opt(
         lambda p: stage3_loss(smpl, humor_params, humor_cfg, cfg, p,
                               betas_fit, floor0, obs3d, init_motion_prior,
                               kp, cam_R_fit, cam_t_fit),
-        s3_0, cfg.steps_stage3, cfg.lr)
+        s3_0, cfg.steps_stage3, cfg.lr, cfg.optimizer)
     with torch.no_grad():
         pose, trans, _, _ = decode_motion(humor_params, humor_cfg, s3, T)
 

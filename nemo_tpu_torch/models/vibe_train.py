@@ -37,6 +37,7 @@ Dropout (the attention pool's, off on the CLI path) draws from an explicit
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import inspect
 import os
 import os.path as osp
@@ -638,7 +639,8 @@ def vibe_trainer_fit(state: TrainState, step_fn, smpl: SMPLModel,
 
     debug_viz_every=N draws a pred-vs-GT keypoint panel of the first
     train batch every N epochs into debug_viz_dir (trainer.py:233,294;
-    render/keypoints.render_vibe_debug_panel, which needs matplotlib).
+    render/keypoints.render_vibe_debug_panel); where matplotlib is not
+    installed it prints the path it skipped and trains on.
 
     lr_patience drives the twin ReduceLROnPlateau schedulers (factor 0.1,
     stepped on the eval metric each epoch) as a shared update scale passed
@@ -671,13 +673,17 @@ def vibe_trainer_fit(state: TrainState, step_fn, smpl: SMPLModel,
                 state, metrics = step_fn(state, batch, real)
         if (debug_viz_every > 0 and debug_viz_dir
                 and epoch % debug_viz_every == 0 and first_batch is not None):
-            from ..render.keypoints import render_vibe_debug_panel
-            with torch.no_grad():
-                pred = vibe_predict(state["gen"], smpl,
-                                    _tensor(first_batch["features"], dev))
-            render_vibe_debug_panel(
-                osp.join(debug_viz_dir, f"debug_epoch{epoch:04d}.png"),
-                _numpy(pred["kp_2d"][0]), _numpy(first_batch["kp_2d"][0]))
+            png = osp.join(debug_viz_dir, f"debug_epoch{epoch:04d}.png")
+            if importlib.util.find_spec("matplotlib") is None:
+                print(f"[vibe_train] matplotlib is not installed: skipped "
+                      f"{png}")
+            else:
+                from ..render.keypoints import render_vibe_debug_panel
+                with torch.no_grad():
+                    pred = vibe_predict(state["gen"], smpl,
+                                        _tensor(first_batch["features"], dev))
+                render_vibe_debug_panel(png, _numpy(pred["kp_2d"][0]),
+                                        _numpy(first_batch["kp_2d"][0]))
         if valid_batches is None:
             continue
         preds, gts = [], []

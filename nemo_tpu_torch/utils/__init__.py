@@ -6,8 +6,10 @@ exported here; ``checkpoint`` and ``asset_files`` are imported as modules.
 
 from .exp import (MetricWriter, Timer, create_latest_child_dir,
                   dataclass_from_namespace, explicit_cli_keys,
-                  load_action_config, merge_config)
+                  find_latest_ckpt, load_action_config, merge_config,
+                  profile_trace)
 
 __all__ = ["MetricWriter", "Timer", "create_latest_child_dir",
            "dataclass_from_namespace", "explicit_cli_keys",
-           "load_action_config", "merge_config"]
+           "find_latest_ckpt", "load_action_config", "merge_config",
+           "profile_trace"]

@@ -24,6 +24,7 @@ import torch
 from nemo_tpu.body import synthetic_smpl_model as jax_synthetic_smpl
 from nemo_tpu.body.smpl import smpl_forward as jax_smpl_forward
 from nemo_tpu.geometry import batch_rodrigues as jax_rodrigues
+from nemo_tpu.geometry import perspective_projection as jax_project
 from nemo_tpu.models import humor as jhumor
 from nemo_tpu.models import humor_fit as jfit
 from nemo_tpu.models import humor_fit_eval as jeval
@@ -509,16 +510,83 @@ def test_motion_fit_outputs_match_jax(fit_problem, port_fit):
     assert port_fit["stage2_loss"][-1] < port_fit["stage2_loss"][0]
 
 
-def test_motion_fit_refuses_unported_paths(humor_pair):
-    """optimizer="lbfgs" raises and names its ROADMAP item (the 2D term,
-    refused before it was ported, is held against JAX in
-    tests/test_torch_port_humor_rgb_fit.py)."""
-    _, tcfg, _, tp = humor_pair
-    smpl = smpl_from_numpy(jax_synthetic_smpl(num_vertices=150, seed=0))
-    pose = torch.zeros((4, 72))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*7.4"):
-        tfit.humor_motion_fit(smpl, tp, tcfg, None, pose,
-                              cfg=tfit.MotionOptConfig(optimizer="lbfgs"))
+LBFGS_CFG = dict(FIT_CFG, steps_stage1=3, steps_stage2=4, steps_stage3=2,
+                 optimizer="lbfgs")
+
+
+def test_motion_fit_refuses_unported_paths(fit_problem, humor_pair,
+                                           prior_gmm_path):
+    """optimizer="lbfgs", once refused here as unported, against JAX's on
+    the 3D fit above (joints, markers and the 48-point scan through the
+    chamfer, the init-state prior, the floor) at 3/4/2 L-BFGS steps: every
+    loss history and fitted array within rtol 1e-4 (atol 1e-4 for entries
+    near 0), the same keys, and stage 2 descends."""
+    jcfg, tcfg, jp, tp = humor_pair
+    jobs = {k: jnp.asarray(x) for k, x in fit_problem["obs"].items()}
+    jobs["verts3d_inds"] = fit_problem["inds"]
+    jout = jfit.humor_motion_fit(
+        fit_problem["jm"], jp, jcfg, None,
+        jnp.asarray(fit_problem["init_pose"]), jnp.zeros(3), jnp.zeros(2),
+        cfg=jfit.MotionOptConfig(**LBFGS_CFG),
+        init_motion_prior=jfit.load_init_motion_prior(prior_gmm_path),
+        obs3d=jobs)
+    obs = {k: _t(x) for k, x in fit_problem["obs"].items()}
+    obs["verts3d_inds"] = fit_problem["inds"]
+    out = tfit.humor_motion_fit(
+        smpl_from_numpy(fit_problem["jm"]), tp, tcfg, None,
+        _t(fit_problem["init_pose"]),
+        cfg=tfit.MotionOptConfig(**LBFGS_CFG),
+        init_motion_prior=tfit.load_init_motion_prior(prior_gmm_path),
+        obs3d=obs)
+    assert set(out) == set(jout)
+    for k, v in jout.items():
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(v), rtol=1e-4,
+                                   atol=1e-4, err_msg=k)
+    for s in (1, 2, 3):
+        assert out[f"stage{s}_loss"].shape == (LBFGS_CFG[f"steps_stage{s}"],)
+    assert out["stage2_loss"][-1] < out["stage2_loss"][0]
+
+
+def test_motion_fit_lbfgs_2d_matches_jax():
+    """tests/test_humor_fit.py's L-BFGS problem (the 2D keypoints of a true
+    motion through a camera 8 m out, the reference HuMoR widths, T 5, the
+    200-vertex body, 3/6/3 steps) in both packages: every loss history and
+    fitted array within rtol 1e-4 (atol 1e-4 for entries near 0), every
+    output finite and stage 2 descending, as the JAX test asks."""
+    rng = np.random.RandomState(0)
+    jm = jax_synthetic_smpl(num_vertices=200, seed=0)
+    jcfg = jhumor.HumorConfig()
+    jp = jhumor.init_humor(jax.random.PRNGKey(0), jcfg)
+    tp = thumor.humor_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
+    T = 5
+    true_pose = (0.2 * rng.randn(T, 72)).astype(np.float32)
+    cam_t = np.float32([0.0, 0.0, 8.0])
+    center = np.float32([112.0, 112.0])
+    rot = jax_rodrigues(jnp.asarray(true_pose.reshape(T, 24, 3)))
+    _, j = jax_smpl_forward(jm, jnp.zeros((1, 10)), rot[:, 1:], rot[:, :1],
+                            want_vertices=False)
+    proj = jax_project(j[:, :25], jnp.broadcast_to(jnp.eye(3), (T, 3, 3)),
+                       jnp.broadcast_to(jnp.asarray(cam_t), (T, 3)), 5000.0,
+                       jnp.broadcast_to(jnp.asarray(center), (T, 2)))
+    kp2d = np.concatenate([np.asarray(proj), np.ones((T, 25, 1))],
+                          -1).astype(np.float32)
+    init_pose = true_pose + 0.15 * rng.randn(T, 72).astype(np.float32)
+    steps = dict(steps_stage1=3, steps_stage2=6, steps_stage3=3,
+                 optimizer="lbfgs")
+    jout = jfit.humor_motion_fit(
+        jm, jp, jcfg, jnp.asarray(kp2d), jnp.asarray(init_pose),
+        jnp.asarray(cam_t), jnp.asarray(center),
+        cfg=jfit.MotionOptConfig(**steps))
+    out = tfit.humor_motion_fit(
+        smpl_from_numpy(jm), tp, thumor.HumorConfig(
+            **dataclasses.asdict(jcfg)), _t(kp2d), _t(init_pose),
+        _t(cam_t), _t(center), cfg=tfit.MotionOptConfig(**steps))
+    assert set(out) == set(jout)
+    for k, v in jout.items():
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(v), rtol=1e-4,
+                                   atol=1e-4, err_msg=k)
+    assert all(torch.isfinite(v).all() for v in out.values())
+    assert out["stage2_loss"][-1] < out["stage2_loss"][0]
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ is tested by its keep rate and scaling, drawn from an explicit generator.
 """
 
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -401,6 +402,34 @@ def test_trainer_fit_against_jax(bodies, tmp_path):
                                             "debug_epoch0001.png"]
     for k in runs["jax"]:
         _close(runs["port"][k], runs["jax"][k], 1e-4, k)
+
+
+def test_trainer_fit_debug_panel_without_matplotlib(bodies, tmp_path,
+                                                    monkeypatch, capsys):
+    """debug_viz_every=1 where matplotlib is not installed: each epoch's
+    panel is named as skipped, no file is written, and the epochs train
+    through to the same best metrics as with no panel at all."""
+    _, tsmpl = bodies
+    batches = [make_batch(30 + i)[0] for i in range(2)]
+    reals = [make_batch(40 + i)[1] for i in range(3)]
+    valid = [make_batch(50)[0]]
+    runs = {}
+    for viz in (0, 1):
+        state = tvt.vibe_train_state_from_jax(flat(jax_state(15, "concat",
+                                                             1)))
+        with monkeypatch.context() as m:
+            m.setitem(sys.modules, "matplotlib", None)
+            _, runs[viz] = tvt.vibe_trainer_fit(
+                state, tvt.make_vibe_train_step(tsmpl, W), tsmpl,
+                lambda: iter(batches), lambda: iter(valid),
+                lambda: iter(reals), epochs=2, log_fn=lambda s: None,
+                debug_viz_every=viz, debug_viz_dir=str(tmp_path))
+    out = capsys.readouterr().out
+    for epoch in range(2):
+        png = os.path.join(str(tmp_path), f"debug_epoch{epoch:04d}.png")
+        assert f"matplotlib is not installed: skipped {png}" in out
+    assert os.listdir(tmp_path) == []
+    assert runs[1] == runs[0]
 
 
 # ---------------------------------------------------------------------------
