@@ -99,9 +99,10 @@ Run from the repository root with no arguments:
      on the video's panels;
    - path E: HuMoR 3D fitting through humor_tool, process-amass on a
      synthetic raw AMASS walk, then fit-amass --obs joints verts points at
-     the CLI's defaults (60 frames, 512 scan points, 30/70/70 steps, the
-     reference HuMoR widths) through K4 and K1, and the eval CSVs; the SMPL
-     model and the HuMoR weights come from files written as in path G;
+     the CLI's defaults (60 frames, 512 scan points, the reference HuMoR
+     widths) but stage 3's steps, cut to E_STEPS' 10 (30/70/10), through
+     K4 and K1, and the eval CSVs; the SMPL model and the HuMoR weights
+     come from files written as in path G;
    - path F: slice 1's reference configuration with the MotionNet through
      K6 (motion_mlp="fused"), two K6f launches a predict (the batch and the
      B = 1 phase-0 anchor), and fit_loss with its gradients against the
@@ -180,7 +181,21 @@ Run from the repository root with no arguments:
      humor_motion_fit(optimizer="lbfgs") at 3/5/2 steps on path K's
      fit-prox --rgbd window (K4 once a loss evaluation), each stage's
      loss and gradient where it starts card vs CPU; the geometry helpers
-     card vs CPU.
+     card vs CPU;
+   - path O: HuMoR training at the reference widths (1024-wide GroupNorm
+     MLPs, latent 48, contacts predicted): python -m
+     nemo_tpu_torch.cli.humor_tool train's main on --synthetic 4096
+     windows of 10 transitions at batch 256 for 3 epochs with scheduled
+     sampling from epoch 1 to 2 and a milestone at 2, supervised on
+     --amass over a process-amass tree of four seeded walks (K1f), and on
+     --shards; steps/s, busy share and largest kernels; a step with no
+     device synchronisation; a NaN batch skipped bit for bit;
+     humor_params.npz read back bit for bit; three steps card vs CPU;
+     humor_full_loss with the SMPL terms at B = 512 on the 6890-vertex
+     body (two K1f and one K1b a forward and backward), card vs CPU;
+     train-state-prior at its defaults and on states_from_sequences of
+     the training windows, EM card vs CPU from the same means;
+     humor_eval_* on the trained weights, card vs CPU.
    Losses must be finite, main-stage kp_loss must fall on slice 1 and paths
    A and F (stage 2's loss on path E), fit_loss on the card must agree with the
    port's CPU path from the same parameters (points3d_loss and the stage-3
@@ -192,6 +207,7 @@ prints it, and as the last line {"ok": true, "device": {...}}. Any failure
 raises (exit code 1).
 """
 
+import contextlib
 import importlib.util
 import json
 import math
@@ -337,6 +353,9 @@ LANE_INSTR_PER_S = 132 * 128 * 1.98e9
 # path E: fit-amass's defaults (seq_len 60, num_samp_pts 512, steps 30 70
 # 70, lr 1e-2, latent 48) on the 6890-vertex synthetic SMPL
 SEQ_LEN, SAMP_PTS = 60, 512
+# path E's --steps: the CLI's 30 and 70 in stages 1 and 2, stage 3 cut from
+# 70 to 10 (as path K's K_STEPS cut fit-rgb and fit-prox)
+E_STEPS = ("30", "70", "10")
 # path K: fit-prox --rgbd's --max_pts (its default), and where its scans lie:
 # the person about 2 m in front of the Kinect
 PROX_PTS = 4096
@@ -2339,13 +2358,14 @@ def path_d(device, smpl, bundle):
     return counts, out
 
 
-def raw_amass_walk(path, T=360):
+def raw_amass_walk(path, T=360, seed=0):
     """A synthetic raw AMASS sequence (the JAX CLI test's swaying walk,
-    tests/test_humor_tool_cli.py) over T frames at 120 fps: process-amass
-    keeps the middle 80%, drops the two edge frames and downsamples to 30
-    fps, so 360 frames leave 71 (300 would leave 59, short of seq_len 60)."""
+    tests/test_humor_tool_cli.py) over T frames at 120 fps, its phases and
+    betas from ``seed``: process-amass keeps the middle 80%, drops the two
+    edge frames and downsamples to 30 fps, so 360 frames leave 71 (300
+    would leave 59, short of seq_len 60)."""
     import numpy as np
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     t = np.linspace(0, 4 * np.pi, T)[:, None]
     poses = np.zeros((T, 156))
     poses[:, :3] = 0.2 * np.stack(
@@ -2361,8 +2381,9 @@ def raw_amass_walk(path, T=360):
 def path_e(device, files):
     """HuMoR 3D fitting through the port's humor_tool: process-amass on a
     synthetic raw sequence, then fit-amass --obs joints verts points at the
-    CLI's defaults (60 frames, 512 scan points, 30/70/70 steps), on the
-    card (the CLI's default device), and the eval CSVs. The SMPL model
+    CLI's defaults (60 frames, 512 scan points) but stage 3's steps, cut to
+    E_STEPS (30/70/10; the stage still runs the rollout and K4 each step),
+    on the card (the CLI's default device), and the eval CSVs. The SMPL model
     comes from the written .npz of the 6890-vertex synthetic body and the
     HuMoR weights (the reference widths, latent 48) from the written
     checkpoint of init_humor at --seed 0: the model and weights the CLI
@@ -2410,7 +2431,8 @@ def path_e(device, files):
                 t1 = time.perf_counter()
                 if humor_tool.main(["fit-amass", "--amass", proc, "--out",
                                     out, "--obs", "joints", "verts",
-                                    "points", "--smpl_path",
+                                    "points", "--steps", *E_STEPS,
+                                    "--smpl_path",
                                     files["smpl_npz"], "--humor_ckpt",
                                     files["humor"]]) != 0:
                     raise AssertionError("path E: fit-amass failed")
@@ -3096,7 +3118,6 @@ def path_j(device, smpl, bundle, files, d):
        J_CAM_ATOL, the final loss under 1% of the first; the card's loop
        runs with every synchronising call an error.
     """
-    import contextlib
     import io
     import numpy as np
     import torch
@@ -4144,8 +4165,8 @@ def m_profile(fn, reps: int = 5, mark: str = "path_m_steps",
 
     def k1(tag, per_step):
         mine = [e.time_range.elapsed_us() for e in dev if tag in e.name]
-        return sum(mine) / len(mine) / 1e3 if len(mine) == reps * per_step \
-            else None
+        return sum(mine) / len(mine) / 1e3 if mine and \
+            len(mine) == reps * per_step else None
 
     return {"device_ms": sum(by_name.values()) / reps / 1e3,  # a step
             "device_events": len(dev) / reps,
@@ -4711,6 +4732,20 @@ def path_n_vposer(device, smpl, root, out):
                      param_worst=errs[0][1], moment_err=mom[0][0], **prof)
 
 
+@contextlib.contextmanager
+def deterministic_cuda():
+    """torch.use_deterministic_algorithms(True) inside the block: an op
+    whose CUDA version sums with atomics takes its sorted version, and
+    one that has none raises. It needs main()'s CUBLAS_WORKSPACE_CONFIG."""
+    import torch
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
 def path_n_humor(device, prox, out):
     """N3: humor_motion_fit with optimizer="lbfgs" at N_HUMOR_STEPS on
     path K's fit-prox --rgbd window (latent 48, T 60, 4096 scan points,
@@ -4723,7 +4758,16 @@ def path_n_humor(device, prox, out):
     compared: stages 1 and 2 take about 12 loss evaluations a step here,
     each many seconds on the CPU with its gradient, and a linesearch that
     fails after its 20 iterations ends at a step set by rounding (PERF.md
-    §6)."""
+    §6).
+
+    The fit and the card's evaluations run under deterministic_cuda():
+    here stage 2 creeps at stepsizes of 1e-5 to 1e-10 (the CPU's first
+    step too), and the atomic sums of PyTorch's default CUDA backward
+    (2e-7 to 5e-7 of the gradient's largest entry, run to run) decide
+    whether it leaves that in 5 steps, so the descent check would pass
+    or fail by chance (scripts/torch_humor_lbfgs_spread.py). With them
+    the fit is one trajectory, and the card's gradient must repeat bit
+    for bit."""
     import dataclasses
     import numpy as np
     import torch
@@ -4759,7 +4803,8 @@ def path_n_humor(device, prox, out):
     t0 = time.perf_counter()
     humor_fit._run_opt = recording_opt
     try:
-        fit = humor_fit.humor_motion_fit(*px_a, **dict(px_k, cfg=cfg))
+        with deterministic_cuda():
+            fit = humor_fit.humor_motion_fit(*px_a, **dict(px_k, cfg=cfg))
     finally:
         humor_fit._run_opt = real_opt
     torch.cuda.synchronize()
@@ -4811,8 +4856,13 @@ def path_n_humor(device, prox, out):
             smpl_c, mv(p2["pose"]), mv(p2["trans"]), mv(p2["betas"])))
     flips = int((i_card.cpu() != i_cpu).sum())
     for i, (st, fn) in enumerate(zip(stages, cpu_fns)):
-        v, g = value_and_grad(st["loss_fn"], st["params0"])
-        _, g2 = value_and_grad(st["loss_fn"], st["params0"])  # card again
+        with deterministic_cuda():
+            v, g = value_and_grad(st["loss_fn"], st["params0"])
+            _, g2 = value_and_grad(st["loss_fn"], st["params0"])  # again
+        if not all(torch.equal(g[k], g2[k]) for k in g):
+            raise AssertionError(f"path N3: stage {i + 1}'s gradient on the "
+                                 f"card differs between two evaluations "
+                                 f"under deterministic algorithms")
         vc, gc = value_and_grad(fn, {k: mv(x) for k, x in
                                      st["params0"].items()})
         print(f"[path N] N3 stage {i + 1}'s gradient, card vs CPU (card vs "
@@ -4920,7 +4970,588 @@ def path_n(device, smpl, d, prox):
     return counts, out
 
 
+O_SYNTH, O_SEQ, O_BATCH, O_EPOCHS = 4096, 10, 256, 3  # humor_tool train
+O_MILESTONE = 2         # --sched_milestones; scheduled sampling 1 -> 2
+O_TIMED = 10            # back-to-back train steps timed on the card
+O_CHECK_B = 64          # windows a card-vs-CPU train step
+O_STAT_RTOL = 1e-5      # a step's statistics, card vs CPU, relative
+O_STATE_RTOL = 1e-6     # updated tensors and Adam moments, card vs CPU, of
+#                         each tensor's largest entry
+O_AMASS_WALKS = 4       # seeded raw walks of O_AMASS_T frames at 120 fps
+O_AMASS_T = 1200
+O_SMPL_B = 512          # O2's transitions through the SMPL terms
+O_SMPL_RTOL = 1e-5      # O2's loss, card vs CPU, relative
+O_SMPL_GRAD_RTOL = 1e-4  # O2's gradients, of each tensor's largest entry
+O_GATE_ABS = 1e-5       # a ReLU gate card and CPU take differently: its
+#                         GroupNorm output within this of 0 on both sides
+O_GATE_SHARE = 0.01     # at most this share of O2's transitions
+O_EM_CHECKED = 20       # EM iterations held card vs CPU
+O_EM_RTOL = 1e-4        # their log-likelihoods, relative
+O_EVAL_N = 64           # held-out windows of humor_eval_*
+O_EVAL_RTOL = 1e-5      # humor_eval_* card vs CPU, relative
+
+
+def o_profile(fn) -> dict:
+    """Device time of one call of fn from a torch.profiler trace of the
+    device alone, read from the profiler's raw events (the parsed event
+    tree of a step of some 16,000 kernels takes tens of seconds to build):
+    fn, a marker kernel (torch.cuda._sleep's spin_kernel), fn again; every
+    device event after the marker is the second call's, so a trace that
+    loses its first launches loses none of them. {device_ms,
+    device_events, top: the six largest by name}, or None where the trace
+    holds no marker."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda._sleep(1000)
+        fn()
+        torch.cuda.synchronize()
+    dev = [(e.name(), e.start_ns(), e.duration_ns())
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    marks = [t + d for n, t, d in dev if "spin_kernel" in n]
+    if not marks:
+        return None
+    dev = [(n, d) for n, t, d in dev if t >= max(marks)]
+    by_name = {}
+    for n, d in dev:
+        by_name[n] = by_name.get(n, 0) + d
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"device_ms": sum(by_name.values()) / 1e6,
+            "device_events": len(dev),
+            "top": [(n[:60], ns / 1e6) for n, ns in top]}
+
+
+def o_rel_state(got, want):
+    """[(largest |got - want| over want's largest entry, name)] over two
+    (params, Adam state) pairs from humor_train_state_to_jax, worst first."""
+    out = []
+    for m, sub in want[0].items():
+        for k, v in sub.items():
+            out.append((n_rel(got[0][m][k], v), f"{m}.{k}"))
+    for k, v in want[1].items():
+        if not k.endswith(".count"):
+            out.append((n_rel(got[1][k], v), k))
+    return sorted(out, reverse=True)
+
+
+def path_o_train(device, files, root, out):
+    """O1: HuMoR training through python -m nemo_tpu_torch.cli.humor_tool
+    train's main on the card at the reference widths (HumorConfig's
+    1024-wide GroupNorm MLPs, latent 48, contacts predicted): --synthetic
+    O_SYNTH windows of O_SEQ transitions at batch O_BATCH for O_EPOCHS
+    epochs with scheduled sampling from epoch 1 to 2 and a milestone at 2
+    (2560 transitions a step); a supervised run on --amass over a tree
+    that process-amass made from O_AMASS_WALKS seeded raw walks; one
+    --shards run. From the synthetic run's final state: O_TIMED
+    back-to-back steps (steps/s) and one under torch.profiler (o_profile:
+    busy share, largest kernels); a step under set_sync_debug_mode("error"); a NaN
+    batch skipped with the parameters bit for bit; humor_params.npz
+    through _humor_params bit for bit; three steps at epochs 1, 2, 2 on
+    the card and the CPU from that state with the same batches of
+    O_CHECK_B windows and draws (GT past, then carried predictions past
+    the milestone)."""
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.cli import humor_tool
+    from nemo_tpu_torch.data.sharded import write_shards
+    from nemo_tpu_torch.models import humor as hm
+    from nemo_tpu_torch.models import humor_loss as hl
+    secs, fails = {}, []
+    real_make = hl.make_humor_full_train_step
+    seen = {"steps": 0}
+
+    def recording_make(*a, **k):
+        init, step = real_make(*a, **k)
+
+        def init_rec(params):
+            seen["params"], seen["opt"] = params, init(params)
+            return seen["opt"]
+
+        def step_rec(params, opt, x_past, x_t, epoch, **kw):
+            seen["steps"] += 1
+            return step(params, opt, x_past, x_t, epoch, **kw)
+        return init_rec, step_rec
+
+    def cli(name, argv):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hl.make_humor_full_train_step = recording_make
+        try:
+            if humor_tool.main(argv) != 0:
+                raise AssertionError(f"path O1: humor_tool {name} failed")
+        finally:
+            hl.make_humor_full_train_step = real_make
+        torch.cuda.synchronize()
+        secs[name] = round(time.perf_counter() - t0, 3)
+
+    synth = os.path.join(root, "synthetic")
+    flags = ["--seq_len", str(O_SEQ), "--batch_size", str(O_BATCH),
+             "--epochs", str(O_EPOCHS), "--sched_samp_start", "1",
+             "--sched_samp_end", "2", "--sched_milestones",
+             str(O_MILESTONE)]
+    cli("train --synthetic", ["train", "--synthetic", str(O_SYNTH),
+                              "--out", synth] + flags)
+    steps = seen["steps"]
+    with open(os.path.join(synth, "train_stats.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    print(f"[path O] O1 train --synthetic {O_SYNTH}: {steps} steps in "
+          f"{secs['train --synthetic']:.2f} s; epochs " + "; ".join(
+              f"{r['epoch']}: loss {r['loss']:.4f} kl {r['kl_loss']:.4f} "
+              f"lr {r['lr']:.2e} grad_norm {r['grad_norm']:.3f} skipped "
+              f"{r['update_skipped']:.2f} ({r['sec']} s)" for r in rows))
+    if steps != O_EPOCHS * (O_SYNTH // O_BATCH) or len(rows) != O_EPOCHS \
+            or not all(np.isfinite(r["loss"]) and r["update_skipped"] == 0
+                       for r in rows) \
+            or not rows[-1]["lr"] < rows[0]["lr"]:
+        raise AssertionError("path O1: the synthetic run's statistics")
+    params, opt = seen["params"], seen["opt"]
+    loaded = humor_tool._humor_params(os.path.join(synth,
+                                                   "humor_params.npz"),
+                                      hm.HumorConfig(), 0, device)
+    if not all(torch.equal(loaded[m][k], v.detach())
+               for m, sub in params.items() for k, v in sub.items()):
+        raise AssertionError("path O1: humor_params.npz does not load back "
+                             "bit for bit")
+    state = hm.humor_train_state_to_jax(params, opt)
+
+    # the supervised --amass run on a process-amass tree, and --shards
+    raw = os.path.join(root, "raw")
+    for s in range(O_AMASS_WALKS):
+        raw_amass_walk(os.path.join(raw, "CMU", f"S{s}", "walk_poses.npz"),
+                       T=O_AMASS_T, seed=s)
+    proc = os.path.join(root, "proc")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if humor_tool.main(["process-amass", "--amass_root", raw, "--out", proc,
+                        "--smpl_path", files["smpl_npz"]]) != 0:
+        raise AssertionError("path O1: process-amass failed")
+    secs["process-amass"] = round(time.perf_counter() - t0, 3)
+    cli("train --amass", ["train", "--amass", proc, "--seq_len",
+                          str(O_SEQ), "--batch_size", "32", "--epochs", "2",
+                          "--out", os.path.join(root, "amass")])
+    windows = humor_tool._synthetic_windows(np.random.default_rng(0),
+                                            O_SYNTH, O_SEQ, 207)
+    write_shards({"states": windows[:2 * O_BATCH]},
+                 os.path.join(root, "shards"), shard_size=100)
+    cli("train --shards", ["train", "--shards", os.path.join(root, "shards"),
+                           "--batch_size", str(O_BATCH // 2), "--epochs", "1",
+                           "--out", os.path.join(root, "shards_run")])
+    for run in ("amass", "shards_run"):
+        with open(os.path.join(root, run, "train_stats.jsonl")) as f:
+            last = [json.loads(line) for line in f][-1]
+        print(f"[path O] O1 train {run}: loss {last['loss']:.4f}, "
+              f"grad_norm {last['grad_norm']:.3f}")
+        if not np.isfinite(last["loss"]):
+            raise AssertionError(f"path O1: train {run}'s loss")
+
+    # from the synthetic run's final state: rate, profile, no sync, NaN
+    t_rate = time.perf_counter()
+    init, step = real_make(hm.HumorConfig(), hl.HumorLossConfig(
+        kl_loss=4e-4, contacts_loss=0.01), lr=1e-4,
+        sched_milestones=(O_MILESTONE,), sched_decay=0.1,
+        sched_samp_start=1, sched_samp_end=2,
+        generator=torch.Generator(device=device).manual_seed(1))
+    p, o = hm.humor_train_state_from_jax(*state, device=device)
+    win = torch.as_tensor(windows[:O_BATCH], device=device)
+    x_past, x_t = win[:, :-1], win[:, 1:]
+    for _ in range(2):
+        step(p, o, x_past, x_t, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(O_TIMED):
+        step(p, o, x_past, x_t, 2)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / O_TIMED
+    prof = o_profile(lambda: step(p, o, x_past, x_t, 2))
+    if prof is None:
+        raise AssertionError("path O1: the profiler's trace holds no "
+                             "marker")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(p, o, x_past, x_t, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    bad = x_past.clone()
+    bad[3, 0, 10] = float("nan")   # the first transition: always read
+    before = {m: {k: v.detach().clone() for k, v in sub.items()}
+              for m, sub in p.items()}
+    count = o.count
+    _, _, st = step(p, o, bad, x_t, 2)
+    skipped = float(st["update_skipped"])
+    same = all(torch.equal(v, before[m][k]) for m, sub in p.items()
+               for k, v in sub.items())
+    print(f"[path O] O1 a train step on the card at {O_BATCH} x {O_SEQ} "
+          f"transitions, scheduled sampling on carried predictions: "
+          f"{1e3 / step_ms:.3f} steps/s ({step_ms:.3f} ms, {O_TIMED} "
+          f"back-to-back steps); torch.profiler (one step): device "
+          f"{prof['device_ms']:.3f} ms in {prof['device_events']:.0f} kernels "
+          f"and copies, busy {prof['device_ms'] / step_ms:.1%} of the step; "
+          "largest " + "; ".join(f"{n} {ms:.3f} ms" for n, ms in prof["top"])
+          + f"; a step ran without a device synchronisation; a NaN batch: "
+          f"update_skipped {skipped}, parameters bit for bit {same}, Adam's "
+          f"count {count} -> {o.count}")
+    if skipped != 1.0 or not same or o.count != count + 1:
+        raise AssertionError("path O1: the NaN batch was not skipped")
+    secs["rate, profile, no sync, NaN"] = round(time.perf_counter() - t_rate,
+                                                3)
+
+    # card vs CPU: three steps from the final state, the same batches and
+    # draws
+    res = {}
+    gen = torch.Generator().manual_seed(11)
+    batches = []
+    for i, epoch in enumerate((1, O_MILESTONE, O_MILESTONE)):
+        w = windows[O_BATCH * (i + 1):O_BATCH * (i + 1) + O_CHECK_B]
+        batches.append((epoch, w, hl.scheduled_draws(
+            gen, hl.sched_samp_gt_p(epoch, 1, 2), O_SEQ, O_CHECK_B, 48)))
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        p, o = hm.humor_train_state_from_jax(*state, device=dev)
+        stats = []
+        for epoch, w, (coins, eps) in batches:
+            wt = torch.as_tensor(w, device=dev)
+            p, o, st = step(p, o, wt[:, :-1], wt[:, 1:], epoch,
+                            draws=(coins.to(dev), eps.to(dev)))
+            stats.append(hl.stats_to_host(st))
+        res[where] = (stats, hm.humor_train_state_to_jax(p, o))
+        secs[f"check {where}"] = round(time.perf_counter() - t0, 3)
+    stat_err = max(abs(cs[k] - v) / max(abs(v), 1e-30)
+                   for cs, vs in zip(res["card"][0], res["cpu"][0])
+                   for k, v in vs.items())
+    worst = o_rel_state(res["card"][1], res["cpu"][1])
+    print(f"[path O] O1 three steps (epochs 1, 2, 2; {O_CHECK_B} x {O_SEQ} "
+          f"transitions) card vs CPU: statistics worst {stat_err:.2e} "
+          f"relative (tolerance {O_STAT_RTOL}), lr "
+          f"{[s['lr'] for s in res['card'][0]]}; updated tensors and Adam "
+          f"moments worst " + "; ".join(f"{k} {e:.2e}" for e, k in worst[:6])
+          + f" (tolerance {O_STATE_RTOL}); seconds {json.dumps(secs)}")
+    if not stat_err <= O_STAT_RTOL:
+        fails.append("O1 statistics card vs CPU")
+    if not worst[0][0] <= O_STATE_RTOL:
+        fails.append("O1 updated tensors card vs CPU")
+    out["o1"] = dict(secs=secs, steps=steps, step_ms=step_ms,
+                     steps_s=1e3 / step_ms, stat_err=stat_err,
+                     state_err=worst[0][0], state_worst=worst[0][1],
+                     windows=windows, **prof)
+    return params, fails
+
+
+def humor_pre_relu(p, cfg, past, tgt, eps):
+    """{(module, layer): the GroupNorm output that each ReLU of the three
+    HuMoR MLPs reads}, as models/humor.apply_mlp computes it for
+    humor_single_step's posterior, prior and decoder (eps the posterior
+    draw). Rows are samples: GroupNorm and the MLPs act on each alone."""
+    import torch
+    from nemo_tpu_torch.models.humor import _group_norm, humor_posterior
+    with torch.no_grad():
+        qm, qv = humor_posterior(p, cfg, past, tgt)
+        z = qm + eps * torch.sqrt(qv)
+        ins = {"encoder": (torch.cat([past, tgt], 1), 5, None),
+               "prior": (past, 5, None),
+               "decoder": (torch.cat([past, z], 1), 4, z)}
+        out = {}
+        for name, (x, n, skip) in ins.items():
+            q = p[name]
+            x = x @ q["w0"] + q["b0"]
+            for i in range(1, n):
+                g = _group_norm(x, q[f"gn{i}_g"], q[f"gn{i}_b"],
+                                cfg.num_groups)
+                out[(name, i)] = g
+                r = torch.relu(g)
+                if skip is not None:
+                    r = torch.cat([r, skip], 1)
+                x = r @ q[f"w{i}"] + q[f"b{i}"]
+    return out
+
+
+def path_o_smpl(device, smpl, params, windows, out):
+    """O2: humor_full_loss with the three SMPL terms at weight 1
+    (smpl_terms_fn on the port's smpl_forward, the 6890-vertex body) on
+    O_SMPL_B transitions of O1's windows through O1's trained weights,
+    forward and backward: two K1f (the predicted and the GT bodies) and one
+    K1b; the pass's device time and K1's a launch from torch.profiler. Card
+    vs CPU (K1's plain version there): the loss, and every gradient on the
+    transitions whose ReLU gates the two take alike. A gate that the card's
+    and the CPU's f32 sums put on either side of 0 moves a whole
+    GroupNorm group's gradient for its transition (a decoder gate 2.4e-7
+    from 0 moved 64 columns of decoder.w1 by 5.4e-3 of its largest entry,
+    float32 at two CPU threads against float64,
+    scripts/torch_humor_grad_spread.py); such transitions are left out of
+    the gradient comparison, each flipped gate within O_GATE_ABS of 0 on
+    both sides, at most O_GATE_SHARE of the batch."""
+    import torch
+    from nemo_tpu_torch.models import humor as hm
+    from nemo_tpu_torch.models import humor_loss as hl
+    from nemo_tpu_torch.ops import launch_counts
+    cfg = hm.HumorConfig()
+    lcfg = hl.HumorLossConfig(kl_loss=4e-4, smpl_joint_loss=1.0,
+                              smpl_mesh_loss=1.0,
+                              smpl_joint_consistency_loss=1.0)
+    w = windows[-(O_SMPL_B // O_SEQ + 1):]
+    data = [torch.as_tensor(w[:, :-1].reshape(-1, 207)[:O_SMPL_B]),
+            torch.as_tensor(w[:, 1:].reshape(-1, 207)[:O_SMPL_B])]
+    gen = torch.Generator().manual_seed(12)
+    data += [torch.randn((O_SMPL_B, 48), generator=gen),
+             0.3 * torch.randn((O_SMPL_B, 10), generator=gen)]
+    res, fails = {}, []
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        p = {m: {k: v.detach().to(dev).requires_grad_(True)
+                 for k, v in sub.items()} for m, sub in params.items()}
+        leaves = [p[m][k] for m, k in hm.humor_leaves(p)]
+        smpl_fn = hl.smpl_terms_fn(smpl.to(dev))
+        args = [a.to(dev) for a in data]
+
+        def fwd_bwd(rows=None, p=p, leaves=leaves, smpl_fn=smpl_fn,
+                    args=args):
+            a = args if rows is None else [x[rows] for x in args]
+            loss, stats = hl.humor_full_loss(p, cfg, lcfg, a[0], a[1], a[2],
+                                             0, smpl_fn=smpl_fn, betas=a[3])
+            return loss, stats, torch.autograd.grad(loss, leaves)
+
+        if where == "card":
+            torch.cuda.synchronize()
+            c0 = launch_counts()
+        loss, stats, grads = fwd_bwd()
+        if where == "card":
+            torch.cuda.synchronize()
+            c1 = launch_counts()
+            k1 = {k: c1[k] - c0[k] for k in ("fk_fwd", "fk_bwd")}
+            t0 = time.perf_counter()
+            for _ in range(O_TIMED):
+                fwd_bwd()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / O_TIMED
+            prof = m_profile(fwd_bwd, mark="path_o_smpl",
+                             k1_per_step=(2, 1))
+        res[where] = dict(loss=float(loss.detach()),
+                          stats=hl.stats_to_host(stats),
+                          pre=humor_pre_relu(p, cfg, *args[:3]),
+                          fwd_bwd=fwd_bwd)
+    flips, far = set(), 0.0
+    for key, a in res["cpu"]["pre"].items():
+        b = res["card"]["pre"][key].cpu()
+        flip = (a > 0) != (b > 0)
+        if flip.any():
+            flips.update(torch.nonzero(flip.any(1)).flatten().tolist())
+            far = max(far, float(a[flip].abs().max()),
+                      float(b[flip].abs().max()))
+    kept = torch.tensor([i for i in range(O_SMPL_B) if i not in flips])
+    grads = {where: [g.cpu() for g in r["fwd_bwd"](kept.to(
+        device if where == "card" else "cpu"))[2]]
+        for where, r in res.items()}
+    loss_err = abs(res["card"]["loss"] - res["cpu"]["loss"]) / abs(
+        res["cpu"]["loss"])
+    names = [f"{m}.{k}" for m, k in hm.humor_leaves(params)]
+    gerr = sorted(((n_rel(a, b), n) for a, b, n in zip(
+        grads["card"], grads["cpu"], names)), reverse=True)
+    print(f"[path O] O2 humor_full_loss with the SMPL terms at B = "
+          f"{O_SMPL_B} (6890 vertices): loss card {res['card']['loss']:.6f} "
+          f"CPU {res['cpu']['loss']:.6f} ({loss_err:.2e} relative, tolerance "
+          f"{O_SMPL_RTOL}); smpl terms " + ", ".join(
+              f"{k} {res['card']['stats'][k]:.6f}" for k in (
+                  "smpl_joint_loss", "smpl_mesh_loss",
+                  "smpl_joint_consistency_loss"))
+          + f"; ReLU gates taken differently in {len(flips)} transitions "
+          f"(the farthest from 0 at {far:.2e}; tolerance {O_GATE_ABS}, at "
+          f"most {O_GATE_SHARE:.0%} of the batch), left out of the "
+          "gradients, worst " + "; ".join(f"{n} {e:.2e}"
+                                          for e, n in gerr[:4])
+          + f" (tolerance {O_SMPL_GRAD_RTOL}); launches a forward and "
+          f"backward {json.dumps(k1)}; {ms:.3f} ms a forward and backward "
+          f"({O_TIMED} back to back), device {prof['device_ms']:.3f} ms in "
+          f"{prof['device_events']:.0f} kernels; K1f "
+          + device_ms_text(prof["k1f_ms"], 10) + ", K1b "
+          + device_ms_text(prof["k1b_ms"], 5) + " a launch")
+    if k1 != {"fk_fwd": 2, "fk_bwd": 1}:
+        fails.append("O2 launched other than two K1f and one K1b")
+    if not loss_err <= O_SMPL_RTOL:
+        fails.append("O2 loss card vs CPU")
+    if not far <= O_GATE_ABS or len(flips) > O_GATE_SHARE * O_SMPL_B:
+        fails.append("O2 ReLU gates card vs CPU")
+    if not gerr[0][0] <= O_SMPL_GRAD_RTOL:
+        fails.append("O2 gradients card vs CPU")
+    out["o2"] = dict(loss_err=loss_err, grad_err=gerr[0][0], ms=ms, k1=k1,
+                     flips=len(flips), **prof)
+    return fails
+
+
+def path_o_state_prior(device, root, windows, out):
+    """O3: python -m nemo_tpu_torch.cli.humor_tool train-state-prior's main
+    at its defaults (a seeded 12-component mixture of 4000 states, D 138,
+    100 EM iterations) on the card, and with --states on
+    states_from_sequences of O1's windows; each prior_gmm.npz through
+    load_init_motion_prior with a finite init_state_gmm_nll; EM card vs
+    CPU from the same k-means++ means over O_EM_CHECKED iterations."""
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.cli import humor_tool
+    from nemo_tpu_torch.models import humor_fit
+    from nemo_tpu_torch.models import humor_state_prior as hsp
+    real_fit = hsp.fit_state_prior_gmm
+    curves, secs, fails = [], {}, []
+
+    def recording_fit(*a, **k):
+        gmm, ll = real_fit(*a, **k)
+        curves.append(ll.cpu().numpy())
+        return gmm, ll
+
+    states = hsp.states_from_sequences(torch.as_tensor(windows)).numpy()
+    np.save(os.path.join(root, "states.npy"), states)
+    for name, argv in (("defaults", []),
+                       ("--states", ["--states",
+                                     os.path.join(root, "states.npy")])):
+        d = os.path.join(root, f"prior_{len(curves)}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hsp.fit_state_prior_gmm = recording_fit
+        try:
+            if humor_tool.main(["train-state-prior", "--out", d] + argv):
+                raise AssertionError("path O3: train-state-prior failed")
+        finally:
+            hsp.fit_state_prior_gmm = real_fit
+        torch.cuda.synchronize()
+        secs[name] = round(time.perf_counter() - t0, 3)
+        prior = humor_fit.load_init_motion_prior(d, device)
+        nll = [float(humor_fit.init_state_gmm_nll(
+            torch.as_tensor(s, device=device), prior))
+            for s in (states[0], states[-1])]
+        ll = curves[-1]
+        print(f"[path O] O3 train-state-prior {name}: {secs[name]:.2f} s, "
+              f"log-likelihood {ll[0]:.4f} -> {ll[-1]:.4f} over {len(ll)} "
+              f"iterations; init_state_gmm_nll {nll[0]:.3f}, {nll[1]:.3f}")
+        if not np.isfinite(ll[-1]) or not all(np.isfinite(nll)):
+            fails.append(f"O3 {name}: non-finite")
+
+    rng = np.random.default_rng(0)      # the CLI's synthetic mixture
+    centers = rng.standard_normal((12, 138)) * 2.0
+    comp = rng.integers(0, 12, 4000)
+    x = (centers[comp] + rng.standard_normal((4000, 138)) * 0.3).astype(
+        np.float32)
+    init = hsp._kmeans_init(torch.as_tensor(x, device=device), 12,
+                            torch.Generator(device=device).manual_seed(0))
+    lls = {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        _, ll = real_fit(x, 12, O_EM_CHECKED, init_means=init.to(dev),
+                         device=dev)
+        lls[where] = ll.cpu().numpy().astype(np.float64)
+        secs[f"EM {where}"] = round(time.perf_counter() - t0, 3)
+    err = float(np.max(np.abs(lls["card"] - lls["cpu"])
+                       / np.abs(lls["cpu"])))
+    print(f"[path O] O3 EM card vs CPU from the same means, "
+          f"{O_EM_CHECKED} iterations: log-likelihood {lls['card'][0]:.4f} "
+          f"-> {lls['card'][-1]:.4f}, worst {err:.2e} relative (tolerance "
+          f"{O_EM_RTOL}); seconds {json.dumps(secs)}")
+    if not err <= O_EM_RTOL:
+        fails.append("O3 EM card vs CPU")
+    out["o3"] = dict(secs=secs, em_err=err, ll=[float(c[-1])
+                                                for c in curves])
+    return fails
+
+
+def path_o_eval(device, params, out):
+    """O4: humor_eval_metrics, _full_test, _sampling and _recon on O1's
+    trained weights over O_EVAL_N windows that O1 did not train on, card
+    vs CPU, the sampled paths with the same draws on both."""
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.cli import humor_tool
+    from nemo_tpu_torch.models import humor as hm
+    from nemo_tpu_torch.models import humor_eval as he
+    x = humor_tool._synthetic_windows(np.random.default_rng(1), O_EVAL_N,
+                                      O_SEQ, 207)
+    cfg = hm.HumorConfig()
+    gen = torch.Generator().manual_seed(13)
+    full_draws = [torch.randn((8 * O_SEQ, 48), generator=gen)
+                  for _ in range(O_EVAL_N // 8)]
+    samp_draws = [torch.randn((O_EVAL_N, 48), generator=gen)
+                  for _ in range(3 * O_SEQ)]
+    res, secs = {}, {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        p = hm.humor_to({m: {k: v.detach() for k, v in sub.items()}
+                         for m, sub in params.items()}, dev)
+        fd, sd = iter(list(full_draws)), iter(list(samp_draws))
+        t0 = time.perf_counter()
+        res[where] = {
+            "metrics": he.humor_eval_metrics(p, cfg, x),
+            "full_test": he.humor_eval_full_test(
+                p, cfg, x, draw=lambda shape: next(fd)),
+            "sampling": he.humor_eval_sampling(
+                p, cfg, x, draw=lambda shape: next(sd)),
+            "recon": he.humor_eval_recon(p, cfg, x)}
+        secs[where] = round(time.perf_counter() - t0, 3)
+    errs = {}
+    for fn, vals in res["cpu"].items():
+        errs[fn] = max(abs(res["card"][fn][k] - v) / max(abs(v), 1e-12)
+                       for k, v in vals.items())
+    c = res["card"]
+    print(f"[path O] O4 humor_eval_* on {O_EVAL_N} held-out windows: "
+          f"one_step_rec {c['metrics']['one_step_rec']:.4f}, rollout_drift "
+          f"{c['metrics']['rollout_drift']:.4f}, prior_kl "
+          f"{c['metrics']['prior_kl']:.4f}, full-test loss "
+          f"{c['full_test']['loss']:.4f}, sample_diversity "
+          f"{c['sampling']['sample_diversity']:.4f}, recon_l2 "
+          f"{c['recon']['recon_l2']:.4f}; card vs CPU worst relative "
+          + json.dumps({k: float(f"{v:.2e}") for k, v in errs.items()})
+          + f" (tolerance {O_EVAL_RTOL}); seconds {json.dumps(secs)}")
+    out["o4"] = dict(errs=errs, secs=secs)
+    return [f"O4 {k} card vs CPU" for k, v in errs.items()
+            if not v <= O_EVAL_RTOL]
+
+
+def path_o(device, smpl, files, d):
+    """HuMoR training on the card, at the reference widths: O1
+    path_o_train, O2 path_o_smpl, O3 path_o_state_prior, O4 path_o_eval.
+    K1f (process-amass, O2) and K1b (O2) must have launched. Every part
+    runs and prints before a failed check raises. Prints each part's
+    seconds."""
+    root = os.path.join(d, "path_o")
+    os.makedirs(root)
+    out, secs, fails = {}, {}, []
+
+    def run():
+        import torch
+        params = {}
+
+        def o1():
+            p, f = path_o_train(device, files, root, out)
+            params.update(p)
+            fails.extend(f)
+
+        for name, fn in (
+                ("O1", o1),
+                ("O2", lambda: fails.extend(path_o_smpl(
+                    device, smpl, params, out["o1"]["windows"], out))),
+                ("O3", lambda: fails.extend(path_o_state_prior(
+                    device, root, out["o1"]["windows"], out))),
+                ("O4", lambda: fails.extend(path_o_eval(device, params,
+                                                        out)))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs[name] = round(time.perf_counter() - t0, 3)
+
+    counts, _ = run_path("path O", ("fk_fwd", "fk_bwd"), run)
+    out["seconds"] = sum(secs.values())
+    mine = {k: counts[k] for k in ("fk_fwd", "fk_bwd")}
+    print(f"[path O] launches {json.dumps(mine)}; seconds {json.dumps(secs)}"
+          f", {out['seconds']:.1f} in all; {nvidia_smi_line()}")
+    if fails:
+        raise AssertionError(f"path O: {fails}")
+    return counts, out
+
+
 def main() -> int:
+    # deterministic_cuda() needs cuBLAS's workspace named before the first
+    # product (PyTorch reads it once); this is the H100's default, 32 MiB
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4978,6 +5609,7 @@ def main() -> int:
         paths["path L"], lv = path_l(device, smpl, files, d)
         paths["path M"], mv = path_m(device, d)
         paths["path N"], nv = path_n(device, smpl, d, prox)
+        paths["path O"], ov = path_o(device, smpl, files, d)
     launches = {k: sum(c[k] for c in paths.values()) for k in KERNELS}
     print(f"[paths] render: {render['video_s']:.4f} s a video frame with the "
           f"PNG writes, {render['nopng_s']:.4f} s without")
@@ -4991,7 +5623,9 @@ def main() -> int:
           f"{sum(k.values()):.1f} s; path L {lv['seconds']:.1f} s; "
           f"path M {mv['seconds']:.1f} s ({mv['steps_s']:.3f} VIBE train "
           f"steps/s); path N {nv['seconds']:.1f} s "
-          f"({nv['n2']['steps_s']:.3f} VPoser train steps/s); "
+          f"({nv['n2']['steps_s']:.3f} VPoser train steps/s); path O "
+          f"{ov['seconds']:.1f} s ({ov['o1']['steps_s']:.3f} HuMoR train "
+          f"steps/s); "
           f"launches summed over the paths {json.dumps(launches)}; "
           f"{time.perf_counter() - t_start:.1f} s in all")
 

@@ -1,10 +1,23 @@
-"""CLI: HuMoR fitting on AMASS, RGB video and PROX, on the device named by
-``--device``.
+"""CLI: HuMoR training, its init-state prior, and fitting on AMASS, RGB
+video and PROX, on the device named by ``--device``.
 
-Port of nemo_tpu/cli/humor_tool.py's fitting subcommands, with the JAX
-CLI's flags and defaults plus ``--device`` (default ``cuda``; the CPU runs
-the plain PyTorch versions of the kernels and must be asked for):
+Port of nemo_tpu/cli/humor_tool.py's eight subcommands, with the JAX CLI's
+flags and defaults plus ``--device`` (default ``cuda``; the CPU runs the
+plain PyTorch versions of the kernels and must be asked for):
 
+  * ``train``: the HuMoR CVAE (train_humor.py) on ``--synthetic`` N
+    random-walk windows, ``--shards`` (data/sharded.py, key 'states',
+    (B, T+1, 207) aligned-local windows) or ``--amass`` (a process-amass
+    tree, windows assembled and canonicalized per
+    --amass_split/--amass_stride); supervised, or scheduled sampling with
+    --sched_samp_start/--sched_samp_end; writes train_stats.jsonl (one row
+    an epoch: each stat's mean, epoch, sec) and humor_params.npz (flat
+    'module.key' float32 arrays, what ``--humor_ckpt`` reads in either
+    package);
+  * ``train-state-prior``: the init-state GMM by EM
+    (train_state_prior.py) on a ``--states`` .npy of (N, 138) states or a
+    synthetic mixture from ``--seed``; writes prior_gmm.npz (what
+    ``--init_motion_prior`` reads in either package);
   * ``process-amass``: raw AMASS -> per-sequence npz
     (humor/scripts/process_amass_data.py);
   * ``fit-amass``: observations -> 3-stage HuMoR fit with the 3D energies
@@ -23,11 +36,16 @@ the plain PyTorch versions of the kernels and must be asked for):
 
 ``--smpl_path`` names an SMPL .npz (the smplx tools' layout);
 ``--humor_ckpt`` a ``train`` .npz of flat 'module.key' arrays or a HuMoR
-torch checkpoint, random weights from ``--seed`` when it is empty. The
-training subcommands (train, train-state-prior) are still to port
-(ROADMAP.md Queue 1, item 7.3).
+torch checkpoint, random weights from ``--seed`` when it is empty. As in
+the JAX CLI, ``train`` passes no contact labels and no body model, so its
+contact BCE and SMPL terms do not run (ROADMAP.md Queue 3).
 
 Usage:
+  python -m nemo_tpu_torch.cli.humor_tool train --synthetic 2048 \
+      --epochs 3 --batch_size 64 --out run/ [--sched_samp_start 1 \
+      --sched_samp_end 3] [--amass processed/ | --shards shards/]
+  python -m nemo_tpu_torch.cli.humor_tool train-state-prior \
+      [--states states.npy] --gmm_comps 12 --out prior/
   python -m nemo_tpu_torch.cli.humor_tool process-amass --amass_root raw/ \\
       --out processed/ [--datasets HumanEva] [--cleanup_backup removed/]
   python -m nemo_tpu_torch.cli.humor_tool fit-amass --amass processed/ \\
@@ -50,6 +68,7 @@ import json
 import os
 import os.path as osp
 import sys
+import time
 
 import numpy as np
 import torch
@@ -63,6 +82,49 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--device", type=str, default="cuda",
                         help="cuda (the kernels) or cpu (their plain "
                              "PyTorch versions)")
+
+    t = sub.add_parser("train", help="train the HuMoR CVAE")
+    t.add_argument("--shards", type=str, default="",
+                   help="sharded dataset dir with 'states' (B, T+1, 207)")
+    t.add_argument("--amass", type=str, default="",
+                   help="processed AMASS root (process-amass output); "
+                        "windows assembled per --amass_split/--amass_stride")
+    t.add_argument("--amass_split", type=str, default="train",
+                   choices=["train", "val", "test", "all"])
+    t.add_argument("--amass_stride", type=int, default=10)
+    t.add_argument("--amass_max_windows", type=int, default=0)
+    t.add_argument("--synthetic", type=int, default=0,
+                   help="train on N synthetic sequences instead of shards")
+    t.add_argument("--seq_len", type=int, default=6,
+                   help="transitions per window (synthetic mode)")
+    t.add_argument("--epochs", type=int, default=2)
+    t.add_argument("--batch_size", type=int, default=64)
+    t.add_argument("--lr", type=float, default=1e-4)
+    t.add_argument("--decay", type=float, default=0.0)
+    t.add_argument("--sched_milestones", type=int, nargs="*", default=[])
+    t.add_argument("--sched_decay", type=float, default=0.1)
+    t.add_argument("--sched_samp_start", type=int, default=None)
+    t.add_argument("--sched_samp_end", type=int, default=None)
+    t.add_argument("--kl_loss", type=float, default=4e-4)
+    t.add_argument("--kl_loss_anneal_start", type=int, default=0)
+    t.add_argument("--kl_loss_anneal_end", type=int, default=0)
+    t.add_argument("--kl_loss_cycle_len", type=int, default=-1)
+    t.add_argument("--contacts_loss", type=float, default=0.01)
+    t.add_argument("--contacts_vel_loss", type=float, default=0.0)
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--out", type=str, required=True)
+    device_arg(t)
+
+    sp = sub.add_parser("train-state-prior",
+                        help="fit the init-state GMM (EM)")
+    sp.add_argument("--states", type=str, default="",
+                    help=".npy of (N, 138) init states; synthetic if empty")
+    sp.add_argument("--synthetic", type=int, default=4000)
+    sp.add_argument("--gmm_comps", type=int, default=12)
+    sp.add_argument("--iters", type=int, default=100)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--out", type=str, required=True)
+    device_arg(sp)
 
     fa = sub.add_parser(
         "fit-amass",
@@ -216,6 +278,156 @@ def build_parser() -> argparse.ArgumentParser:
                          "to this backup dir (cleanup_amass_data.py)")
     device_arg(pa)
     return p
+
+
+def _synthetic_windows(rng, n, t, state_dim):
+    """Smooth random walks as stand-in aligned-local state windows."""
+    x0 = rng.standard_normal((n, 1, state_dim)) * 0.3
+    steps = rng.standard_normal((n, t, state_dim)) * 0.05
+    return np.cumsum(np.concatenate([x0, steps], axis=1),
+                     axis=1).astype(np.float32)
+
+
+def _epoch_feed(args, device):
+    """(epoch -> iterator of (B, T+1, 207) numpy windows), or None when the
+    --amass tree holds no window: --shards, --amass or --synthetic, each
+    batched and shuffled as the JAX CLI does."""
+    from ..models.humor import STATE_DIM
+    if args.shards:
+        from ..data.sharded import ShardedDataset, batch_iterator
+        ds = ShardedDataset(args.shards)
+        n_batches = max(1, len(ds) // args.batch_size)
+
+        def epoch_batches(epoch):
+            it = batch_iterator(ds, args.batch_size, seed=epoch)
+            for _ in range(n_batches):
+                yield next(it)["states"]
+        return epoch_batches
+    if args.amass:
+        from ..data.amass_process import load_amass_windows
+        windows = load_amass_windows(
+            args.amass, args.seq_len + 1, split=args.amass_split,
+            stride=args.amass_stride, canonicalize=True,
+            max_windows=args.amass_max_windows, device=device)
+        if windows.shape[0] == 0:
+            print("[humor_tool] no windows found under", args.amass)
+            return None
+        print(f"[humor_tool] {windows.shape[0]} AMASS windows "
+              f"({args.amass_split}, T={args.seq_len + 1})")
+    else:
+        rng = np.random.default_rng(args.seed)
+        windows = _synthetic_windows(rng, args.synthetic or 2048,
+                                     args.seq_len, STATE_DIM)
+    n = windows.shape[0]
+    n_batches = max(1, n // args.batch_size)
+
+    def epoch_batches(epoch):
+        order = np.random.default_rng(epoch).permutation(n)
+        for i in range(n_batches):
+            yield windows[order[i * args.batch_size:
+                                (i + 1) * args.batch_size]]
+    return epoch_batches
+
+
+def cmd_train(args) -> int:
+    from .. import resolve_device
+    from ..models.humor import HumorConfig, init_humor
+    from ..models.humor_loss import (HumorLossConfig,
+                                     make_humor_full_train_step,
+                                     stats_to_host)
+
+    device = resolve_device(args.device)
+    os.makedirs(args.out, exist_ok=True)
+    cfg = HumorConfig()
+    lcfg = HumorLossConfig(
+        kl_loss=args.kl_loss,
+        kl_loss_anneal_start=args.kl_loss_anneal_start,
+        kl_loss_anneal_end=args.kl_loss_anneal_end,
+        kl_loss_cycle_len=args.kl_loss_cycle_len,
+        contacts_loss=args.contacts_loss,
+        contacts_vel_loss=args.contacts_vel_loss)
+    use_ss = args.sched_samp_start is not None \
+        and args.sched_samp_end is not None
+
+    # the weights as _humor_params draws them; the steps' draws from a
+    # generator on the device
+    params = init_humor(torch.Generator().manual_seed(args.seed), cfg,
+                        device=device)
+    init, step = make_humor_full_train_step(
+        cfg, lcfg, lr=args.lr, weight_decay=args.decay,
+        sched_milestones=tuple(args.sched_milestones),
+        sched_decay=args.sched_decay,
+        sched_samp_start=args.sched_samp_start,
+        sched_samp_end=args.sched_samp_end,
+        generator=torch.Generator(device=device).manual_seed(args.seed))
+    opt = init(params)
+    epoch_batches = _epoch_feed(args, device)
+    if epoch_batches is None:
+        return 1
+
+    log_path = osp.join(args.out, "train_stats.jsonl")
+    with open(log_path, "w") as logf:
+        for epoch in range(args.epochs):
+            t0 = time.time()
+            agg, cnt = {}, 0
+            for win in epoch_batches(epoch):
+                win = torch.as_tensor(win, dtype=torch.float32,
+                                      device=device)
+                if use_ss:
+                    x_past, x_t = win[:, :-1], win[:, 1:]
+                else:  # fully-supervised per-transition batching
+                    x_past = win[:, :-1].reshape(-1, win.shape[-1])
+                    x_t = win[:, 1:].reshape(-1, win.shape[-1])
+                params, opt, stats = step(params, opt, x_past, x_t, epoch)
+                for k, v in stats_to_host(stats).items():
+                    agg[k] = agg.get(k, 0.0) + v
+                cnt += 1
+            row = {k: agg[k] / cnt for k in sorted(agg)}
+            row.update(epoch=epoch, sec=round(time.time() - t0, 2))
+            logf.write(json.dumps(row) + "\n")
+            logf.flush()
+            print(f"[humor-train] epoch {epoch}: "
+                  f"loss={row.get('loss', float('nan')):.4f} "
+                  f"kl={row.get('kl_loss', float('nan')):.4f} "
+                  f"lr={row.get('lr', float('nan')):.2e} "
+                  f"skipped={row.get('update_skipped', 0.0):.2f}")
+
+    ckpt = osp.join(args.out, "humor_params.npz")
+    np.savez(ckpt, **{f"{m}.{k}": v.detach().cpu().numpy()
+                      for m, sub in params.items() for k, v in sub.items()})
+    print(f"[humor-train] params -> {ckpt}, stats -> {log_path}")
+    return 0
+
+
+def cmd_train_state_prior(args) -> int:
+    from .. import resolve_device
+    from ..models.humor_state_prior import (fit_state_prior_gmm,
+                                            save_state_prior_gmm)
+
+    device = resolve_device(args.device)
+    os.makedirs(args.out, exist_ok=True)
+    if args.states:
+        states = np.load(args.states)
+    else:
+        rng = np.random.default_rng(args.seed)
+        centers = rng.standard_normal((args.gmm_comps, 138)) * 2.0
+        comp = rng.integers(0, args.gmm_comps, args.synthetic)
+        states = (centers[comp]
+                  + rng.standard_normal((args.synthetic, 138)) * 0.3)
+    print(f"[state-prior] fitting GMM({args.gmm_comps}) to "
+          f"{states.shape} states...")
+    gmm, ll = fit_state_prior_gmm(
+        np.asarray(states, np.float32), n_components=args.gmm_comps,
+        n_iter=args.iters,
+        generator=torch.Generator(device=device).manual_seed(args.seed),
+        device=device)
+    out = osp.join(args.out, "prior_gmm.npz")
+    save_state_prior_gmm(out, gmm)
+    # the reference prints the fitted shapes (train_state_prior.py:118-121)
+    for k in ("weights", "means", "covariances"):
+        print(tuple(gmm[k].shape))
+    print(f"[state-prior] mean log-lik {float(ll[-1]):.4f} -> {out}")
+    return 0
 
 
 def _smpl_model(smpl_path: str, device):
@@ -725,7 +937,8 @@ def cmd_process_amass(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return {"fit-eval": cmd_fit_eval, "fit-rgb": cmd_fit_rgb,
+    return {"train": cmd_train, "train-state-prior": cmd_train_state_prior,
+            "fit-eval": cmd_fit_eval, "fit-rgb": cmd_fit_rgb,
             "viz-fit": cmd_viz_fit, "fit-prox": cmd_fit_prox,
             "fit-amass": cmd_fit_amass,
             "process-amass": cmd_process_amass}[args.cmd](args)

@@ -1,7 +1,13 @@
 """Data layer: packed bundles, synthetic problems, the ingestion adapters
-the preprocessing CLI packs from, and VIBE's training data (port of
-nemo_tpu.data)."""
+the preprocessing CLI packs from, AMASS processing with the HuMoR training
+windows, and VIBE's training data (port of nemo_tpu.data)."""
 
+from .amass_process import (amass_state_windows, amass_world_states,
+                            canonicalize_windows, cleanup_amass_data,
+                            determine_floor_height_and_contacts,
+                            estimate_angular_velocity, estimate_velocity,
+                            load_amass_windows, process_amass_dir,
+                            process_amass_seq)
 from .bundle import (MultiViewBundle, resample_indices,
                      resample_to_common_frames)
 from .camera_fit import DEFAULT_FIT_JOINTS, fit_gt_camera
@@ -29,6 +35,10 @@ from .video import (frames_to_video, openpose_command, run_openpose,
                     video_to_frames)
 
 __all__ = [
+    "amass_state_windows", "amass_world_states", "canonicalize_windows",
+    "cleanup_amass_data", "determine_floor_height_and_contacts",
+    "estimate_angular_velocity", "estimate_velocity", "load_amass_windows",
+    "process_amass_dir", "process_amass_seq",
     "MultiViewBundle", "resample_indices", "resample_to_common_frames",
     "DEFAULT_FIT_JOINTS", "fit_gt_camera",
     "PARSER_CALLS", "flip_horizontal", "load_gt2d_pkl_dir",

@@ -1,19 +1,21 @@
 """Raw AMASS -> processed sequences, and the 3D fitting observations.
 
 Port of nemo_tpu/data/amass_process.py (behavioral reference:
-humor/humor/scripts/process_amass_data.py, cleanup_amass_data.py and
-humor/humor/datasets/amass_fit_dataset.py) for what ``humor_tool
-process-amass`` and ``fit-amass`` run: per-sequence processing (trim, SMPL
-forward for joints and keypoint vertices, floor height and contacts,
-terrain discard, central-difference velocities, 30 fps downsample,
-alignment rotations), the directory walk and clean-up, the split tables,
-surface sampling and ``amass_fit_observations``.
+humor/humor/scripts/process_amass_data.py, cleanup_amass_data.py,
+humor/humor/datasets/amass_discrete_dataset.py and amass_fit_dataset.py)
+for what ``humor_tool process-amass``, ``train --amass`` and ``fit-amass``
+run: per-sequence processing (trim, SMPL forward for joints and keypoint
+vertices, floor height and contacts, terrain discard, central-difference
+velocities, 30 fps downsample, alignment rotations), the directory walk and
+clean-up, the split tables, the HuMoR trainer's windows
+(``amass_world_states``, ``amass_state_windows``, ``canonicalize_windows``,
+``load_amass_windows``), surface sampling and ``amass_fit_observations``.
 
 Everything is the JAX package's numpy, copied (the port imports nothing of
 nemo_tpu), except the SMPL forwards, which run the port's ``smpl_forward``
-on the model's device, SPLIT_FRAME_LIMIT frames a call. The training
-windows (``amass_state_windows``, ``canonicalize_windows``,
-``load_amass_windows``) wait for the HuMoR training slice.
+on the model's device, SPLIT_FRAME_LIMIT frames a call, and
+``canonicalize_windows``, one batched call of the port's frame transforms
+on the device it is given.
 """
 
 import glob
@@ -535,6 +537,92 @@ def cleanup_amass_data(data_root: str, backup_root: str, log_fn=print):
     else:
         log_fn("could not find MPI_HDM05 dg subject, skipping")
     return moved
+
+
+# --- window assembly for the HuMoR trainer -----------------------------------
+
+def amass_world_states(seq: dict) -> np.ndarray:
+    """Pack a processed sequence's per-frame world states into the 207-dim
+    HuMoR state grid (models/humor.py STATE_FIELDS: trans 3 | trans_vel 3 |
+    root_orient 3 | root_orient_vel 3 | pose_body 63 | joints 66 |
+    joints_vel 66)."""
+    T = np.asarray(seq['trans']).shape[0]
+    return np.concatenate([
+        np.asarray(seq['trans'], np.float32),
+        np.asarray(seq['trans_vel'], np.float32),
+        np.asarray(seq['root_orient'], np.float32),
+        np.asarray(seq['root_orient_vel'], np.float32),
+        np.asarray(seq['pose_body'], np.float32),
+        np.asarray(seq['joints'], np.float32).reshape(T, -1),
+        np.asarray(seq['joints_vel'], np.float32).reshape(T, -1),
+    ], axis=1)
+
+
+def amass_state_windows(seq: dict, num_frames: int,
+                        stride: int = 1) -> np.ndarray:
+    """Slide a (num_frames)-frame window over a processed sequence ->
+    (N, num_frames, 207) world states (the deterministic-split subsequence
+    map of amass_discrete_dataset.py:175-213 at frames_in=1/out=1)."""
+    states = amass_world_states(seq)
+    T = states.shape[0]
+    if T < num_frames:
+        return np.zeros((0, num_frames, states.shape[1]), np.float32)
+    starts = np.arange(0, T - num_frames + 1, stride)
+    return np.stack([states[s:s + num_frames] for s in starts])
+
+
+def canonicalize_windows(windows: np.ndarray, device=None) -> np.ndarray:
+    """Express each (N, T, 207) world-state window in its first frame's
+    aligned-local frame, the trainer feed convention (the per-window twin
+    of amass_discrete_dataset.py:428-436's world2aligned alignment, through
+    models/humor.canonicalize_state), in one batched call on ``device``:
+    each window's transform repeated over its T frames."""
+    from ..models.humor import apply_world2local_state, canonicalize_state
+
+    w = torch.as_tensor(np.asarray(windows, np.float32), device=device)
+    N, T, D = w.shape
+    with torch.no_grad():
+        _, rot, trans = canonicalize_state(w[:, 0])
+        # root joint xy of frame 0: the joints field starts at offset
+        # 3+3+3+3+63 = 75 in the packed state
+        t2j_xy = -(w[:, 0, 75:77] + trans[:, :2])
+        t2j = torch.cat([t2j_xy, torch.zeros_like(t2j_xy[:, :1])], dim=1)
+        out = apply_world2local_state(
+            w.reshape(N * T, D), rot.repeat_interleave(T, dim=0),
+            trans.repeat_interleave(T, dim=0),
+            t2j.repeat_interleave(T, dim=0)).reshape(N, T, D)
+    return out.cpu().numpy()
+
+
+def load_amass_windows(processed_root: str, num_frames: int,
+                       split: str = "train", stride: int = 10,
+                       canonicalize: bool = True,
+                       max_windows: int = 0, device=None) -> np.ndarray:
+    """Walk a processed AMASS tree and assemble the (N, T, 207) training
+    window tensor the HuMoR trainer consumes (cli/humor_tool.py train),
+    canonicalized on ``device``."""
+    out = []
+    total = 0
+    for d in amass_split_dirs(processed_root, split):
+        for path in sorted(glob.glob(osp.join(d, '*/*.npz'))):
+            seq = np.load(path, allow_pickle=True)
+            w = amass_state_windows(seq, num_frames, stride=stride)
+            if w.shape[0] == 0:
+                continue
+            out.append(w)
+            total += w.shape[0]
+            if max_windows and total >= max_windows:
+                break
+        if max_windows and total >= max_windows:
+            break
+    if not out:
+        return np.zeros((0, num_frames, 207), np.float32)
+    windows = np.concatenate(out, axis=0)
+    if max_windows:
+        windows = windows[:max_windows]
+    if canonicalize:
+        windows = canonicalize_windows(windows, device)
+    return windows
 
 
 # --- fitting observations (AMASSFitDataset) ----------------------------------

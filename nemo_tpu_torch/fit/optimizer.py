@@ -87,14 +87,16 @@ def version_groups(cfg: NemoConfig):
 
 
 @functools.lru_cache(maxsize=4096)
-def bias_correction(decay: float, count: int) -> float:
+def bias_correction(decay: float, count: int,
+                    dtype: torch.dtype = torch.float32) -> float:
     """1 - decay**count in f32, as optax computes it (``decay ** count``
     on a float32 device array): the f32 power of f32(decay), equal to
     XLA's on the CPU at every count to 3000, where the double value is
     more than 1e-5 relative off. Host arithmetic on CPU tensors, so a step
-    on the card never waits for it."""
-    return float(1.0 - torch.tensor(decay, dtype=torch.float32)
-                 ** torch.tensor(float(count), dtype=torch.float32))
+    on the card never waits for it. With dtype float64 (the parameters'
+    dtype), the f64 power, as optax computes it under jax_enable_x64."""
+    return float(1.0 - torch.tensor(decay, dtype=dtype)
+                 ** torch.tensor(float(count), dtype=dtype))
 
 
 class GroupAdam:
@@ -114,25 +116,34 @@ class GroupAdam:
 
     @torch.no_grad()
     def step(self, scale: Optional[torch.Tensor] = None,
-             lr: Optional[float] = None) -> None:
+             lr: Optional[float] = None,
+             gate: Optional[torch.Tensor] = None) -> None:
         """Apply one update from the parameters' ``.grad`` (None = 0), at
         ``lr`` when given in place of the rate given at construction (an
         optax transform carries its rate; its state, which this object
-        also stands for, does not)."""
+        also stands for, does not). Where ``gate`` (a 0-d bool tensor on
+        the parameters' device) is false the gradients count as zeros and
+        the parameters keep their values, while the count rises and the
+        moments decay: optax's update of zeroed gradients with the write
+        under a ``where``, decided on the device."""
         ps = self.params
         g = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in ps]
         if self.wd and not self.decoupled:
             g = torch._foreach_add(g, ps, alpha=self.wd)
+        if gate is not None:
+            g = [torch.where(gate, x, torch.zeros_like(x)) for x in g]
         self.count += 1
         torch._foreach_mul_(self.m, self.b1)
         torch._foreach_add_(self.m, g, alpha=1.0 - self.b1)
         torch._foreach_mul_(self.v, self.b2)
         torch._foreach_addcmul_(self.v, g, g, value=1.0 - self.b2)
+        dt = torch.float64 if ps[0].dtype == torch.float64 \
+            else torch.float32
         mhat = torch._foreach_div(self.m, bias_correction(self.b1,
-                                                          self.count))
+                                                          self.count, dt))
         vhat = torch._foreach_div(self.v, bias_correction(self.b2,
-                                                          self.count))
+                                                          self.count, dt))
         denom = torch._foreach_sqrt(vhat)
         torch._foreach_add_(denom, self.eps)
         u = torch._foreach_div(mhat, denom)
@@ -141,7 +152,12 @@ class GroupAdam:
         torch._foreach_mul_(u, -(self.lr if lr is None else lr))
         if scale is not None:
             torch._foreach_mul_(u, scale)
-        torch._foreach_add_(ps, u)
+        if gate is None:
+            torch._foreach_add_(ps, u)
+            return
+        torch._foreach_add_(u, ps)
+        for p, new in zip(ps, u):
+            p.copy_(torch.where(gate, new, p))
 
 
 def _group_tensors(params: NemoParams, group: str) -> List[torch.Tensor]:

@@ -12,6 +12,14 @@ Parameters are the JAX package's nested dict ({"encoder", "decoder",
 are (in, out) as in JAX. ``humor_from_numpy`` carries a JAX parameter tree
 across. No kernel runs here: the rollout is 1024-wide matmuls.
 
+Training: ``humor_single_step`` (the posterior draw is an argument, so the
+same draw can be given to both packages), ``humor_train_loss`` and
+``make_humor_train_step`` (optax.adam's arithmetic through
+``fit.optimizer.GroupAdam``); ``humor_train_state_{from,to}_jax`` carry the
+parameters and optax's Adam state (count, mu, nu) across. The full trainer
+(HumorLoss, scheduled sampling, the LR schedule and the NaN skip) is
+``models/humor_loss.py``.
+
 State layout ('smpl+joints' config, axis-angle rotations):
   trans(3) trans_vel(3) root_orient(3) root_orient_vel(3)
   pose_body(63) joints(66) joints_vel(66)                      -> D = 207
@@ -20,7 +28,7 @@ State layout ('smpl+joints' config, axis-angle rotations):
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -150,10 +158,11 @@ def humor_to(params: Params, device) -> Params:
             for m, sub in params.items()}
 
 
-def humor_from_numpy(params, device=None) -> Params:
+def humor_from_numpy(params, device=None, dtype=torch.float32) -> Params:
     """Port parameters from a nemo_tpu HuMoR tree (``init_humor``'s nested
-    dict, any array type ``np.asarray`` reads), f32 on ``device``."""
-    return {m: {k: torch.tensor(np.asarray(v, np.float32), device=device)
+    dict, any array type ``np.asarray`` reads), f32 (or ``dtype``) on
+    ``device``."""
+    return {m: {k: torch.tensor(np.asarray(v), dtype=dtype, device=device)
                 for k, v in sub.items()} for m, sub in params.items()}
 
 
@@ -208,6 +217,19 @@ def humor_decode(p: Params, cfg: HumorConfig, z: torch.Tensor,
     return pack_state(nxt), contacts
 
 
+def humor_single_step(p: Params, cfg: HumorConfig, past: torch.Tensor,
+                      t: torch.Tensor, eps: torch.Tensor
+                      ) -> Dict[str, torch.Tensor]:
+    """Training forward (single_step :374-405): a posterior sample,
+    mean + eps * std with eps the (B, L) standard-normal draw, decoded."""
+    qm, qv = humor_posterior(p, cfg, past, t)
+    pm, pv = humor_prior(p, cfg, past)
+    z = qm + eps * torch.sqrt(qv)
+    pred, contacts = humor_decode(p, cfg, z, past)
+    return {"pred": pred, "contacts": contacts,
+            "posterior": (qm, qv), "prior": (pm, pv), "z": z}
+
+
 # ---------------------------------------------------------------------------
 # World <-> aligned-local frame (humor/utils/transforms.py:17-58 +
 # humor_model.py:696-775 apply_world2local_trans)
@@ -227,8 +249,13 @@ def compute_aligned_from_right(body_right: torch.Tensor
     x_proj = body_right[:, 0:1] / (
         torch.linalg.norm(body_right[:, :2], dim=1, keepdim=True) + eps)
     angle = torch.arccos(torch.clamp(x_proj, -1.0, 1.0))
-    flat = body_right * body_right.new_tensor([1.0, 1.0, 0.0])
-    x_axis = body_right.new_tensor([1.0, 0.0, 0.0]).expand_as(flat)
+    # the constants made on the device (a tensor from a host list would be
+    # a synchronising copy)
+    keep_xy = torch.ones_like(body_right)
+    keep_xy[:, 2] = 0.0
+    flat = body_right * keep_xy
+    x_axis = torch.zeros_like(flat)
+    x_axis[:, 0] = 1.0
     axis = torch.linalg.cross(flat, x_axis, dim=1)
     aa = axis / (torch.linalg.norm(axis, dim=1, keepdim=True) + eps) * angle
     return batch_rodrigues(aa), aa
@@ -309,14 +336,17 @@ def humor_roll_out(p: Params, cfg: HumorConfig, x0: torch.Tensor,
                    num_steps: int, generator: Optional[torch.Generator] = None,
                    use_mean: bool = False,
                    z_seq: Optional[torch.Tensor] = None,
-                   canonicalize: bool = False) -> Dict[str, torch.Tensor]:
+                   canonicalize: bool = False,
+                   draw: Optional[Callable[[Tuple[int, ...]], torch.Tensor]]
+                   = None) -> Dict[str, torch.Tensor]:
     """Autoregressive rollout sampling the (conditional) prior each step.
 
     x0: (B, D) initial state. Returns {'states': (B, T, D), 'z': (B, T, L),
     'contacts': (B, T, 9), 'prior_mean', 'prior_var'}: the reference's
     roll_out (:785-1020), one loop iteration a step. z comes from z_seq
     (B, T, L) when given, else the prior mean (use_mean) or a prior sample
-    drawn with ``generator``. canonicalize=True re-expresses x0 in its
+    drawn with ``generator``, or given by ``draw(shape)``, called once a
+    step for its standard-normal draw. canonicalize=True re-expresses x0 in its
     aligned local frame, feeds the model aligned-local inputs and maps the
     emitted states back to the world frame through the accumulated
     world2local transform (:965-1010).
@@ -330,8 +360,9 @@ def humor_roll_out(p: Params, cfg: HumorConfig, x0: torch.Tensor,
         elif use_mean:
             z = pm
         else:
-            eps = torch.randn(pm.shape, generator=generator).to(pm.device)
-            z = pm + eps * torch.sqrt(pv)
+            eps = (draw(pm.shape) if draw is not None else
+                   torch.randn(pm.shape, generator=generator))
+            z = pm + eps.to(pm.device) * torch.sqrt(pv)
         pred, contacts = humor_decode(p, cfg, z, past)
         if contacts is None:
             contacts = pred.new_zeros((B, 0))
@@ -436,3 +467,121 @@ def load_humor(path: str, cfg: HumorConfig = HumorConfig(), device=None
     # weights_only=True, which refuses them
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     return convert_humor_state_dict(ckpt.get("model", ckpt), cfg, device)
+
+
+# ---------------------------------------------------------------------------
+# CVAE training (humor train loop :32-99)
+# ---------------------------------------------------------------------------
+
+def gaussian_kl(qm, qv, pm, pv) -> torch.Tensor:
+    """KL(N(qm, qv) || N(pm, pv)) summed over dims, mean over batch."""
+    kl = 0.5 * (torch.log(pv) - torch.log(qv)
+                + (qv + (qm - pm) ** 2) / pv - 1.0)
+    return kl.sum(dim=1).mean()
+
+
+def bce_with_logits(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Mean BCEWithLogits in the stable form the JAX package writes."""
+    return (torch.clamp(x, min=0) - x * y
+            + torch.log1p(torch.exp(-torch.abs(x)))).mean()
+
+
+def humor_train_loss(p: Params, cfg: HumorConfig, past: torch.Tensor,
+                     target: torch.Tensor, eps: torch.Tensor,
+                     kl_weight: float = 4e-4,
+                     contacts_gt: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-step CVAE training loss: state reconstruction MSE + prior KL
+    (+BCE on contacts), the core of humor's training step (:32-99); eps
+    is the posterior draw."""
+    out = humor_single_step(p, cfg, past, target, eps)
+    rec = ((out["pred"] - target) ** 2).mean()
+    kl = gaussian_kl(*out["posterior"], *out["prior"])
+    loss = rec + kl_weight * kl
+    metrics = {"rec": rec, "kl": kl}
+    if cfg.pred_contacts and contacts_gt is not None:
+        bce = bce_with_logits(out["contacts"], contacts_gt)
+        loss = loss + 0.01 * bce
+        metrics["contacts_bce"] = bce
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def humor_leaves(params: Params) -> List[Tuple[str, str]]:
+    """(module, key) of every tensor, in the order JAX flattens the tree
+    (sorted keys at each level): the order of a GroupAdam's tensors."""
+    return [(m, k) for m in sorted(params) for k in sorted(params[m])]
+
+
+def humor_adam(params: Params, lr: float):
+    """A GroupAdam over every tensor of params, in humor_leaves order,
+    each marked as requiring gradients."""
+    from ..fit.optimizer import GroupAdam
+    ts = [params[m][k] for m, k in humor_leaves(params)]
+    for t in ts:
+        t.requires_grad_(True)
+    return GroupAdam(ts, lr)
+
+
+def make_humor_train_step(cfg: HumorConfig, lr: float = 1e-4,
+                          kl_weight: float = 4e-4):
+    """(init_opt, step): init_opt(params) makes optax.adam(lr)'s state (a
+    GroupAdam); step(params, opt, past, target, eps) updates params and
+    opt in place and returns (params, opt, the batch's metrics, on the
+    device). past/target are (B, 207) packed states, eps the (B, L)
+    posterior draw."""
+
+    def init_opt(params: Params):
+        return humor_adam(params, lr)
+
+    def step(params: Params, opt, past: torch.Tensor, target: torch.Tensor,
+             eps: torch.Tensor):
+        for t in opt.params:
+            t.grad = None
+        with torch.enable_grad():
+            loss, metrics = humor_train_loss(params, cfg, past, target, eps,
+                                             kl_weight)
+            loss.backward()
+        opt.step()
+        return params, opt, {k: v.detach() for k, v in metrics.items()}
+
+    return init_opt, step
+
+
+def humor_train_state_from_jax(params: Mapping[str, Mapping[str, object]],
+                               opt_state: Optional[Mapping[str, object]]
+                               = None, lr: float = 1e-4, device=None,
+                               dtype=torch.float32):
+    """A JAX HuMoR train state as the port's (params, opt): params the
+    nested tree of arrays, opt_state an optax Adam state flattened as a
+    checkpoint holds it ('.count', '.mu/<module>/<key>', '.nu/...' for
+    make_humor_full_train_step's scale_by_adam; the same under '0/' for
+    make_humor_train_step's optax.adam), or None for a fresh Adam; the
+    tensors in ``dtype`` on ``device``."""
+    p = humor_from_numpy(params, device, dtype)
+    opt = humor_adam(p, lr)
+    if opt_state is not None:
+        count, = [k for k in opt_state if k.endswith(".count")]
+        pre = count[:-len(".count")]
+        opt.count = int(np.asarray(opt_state[count]))
+        with torch.no_grad():
+            for (m, k), mu, nu in zip(humor_leaves(p), opt.m, opt.v):
+                mu.copy_(torch.as_tensor(np.array(
+                    opt_state[f"{pre}.mu/{m}/{k}"])))
+                nu.copy_(torch.as_tensor(np.array(
+                    opt_state[f"{pre}.nu/{m}/{k}"])))
+    return p, opt
+
+
+def humor_train_state_to_jax(params: Params, opt, prefix: str = ""
+                             ) -> Tuple[Dict[str, Dict[str, np.ndarray]],
+                                        Dict[str, np.ndarray]]:
+    """The inverse: (the nested parameter tree, the flattened Adam state)
+    as numpy; prefix '0/' names optax.adam's chain."""
+    tree = {m: {k: v.detach().cpu().numpy().copy() for k, v in sub.items()}
+            for m, sub in params.items()}
+    o = {f"{prefix}.count": np.asarray(opt.count, np.int32)}
+    for (m, k), mu, nu in zip(humor_leaves(params), opt.m, opt.v):
+        o[f"{prefix}.mu/{m}/{k}"] = mu.detach().cpu().numpy().copy()
+        o[f"{prefix}.nu/{m}/{k}"] = nu.detach().cpu().numpy().copy()
+    return tree, o
