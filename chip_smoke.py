@@ -69,7 +69,7 @@ Run from the repository root with no arguments:
    K6 every product so, and the f32 bound is printed beside it).
 4. The fit, one path after another, each with the launch counters zeroed
    just before and read just after, and each asserting that its own
-   kernels ran:
+   kernels ran (each path's seconds printed at the end):
    - slice 1: the reference configuration (bench.py's NemoConfig: NemoV2,
      batch 512, h_dim 1000, RBF 100 quadratic, 200-node phase nets, 8 views
      x 120 frames, VPoser v2v 10 + KL 1 + GMM 1), warmup, camera and main
@@ -195,7 +195,23 @@ Run from the repository root with no arguments:
      body (two K1f and one K1b a forward and backward), card vs CPU;
      train-state-prior at its defaults and on states_from_sequences of
      the training windows, EM card vs CPU from the same means;
-     humor_eval_* on the trained weights, card vs CPU.
+     humor_eval_* on the trained weights, card vs CPU;
+   - path P: the rest of render/ at full width on the reference
+     configuration's initial motion (8 views x 120 frames, 1000 x 1900):
+     the input, mv (8 x 8), pretty (8 rows of 6 people and the ground, one
+     K5s scene a row), pretty individual, 3D (2 x 10), GT, pred-in-GT and
+     GLAMR rollout figures on a bundle written with GLAMR slots, the
+     per-joint frames (2 views x 2 frames) and the root trajectories (their
+     PNGs skipped without matplotlib); outside the launch count, one pretty
+     scene's K5s output bit for bit its plain fold on the card and its
+     image against the CPU's;
+   - path Q: data parallelism and the seed fan-out at the reference
+     configuration: Q1 the fit CLI's main with --dp 1 in an NCCL group of
+     one, bit for bit the one-process fit; Q2 two ranks on cuda:0 over gloo
+     (this script started as ``--q2-rank R PORT DIR``), NemoFitter(mesh=)
+     at 256 rows a rank against Q1, parameters equal across the ranks,
+     train_vposer(mesh=) against one rank; Q3 fit_many_seeds, 4 seeds x 20
+     steps, each seed bit for bit a lone fitter.
    Losses must be finite, main-stage kp_loss must fall on slice 1 and paths
    A and F (stage 2's loss on path E), fit_loss on the card must agree with the
    port's CPU path from the same parameters (points3d_loss and the stage-3
@@ -2841,6 +2857,7 @@ def path_g(device, smpl, bundle, files, sources):
     """
     import numpy as np
     import torch
+    from nemo_tpu_torch.body.assets import synthetic_smpl_model
     from nemo_tpu_torch.cli import fit as fit_cli
     from nemo_tpu_torch.fit import NemoFitter, build_assets, fit_loss
     out = {}
@@ -4453,7 +4470,9 @@ N_VP_SEQ_T = 1050       # frames an AMASS sequence: 16 keep 4032 frames
 N_VP_RTOL = 1e-5        # loss terms (relative) and updated tensors (of
 #                         each one's largest entry), card vs CPU
 N_VP_TIMED = 10         # back-to-back VPoser train steps timed on the card
-N_HUMOR_STEPS = (3, 5, 2)   # L-BFGS steps of the three HuMoR stages
+N_HUMOR_STEPS = (3, 5, 1)   # L-BFGS steps of the three HuMoR stages
+# (stage 3 cut from 2 to keep the smoke's time with paths P and Q; stages
+# 1 and 2, whose trajectory the descent check reads, as before)
 N_HUMOR_RTOL = 1e-4     # stages 1-2's starting loss, card vs CPU
 N_HUMOR_GRAD_RTOL = 1e-3  # and its gradient, in norm over the norm
 N_HELPER_RTOL = 1e-5    # geometry helpers, card vs CPU, of the largest
@@ -4633,8 +4652,9 @@ def path_n_vposer(device, smpl, root, out):
     real_make = vpt.make_vposer_train_step
     seen = {"steps": 0}
 
-    def recording_make(cfg_, smpl_=None, include_extra_terms=True):
-        init_opt, step = real_make(cfg_, smpl_, include_extra_terms)
+    def recording_make(cfg_, smpl_=None, include_extra_terms=True,
+                       mesh=None):
+        init_opt, step = real_make(cfg_, smpl_, include_extra_terms, mesh)
 
         def recorded(p, opt, pose_body, noise):
             if not include_extra_terms and "state" not in seen:
@@ -5548,7 +5568,451 @@ def path_o(device, smpl, files, d):
     return counts, out
 
 
+P_PIX_TOL = 1.0 / 255   # path P: the pretty scene, card against the CPU
+P_PIX_SHARE = 1e-4      # at most this share of pixels differ by more
+P_JOINT_VIEWS, P_JOINT_FRAMES = 2, 2   # per-joint frames: 1000 x 1900 PNGs
+
+
+def p_bundle(bundle, path):
+    """The smoke's bundle with a GLAMR world baseline (the GT motion, its
+    poses moved by a seeded 0.05 rad, its roots by (0.3, 0, 0.1) m),
+    written to path and read back."""
+    import dataclasses
+    import numpy as np
+    from nemo_tpu_torch.data.bundle import MultiViewBundle
+    rng = np.random.RandomState(5)
+    V, F = bundle.num_views, bundle.num_frames
+    g = (bundle.gt3d_pose + 0.05 * rng.randn(*bundle.gt3d_pose.shape)
+         ).astype(np.float32)
+    b = dataclasses.replace(
+        bundle, glamr_orient=g[..., :3],
+        glamr_trans=bundle.gt3d_trans + np.float32([0.3, 0.0, 0.1]),
+        baseline_poses={**(bundle.baseline_poses or {}), "glamr":
+                        np.concatenate([g[..., 3:], np.zeros((V, F, 3),
+                                                             np.float32)],
+                                       -1)})
+    b.save(path)
+    return MultiViewBundle.load(path)
+
+
+def path_p(device, smpl, bundle):
+    """The rest of render/ at full width (8 views x 120 frames, 1000 x
+    1900, the 6890-vertex body) on the reference configuration's initial
+    motion: the input figure, the mv figure (8 x 8 panels), the pretty
+    rollout (8 rows, each 6 people and the ground in one K5s scene), the
+    pretty individual figure (6 bodies), the 3D rollout (2 x 10), the GT,
+    pred-in-GT and GLAMR rollouts through the GT cameras (8 x 8 each) on a
+    bundle written with GLAMR slots, the per-joint frames (2 views x 2
+    frames) and the root trajectories (their PNGs skipped where
+    matplotlib is missing). Outside the launch count: one pretty scene's
+    K5s output bit-identical to the plain fold on the card, and its image
+    against the CPU's (at most P_PIX_SHARE of the pixels differ by more
+    than P_PIX_TOL)."""
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.eval.metrics import eval_frame_indices
+    from nemo_tpu_torch.fit import predict
+    from nemo_tpu_torch.geometry.camera import camera_from_params_np
+    from nemo_tpu_torch.geometry.rotations import rot6d_to_rotmat_np
+    from nemo_tpu_torch.ops import raster
+    from nemo_tpu_torch.render import mesh as rmesh
+    from nemo_tpu_torch.render import (
+        render_3d_rollout_figure, render_global_root_trajectories,
+        render_glamr_rollout, render_gt_rollout, render_input_figure,
+        render_per_joint_keypoint_frames, render_pred_in_gt_rollout,
+        render_pretty_individual_figure, render_pretty_rollout_figure,
+        render_rollout_mv_figure)
+    cfg = reference_config()
+    fitter = make_fitter(device, smpl, bundle, cfg)
+    V, F = bundle.num_views, bundle.num_frames
+    faces = smpl.faces
+    out, secs, spy = {}, {}, {}
+    real_pretty = rmesh.render_pretty
+
+    def pretty_spy(*a, **k):
+        """The first pretty scene's arguments, image and rasterizer call."""
+        if "pretty" in spy:
+            return real_pretty(*a, **k)
+        real_raster = rmesh.rasterize_triangles_batched
+
+        def raster_spy(*ra, **rk):
+            spy["raster"] = (ra, rk)
+            return real_raster(*ra, **rk)
+
+        rmesh.rasterize_triangles_batched = raster_spy
+        try:
+            img = real_pretty(*a, **k)
+        finally:
+            rmesh.rasterize_triangles_batched = real_raster
+        spy["pretty"] = (a, k, img)
+        return img
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        secs[name] = round(time.perf_counter() - t0, 3)
+        return r
+
+    def run():
+        with tempfile.TemporaryDirectory() as d:
+            b = p_bundle(bundle, os.path.join(d, "bundle.npz"))
+            with torch.no_grad():
+                preds = [predict(fitter.params, cfg, fitter.assets,
+                                 torch.full((F,), v, device=device),
+                                 torch.arange(F, device=device),
+                                 want_vertices=True) for v in range(V)]
+            verts = np.stack([p["v"].cpu().numpy() for p in preds])
+            trans = np.stack([p["trans"].cpu().numpy() for p in preds])
+            R0 = rot6d_to_rotmat_np(preds[0]["orient"][0].cpu().numpy())
+            cam9 = fitter.params.cameras.detach().cpu().numpy()
+            cams = [camera_from_params_np(cam9[v], *IMG_HW) for v in range(V)]
+            p = lambda name: os.path.join(d, name)
+            grids = {}
+            grids["input"] = timed("input", lambda: render_input_figure(
+                p("input.png"), b))
+            grids["mv"] = timed("mv", lambda: render_rollout_mv_figure(
+                p("mv.png"), 0, verts, faces, cams, b, num_frames=8,
+                device=device))
+            rmesh.render_pretty = pretty_spy
+            try:
+                grids["pretty"] = timed(
+                    "pretty", lambda: render_pretty_rollout_figure(
+                        p("pretty.png"), verts, faces, cams, b,
+                        num_frames=6, device=device))
+            finally:
+                rmesh.render_pretty = real_pretty
+            fidx = eval_frame_indices(F, 6)
+            ind = timed("individual", lambda: render_pretty_individual_figure(
+                p("individual"), verts[0, fidx], faces, cams[0], b,
+                device=device))
+            grids["3d"] = timed("3d", lambda: render_3d_rollout_figure(
+                p("3d.png"), verts, faces, b, init_orient_rotmat=R0,
+                num_frames=10, device=device))
+            grids["gt"] = timed("gt", lambda: render_gt_rollout(
+                p("gt.png"), smpl, b, num_frames=8, device=device))
+            grids["pred_in_gt"] = timed(
+                "pred_in_gt", lambda: render_pred_in_gt_rollout(
+                    p("pred_in_gt.png"), smpl, verts, b, num_frames=8,
+                    device=device))
+            grids["glamr"] = timed("glamr", lambda: render_glamr_rollout(
+                p("glamr.png"), smpl, b, num_frames=8, device=device))
+            n_joint = timed("joints", lambda: render_per_joint_keypoint_frames(
+                p("joints"), b.labels["gt"], b, num_frames=P_JOINT_FRAMES,
+                num_views=P_JOINT_VIEWS))
+            errs = timed("trajectories", lambda: render_global_root_trajectories(
+                p("trajectories"), b.gt3d_trans[0], trans[0],
+                b.glamr_trans[0]))
+            written = sorted(n for n in os.listdir(d) if n.endswith(".png"))
+            joints = sorted(os.listdir(p("joints")))
+            sizes = {n: os.path.getsize(p(n)) for n in written}
+        conf = b.labels["gt"][:P_JOINT_VIEWS][:, eval_frame_indices(
+            F, P_JOINT_FRAMES)][..., 2]
+        shapes = {k: list(g.shape) for k, g in grids.items()}
+        covered = {k: round(float((np.abs(g - 1.0) > 1e-3).any(-1).mean()),
+                            5) for k, g in grids.items()}
+        print(f"[path P] grids {json.dumps(shapes)}; covered share "
+              f"{json.dumps(covered)}; PNGs {json.dumps(sizes)}; individual "
+              f"{[os.path.basename(x) for x in ind]}; per-joint frames "
+              f"{n_joint} (e.g. {joints[:2]}); root distances "
+              f"{json.dumps(errs)}; seconds {json.dumps(secs)}")
+        want_png = sorted(["input.png", "mv.png", "pretty.png", "3d.png",
+                           "gt.png", "pred_in_gt.png", "glamr.png"])
+        if written != want_png or len(ind) != 6 or \
+                n_joint != int((conf > 0.5).sum()) or \
+                n_joint != len(joints) or sorted(errs) != ["glamr", "pred"]:
+            raise AssertionError("path P: figures or files missing")
+        if not all(np.isfinite(g).all() for g in grids.values()) or \
+                min(covered[k] for k in ("mv", "pretty", "3d")) < 1e-3:
+            raise AssertionError(f"path P: figures empty or not finite "
+                                 f"{json.dumps(covered)}")
+        out["seconds"] = sum(secs.values())
+
+    counts, _ = run_path("path P", ("fk_fwd", "raster_stream"), run)
+    # outside the count: the first pretty scene against the plain fold on
+    # the card (bit for bit) and against the CPU's image
+    (a, k, img_card), (ra, rk) = spy["pretty"], spy["raster"]
+    t0 = time.perf_counter()
+    img_cpu = real_pretty(*a, **{**k, "device": "cpu"})
+    cpu_s = time.perf_counter() - t0
+    diff = np.abs(img_card - img_cpu).max(-1)
+    share = float((diff > P_PIX_TOL).mean())
+    verts_cam, f_t, foc, ctr, hw = ra
+    ent = raster.prepare(verts_cam, f_t, foc, ctr, hw, 32, 128,
+                         rk["span"], 1e-3)
+    got = raster.raster_stream_cuda(ent, raster.stream_inputs(ent), hw)
+    want = raster.rasterize_plain(ent, hw, stream=True)
+    same = all(torch.equal(x, y) for x, y in zip(got, want))
+    print(f"[path P] a pretty scene ({len(a[0])} people and the ground, "
+          f"{verts_cam.shape[1]} vertices, span {rk['span']}): K5s "
+          f"bit-identical to the plain fold on the card {same}; card vs "
+          f"CPU {share:.2e} of the pixels differ by more than "
+          f"{P_PIX_TOL:.5f} (tolerance {P_PIX_SHARE}), largest "
+          f"{float(diff.max()):.3e}; the CPU's render {cpu_s:.2f} s; path P "
+          f"{out['seconds']:.1f} s; launches K5s {counts['raster_stream']}, "
+          f"K1f {counts['fk_fwd']}")
+    if not same or not share <= P_PIX_SHARE:
+        raise AssertionError("path P: the pretty scene's K5s output or "
+                             "image disagrees")
+    return counts, out
+
+
+Q_STEPS = (5, 5, 5)     # warmup, camera and main steps of Q1 and Q2
+Q_LOSS_RTOL = 2e-4      # Q2's main-stage losses against Q1's
+#                         (tests/test_parallel.py's dp bound, at its depth)
+Q_VP_N, Q_VP_B = 512, 128   # Q2's train_vposer: 4 steps of 64 rows a rank
+Q_VP_RTOL = 1e-5        # its first step's losses against one rank's
+Q_VP_RUN_RTOL = 1e-3    # its fourth step's, after three Adam steps in which
+#                         entries whose gradients are f32 noise move by
+#                         about the rate either way (as on the CPU tests)
+Q_SEEDS, Q_FAN_STEPS = 4, 20   # Q3: fit_many_seeds
+RANK_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def q_argv(d, name):
+    """The fit CLI's flags for Q1 and Q2: the reference configuration at
+    Q_STEPS on path Q's bundle, the synthetic assets, seed 0."""
+    from nemo_tpu_torch.cli.fit import build_parser
+    cfg = reference_config(warmup_step=Q_STEPS[0], opt_cam_step=Q_STEPS[1],
+                           n_steps=Q_STEPS[2])
+    return cli_flags(build_parser(), cfg) + [
+        "--bundle", os.path.join(d, "bundle.npz"), "--synthetic_assets",
+        "--save_every", str(Q_STEPS[2]), "--seed", "0", "--device", "cuda",
+        "--out_dir", os.path.join(d, name)]
+
+
+def q_vposer(smpl, device, mesh):
+    """Q2's VPoser training: the 512-wide VPoser on the 6890-vertex body,
+    one epoch at batch Q_VP_B over Q_VP_B seeded poses (one step: its
+    losses are those of the initial weights) and over Q_VP_N (four);
+    (the four-step run's params, the one-step history, the four-step
+    history)."""
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.priors import vposer_train as tvt
+    from nemo_tpu_torch.priors.vposer import init_vposer
+    data = (0.3 * np.random.RandomState(11).randn(Q_VP_N, 63)
+            ).astype(np.float32)
+    p0 = {k: v.to(device) for k, v in init_vposer(
+        generator=torch.Generator().manual_seed(7)).items()}
+    cfg = tvt.VPoserTrainConfig(batch_size=Q_VP_B)
+    _, first = tvt.train_vposer(p0, data[:Q_VP_B], cfg, num_epochs=1,
+                                seed=3, smpl=smpl, mesh=mesh)
+    params, run = tvt.train_vposer(p0, data, cfg, num_epochs=1, seed=3,
+                                   smpl=smpl, mesh=mesh)
+    return params, first, run
+
+
+def q2_rank(rank: int, port: int, d: str) -> int:
+    """One of Q2's two ranks (``chip_smoke.py --q2-rank R PORT DIR``): a
+    gloo group on cuda:0, NemoFitter(mesh=make_mesh()) on the CLI's
+    assets through the three stages, then train_vposer(mesh=...); writes
+    DIR/q2_rank<R>.npz."""
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.cli.fit import build_parser, load_assets
+    from nemo_tpu_torch.data.bundle import MultiViewBundle
+    from nemo_tpu_torch.fit import NemoConfig, NemoFitter
+    from nemo_tpu_torch.ops import launch_counts, reset_launches
+    from nemo_tpu_torch.parallel import distributed, make_mesh
+    from nemo_tpu_torch.utils.checkpoint import params_to_numpy
+    from nemo_tpu_torch.utils.exp import dataclass_from_namespace, merge_config
+    distributed.initialize(f"localhost:{port}", 2, rank, device="cuda",
+                           backend="gloo")
+    mesh = make_mesh(2, device="cuda:0")
+    args = merge_config(build_parser(), q_argv(d, "q2"))
+    cfg = dataclass_from_namespace(NemoConfig, args)
+    assets = load_assets(args, MultiViewBundle.load(
+        os.path.join(d, "bundle.npz")), cfg, mesh.device)
+    reset_launches()
+    fitter = NemoFitter(cfg, assets, seed=args.seed, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with deterministic_cuda():      # as Q1: one trajectory run to run
+        fitter.warmup()
+        fitter.opt_cam()
+        fm = fitter.fit(chunk=cfg.n_steps)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    vp, first, hist = q_vposer(assets.smpl, mesh.device, mesh)
+    counts = launch_counts()
+    np.savez(os.path.join(d, f"q2_rank{rank}.npz"), fit_s=fit_s,
+             counts=json.dumps(counts),
+             **{f"main/{k}": v for k, v in fm.items()},
+             **{f"params/{k}": v for k, v in
+                params_to_numpy(fitter.params).items()},
+             **{f"vp/{k}": v.cpu().numpy() for k, v in vp.items()},
+             **{f"first/{k}": v for k, v in first.items()},
+             **{f"hist/{k}": v for k, v in hist.items()})
+    distributed.shutdown()
+    return 0
+
+
+def path_q(device, smpl, bundle):
+    """Data parallelism and the seed fan-out at the reference
+    configuration (NemoV2, B 512, h_dim 1000, 8 views x 120 frames):
+    Q1 the fit CLI's main with --dp 1 under torchrun's environment (an
+    NCCL group of one), bit for bit the one-process fit of the same seed,
+    both under deterministic_cuda(); Q2 two ranks on cuda:0 over gloo
+    (NCCL refuses two ranks on one card), started here (q2_rank), 256 rows
+    a rank through the three stages at Q_STEPS under deterministic_cuda():
+    the main-stage losses within Q_LOSS_RTOL of Q1's, parameters bit for
+    bit equal across the ranks,
+    and train_vposer(mesh=...) against one rank; Q3 fit_many_seeds with
+    Q_SEEDS seeds x Q_FAN_STEPS steps under deterministic_cuda(), each
+    seed bit for bit a lone NemoFitter's main stage. K1f, K1b and K2
+    must have launched (Q2's ranks' launches added)."""
+    import numpy as np
+    import torch
+    from nemo_tpu_torch.body.assets import synthetic_smpl_model
+    from nemo_tpu_torch.cli import fit as fit_cli
+    from nemo_tpu_torch.fit import NemoFitter
+    from nemo_tpu_torch.parallel import fit_many_seeds
+    root = os.path.dirname(os.path.abspath(__file__))
+    out, secs, ranks = {}, {}, []
+
+    def q1(d):
+        os.environ.update(MASTER_ADDR="localhost",
+                          MASTER_PORT=str(free_port()), WORLD_SIZE="1",
+                          RANK="0", LOCAL_RANK="0")
+        try:
+            with deterministic_cuda():
+                rc = fit_cli.main(q_argv(d, "q1_dp") + ["--dp", "1"])
+        finally:
+            for k in RANK_ENV:
+                os.environ.pop(k, None)
+        with deterministic_cuda():
+            rc1 = fit_cli.main(q_argv(d, "q1_one"))
+        runs = [os.path.join(d, n, "000000") for n in ("q1_dp", "q1_one")]
+        loss = [np.load(os.path.join(r, "losses.npz")) for r in runs]
+        ckpt = [np.load(os.path.join(r, "ckpt", f"sd_{Q_STEPS[2]:06d}",
+                                     "params.npz")) for r in runs]
+        same = rc == rc1 == 0 and sorted(loss[0].files) == sorted(
+            loss[1].files) and all(np.array_equal(loss[0][k], loss[1][k])
+                                   for k in loss[0].files) and all(
+            np.array_equal(ckpt[0][k], ckpt[1][k]) for k in ckpt[1].files)
+        print(f"[path Q] Q1 --dp 1 (NCCL, world 1) against one process: "
+              f"losses and parameters bit for bit {same}; main-stage "
+              f"total_loss {loss[0]['total_loss'].tolist()}")
+        if not same:
+            raise AssertionError("path Q1: --dp 1 differs from the "
+                                 "one-process fit")
+        out["q1_total"] = loss[1]["total_loss"]
+
+    def q2(d):
+        port = free_port()
+        env = dict(os.environ, PYTHONPATH=root)
+        for k in RANK_ENV:
+            env.pop(k, None)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--q2-rank", str(r),
+             str(port), d], cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        try:
+            for q in procs:
+                logs.append(q.communicate(timeout=600)[0])
+        finally:
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+                    q.wait()
+        for r, (q, log) in enumerate(zip(procs, logs)):
+            if q.returncode != 0:
+                raise AssertionError(f"path Q2 rank {r} exited "
+                                     f"{q.returncode}: {log[-4000:]}")
+        ranks.extend(np.load(os.path.join(d, f"q2_rank{r}.npz"))
+                     for r in range(2))
+        a, b = ranks
+        got, want = a["main/total_loss"], out["q1_total"]
+        step_rel = np.abs(got - want) / np.abs(want)
+        rel = float(step_rel.max())
+        keys = [k for k in a.files
+                if k.startswith(("params/", "vp/", "first/", "hist/"))]
+        same = all(np.array_equal(a[k], b[k]) for k in keys) and \
+            np.array_equal(got, b["main/total_loss"])
+        _, first_ref, hist_ref = q_vposer(
+            synthetic_smpl_model(device=device), device, None)  # the CLI's
+
+        def vp_rel(prefix, ref):
+            return max(float(np.abs(a[f"{prefix}/{k}"] - v).max()
+                             / max(np.abs(v).max(), 1e-12))
+                       for k, v in ref.items())
+
+        vp_first, vp_run = vp_rel("first", first_ref), vp_rel("hist",
+                                                             hist_ref)
+        print(f"[path Q] Q2 two ranks on cuda:0 over gloo (256 rows a "
+              f"rank): main-stage total_loss {got.tolist()}, against Q1 "
+              f"relative by step {[float(f'{x:.2e}') for x in step_rel]}: "
+              f"at most {rel:.2e} (tolerance {Q_LOSS_RTOL}); "
+              f"parameters, losses and VPoser parameters bit for bit equal "
+              f"across the ranks {same}; train_vposer(mesh) against one "
+              f"rank: the first step's losses {vp_first:.2e} relative "
+              f"(tolerance {Q_VP_RTOL}), the fourth's {vp_run:.2e} "
+              f"({Q_VP_RUN_RTOL}); the ranks' "
+              f"fit seconds {[round(float(x['fit_s']), 3) for x in ranks]}"
+              f", launches {[json.loads(str(x['counts'])) for x in ranks]}")
+        if not (rel <= Q_LOSS_RTOL and same
+                and vp_first <= Q_VP_RTOL and vp_run <= Q_VP_RUN_RTOL):
+            raise AssertionError("path Q2: the two-rank fit or VPoser "
+                                 "training disagrees")
+
+    def q3():
+        cfg = reference_config()
+        assets = make_fitter(device, smpl, bundle, cfg).assets
+        with deterministic_cuda():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fit_many_seeds(cfg, assets, Q_SEEDS, steps=Q_FAN_STEPS)
+            fan_s = time.perf_counter() - t0
+            lone = []
+            for s in range(Q_SEEDS):
+                f = NemoFitter(cfg, assets, seed=s)
+                lone.append(f.fit(Q_FAN_STEPS, chunk=Q_FAN_STEPS)
+                            ["total_loss"])
+        same = all(np.array_equal(res["losses"][s], lone[s])
+                   for s in range(Q_SEEDS))
+        print(f"[path Q] Q3 fit_many_seeds {Q_SEEDS} seeds x {Q_FAN_STEPS} "
+              f"steps: {fan_s:.3f} s, {fan_s / Q_FAN_STEPS:.4f} s a fan-out "
+              f"step, {Q_FAN_STEPS / fan_s:.3f} steps/s a seed; each seed "
+              f"bit for bit a lone NemoFitter {same}; final losses "
+              f"{res['losses'][:, -1].tolist()}")
+        if not same or not np.isfinite(res["losses"]).all():
+            raise AssertionError("path Q3: a seed differs from its lone "
+                                 "fitter")
+        out["q3"] = dict(fan_s=fan_s, step_s=fan_s / Q_FAN_STEPS,
+                         seed_steps_s=Q_FAN_STEPS / fan_s)
+
+    def run():
+        with tempfile.TemporaryDirectory() as d:
+            bundle.save(os.path.join(d, "bundle.npz"))
+            for name, fn in (("Q1", lambda: q1(d)), ("Q2", lambda: q2(d)),
+                             ("Q3", q3)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                secs[name] = round(time.perf_counter() - t0, 3)
+
+    counts, _ = run_path("path Q", ("fk_fwd", "fk_bwd", "v2v_grad"), run)
+    for r in ranks:
+        for k, v in json.loads(str(r["counts"])).items():
+            counts[k] += v
+    out["seconds"] = sum(secs.values())
+    print(f"[path Q] seconds {json.dumps(secs)}, {out['seconds']:.1f} in "
+          f"all; launches with Q2's ranks {json.dumps({k: counts[k] for k in ('fk_fwd', 'fk_bwd', 'v2v_grad')})}")
+    return counts, out
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--q2-rank"]:
+        return q2_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     # deterministic_cuda() needs cuBLAS's workspace named before the first
     # product (PyTorch reads it once); this is the H100's default, 32 MiB
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -5586,30 +6050,53 @@ def main() -> int:
     kernel_err.update(chamfer_phase(device, smpl, rec))
     kernel_err.update(mlp_phase(device, rec))
     kernel_err.update(io_bf16_phase(device, smpl, smpl_b, rec))
-    paths = {}
-    paths["slice 1"], steady1, run1 = slice1_path(device, smpl, bundle)
-    path_h_counts, steady_h, run_h = path_h(device, smpl_b, bundle, steady1)
+    paths, secs = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        secs[name] = round(time.perf_counter() - t0, 1)
+        return r
+
+    secs["kernels"] = round(time.perf_counter() - t_start, 1)
+    paths["slice 1"], steady1, run1 = timed(
+        "slice 1", lambda: slice1_path(device, smpl, bundle))
+    path_h_counts, steady_h, run_h = timed(
+        "H", lambda: path_h(device, smpl_b, bundle, steady1))
     paths.update(path_h_counts)
-    path_i_counts, steady_i = path_i(device, smpl, smpl_b, bundle, steady1,
-                                     steady_h, run1, run_h)
+    path_i_counts, steady_i = timed("I", lambda: path_i(
+        device, smpl, smpl_b, bundle, steady1, steady_h, run1, run_h))
     paths.update(path_i_counts)
-    paths["path A"], steady_a = path_a(device, smpl, bundle)
-    for k, c in path_b(device, smpl, bundle).items():
+    paths["path A"], steady_a = timed("A", lambda: path_a(device, smpl,
+                                                          bundle))
+    for k, c in timed("B", lambda: path_b(device, smpl, bundle)).items():
         paths[f"path B {k}"] = c
-    for k, c in path_c(device, smpl, bundle).items():
+    for k, c in timed("C", lambda: path_c(device, smpl, bundle)).items():
         paths[f"path C {k}"] = c
-    paths["path D"], render = path_d(device, smpl, bundle)
+    paths["path D"], render = timed("D", lambda: path_d(device, smpl,
+                                                        bundle))
     with tempfile.TemporaryDirectory() as d:
         files, sources = write_asset_files(d, smpl)
-        paths["path E"] = path_e(device, files)
-        paths["path F"], steady_f = path_f(device, smpl, bundle)
-        paths["path G"], g = path_g(device, smpl, bundle, files, sources)
-        paths["path J"], j = path_j(device, smpl, bundle, files, d)
-        paths["path K"], k, prox = path_k(device, smpl, files, d)
-        paths["path L"], lv = path_l(device, smpl, files, d)
-        paths["path M"], mv = path_m(device, d)
-        paths["path N"], nv = path_n(device, smpl, d, prox)
-        paths["path O"], ov = path_o(device, smpl, files, d)
+        paths["path E"] = timed("E", lambda: path_e(device, files))
+        paths["path F"], steady_f = timed("F", lambda: path_f(device, smpl,
+                                                              bundle))
+        paths["path G"], g = timed("G", lambda: path_g(
+            device, smpl, bundle, files, sources))
+        paths["path J"], j = timed("J", lambda: path_j(device, smpl, bundle,
+                                                       files, d))
+        paths["path K"], k, prox = timed("K", lambda: path_k(device, smpl,
+                                                             files, d))
+        paths["path L"], lv = timed("L", lambda: path_l(device, smpl, files,
+                                                        d))
+        paths["path M"], mv = timed("M", lambda: path_m(device, d))
+        paths["path N"], nv = timed("N", lambda: path_n(device, smpl, d,
+                                                        prox))
+        paths["path O"], ov = timed("O", lambda: path_o(device, smpl, files,
+                                                        d))
+    paths["path P"], pv = timed("P", lambda: path_p(device, smpl, bundle))
+    paths["path Q"], qv = timed("Q", lambda: path_q(device, smpl, bundle))
     launches = {k: sum(c[k] for c in paths.values()) for k in KERNELS}
     print(f"[paths] render: {render['video_s']:.4f} s a video frame with the "
           f"PNG writes, {render['nopng_s']:.4f} s without")
@@ -5625,7 +6112,10 @@ def main() -> int:
           f"steps/s); path N {nv['seconds']:.1f} s "
           f"({nv['n2']['steps_s']:.3f} VPoser train steps/s); path O "
           f"{ov['seconds']:.1f} s ({ov['o1']['steps_s']:.3f} HuMoR train "
-          f"steps/s); "
+          f"steps/s); path P {pv['seconds']:.1f} s; path Q "
+          f"{qv['seconds']:.1f} s ({qv['q3']['step_s']:.4f} s a "
+          f"{Q_SEEDS}-seed fan-out step); seconds by path "
+          f"{json.dumps(secs)}; "
           f"launches summed over the paths {json.dumps(launches)}; "
           f"{time.perf_counter() - t_start:.1f} s in all")
 

@@ -46,8 +46,16 @@ the mesh renders (mesh_rollout.mp4 or its .frames directory,
 rollout_figure.png, comparison_view0.png, vibe_rollout.png) and the
 matplotlib figures, under out_dir/<NNNNNN>/. The mesh renders need neither
 matplotlib nor PIL; where matplotlib is missing the CLI skips its figures
-and names each file it skipped. Every flag of the JAX CLI parses; --dp is
-still to port (ROADMAP.md Queue 1) and raises.
+and names each file it skipped. Every flag of the JAX CLI parses.
+
+--dp N fits data-parallel over N ranks (parallel/): each rank draws the
+global batch, keeps its rows and computes its share of the global loss, and
+one all-reduce a step sums the gradients, so the fit is the single-process
+fit of the same seed. Started as one process, the CLI starts the N ranks
+itself on a local rendezvous (rank r on cuda:r over NCCL, or on the CPU over
+gloo with --device cpu); under torchrun with WORLD_SIZE N each process joins
+that group. N above the visible cards raises. Only rank 0 writes
+(checkpoints, metrics.jsonl, the CSVs and the renders).
 """
 
 from __future__ import annotations
@@ -57,8 +65,12 @@ import dataclasses
 import importlib.util
 import json
 import math
+import os
 import os.path as osp
+import socket
+import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -143,7 +155,9 @@ def build_parser() -> argparse.ArgumentParser:
                    type=str, default="")
     p.add_argument("--full_batch", action="store_true", default=False)
     p.add_argument("--eval_full_batch", type=int, default=1)
-    p.add_argument("--dp", type=int, default=0)
+    p.add_argument("--dp", type=int, default=0,
+                   help="fit data-parallel over N ranks (started here, or "
+                        "joined under torchrun); 0 = one process")
     p.add_argument("--label_type", type=str, default="gt",
                    choices=["gt", "op", "intersection"])
     p.add_argument("--label_intersection_threshold", type=float, default=30.0)
@@ -172,14 +186,48 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _reject_unported(args) -> None:
-    unported = {
-        "--dp (data parallelism; see ROADMAP.md, Queue 1, item 6.4)":
-            args.dp,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"still to port: {'; '.join(bad)}")
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_ranks(args, argv) -> int:
+    """Start the --dp ranks as child processes of this one (the same
+    command line, torchrun's environment on a local rendezvous), wait for
+    them, and stop them all when one fails. Returns the first non-zero
+    exit code, else 0."""
+    n = args.dp
+    if torch.device(args.device).type == "cuda":
+        visible = torch.cuda.device_count()
+        if n > visible:
+            raise ValueError(f"--dp {n} needs a card a rank: {visible} "
+                             f"visible")
+    argv = sys.argv[1:] if argv is None else list(argv)
+    # the folder that holds this package: the ranks import it, and not
+    # whatever their working directory holds (python -P)
+    root = osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__))))
+    env = dict(os.environ, MASTER_ADDR="localhost",
+               MASTER_PORT=str(_free_port()), WORLD_SIZE=str(n),
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [q for q in [os.environ.get("PYTHONPATH")] if q]))
+    procs = [subprocess.Popen(
+        [sys.executable, "-P", "-m", "nemo_tpu_torch.cli.fit", *argv],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r))) for r in range(n)]
+    rc = 0
+    try:
+        while any(q.poll() is None for q in procs):
+            failed = [q.returncode for q in procs if q.returncode]
+            if failed:
+                rc = failed[0]
+                break
+            time.sleep(0.2)
+    finally:
+        for q in procs:
+            if q.poll() is None:
+                q.kill()
+            q.wait()
+    return rc or next((q.returncode for q in procs if q.returncode), 0)
 
 
 def load_assets(args, bundle, cfg, device):
@@ -259,6 +307,30 @@ def _restore_config(cfg, args, argv):
 
 
 def main(argv=None) -> int:
+    from ..utils.exp import merge_config
+    args = merge_config(build_parser(), argv)
+    if args.dp <= 0:
+        return _main(args, argv)
+    from ..parallel import distributed, make_mesh
+    if not distributed.initialize(device=args.device):
+        return _spawn_ranks(args, argv)
+    try:
+        return _main(args, argv, make_mesh(args.dp))
+    finally:
+        distributed.shutdown()
+
+
+class _NoWriter:
+    """The metric log of a rank that does not write."""
+
+    def write(self, record) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _main(args, argv, mesh=None) -> int:
     from .. import resolve_device
     from ..body.assets import synthetic_smpl_model
     from ..data.bundle import MultiViewBundle
@@ -270,18 +342,22 @@ def main(argv=None) -> int:
     from ..render import keypoints as kp_render
     from ..utils.checkpoint import load_fit_state, save_fit_state
     from ..utils.exp import (MetricWriter, Timer, create_latest_child_dir,
-                             dataclass_from_namespace, merge_config)
+                             dataclass_from_namespace)
 
-    args = merge_config(build_parser(), argv)
-    _reject_unported(args)
-    device = resolve_device(args.device)
+    primary = mesh is None or mesh.rank == 0
+    device = resolve_device(args.device) if mesh is None else mesh.device
     cfg = dataclass_from_namespace(NemoConfig, args)
     if args.load_ckpt_path:
         cfg = _restore_config(cfg, args, argv)
-    out_dir = create_latest_child_dir(args.out_dir)
-    with open(osp.join(out_dir, "config.json"), "w") as f:
-        json.dump({"args": vars(args), "cfg": dataclasses.asdict(cfg)}, f,
-                  indent=2, default=str)
+    out_dir = None
+    if primary:
+        out_dir = create_latest_child_dir(args.out_dir)
+        with open(osp.join(out_dir, "config.json"), "w") as f:
+            json.dump({"args": vars(args), "cfg": dataclasses.asdict(cfg)},
+                      f, indent=2, default=str)
+    if mesh is not None and primary:
+        print(f"[fit] data-parallel over {mesh.size} ranks "
+              f"({torch.distributed.get_backend()}, rank 0 on {device})")
 
     with Timer("Data loading"):
         if args.bundle:
@@ -293,7 +369,7 @@ def main(argv=None) -> int:
 
     with Timer("Model init"):
         assets = load_assets(args, bundle, cfg, device)
-        fitter = NemoFitter(cfg, assets, seed=args.seed)
+        fitter = NemoFitter(cfg, assets, seed=args.seed, mesh=mesh)
 
     if args.load_ckpt_path:
         rng = load_fit_state(args.load_ckpt_path, fitter)
@@ -314,7 +390,8 @@ def main(argv=None) -> int:
         p2 = project_to_views(f.params, cfg, assets, pr["j"], vi_grid)
         return pr, p2.cpu().numpy().reshape(V, F, 25, 2)
 
-    metrics_log = MetricWriter(osp.join(out_dir, "metrics.jsonl"))
+    metrics_log = (MetricWriter(osp.join(out_dir, "metrics.jsonl"))
+                   if primary else _NoWriter())
     if not args.test:
         full = bool(args.eval_full_batch)
         metrics_log.write({"phase": "init", **fitter.eval_loss(full=full)})
@@ -333,6 +410,8 @@ def main(argv=None) -> int:
                                **fitter.eval_loss(full=full)})
 
         def on_chunk(f, step, chunk_metrics):
+            if not primary:
+                return
             if step % args.save_every == 0 or step >= cfg.n_steps:
                 save_fit_state(osp.join(out_dir, "ckpt", f"sd_{step:06d}"), f,
                                cfg)
@@ -351,10 +430,14 @@ def main(argv=None) -> int:
             math.gcd(args.save_every, args.render_every)
         with Timer("Main fit"):
             all_metrics = fitter.fit(chunk=chunk, on_chunk=on_chunk)
+        if not primary:
+            return 0
         np.savez(osp.join(out_dir, "losses.npz"), **all_metrics)
         _figure([osp.join(out_dir, f"{k}.png") for k in all_metrics],
                 kp_render.render_loss_curves, out_dir, all_metrics)
 
+    if not primary:
+        return 0
     _figure(osp.join(out_dir, "phases.png"), kp_render.render_phase_plot,
             osp.join(out_dir, "phases.png"), fitter.params.phase, V)
 

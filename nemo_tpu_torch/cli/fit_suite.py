@@ -47,7 +47,10 @@ def main(argv=None) -> int:
     parser.add_argument("--out_dir", type=str, default="out/suite")
     parser.add_argument("--seeds", type=int, default=1,
                         help=">1 fits each action once per seed and records "
-                             "the best run by final total loss in best.txt")
+                             "the best run by final total loss in best.txt; "
+                             "same-shape main-stage-only sweeps can instead "
+                             "use nemo_tpu_torch.parallel.fit_many_seeds, "
+                             "which steps the seeds in lockstep on one card")
     args, passthrough = parser.parse_known_args(argv)
 
     from .fit import main as fit_main

@@ -18,7 +18,8 @@ from .openpose import (PARSER_CALLS, flip_horizontal, load_gt2d_pkl_dir,
 from .keypoints import (VOCAB, conversion_index, convert_kps, get_perm_idxs,
                         keypoint_hflip)
 from .penn_action import load_penn_sequence, penn_gt_to_op
-from .sharded import ShardedDataset, batch_iterator, write_shards
+from .sharded import (ShardedDataset, as_sharded_arrays, batch_iterator,
+                      write_shards)
 from .synthetic import synthetic_problem
 from .vibe import (densify_person, load_baseline_arrays,
                    load_baseline_pickle, load_vibe_pickle, person_joints2d,
@@ -45,7 +46,8 @@ __all__ = [
     "load_gt_camera_pt", "load_openpose_dir", "parse_openpose_json",
     "read_posetrack_keypoints", "reset_parser_calls",
     "VOCAB", "conversion_index", "convert_kps", "get_perm_idxs",
-    "keypoint_hflip", "ShardedDataset", "batch_iterator", "write_shards",
+    "keypoint_hflip", "ShardedDataset", "as_sharded_arrays", "batch_iterator",
+    "write_shards",
     "load_penn_sequence", "penn_gt_to_op", "synthetic_problem",
     "densify_person", "load_baseline_arrays", "load_baseline_pickle",
     "load_vibe_pickle", "person_joints2d", "select_person_near_gt",

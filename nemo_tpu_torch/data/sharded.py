@@ -9,10 +9,9 @@ are plain npz, written by either package and read by the other.
   * shuffling is two-level (shard order, then an in-shard permutation)
     from one seeded ``np.random.RandomState``, so both packages yield the
     same batches in the same order;
-  * one background thread and a bounded queue prefetch the batches.
-
-The JAX package's ``as_sharded_arrays`` (each batch placed on a device
-mesh) waits for the port's ``parallel/``.
+  * one background thread and a bounded queue prefetch the batches;
+  * ``as_sharded_arrays`` gives a data-parallel rank its rows of each batch
+    on its device (parallel.make_mesh).
 """
 
 from __future__ import annotations
@@ -137,3 +136,15 @@ def batch_iterator(ds: ShardedDataset, batch_size: int, seed: int = 0,
         if item is stop:
             return
         yield item
+
+
+def as_sharded_arrays(batches: Iterator[Dict[str, np.ndarray]], mesh,
+                      axis_name: str = "dp"):
+    """This rank's rows of each batch (leading axis split over the mesh's
+    ranks; the batch size must divide by its size), as tensors on the
+    mesh's device."""
+    from ..parallel.mesh import shard_batch
+    for batch in batches:
+        keys = list(batch)
+        yield dict(zip(keys, shard_batch(mesh, *(batch[k] for k in keys),
+                                         axis_name=axis_name)))

@@ -12,6 +12,14 @@ V1+ through the persistent motion/rbf/phase Adams; the camera stage of
 V0-V3 steps a fresh cameras-only Adam at frame 0 of every view, that of V4
 steps every group but the betas on random batches. ``full_batch`` main
 steps run the fixed (view x frame) grid instead of a random batch.
+
+With a data-parallel ``mesh`` (parallel.make_mesh) every rank seeds the same
+generator, draws the global batch and code noise and keeps its rows; the
+losses are the global functions (fit.model.fit_loss(mesh=...)), and one
+all-reduce a step sums the gradients and metrics, so every rank's Adam and
+plateau schedulers step on the same values and the parameters stay equal
+bit for bit. A batch that does not tile the ranks (the full grid on an odd
+count) runs whole on every rank, and rank 0's gradient is taken.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from .model import (NemoAssets, NemoConfig, camera_stage_loss, fit_loss,
 from .optimizer import (GroupOptimizer, make_camera_stage_optimizer,
                         make_v0_warmup_optimizer, plateau_init_all,
                         plateau_update_all)
+from ..parallel.mesh import data_parallel_step, replicate_tree
 
 # batch_source(stage, step) -> (view_idx, frame_idx) for stage "warmup",
 # "camera" (V4; both counted within the stage) or "main" (counted over all
@@ -45,17 +54,28 @@ class NemoFitter:
     """Drives the three-stage optimization for one action.
 
     batch_source: optional replacement for the on-device batch sampler (the
-    tests replay the JAX fitter's batch stream through it).
+    tests replay the JAX fitter's batch stream through it); it gives the
+    global batch, of which a data-parallel rank keeps its rows.
+    mesh: a data-parallel mesh (parallel.make_mesh); the batch size must
+    tile its ranks unless the fit is full-batch.
     """
 
     def __init__(self, cfg: NemoConfig, assets: NemoAssets, seed: int = 0,
-                 batch_source: Optional[BatchSource] = None):
+                 batch_source: Optional[BatchSource] = None, mesh=None):
         self.cfg = cfg
         self.assets = assets
         self.device = assets.device
+        self.mesh = mesh
+        if mesh is not None and not cfg.full_batch and \
+                cfg.batch_size % mesh.size != 0:
+            raise ValueError(
+                f"batch_size {cfg.batch_size} not divisible by the "
+                f"{mesh.size}-rank dp mesh")
         self.params = init_params(cfg, assets.num_views, assets.img_d0,
                                   torch.Generator().manual_seed(seed),
                                   self.device)
+        if mesh is not None:
+            replicate_tree(mesh, self.params)
         self.optimizer = GroupOptimizer(self.params, cfg)
         self.plateau = plateau_init_all(cfg, self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(
@@ -86,12 +106,12 @@ class NemoFitter:
         return torch.randn((batch, cfg.instance_code_size),
                            generator=self.generator, device=self.device)
 
-    def _grad_step(self, loss_fn, vi, fi, **kw):
-        self.params.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(self.params, self.cfg, self.assets, vi, fi,
-                                **kw)
-        loss.backward()
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+    def _grad_step(self, loss_fn, vi, fi, noise=None
+                   ) -> Dict[str, torch.Tensor]:
+        """Gradients into .grad and the step's metrics, summed over the
+        ranks under a mesh. vi, fi and noise are the global batch."""
+        return data_parallel_step(loss_fn, self.mesh)(
+            self.params, self.cfg, self.assets, vi, fi, noise)
 
     # One step of each stage. Each returns its metrics as device scalars
     # and never waits for the device.
@@ -100,7 +120,7 @@ class NemoFitter:
         """opt: V0's warmup Adam (make_v0_warmup_optimizer); V1+ steps the
         persistent motion/rbf/phase Adams."""
         vi, fi = self._batch("warmup", i, self.cfg.batch_size)
-        _, metrics = self._grad_step(warmup_loss, vi, fi)
+        metrics = self._grad_step(warmup_loss, vi, fi)
         if opt is not None:
             opt.step()
         else:
@@ -113,15 +133,15 @@ class NemoFitter:
         every group but the betas on batch i of the stage."""
         if self.cfg.model_version >= 4:
             vi, fi = self._batch("camera", i, self.cfg.batch_size)
-            _, metrics = self._grad_step(camera_stage_loss, vi, fi,
-                                         noise=self._noise(vi.shape[0]))
+            metrics = self._grad_step(camera_stage_loss, vi, fi,
+                                      noise=self._noise(vi.shape[0]))
             self.optimizer.step(active=("cameras", "motion", "rbf", "phase",
                                         "instance"))
             return metrics
         V = self.assets.num_views
         vi = torch.arange(V, device=self.device)
         fi = torch.zeros(V, dtype=torch.long, device=self.device)
-        _, metrics = self._grad_step(camera_stage_loss, vi, fi)
+        metrics = self._grad_step(camera_stage_loss, vi, fi)
         cam_opt.step()
         return metrics
 
@@ -130,10 +150,11 @@ class NemoFitter:
             vi, fi = self._grid
         else:
             vi, fi = self._batch("main", self.step, self.cfg.batch_size)
-        loss, metrics = self._grad_step(fit_loss, vi, fi,
-                                        noise=self._noise(vi.shape[0]))
+        metrics = self._grad_step(fit_loss, vi, fi,
+                                  noise=self._noise(vi.shape[0]))
         self.optimizer.step(plateau=self.plateau)
-        self.plateau = plateau_update_all(self.plateau, loss, self.cfg)
+        self.plateau = plateau_update_all(self.plateau,
+                                          metrics["total_loss"], self.cfg)
         self.step += 1
         return metrics
 
@@ -178,7 +199,8 @@ class NemoFitter:
     def eval_loss(self, batch_size: Optional[int] = None,
                   full: bool = True) -> Dict[str, float]:
         """Loss without an update: the full (view, frame) grid, or one
-        random batch with full=False."""
+        random batch with full=False. Under a mesh every rank evaluates
+        the whole batch (the parameters are equal on every rank)."""
         if full:
             vi, fi = self._grid
         else:

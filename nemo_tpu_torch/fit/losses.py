@@ -38,13 +38,29 @@ def keypoint_loss(pred: torch.Tensor, gt: torch.Tensor,
     raise ValueError(f"unknown loss type {loss_type!r}")
 
 
+def batch_mean(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """x.mean() over the global batch. Under a data-parallel mesh x holds
+    this rank's rows, and the result is their sum over the global count,
+    so that the ranks' results sum to the mean over every row (and their
+    gradients to its gradient). Without a mesh, or on one rank, it is
+    x.mean() itself."""
+    if mesh is None or mesh.size == 1:
+        return x.mean()
+    return x.sum() / (x.numel() * mesh.size)
+
+
 def per_view_average(loss_all: torch.Tensor, conf: torch.Tensor,
-                     view_idx: torch.Tensor, num_views: int) -> torch.Tensor:
+                     view_idx: torch.Tensor, num_views: int,
+                     mesh=None) -> torch.Tensor:
     """Mean loss per view present in the batch, then the mean over those
     views (reference :3839-3846), fixed-shape through a (B, V) one-hot.
 
     The one-hot is a comparison, not ``F.one_hot``, which validates its
-    input on the host and so would synchronise with the device."""
+    input on the host and so would synchronise with the device. Under a
+    data-parallel mesh the per-view counts are summed over the ranks
+    first (they depend on the batch alone, so no gradient flows through
+    that sum): each rank's result is its rows' share of the global
+    value."""
     views = torch.arange(num_views, device=view_idx.device)
     onehot = (view_idx[:, None] == views[None]).to(loss_all.dtype)
     weighted = loss_all * conf
@@ -52,6 +68,8 @@ def per_view_average(loss_all: torch.Tensor, conf: torch.Tensor,
     denom_per_item = weighted.shape[1] * weighted.shape[2]
     sums = onehot.T @ per_item
     counts = onehot.sum(dim=0)
+    if mesh is not None and mesh.size > 1:
+        counts = mesh.all_reduce(counts)
     present = counts > 0
     avg = sums / (torch.clamp(counts, min=1) * denom_per_item)
     n_present = torch.clamp(present.sum(), min=1)
@@ -60,7 +78,9 @@ def per_view_average(loss_all: torch.Tensor, conf: torch.Tensor,
 
 def camera_fitting_loss(points2d: torch.Tensor, points2d_gt: torch.Tensor,
                         gt_size: torch.Tensor,
-                        loss_type: str = "mse_robust") -> torch.Tensor:
+                        loss_type: str = "mse_robust",
+                        mesh=None) -> torch.Tensor:
     """Camera-stage loss: plain mean of the keypoint loss."""
-    return keypoint_loss(points2d, points2d_gt[..., :2], points2d_gt[..., 2:],
-                         gt_size, loss_type).mean()
+    return batch_mean(keypoint_loss(points2d, points2d_gt[..., :2],
+                                    points2d_gt[..., 2:], gt_size,
+                                    loss_type), mesh)

@@ -38,8 +38,9 @@ from ..modules.networks import (FCNN, RBF, MonotonicNets, MotionNet, RotNet,
                                 apply_monotonic_gather, apply_rbf)
 from ..priors.gmm import GMMPrior, gmm_log_likelihood
 from ..priors.vposer import (vposer_decode, vposer_encode,
-                             vposer_kl_to_std_normal)
-from .losses import camera_fitting_loss, keypoint_loss, per_view_average
+                             vposer_kl_per_sample)
+from .losses import (batch_mean, camera_fitting_loss, keypoint_loss,
+                     per_view_average)
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -311,7 +312,7 @@ class _AbsJax(torch.autograd.Function):
 
 
 def vposer_losses(params: NemoParams, assets: NemoAssets,
-                  poses: torch.Tensor, orient6d: torch.Tensor
+                  poses: torch.Tensor, orient6d: torch.Tensor, mesh=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(v2v recon L1, KL): the VPoser mean-latent reconstruction, compared
     mesh to mesh with the reconstruction detached (:2775-2804). The full
@@ -319,9 +320,14 @@ def vposer_losses(params: NemoParams, assets: NemoAssets,
     through K3, the rec side forward only, both meshes in the assets'
     skin_io_dtype and widened to f32 before their difference, as the JAX
     package does, |.| differentiated as jnp.abs is (so a bf16 mesh's
-    cotangent is bf16(+-weight / n) at every entry, ties included)."""
+    cotangent is bf16(+-weight / n) at every entry, ties included).
+
+    Under a data-parallel mesh, poses are this rank's rows and n counts
+    the global batch, so K2's cotangent weight / n is the single-device
+    one (and so, in bf16, is its rounding)."""
     vp = assets.vposer
     B = poses.shape[0]
+    B_all = B * (1 if mesh is None else mesh.size)
     mu, scale = vposer_encode(vp, poses[:, :63])
     dec = vposer_decode(vp, mu)
     recon = torch.cat([dec["pose_body"].reshape(B, 63), poses[:, 63:]], dim=1)
@@ -332,7 +338,7 @@ def vposer_losses(params: NemoParams, assets: NemoAssets,
     if assets.v2v_vidx is None:
         total = smpl_v2v_l1_sum(smpl, params.betas, rot_o, orient_rot,
                                 rot_r, orient_rot, vjp=assets.v2v_vjp)
-        v2v = total / (B * 3 * smpl.num_vertices)
+        v2v = total / (B_all * 3 * smpl.num_vertices)
     else:
         sub = (assets.v2v_vidx, assets.v2v_posedirs_t,
                assets.v2v_lbs_weights_t)
@@ -343,13 +349,13 @@ def vposer_losses(params: NemoParams, assets: NemoAssets,
             verts_r = smpl_verts_t_subset(smpl, params.betas, rot_r,
                                           orient_rot, *sub, io)
         v2v = _AbsJax.apply(verts_r.float() - verts_o.float()).sum() / (
-            B * 3 * sub[0].shape[0])
-    return v2v, vposer_kl_to_std_normal(mu, scale)
+            B_all * 3 * sub[0].shape[0])
+    return v2v, batch_mean(vposer_kl_per_sample(mu, scale), mesh)
 
 
 def humor_dynamics_loss(params: NemoParams, cfg: NemoConfig,
                         assets: NemoAssets, view_idx: torch.Tensor,
-                        frame_idx: torch.Tensor) -> torch.Tensor:
+                        frame_idx: torch.Tensor, mesh=None) -> torch.Tensor:
     """The HuMoR dynamics prior: the mean KL of the predicted motion's
     transitions under the frozen conditional prior (the custom entry's
     --weight_humor_loss term).
@@ -387,14 +393,14 @@ def humor_dynamics_loss(params: NemoParams, cfg: NemoConfig,
     states = torch.stack([state(1), state(2)], dim=1)   # (B, 2, STATE_DIM)
     assert states.shape[-1] == STATE_DIM
     kl = humor_infer_seq(assets.humor, assets.humor_cfg, states)["kl"]
-    return kl.mean()
+    return batch_mean(kl, mesh)
 
 
 def fit_loss(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
              view_idx: torch.Tensor, frame_idx: torch.Tensor,
              include_priors: bool = True, noise: Optional[torch.Tensor] = None,
-             detach_pose: bool = False, include_3d: Optional[bool] = None
-             ) -> Tuple[torch.Tensor, Metrics]:
+             detach_pose: bool = False, include_3d: Optional[bool] = None,
+             mesh=None) -> Tuple[torch.Tensor, Metrics]:
     """Main-stage loss (reference NemoV3 step :3796-3909, the V1/V2 path
     when the extra weights are zero): (total, metrics).
 
@@ -402,6 +408,14 @@ def fit_loss(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
     (default: include_priors) gates the 3D theta loss, which V4's camera
     stage keeps while dropping the priors (:4128-4140). noise: the code
     noise draw of predict (training steps only).
+
+    mesh: a data-parallel mesh (parallel.make_mesh) when view_idx and
+    frame_idx are this rank's rows of the global batch. Every batch term is
+    then this rank's share of the global value (its rows' sum over the
+    global count; per-view counts summed over the ranks), and the
+    instance-code term, which reads the parameters alone, counts on rank 0
+    only; the loss, metrics and gradients of the ranks sum to the
+    single-device ones (parallel.mesh.reduce_gradients sums them).
     """
     if include_3d is None:
         include_3d = include_priors
@@ -412,13 +426,15 @@ def fit_loss(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
     gt_size = assets.bbox_diag[view_idx, frame_idx]
     loss_all = keypoint_loss(points2d, gt[..., :2], gt[..., 2:], gt_size,
                              cfg.loss)
-    kp = per_view_average(loss_all, gt[..., 2:], view_idx, assets.num_views)
+    kp = per_view_average(loss_all, gt[..., 2:], view_idx, assets.num_views,
+                          mesh)
     loss = kp
     metrics = {"kp_loss": kp}
     if include_priors:
         poses = preds["poses"]
         if cfg.weight_vp_loss > 0 or cfg.weight_vp_z_loss > 0:
-            v2v, kl = vposer_losses(params, assets, poses, preds["orient"])
+            v2v, kl = vposer_losses(params, assets, poses, preds["orient"],
+                                    mesh)
             metrics["vp_recon_loss"] = v2v
             metrics["vp_kl_loss"] = kl
             if cfg.weight_vp_loss:
@@ -430,23 +446,26 @@ def fit_loss(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
             metrics["vp_kl_loss"] = kp.new_zeros(())
         if cfg.uses_instance_code and cfg.model_version >= 3:
             inst = (params.instance ** 2).mean()
+            if mesh is not None and mesh.rank != 0:
+                inst = torch.zeros_like(inst)
             metrics["instance_loss"] = inst
             if cfg.weight_instance_loss:
                 loss = loss + cfg.weight_instance_loss * inst
         if assets.gmm is not None:
-            g = gmm_log_likelihood(assets.gmm, poses).mean()
+            g = batch_mean(gmm_log_likelihood(assets.gmm, poses), mesh)
             metrics["gmm_loss"] = g
             if cfg.weight_gmm_loss:
                 loss = loss + cfg.weight_gmm_loss * g
         if cfg.weight_humor_loss and assets.humor is not None:
-            hl = humor_dynamics_loss(params, cfg, assets, view_idx, frame_idx)
+            hl = humor_dynamics_loss(params, cfg, assets, view_idx,
+                                     frame_idx, mesh)
             metrics["humor_loss"] = hl
             loss = loss + cfg.weight_humor_loss * hl
     if include_3d and cfg.weight_3d_loss and cfg.model_version >= 3:
         theta = assets.hmr_theta[view_idx, frame_idx]
         mask = assets.hmr_mask[view_idx, frame_idx]
-        l3d = keypoint_loss(preds["poses"], theta, mask,
-                            loss_type="mse_robust").mean()
+        l3d = batch_mean(keypoint_loss(preds["poses"], theta, mask,
+                                       loss_type="mse_robust"), mesh)
         metrics["loss_3d"] = l3d
         loss = loss + cfg.weight_3d_loss * l3d
     metrics["total_loss"] = loss
@@ -454,7 +473,7 @@ def fit_loss(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
 
 
 def warmup_loss(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
-                view_idx: torch.Tensor, frame_idx: torch.Tensor
+                view_idx: torch.Tensor, frame_idx: torch.Tensor, mesh=None
                 ) -> Tuple[torch.Tensor, Metrics]:
     """Warmup: fit the predicted axis-angle pose to an initializer theta.
     V1+ (:3455-3509): mse_robust under the initializer's validity mask.
@@ -464,18 +483,19 @@ def warmup_loss(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
     if cfg.model_version == 0:
         src = assets.spin_theta if assets.spin_theta is not None \
             else assets.hmr_theta
-        loss = ((preds["poses"] - src[view_idx, frame_idx]) ** 2).mean()
+        loss = batch_mean((preds["poses"] - src[view_idx, frame_idx]) ** 2,
+                          mesh)
     else:
         theta = assets.hmr_theta[view_idx, frame_idx]
         mask = assets.hmr_mask[view_idx, frame_idx]
-        loss = keypoint_loss(preds["poses"], theta, mask,
-                             loss_type="mse_robust").mean()
+        loss = batch_mean(keypoint_loss(preds["poses"], theta, mask,
+                                        loss_type="mse_robust"), mesh)
     return loss, {"warmup_loss": loss}
 
 
 def camera_stage_loss(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
                       view_idx: torch.Tensor, frame_idx: torch.Tensor,
-                      noise: Optional[torch.Tensor] = None
+                      noise: Optional[torch.Tensor] = None, mesh=None
                       ) -> Tuple[torch.Tensor, Metrics]:
     """Camera stage. V0-V3 (:2869-2906): a plain mean keypoint loss; the
     fitter steps the cameras only, at frame 0 of every view. V4
@@ -484,10 +504,10 @@ def camera_stage_loss(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
     if cfg.model_version >= 4:
         return fit_loss(params, cfg, assets, view_idx, frame_idx,
                         include_priors=False, noise=noise, detach_pose=True,
-                        include_3d=True)
+                        include_3d=True, mesh=mesh)
     joints = predict(params, cfg, assets, view_idx, frame_idx)["j"]
     points2d = project_to_views(params, cfg, assets, joints, view_idx)
     gt = assets.points2d_gt[view_idx, frame_idx]
     gt_size = assets.bbox_diag[view_idx, frame_idx]
-    loss = camera_fitting_loss(points2d, gt, gt_size, cfg.loss)
+    loss = camera_fitting_loss(points2d, gt, gt_size, cfg.loss, mesh)
     return loss, {"cam_loss": loss}

@@ -153,8 +153,14 @@ def vposer_decode(p: Params, z: torch.Tensor) -> Dict[str, torch.Tensor]:
             "pose_body_matrot": rotmat.reshape(B, NUM_JOINTS, 9)}
 
 
+def vposer_kl_per_sample(mu: torch.Tensor, scale: torch.Tensor
+                         ) -> torch.Tensor:
+    """KL(N(mu, scale) || N(0, 1)) of each row, summed over latents: (B,)."""
+    kl = -torch.log(scale) + (scale ** 2 + mu ** 2) / 2.0 - 0.5
+    return torch.sum(kl, dim=1)
+
+
 def vposer_kl_to_std_normal(mu: torch.Tensor, scale: torch.Tensor
                             ) -> torch.Tensor:
     """KL(N(mu, scale) || N(0, 1)), summed over latents, mean over batch."""
-    kl = -torch.log(scale) + (scale ** 2 + mu ** 2) / 2.0 - 0.5
-    return torch.mean(torch.sum(kl, dim=1))
+    return torch.mean(vposer_kl_per_sample(mu, scale))

@@ -18,8 +18,14 @@ The rsample draw is an argument of the loss, so the same draw can be given
 to both packages; ``train_vposer`` draws it from a ``torch.Generator``
 seeded by ``seed`` unless the caller passes ``draw``.
 ``vposer_train_state_{from,to}_jax`` carry the parameters and optax's Adam
-state (count, mu, nu) across. The JAX package's data-parallel ``mesh=`` is
-not ported (ROADMAP.md Queue 1, item 6.4).
+state (count, mu, nu) across.
+
+``train_vposer(mesh=...)`` trains data-parallel (parallel.make_mesh): every
+rank takes the same permutation and draw and keeps its rows of each batch;
+batch norm normalises by the global batch's statistics (summed over the
+ranks through a differentiable all-reduce, as SyncBatchNorm does), the
+losses are global means, and one all-reduce a step sums the gradients and
+metrics, so that every rank applies the same update.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..body.smpl import SMPLModel, smpl_forward
+from ..fit.losses import batch_mean
 from ..fit.optimizer import GroupAdam
 from ..geometry.rotations import batch_rodrigues
 from .vposer import Params, vposer_decode
@@ -104,34 +111,57 @@ class VPoserTrainConfig:
     bn_momentum: float = 0.1
 
 
+class _GlobalSum(torch.autograd.Function):
+    """x summed over the mesh's ranks, differentiably: the gradient of each
+    rank's input is the sum of the ranks' output gradients (every rank's
+    output reads every rank's input), as SyncBatchNorm's reduction has it."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return mesh.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.contiguous()), None
+
+
 def _bn_train(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
               gamma: torch.Tensor, beta: torch.Tensor, momentum: float,
-              eps: float = 1e-5
+              eps: float = 1e-5, mesh=None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batch-statistics batch norm: (out, new running mean, new running
     var). It normalises with the biased variance and updates the running
-    variance with the unbiased one, as torch's BatchNorm1d does."""
-    m = x.mean(dim=0)
-    v = x.var(dim=0, correction=0)
+    variance with the unbiased one, as torch's BatchNorm1d does. Under a
+    data-parallel mesh x is this rank's rows and the statistics are the
+    global batch's: the sum, then the sum of squared deviations from the
+    global mean, each summed over the ranks."""
+    if mesh is None or mesh.size == 1:
+        m = x.mean(dim=0)
+        v = x.var(dim=0, correction=0)
+        n = x.shape[0]
+    else:
+        n = x.shape[0] * mesh.size
+        m = _GlobalSum.apply(x.sum(dim=0), mesh) / n
+        v = _GlobalSum.apply(((x - m) ** 2).sum(dim=0), mesh) / n
     out = (x - m) / torch.sqrt(v + eps) * gamma + beta
-    n = x.shape[0]
     unbiased = v * n / max(n - 1, 1)
     new_mean = (1 - momentum) * mean + momentum * m
     new_var = (1 - momentum) * var + momentum * unbiased
     return out, new_mean, new_var
 
 
-def vposer_encode_train(p: Params, pose_body: torch.Tensor, momentum: float
-                        ) -> Tuple[torch.Tensor, torch.Tensor,
-                                   Dict[str, torch.Tensor]]:
+def vposer_encode_train(p: Params, pose_body: torch.Tensor, momentum: float,
+                        mesh=None) -> Tuple[torch.Tensor, torch.Tensor,
+                                            Dict[str, torch.Tensor]]:
     """The training-mode encoder: (mu, scale, the new running statistics).
     Dropout(0.1) is left out, as in the JAX package."""
     x = pose_body.reshape(pose_body.shape[0], -1)
     x, m0, v0 = _bn_train(x, p["bn0_mean"], p["bn0_var"], p["bn0_gamma"],
-                          p["bn0_beta"], momentum)
+                          p["bn0_beta"], momentum, mesh=mesh)
     x = F.leaky_relu(x @ p["enc_w1"] + p["enc_b1"], negative_slope=0.01)
     x, m1, v1 = _bn_train(x, p["bn1_mean"], p["bn1_var"], p["bn1_gamma"],
-                          p["bn1_beta"], momentum)
+                          p["bn1_beta"], momentum, mesh=mesh)
     x = x @ p["enc_w2"] + p["enc_b2"]
     x = x @ p["enc_w3"] + p["enc_b3"]
     mu = x @ p["mu_w"] + p["mu_b"]
@@ -140,25 +170,33 @@ def vposer_encode_train(p: Params, pose_body: torch.Tensor, momentum: float
                        "bn1_var": v1}
 
 
-def geodesic_distance(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
-    """Mean geodesic angle between two batches of rotation matrices."""
+def _geodesic_angles(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
     m = torch.matmul(R1, R2.transpose(-1, -2))
     tr = m.diagonal(dim1=-2, dim2=-1).sum(-1)
     cos = torch.clamp((tr - 1.0) / 2.0, -1 + 1e-6, 1 - 1e-6)
-    return torch.arccos(cos).mean()
+    return torch.arccos(cos)
+
+
+def geodesic_distance(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
+    """Mean geodesic angle between two batches of rotation matrices."""
+    return _geodesic_angles(R1, R2).mean()
 
 
 def vposer_train_loss(params: Params, pose_body: torch.Tensor,
                       noise: torch.Tensor, cfg: VPoserTrainConfig,
-                      smpl: Optional[SMPLModel], include_extra_terms: bool
+                      smpl: Optional[SMPLModel], include_extra_terms: bool,
+                      mesh=None
                       ) -> Tuple[torch.Tensor,
                                  Tuple[Dict[str, torch.Tensor],
                                        Dict[str, torch.Tensor]]]:
     """One batch's weighted loss and (metrics, new running statistics).
-    noise is the rsample's standard-normal draw, shaped like mu (B, latent)."""
+    noise is the rsample's standard-normal draw, shaped like mu (B, latent).
+    Under a data-parallel mesh pose_body and noise are this rank's rows and
+    the loss is this rank's share of the global batch's (its rows' sums
+    over the global counts)."""
     B = pose_body.shape[0]
     mu, scale, new_stats = vposer_encode_train(params, pose_body,
-                                               cfg.bn_momentum)
+                                               cfg.bn_momentum, mesh)
     z = mu + scale * noise
     dec = vposer_decode(params, z)
     rec_aa = dec["pose_body"].reshape(B, 63)
@@ -177,21 +215,21 @@ def vposer_train_loss(params: Params, pose_body: torch.Tensor,
         with torch.no_grad():  # the original mesh is a constant
             v_orig, j_orig = verts(pose_body)
         v_rec, j_rec = verts(rec_aa)
-        v2v = torch.abs(v_rec - v_orig).mean()
-        jtr = torch.abs(j_rec - j_orig).mean()
+        v2v = batch_mean(torch.abs(v_rec - v_orig), mesh)
+        jtr = batch_mean(torch.abs(j_rec - j_orig), mesh)
     else:
-        v2v = torch.abs(rec_aa - pose_body).mean()
+        v2v = batch_mean(torch.abs(rec_aa - pose_body), mesh)
         jtr = rec_aa.new_zeros(())
 
-    kl = torch.mean(torch.sum(
-        -torch.log(scale) + (scale ** 2 + mu ** 2) / 2.0 - 0.5, dim=1))
+    kl = batch_mean(torch.sum(
+        -torch.log(scale) + (scale ** 2 + mu ** 2) / 2.0 - 0.5, dim=1), mesh)
 
     loss = cfg.loss_rec_wt * v2v + cfg.loss_kl_wt * kl
     metrics = {"v2v": v2v, "kl": kl}
     if include_extra_terms:
         R_rec = dec["pose_body_matrot"].reshape(-1, 3, 3)
         R_orig = batch_rodrigues(pose_body.reshape(-1, 3))
-        matrot = geodesic_distance(R_rec, R_orig)
+        matrot = batch_mean(_geodesic_angles(R_rec, R_orig), mesh)
         loss = loss + cfg.loss_matrot_wt * matrot + cfg.loss_jtr_wt * jtr
         metrics["matrot"] = matrot
         metrics["jtr"] = jtr
@@ -210,12 +248,14 @@ def _trainable(params: Params):
 
 def make_vposer_train_step(cfg: VPoserTrainConfig,
                            smpl: Optional[SMPLModel] = None,
-                           include_extra_terms: bool = True):
+                           include_extra_terms: bool = True, mesh=None):
     """(init_opt, step): init_opt(params) makes the Adam state (a
     GroupAdam at cfg.lr over every tensor but the running statistics,
     which it marks as requiring gradients); step(params, opt, pose_body,
     noise) updates params and opt in place and returns (params, opt, the
-    batch's metrics, on the device)."""
+    batch's metrics, on the device). With a data-parallel mesh the step
+    takes this rank's rows and applies the gradient summed over the ranks;
+    the metrics are the global batch's."""
 
     def init_opt(params: Params) -> GroupAdam:
         ts = [params[k] for k in _trainable(params)]
@@ -229,13 +269,18 @@ def make_vposer_train_step(cfg: VPoserTrainConfig,
             t.grad = None
         with torch.enable_grad():
             loss, (metrics, new_stats) = vposer_train_loss(
-                params, pose_body, noise, cfg, smpl, include_extra_terms)
+                params, pose_body, noise, cfg, smpl, include_extra_terms,
+                mesh)
             loss.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None and mesh.size > 1:
+            from ..parallel.mesh import reduce_gradients
+            metrics = reduce_gradients(mesh, opt.params, metrics)
         opt.step()
         with torch.no_grad():
             for k, v in new_stats.items():
                 params[k].copy_(v)
-        return params, opt, {k: v.detach() for k, v in metrics.items()}
+        return params, opt, metrics
 
     return init_opt, step
 
@@ -255,35 +300,42 @@ def train_vposer(params: Params, pose_data: np.ndarray,
     cfg.keep_extra_loss_terms_until_epoch on the step leaves out the
     matrot and joint terms. draw(shape) gives each step's standard-normal
     rsample draw, in order; by default torch.randn from a CPU
-    torch.Generator seeded by seed."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_vposer: data-parallel training over a device mesh is not "
-            "ported yet; see ROADMAP.md Queue 1, item 6.4")
+    torch.Generator seeded by seed.
+
+    mesh: a data-parallel mesh (parallel.make_mesh). Every rank takes the
+    same permutation and draw and keeps its rows of each batch
+    (cfg.batch_size must divide by the mesh's size); the parameters start
+    from rank 0's and stay equal on every rank."""
     B = cfg.batch_size
+    rows = slice(None)
+    if mesh is not None and mesh.size > 1:
+        rows = mesh.rows(B)
     N = pose_data.shape[0]
     if num_epochs > 0 and N < B:
         raise ValueError(f"train_vposer: {N} poses make no batch of "
                          f"batch_size {B}")
     dev = next(iter(params.values())).device
     params = {k: v.detach().clone() for k, v in params.items()}
+    if mesh is not None:
+        from ..parallel.mesh import replicate_tree
+        replicate_tree(mesh, params)
     if draw is None:
         gen = torch.Generator().manual_seed(seed)
         draw = lambda shape: torch.randn(shape, generator=gen)
     latent = params["mu_b"].shape[0]
-    init_opt, step = make_vposer_train_step(cfg, smpl, True)
+    init_opt, step = make_vposer_train_step(cfg, smpl, True, mesh)
     opt = init_opt(params)
     history: Dict[str, list] = {}
     rng = np.random.RandomState(seed)
     for epoch in range(num_epochs):
         perm = rng.permutation(N)
         if epoch >= cfg.keep_extra_loss_terms_until_epoch:
-            _, step = make_vposer_train_step(cfg, smpl, False)
+            _, step = make_vposer_train_step(cfg, smpl, False, mesh)
         for i in range(0, N - B + 1, B):
-            batch = torch.as_tensor(pose_data[perm[i:i + B]],
+            batch = torch.as_tensor(pose_data[perm[i:i + B][rows]],
                                     dtype=torch.float32, device=dev)
             noise = torch.as_tensor(draw((B, latent)), dtype=torch.float32,
-                                    device=dev)
+                                    device=dev)[rows]
             params, opt, metrics = step(params, opt, batch, noise)
         for k, v in metrics.items():
             history.setdefault(k, []).append(float(v))

@@ -1,10 +1,12 @@
-"""Composed multi-panel figures (port of the part of
-nemo_tpu/render/figures.py the fit CLI calls).
+"""Composed multi-panel figures (port of nemo_tpu/render/figures.py).
 
-Mesh panels come from ``render_mesh_overlay`` on the render device; grids
-are composed with numpy hconcat/vconcat and a nearest-neighbour resize and
-written with the standard-library PNG writer. ``render_global_overlay`` is
-a matplotlib plot, imported when it is drawn.
+Mesh panels come from ``render_mesh_overlay`` on the render device (K5s on
+a CUDA device), the pretty figures from ``render_pretty`` (one K5s launch a
+scene); grids are composed with numpy hconcat/vconcat and a
+nearest-neighbour resize and written with the standard-library PNG writer.
+``render_global_overlay`` and ``render_global_root_trajectories`` are
+matplotlib plots, imported when they are drawn; without matplotlib the
+second still returns its distances and names each PNG it skipped.
 """
 
 from __future__ import annotations
@@ -223,3 +225,304 @@ def render_global_overlay(path: str, gt_trans: np.ndarray,
     os.makedirs(osp.dirname(osp.abspath(path)), exist_ok=True)
     fig.savefig(path)
     plt.close(fig)
+
+
+def _pretty_camera(hw):
+    """The pretty figures' fixed camera: identity pose, the reference's 5x
+    focal-to-image ratio, centred principal point."""
+    from ..geometry.camera import Camera
+    H, W = hw
+    return Camera(rotation=np.eye(3, dtype=np.float32),
+                  translation=np.zeros(3, np.float32),
+                  focal_length=np.float32(5.0 * min(H, W)),
+                  center=np.array([W / 2.0, H / 2.0], np.float32))
+
+
+def _view_rotation(camera) -> np.ndarray:
+    R = np.asarray(camera.rotation, np.float32)
+    return R[0] if R.ndim == 3 else R
+
+
+def render_input_figure(path: str, bundle, num_frames: int = 8,
+                        num_views: int = -1,
+                        max_size: int = MAX_SIZE) -> np.ndarray:
+    """The sampled input frames as a (views x frames) grid, no overlay;
+    views without frame paths give white panels."""
+    from ..eval.metrics import eval_frame_indices
+    V, F = bundle.num_views, bundle.num_frames
+    nrow = V if num_views < 0 else min(V, num_views)
+    hw = (int(bundle.img_d0), int(bundle.img_d1))
+    blank = np.ones(hw + (3,), np.float32)
+    rows = []
+    for v in range(nrow):
+        row = []
+        for f in eval_frame_indices(F, num_frames):
+            im = _bundle_frame(bundle, v, int(f))
+            row.append(blank if im is None else np.asarray(im, np.float32))
+        rows.append(row)
+    grid = _compose_grid(rows, max_size)
+    _imsave(path, grid)
+    return grid
+
+
+def render_rollout_mv_figure(path: str, motion_idx: int, verts: np.ndarray,
+                             faces: np.ndarray, cameras, bundle,
+                             num_frames: int = 8, num_views: int = -1,
+                             max_size: int = MAX_SIZE,
+                             device="cuda") -> np.ndarray:
+    """One view's motion, verts[motion_idx], through every view's camera
+    on white: row = camera view, column = sampled frame."""
+    from ..eval.metrics import eval_frame_indices
+    V, F = verts.shape[:2]
+    nrow = V if num_views < 0 else min(V, num_views)
+    hw = (int(bundle.img_d0), int(bundle.img_d1))
+    fidx = eval_frame_indices(F, num_frames)
+    rows = [[_mesh_panel(verts[motion_idx, int(f)], faces, cameras[v], None,
+                         hw, device) for f in fidx] for v in range(nrow)]
+    grid = _compose_grid(rows, max_size)
+    _imsave(path, grid)
+    return grid
+
+
+def render_pretty_rollout_figure(path: str, verts: np.ndarray,
+                                 faces: np.ndarray, cameras, bundle,
+                                 num_frames: int = 6, num_views: int = -1,
+                                 spread_people: bool = True,
+                                 frame_idxs: Optional[Sequence[int]] = None,
+                                 color: Optional[Sequence[float]] = None,
+                                 max_size: int = MAX_SIZE,
+                                 device="cuda") -> np.ndarray:
+    """Per view, every sampled frame as one person of a single
+    checkerboard-ground scene (render_pretty: one K5s launch a row): each
+    frame's vertices rotated by the view's camera rotation, centred,
+    spread evenly over x in [-1, 1] and set 10 m in front of a fixed
+    camera. frame_idxs picks the frames instead of the even sample; color
+    replaces the blue spectrum by one base colour."""
+    from ..eval.metrics import eval_frame_indices
+    from .mesh import render_pretty
+    V, F = verts.shape[:2]
+    nrow = V if num_views < 0 else min(V, num_views)
+    fidx = (list(frame_idxs) if frame_idxs is not None
+            else eval_frame_indices(F, num_frames))
+    n = max(len(fidx), 1)
+    hw = (int(bundle.img_d0), int(bundle.img_d1))
+    cam = _pretty_camera(hw)
+    rows = []
+    for v in range(nrow):
+        R = _view_rotation(cameras[v])
+        people = []
+        for i, f in enumerate(fidx):
+            p = np.asarray(verts[v, int(f)], np.float32) @ R.T
+            p = p - p.mean(0, keepdims=True)
+            if spread_people:
+                p[:, 0] += -1.0 + (2.0 * i + 1.0) / n
+            p[:, 2] += 10.0
+            people.append(p)
+        rows.append([render_pretty(
+            people, faces, cam, hw,
+            person_colors=None if color is None else np.asarray(color),
+            device=device)])
+    grid = _compose_grid(rows, max_size)
+    _imsave(path, grid)
+    return grid
+
+
+def render_pretty_individual_figure(dirname: str, verts: np.ndarray,
+                                    faces: np.ndarray, camera, bundle,
+                                    max_size: int = MAX_SIZE,
+                                    device="cuda") -> list:
+    """Each body of verts (N, V, 3) alone, rotated by one view's camera
+    rotation, no ground plane, to dirname/{i}.png; returns the paths."""
+    from .mesh import render_pretty
+    os.makedirs(dirname, exist_ok=True)
+    hw = (int(bundle.img_d0), int(bundle.img_d1))
+    R = _view_rotation(camera)
+    cam = _pretty_camera(hw)
+    paths = []
+    for i in range(verts.shape[0]):
+        p = np.asarray(verts[i], np.float32) @ R.T
+        p = p - p.mean(0, keepdims=True)
+        p[:, 2] += 10.0
+        im = render_pretty([p], faces, cam, hw, add_ground=False,
+                           device=device)
+        fpath = osp.join(dirname, f"{i}.png")
+        _imsave(fpath, _resize_nearest(im, max_size))
+        paths.append(fpath)
+    return paths
+
+
+def render_3d_rollout_figure(path: str, verts: np.ndarray,
+                             faces: np.ndarray, bundle,
+                             init_orient_rotmat: Optional[np.ndarray] = None,
+                             num_frames: int = 10, max_size: int = MAX_SIZE,
+                             device="cuda") -> np.ndarray:
+    """Two rows of fixed synthetic cameras (euler xyz pi/2 * [2.5, .5, .5]
+    and pi/2 * [1.5, .5, .5], 100 m away), each composed with the inverse
+    of the motion's initial orientation; row r shows view r's motion,
+    centred, on white. The focal length makes a 1.2 m half-extent fill
+    the frame."""
+    from scipy.spatial.transform import Rotation as sRot
+
+    from ..eval.metrics import eval_frame_indices
+    from ..geometry.camera import Camera
+    F = verts.shape[1]
+    fidx = eval_frame_indices(F, num_frames)
+    hw = (int(bundle.img_d0), int(bundle.img_d1))
+    H, W = hw
+    inv0 = (np.eye(3, dtype=np.float32) if init_orient_rotmat is None
+            else np.asarray(init_orient_rotmat, np.float32).T)
+    cam = Camera(rotation=np.eye(3, dtype=np.float32),
+                 translation=np.zeros(3, np.float32),
+                 focal_length=np.float32(min(H, W) * 100.0 / 2.4),
+                 center=np.array([W / 2.0, H / 2.0], np.float32))
+    off = np.array([0.0, 0.0, 100.0], np.float32)
+    rows = []
+    for r in ([2.5, 0.5, 0.5], [1.5, 0.5, 0.5]):
+        R = sRot.from_euler(
+            "xyz", np.pi / 2 * np.asarray(r)).as_matrix().astype(np.float32)
+        R = (R @ inv0).astype(np.float32)
+        v = min(len(rows), verts.shape[0] - 1)
+        row = []
+        for f in fidx:
+            p = np.asarray(verts[v, int(f)], np.float32)
+            row.append(_mesh_panel((p - p.mean(0)) @ R.T + off, faces, cam,
+                                   None, hw, device))
+        rows.append(row)
+    grid = _compose_grid(rows, max_size)
+    _imsave(path, grid)
+    return grid
+
+
+def render_global_root_trajectories(out_dir: str, gt_trans: np.ndarray,
+                                    pred_trans: np.ndarray,
+                                    glamr_trans: Optional[np.ndarray] = None,
+                                    ) -> dict:
+    """One 3D panel a root trajectory, gt.png, glamr.png and pred.png in
+    out_dir: a grey line and a Greens time-ramp scatter, axis limits shared
+    by all panels, GLAMR and NeMo titled with their mean euclidean distance
+    to GT in metres. Inputs are (F, 3) world root translations after the
+    rigid alignment. Returns {name: mean distance to GT} for the non-GT
+    trajectories; without matplotlib it returns them all the same and
+    names each PNG it skipped."""
+    sets = [("gt", "GT", np.asarray(gt_trans, np.float64))]
+    if glamr_trans is not None:
+        sets.append(("glamr", "GLAMR", np.asarray(glamr_trans, np.float64)))
+    sets.append(("pred", "NeMo", np.asarray(pred_trans, np.float64)))
+    errs = {name: float(np.sqrt(((pts - sets[0][2]) ** 2).sum(-1)).mean())
+            for name, _, pts in sets[1:]}
+    try:
+        import matplotlib
+    except ImportError:
+        for name, _, _ in sets:
+            print(f"[render] matplotlib is not installed: skipped "
+                  f"{osp.join(out_dir, name + '.png')}")
+        return errs
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    os.makedirs(out_dir, exist_ok=True)
+    allpts = np.concatenate([s[2] for s in sets], axis=0)
+    mins, maxs = allpts.min(0), allpts.max(0)
+    for name, label, pts in sets:
+        title = ("GT" if name == "gt"
+                 else f"{label} - Dist: {errs[name]:.2f} meter")
+        fig = plt.figure()
+        ax = plt.axes(projection="3d")
+        ax.plot3D(pts[:, 0], pts[:, 1], pts[:, 2], "gray")
+        ax.scatter3D(pts[:, 0], pts[:, 1], pts[:, 2],
+                     c=np.linspace(0.3, 1, len(pts)), cmap="Greens")
+        ax.set_xlim([mins[0], maxs[0]])
+        ax.set_ylim([mins[1], maxs[1]])
+        ax.set_zlim([mins[2], maxs[2]])
+        ax.set_xticks(np.linspace(mins[0], maxs[0], 5))
+        ax.set_yticks(np.linspace(mins[1], maxs[1], 5))
+        ax.set_zticks(np.linspace(mins[2], maxs[2], 5))
+        ax.set_title(title, fontsize=20)
+        fig.savefig(osp.join(out_dir, f"{name}.png"), bbox_inches="tight")
+        plt.close(fig)
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# world-frame rollouts through the GT-fit cameras
+# ---------------------------------------------------------------------------
+
+def gt_cameras_for_render(gt_cameras9: np.ndarray, img_hw,
+                          focal_length: float = 5000.0):
+    """Per-view Cameras from the packed (V, 9) GT-fit camera vectors, in
+    numpy. The principal point is (IMG_D0, IMG_D1), the full image size
+    and not its half, as the reference's GT rollouts have it."""
+    from ..geometry.camera import Camera
+    from ..geometry.rotations import rot6d_to_rotmat_np
+    return [Camera(rotation=rot6d_to_rotmat_np(cam9[3:]),
+                   translation=cam9[:3],
+                   focal_length=np.float32(focal_length),
+                   center=np.asarray([float(img_hw[0]), float(img_hw[1])],
+                                     np.float32))
+            for cam9 in np.asarray(gt_cameras9, np.float32)]
+
+
+def _gt_world(model, bundle, n_joints=15):
+    """GT world vertices and joints over the (V, F) grid (K1f on a CUDA
+    body model)."""
+    from ..eval.metrics import world_grid_forward
+    return world_grid_forward(model, bundle.gt3d_pose, bundle.gt3d_trans,
+                              n_joints=n_joints)
+
+
+def _aligned_to(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """Each view's (F, N, 3) meshes of src moved by the rigid transform
+    that best maps them onto dst's."""
+    from ..geometry.procrustes import rigid_transform_np
+    out = np.empty_like(src)
+    for v in range(src.shape[0]):
+        R, t = rigid_transform_np(src[v].reshape(-1, 3),
+                                  dst[v].reshape(-1, 3))
+        out[v] = (src[v].reshape(-1, 3) @ R.T + t).reshape(src[v].shape)
+    return out
+
+
+def _gt_camera_rollout(path, model, verts, bundle, num_frames, focal_length,
+                       device):
+    cams = gt_cameras_for_render(bundle.gt_cameras, bundle.img_hw,
+                                 focal_length)
+    return render_rollout_figure(path, verts, model.faces, cams, bundle,
+                                 num_frames=num_frames, device=device)
+
+
+def render_gt_rollout(path: str, model, bundle, num_frames: int = 8,
+                      focal_length: float = 5000.0,
+                      device="cuda") -> np.ndarray:
+    """The GT world motion through the GT-fit cameras."""
+    v_gt, _ = _gt_world(model, bundle)
+    return _gt_camera_rollout(path, model, v_gt, bundle, num_frames,
+                              focal_length, device)
+
+
+def render_pred_in_gt_rollout(path: str, model, pred_v: np.ndarray,
+                              bundle, num_frames: int = 8,
+                              focal_length: float = 5000.0,
+                              device="cuda") -> np.ndarray:
+    """The predicted world meshes pred_v (V, F, N, 3), each view rigidly
+    aligned to the GT world, through the GT-fit cameras."""
+    v_gt, _ = _gt_world(model, bundle)
+    return _gt_camera_rollout(path, model, _aligned_to(pred_v, v_gt), bundle,
+                              num_frames, focal_length, device)
+
+
+def render_glamr_rollout(path: str, model, bundle, num_frames: int = 8,
+                         focal_length: float = 5000.0,
+                         device="cuda") -> np.ndarray:
+    """The GLAMR world baseline, each view rigidly aligned to the GT
+    world, through the GT-fit cameras; raises ValueError when the bundle
+    has no GLAMR pose, orient and trans slots."""
+    from ..eval.metrics import world_grid_forward
+    if bundle.glamr_orient is None or bundle.glamr_trans is None or \
+            "glamr" not in (bundle.baseline_poses or {}):
+        raise ValueError("bundle carries no GLAMR world baseline")
+    g_pose = np.concatenate([bundle.glamr_orient,
+                             bundle.baseline_poses["glamr"][..., :69]], -1)
+    v_gl, _ = world_grid_forward(model, g_pose, bundle.glamr_trans)
+    v_gt, _ = _gt_world(model, bundle)
+    return _gt_camera_rollout(path, model, _aligned_to(v_gl, v_gt), bundle,
+                              num_frames, focal_length, device)

@@ -1,8 +1,9 @@
 """Host-side matplotlib figures: keypoint overlays, phase warps, curves.
 
-Port of nemo_tpu/render/keypoints.py (the part the fit CLI calls).
-matplotlib is imported when a figure is drawn, never at import time: a
-machine without it can import this module and render meshes.
+Port of nemo_tpu/render/keypoints.py. matplotlib is imported when a
+figure is drawn, never at import time: a machine without it can import
+this module and render meshes. The per-joint keypoint frames need no
+matplotlib: they are written by the standard-library PNG writer.
 """
 
 from __future__ import annotations
@@ -116,6 +117,54 @@ def render_phase_plot(path: str, phase, num_views: int) -> None:
     plt.xlabel("raw phase"), plt.ylabel("warped phase")
     fig.savefig(path, bbox_inches="tight")
     plt.close(fig)
+
+
+# matplotlib's default colour cycle, C0-C9 ('tab10'), as RGB in [0, 1]
+TAB10 = np.array([[0x1f, 0x77, 0xb4], [0xff, 0x7f, 0x0e], [0x2c, 0xa0, 0x2c],
+                  [0xd6, 0x27, 0x28], [0x94, 0x67, 0xbd], [0x8c, 0x56, 0x4b],
+                  [0xe3, 0x77, 0xc2], [0x7f, 0x7f, 0x7f], [0xbc, 0xbd, 0x22],
+                  [0x17, 0xbe, 0xcf]], np.float32) / 255.0
+
+
+def render_per_joint_keypoint_frames(cache_dir: str, pts2d: np.ndarray,
+                                     bundle, num_frames: int = 4,
+                                     num_views: int = -1,
+                                     conf_threshold: float = 0.5) -> int:
+    """Per-joint keypoint inspection frames: for each sampled (view,
+    frame) and each joint with confidence above conf_threshold, the frame
+    (white without frame paths) with one square dot of colour C{joint %
+    10} at the joint, written as ``{ridx:03d}_{cidx:03d}_{joint}.png``
+    into cache_dir by the standard-library PNG writer (no matplotlib).
+    pts2d: (V, F, 25, 3) keypoints and confidence. Returns the number of
+    images written."""
+    from ..body.constants import JOINT_NAMES
+    from ..eval.metrics import eval_frame_indices
+    from .figures import _bundle_frame
+    from .video import _write_png
+    V, F = pts2d.shape[:2]
+    nrow = V if num_views < 0 else min(V, num_views)
+    H, W = int(bundle.img_d0), int(bundle.img_d1)
+    r = max(2, min(H, W) // 60)
+    os.makedirs(cache_dir, exist_ok=True)
+    n = 0
+    for ridx in range(nrow):
+        for cidx, f in enumerate(eval_frame_indices(F, num_frames)):
+            im = _bundle_frame(bundle, ridx, int(f))
+            if im is None:
+                im = np.ones((H, W, 3), np.float32)
+            for j in range(pts2d.shape[2]):
+                kp = pts2d[ridx, int(f), j]
+                if kp[-1] <= conf_threshold:
+                    continue
+                out = np.asarray(im, np.float32).copy()
+                y0, x0 = int(round(kp[1])), int(round(kp[0]))
+                out[max(y0 - r, 0):min(y0 + r + 1, H),
+                    max(x0 - r, 0):min(x0 + r + 1, W)] = TAB10[j % 10]
+                name = JOINT_NAMES[j] if j < len(JOINT_NAMES) else str(j)
+                _write_png(os.path.join(
+                    cache_dir, f"{ridx:03d}_{cidx:03d}_{name}.png"), out)
+                n += 1
+    return n
 
 
 def render_dynamic_velocity_plots(out_dir: str, gt_joints15: np.ndarray,

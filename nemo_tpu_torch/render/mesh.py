@@ -316,3 +316,130 @@ def make_mesh_panel_fn(faces, cameras, img_hw: Tuple[int, int],
                 torch.stack([o[1] for o in out]))
 
     return panels
+
+
+def rasterize_triangles(verts_cam: torch.Tensor, faces,
+                        focal_length: float, center: Tuple[float, float],
+                        img_hw: Tuple[int, int], patch: int = 32):
+    """One panel's (zbuf (H, W), fidx (H, W), bary (H, W, 3)) through the
+    tile rasterizer (K5s on a CUDA tensor, its plain version on the CPU).
+    The JAX package's function of this name is its scan rasterizer, which
+    clips a face to a patch x patch window; here a face is binned into the
+    (32, 128) tiles such a window can touch, so faces up to patch pixels
+    draw whole and larger ones clip."""
+    from ..ops.raster import rasterize_triangles as _raster
+    span = (-(-patch // 32) + 1, -(-patch // 128) + 1)
+    return _raster(_f32(verts_cam, verts_cam.device), faces, focal_length,
+                   center, img_hw, span=span)
+
+
+# ---------------------------------------------------------------------------
+# the pretty renderer: a checkerboard ground plane and blue-spectrum people
+# (reference pretty_renderer.py:11-137)
+# ---------------------------------------------------------------------------
+
+def blue_spectrum(n: int) -> np.ndarray:
+    """(n, 3) colours in [0, 1]: red and green fixed at 60, blue ramping
+    from 90 towards 255."""
+    R = np.full(n, 60.0)
+    G = np.full(n, 60.0)
+    interval = (255.0 - 90.0) / max(n, 1)
+    B = 90.0 + interval * np.arange(n)
+    return np.stack([R, G, B], axis=1) / 255.0
+
+
+def checkerboard_plane(plane_width: float = 4.0, num_boxes: int = 9,
+                       y: float = 0.0, subdiv: int = 4):
+    """A flat checkerboard in the x-z plane at height y: num_boxes^2
+    squares alternating dark (35) and light (220), each cut into subdiv x
+    subdiv quads so that no face grows too large for the rasterizer's
+    windows. Returns (verts (N, 3) tensor, faces (F, 3) int64 numpy,
+    colors (N, 3) tensor in [0, 1])."""
+    pw = plane_width / num_boxes
+    white = np.array([220, 220, 220], np.float32) / 255.0
+    black = np.array([35, 35, 35], np.float32) / 255.0
+    sw = pw / subdiv
+    verts, faces, colors = [], [], []
+    for i in range(num_boxes):
+        for j in range(num_boxes):
+            c = black if (i + j) % 2 == 0 else white
+            for si in range(subdiv):
+                for sj in range(subdiv):
+                    x0 = i * pw + si * sw - plane_width / 2
+                    z0 = j * pw + sj * sw - plane_width / 2
+                    base = len(verts)
+                    verts += [[x0, y, z0], [x0 + sw, y, z0],
+                              [x0 + sw, y, z0 + sw], [x0, y, z0 + sw]]
+                    faces += [[base, base + 1, base + 2],
+                              [base, base + 2, base + 3]]
+                    colors += [c] * 4
+    return (torch.tensor(np.array(verts, np.float32)),
+            np.array(faces, np.int64),
+            torch.tensor(np.stack(colors)))
+
+
+def render_pretty(verts_list, faces, camera, img_hw: Tuple[int, int],
+                  image: Optional[np.ndarray] = None,
+                  add_ground: bool = True, ground_width: float = 8.0,
+                  light_dir=LIGHT_DIR, alpha: float = 1.0,
+                  person_colors: Optional[np.ndarray] = None,
+                  shading: str = "pbr", device="cuda") -> np.ndarray:
+    """Several people over a checkerboard ground plane in one z-buffer:
+    the people and the plane are concatenated into one mesh and drawn by
+    one raster_render call (one K5s launch on a CUDA device).
+
+    verts_list: (V, 3) camera-frame vertex sets; person_colors: optional
+    (n_people, 3) base colours instead of the blue spectrum. shading "pbr"
+    is shade_vertices' light rig (the plane, grazed by the headlights, is
+    lit by the ambient term alone); "diffuse" one Lambertian light along
+    light_dir with a floor of 0.25. The plane lies at the people's lowest
+    point (largest camera y) and their mean depth; the rasterizer's
+    per-face window is sized for its large faces. Returns the (H, W, 3)
+    float32 composite over image (white when None)."""
+    dev = resolve_device(device)
+    H, W = int(img_hw[0]), int(img_hw[1])
+    n = len(verts_list)
+    spectrum = (blue_spectrum(n) if person_colors is None
+                else np.broadcast_to(np.asarray(person_colors, np.float32),
+                                     (n, 3)))
+    faces = np.asarray(faces)
+    all_v, all_c, all_f = [], [], []
+    off = 0
+    for i, v in enumerate(verts_list):
+        v = _f32(v, dev)
+        if shading == "diffuse":
+            l = _f32(light_dir, dev)
+            l = l / l.norm()
+            c = torch.clamp(-(vertex_normals(v, faces) @ l), 0.25,
+                            1.0)[:, None] * _f32(spectrum[i], dev)
+        else:
+            c = shade_vertices(v, faces, spectrum[i], "pbr")
+        all_v.append(v)
+        all_c.append(c)
+        all_f.append(faces + off)
+        off += v.shape[0]
+    if add_ground and all_v:
+        people = torch.cat(all_v)
+        floor_y = float(people[:, 1].max())          # +y points down
+        gv, gf, gc = checkerboard_plane(ground_width, y=floor_y)
+        gv = gv.to(dev) + torch.tensor([0.0, 0.0, float(people[:, 2].mean())],
+                                       device=dev)
+        gc = gc.to(dev)
+        all_v.append(gv)
+        all_c.append(gc if shading == "diffuse"
+                     else shade_vertices(gv, gf, gc, "pbr"))
+        all_f.append(gf + off)
+    verts = torch.cat(all_v)
+    colors = torch.cat(all_c)
+    faces_all = np.concatenate(all_f)
+    focal = float(camera.focal_length)
+    center = (float(camera.center[0]), float(camera.center[1]))
+    _, span = face_window_params(verts.cpu().numpy(), faces_all, focal,
+                                 center, (H, W))
+    img, mask = raster_render(verts, colors, faces_all, focal, center,
+                              (H, W), span=span)
+    if image is None:
+        image = np.ones((H, W, 3), np.float32)
+    m = mask.cpu().numpy()[..., None]
+    return (img.cpu().numpy() * m * alpha
+            + np.asarray(image) * (1 - alpha * m)).astype(np.float32)

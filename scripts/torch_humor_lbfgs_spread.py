@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """How the L-BFGS HuMoR fit (chip_smoke.py path N3) varies from run to
 run on the card, and why: humor_motion_fit(optimizer="lbfgs") at path
-N3's 3/5/2 steps on path K's fit-prox --rgbd window (the 6890-vertex
-body, 4096 scan points, K4 once a loss evaluation), repeated from the
-same inputs.
+N3's steps (chip_smoke.N_HUMOR_STEPS) on path K's fit-prox --rgbd window
+(the 6890-vertex body, 4096 scan points, K4 once a loss evaluation),
+repeated from the same inputs.
 
 It prints, for each fit, every linesearch as "value before -> value at
 the accepted step (stepsize)", and whether stage 2 ended below where it

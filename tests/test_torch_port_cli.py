@@ -73,11 +73,18 @@ def test_cli_outputs_match_jax_cli(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [["--dp", "2"]])
-def test_unported_flags_raise(tmp_path, extra):
+def test_unported_flags_raise(tmp_path, extra, monkeypatch):
+    """--dp is ported (tests/test_torch_port_parallel.py runs it); what it
+    still refuses is more ranks than visible cards, naming both numbers,
+    before it starts any rank."""
     from nemo_tpu_torch.cli.fit import main
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(FLAGS + extra + ["--device", "cpu", "--out_dir",
+    for var in ("MASTER_ADDR", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match=r"--dp 2 needs a card a rank: "
+                                         r"0 visible"):
+        main(FLAGS + extra + ["--device", "cuda", "--out_dir",
                               str(tmp_path)])
+    assert not any(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("subset", [0, 64])

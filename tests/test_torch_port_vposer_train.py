@@ -3,7 +3,7 @@ batch norm with its running statistics, the training encoder, the geodesic
 distance, vposer_train_loss (its terms and gradients, with and without the
 extra terms, with and without a body model), a train step from JAX's state
 after 3 steps through the state converters, a 2-epoch train_vposer, the
-AMASS readers and the refused mesh.
+AMASS readers and the one-rank mesh.
 
 Both packages start from JAX's init_vposer weights (a 64-wide VPoser) and
 get the same numpy inputs; the body is the 96-vertex synthetic SMPL. The
@@ -329,8 +329,9 @@ def test_train_vposer_two_epochs(bodies, body):
 def test_train_vposer_default_draws_and_refusals(bodies):
     """The default draw is seeded: two runs agree bit for bit, another
     seed does not. Fewer poses than a batch, where JAX's loop leaves its
-    metrics unbound, is a ValueError naming the batch size; mesh= is
-    refused and names its ROADMAP item."""
+    metrics unbound, is a ValueError naming the batch size; a one-rank
+    mesh= (no process group) trains bit for bit as without one (the
+    two-rank mesh is tests/test_torch_port_parallel.py's)."""
     p = torch_of(jax_params(12))
     data = poses(40, 13)
     runs = [tvt.train_vposer(p, data, TCFG, num_epochs=1, seed=s)
@@ -341,8 +342,13 @@ def test_train_vposer_default_draws_and_refusals(bodies):
     assert np.isfinite(runs[0][1]["loss_total"]).all()
     with pytest.raises(ValueError, match="batch_size 16"):
         tvt.train_vposer(p, data[:10], TCFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*6.4"):
-        tvt.train_vposer(p, data, TCFG, mesh=object())
+    from nemo_tpu_torch.parallel import make_mesh
+    meshed = tvt.train_vposer(p, data, TCFG, num_epochs=1, seed=4,
+                              mesh=make_mesh())
+    for k in runs[0][0]:
+        assert torch.equal(runs[0][0][k], meshed[0][k]), k
+    for k in runs[0][1]:
+        np.testing.assert_array_equal(runs[0][1][k], meshed[1][k])
 
 
 # ---------------------------------------------------------------------------
