@@ -1,0 +1,5 @@
+"""torch.cuda.max_memory_allocated() over set-up and the window, GiB."""
+
+
+def read(rec):
+    return rec["peak_bytes"] / 2 ** 30 if rec.get("peak_bytes") else None
