@@ -515,8 +515,9 @@ def profiled_ms(fn, kernels, reps: int = 20, launches: int = 1,
         t0 = next(e.time_range.start for e in events
                   if e.name == "profiled_ms"
                   and e.device_type == DeviceType.CPU)
+        # record_function ranges are drawn on the device's timeline too
         device = [e for e in events if e.device_type == DeviceType.CUDA
-                  and e.time_range.start >= t0]
+                  and e.time_range.start >= t0 and not e.is_user_annotation]
         for k in kernels:
             mine = [e.time_range.elapsed_us() for e in device if k in e.name]
             if out[k] is None and len(mine) == reps * launches:
@@ -4172,9 +4173,10 @@ def m_profile(fn, reps: int = 5, mark: str = "path_m_steps",
     events = prof.events()
     t0 = next(e.time_range.start for e in events
               if e.name == mark and e.device_type == DeviceType.CPU)
-    # the mark itself is traced on the device's timeline too: leave it out
+    # record_function ranges (the mark's among them) are drawn on the
+    # device's timeline too: leave them out
     dev = [e for e in events if e.device_type == DeviceType.CUDA
-           and e.time_range.start >= t0 and e.name != mark]
+           and e.time_range.start >= t0 and not e.is_user_annotation]
     by_name = {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()

@@ -35,6 +35,7 @@ from .optimizer import (GroupOptimizer, make_camera_stage_optimizer,
                         make_v0_warmup_optimizer, plateau_init_all,
                         plateau_update_all)
 from ..parallel.mesh import data_parallel_step, replicate_tree
+from ..utils.trace import span
 
 # batch_source(stage, step) -> (view_idx, frame_idx) for stage "warmup",
 # "camera" (V4; both counted within the stage) or "main" (counted over all
@@ -46,8 +47,9 @@ def _stack(records: List[Dict[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
     """Per-step device scalars -> host arrays, one copy per key."""
     if not records:
         return {}
-    return {k: torch.stack([r[k] for r in records]).cpu().numpy()
-            for k in records[0]}
+    with span("nemo.fit.metrics_copy"):
+        return {k: torch.stack([r[k] for r in records]).cpu().numpy()
+                for k in records[0]}
 
 
 class NemoFitter:
@@ -146,16 +148,21 @@ class NemoFitter:
         return metrics
 
     def main_step(self) -> Dict[str, torch.Tensor]:
-        if self.cfg.full_batch:
-            vi, fi = self._grid
-        else:
-            vi, fi = self._batch("main", self.step, self.cfg.batch_size)
-        metrics = self._grad_step(fit_loss, vi, fi,
-                                  noise=self._noise(vi.shape[0]))
-        self.optimizer.step(plateau=self.plateau)
-        self.plateau = plateau_update_all(self.plateau,
-                                          metrics["total_loss"], self.cfg)
-        self.step += 1
+        """One main-stage step, traced as the span ``nemo.fit.step`` (its
+        index kept with it) around ``nemo.fit.forward``,
+        ``nemo.fit.backward`` and ``nemo.fit.optimizer``."""
+        with span("nemo.fit.step", {"step": self.step}):
+            if self.cfg.full_batch:
+                vi, fi = self._grid
+            else:
+                vi, fi = self._batch("main", self.step, self.cfg.batch_size)
+            metrics = self._grad_step(fit_loss, vi, fi,
+                                      noise=self._noise(vi.shape[0]))
+            with span("nemo.fit.optimizer"):
+                self.optimizer.step(plateau=self.plateau)
+                self.plateau = plateau_update_all(
+                    self.plateau, metrics["total_loss"], self.cfg)
+            self.step += 1
         return metrics
 
     def warmup(self, steps: Optional[int] = None) -> Dict[str, np.ndarray]:

@@ -14,6 +14,12 @@ The VPoser v2v prior runs on the full mesh through K2 or on a vertex subset
 (``vp_v2v_n_verts``) through K3. The custom entry's HuMoR dynamics term
 (``weight_humor_loss``) runs the batch's (f-1, f, f+1) windows through one
 predict and the frozen HuMoR CVAE.
+
+Each part of the main-stage loss runs under one layer span (utils.trace):
+``nemo.net.phase`` and ``nemo.net.motion`` (the networks), ``nemo.body.smpl``
+(SMPL), ``nemo.loss.keypoints`` and ``nemo.loss.3d`` (the data terms), and
+``nemo.prior.vposer``, ``nemo.prior.v2v`` (K2 or the subset path),
+``nemo.prior.instance``, ``nemo.prior.gmm`` and ``nemo.prior.humor``.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from ..modules.networks import (FCNN, RBF, MonotonicNets, MotionNet, RotNet,
 from ..priors.gmm import GMMPrior, gmm_log_likelihood
 from ..priors.vposer import (vposer_decode, vposer_encode,
                              vposer_kl_per_sample)
+from ..utils.trace import span
 from .losses import (batch_mean, camera_fitting_loss, keypoint_loss,
                      per_view_average)
 
@@ -235,39 +242,46 @@ def predict(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
     codes + code_noise * noise (:206-217). The caller draws it, from a
     torch.Generator in the fitter or injected by a test.
     """
-    raw = frame_idx_to_raw_phase(frame_idx, assets.num_frames)[:, None]
-    warped = apply_monotonic_gather(params.phase, view_idx, raw)
+    with span("nemo.net.phase"):
+        raw = frame_idx_to_raw_phase(frame_idx, assets.num_frames)[:, None]
+        warped = apply_monotonic_gather(params.phase, view_idx, raw)
     prec = assets.net_precision
-    if cfg.model_version == 0:
-        # separate networks (get_preds_given_phases :3005-3034)
-        pose_d = params.poses(warped, prec)
-        orient_d = params.orient(warped, prec)
-        trans = params.trans(warped, prec) - params.trans(
-            warped.new_zeros((1, 1)), prec)
-    else:
-        codes = params.instance[view_idx] if cfg.uses_instance_code else None
-        if codes is not None and noise is not None and cfg.code_noise > 0:
-            codes = codes + cfg.code_noise * noise
-        pose_d, orient_d, trans = params.motion(
-            _embed(params, cfg, warped, codes), mlp=assets.motion_mlp,
-            precision=prec)
-        trans = trans - _trans_at_phase0(params, cfg, assets.motion_mlp,
-                                         prec)
+    with span("nemo.net.motion"):
+        if cfg.model_version == 0:
+            # separate networks (get_preds_given_phases :3005-3034)
+            pose_d = params.poses(warped, prec)
+            orient_d = params.orient(warped, prec)
+            trans = params.trans(warped, prec) - params.trans(
+                warped.new_zeros((1, 1)), prec)
+        else:
+            codes = params.instance[view_idx] if cfg.uses_instance_code \
+                else None
+            if codes is not None and noise is not None and \
+                    cfg.code_noise > 0:
+                codes = codes + cfg.code_noise * noise
+            pose_d, orient_d, trans = params.motion(
+                _embed(params, cfg, warped, codes), mlp=assets.motion_mlp,
+                precision=prec)
+            trans = trans - _trans_at_phase0(params, cfg, assets.motion_mlp,
+                                             prec)
 
-    body_rotmat = pose_d["rotmat"]
-    if detach_pose:
-        body_rotmat = body_rotmat.detach()
-    orient_rotmat = rot6d_to_rotmat(orient_d["rot6d"])[:, None]
-    verts, joints49, *fk = smpl_forward(
-        assets.smpl, params.betas, body_rotmat, orient_rotmat,
-        want_vertices=want_vertices, want_fk_joints=want_fk_joints)
-    if add_trans:
-        joints49 = joints49 + trans[:, None, :]
-        if verts is not None:
-            verts = verts + trans[:, None, :]
-        fk = [j + trans[:, None, :] for j in fk]
+    with span("nemo.body.smpl"):
+        body_rotmat = pose_d["rotmat"]
+        if detach_pose:
+            body_rotmat = body_rotmat.detach()
+        orient_rotmat = rot6d_to_rotmat(orient_d["rot6d"])[:, None]
+        verts, joints49, *fk = smpl_forward(
+            assets.smpl, params.betas, body_rotmat, orient_rotmat,
+            want_vertices=want_vertices, want_fk_joints=want_fk_joints)
+        if add_trans:
+            joints49 = joints49 + trans[:, None, :]
+            if verts is not None:
+                verts = verts + trans[:, None, :]
+            fk = [j + trans[:, None, :] for j in fk]
+        joints = joints49[:, device_index(cfg.proj_joint_idx,
+                                          joints49.device)]
     out = {
-        "j": joints49[:, device_index(cfg.proj_joint_idx, joints49.device)],
+        "j": joints,
         "j49": joints49,
         "poses": pose_d["pose"],
         "pose_rotmat": pose_d["rotmat"],
@@ -328,29 +342,34 @@ def vposer_losses(params: NemoParams, assets: NemoAssets,
     vp = assets.vposer
     B = poses.shape[0]
     B_all = B * (1 if mesh is None else mesh.size)
-    mu, scale = vposer_encode(vp, poses[:, :63])
-    dec = vposer_decode(vp, mu)
-    recon = torch.cat([dec["pose_body"].reshape(B, 63), poses[:, 63:]], dim=1)
-    rot_o = batch_rodrigues(poses.reshape(B, 23, 3))
-    rot_r = batch_rodrigues(recon.reshape(B, 23, 3))
-    orient_rot = rot6d_to_rotmat(orient6d)[:, None]
+    with span("nemo.prior.vposer"):
+        mu, scale = vposer_encode(vp, poses[:, :63])
+        dec = vposer_decode(vp, mu)
+        recon = torch.cat([dec["pose_body"].reshape(B, 63), poses[:, 63:]],
+                          dim=1)
+        rot_o = batch_rodrigues(poses.reshape(B, 23, 3))
+        rot_r = batch_rodrigues(recon.reshape(B, 23, 3))
+        orient_rot = rot6d_to_rotmat(orient6d)[:, None]
     smpl = assets.smpl
-    if assets.v2v_vidx is None:
-        total = smpl_v2v_l1_sum(smpl, params.betas, rot_o, orient_rot,
-                                rot_r, orient_rot, vjp=assets.v2v_vjp)
-        v2v = total / (B_all * 3 * smpl.num_vertices)
-    else:
-        sub = (assets.v2v_vidx, assets.v2v_posedirs_t,
-               assets.v2v_lbs_weights_t)
-        io = assets.skin_io_dtype
-        verts_o = smpl_verts_t_subset(smpl, params.betas, rot_o, orient_rot,
-                                      *sub, io)
-        with torch.no_grad():
-            verts_r = smpl_verts_t_subset(smpl, params.betas, rot_r,
+    with span("nemo.prior.v2v"):
+        if assets.v2v_vidx is None:
+            total = smpl_v2v_l1_sum(smpl, params.betas, rot_o, orient_rot,
+                                    rot_r, orient_rot, vjp=assets.v2v_vjp)
+            v2v = total / (B_all * 3 * smpl.num_vertices)
+        else:
+            sub = (assets.v2v_vidx, assets.v2v_posedirs_t,
+                   assets.v2v_lbs_weights_t)
+            io = assets.skin_io_dtype
+            verts_o = smpl_verts_t_subset(smpl, params.betas, rot_o,
                                           orient_rot, *sub, io)
-        v2v = _AbsJax.apply(verts_r.float() - verts_o.float()).sum() / (
-            B_all * 3 * sub[0].shape[0])
-    return v2v, batch_mean(vposer_kl_per_sample(mu, scale), mesh)
+            with torch.no_grad():
+                verts_r = smpl_verts_t_subset(smpl, params.betas, rot_r,
+                                              orient_rot, *sub, io)
+            v2v = _AbsJax.apply(verts_r.float() - verts_o.float()).sum() / (
+                B_all * 3 * sub[0].shape[0])
+    with span("nemo.prior.vposer"):
+        kl = batch_mean(vposer_kl_per_sample(mu, scale), mesh)
+    return v2v, kl
 
 
 def humor_dynamics_loss(params: NemoParams, cfg: NemoConfig,
@@ -421,13 +440,15 @@ def fit_loss(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
         include_3d = include_priors
     preds = predict(params, cfg, assets, view_idx, frame_idx,
                     detach_pose=detach_pose, noise=noise)
-    points2d = project_to_views(params, cfg, assets, preds["j"], view_idx)
-    gt = assets.points2d_gt[view_idx, frame_idx]
-    gt_size = assets.bbox_diag[view_idx, frame_idx]
-    loss_all = keypoint_loss(points2d, gt[..., :2], gt[..., 2:], gt_size,
-                             cfg.loss)
-    kp = per_view_average(loss_all, gt[..., 2:], view_idx, assets.num_views,
-                          mesh)
+    with span("nemo.loss.keypoints"):
+        points2d = project_to_views(params, cfg, assets, preds["j"],
+                                    view_idx)
+        gt = assets.points2d_gt[view_idx, frame_idx]
+        gt_size = assets.bbox_diag[view_idx, frame_idx]
+        loss_all = keypoint_loss(points2d, gt[..., :2], gt[..., 2:], gt_size,
+                                 cfg.loss)
+        kp = per_view_average(loss_all, gt[..., 2:], view_idx,
+                              assets.num_views, mesh)
     loss = kp
     metrics = {"kp_loss": kp}
     if include_priors:
@@ -445,29 +466,33 @@ def fit_loss(params: NemoParams, cfg: NemoConfig, assets: NemoAssets,
             metrics["vp_recon_loss"] = kp.new_zeros(())
             metrics["vp_kl_loss"] = kp.new_zeros(())
         if cfg.uses_instance_code and cfg.model_version >= 3:
-            inst = (params.instance ** 2).mean()
-            if mesh is not None and mesh.rank != 0:
-                inst = torch.zeros_like(inst)
-            metrics["instance_loss"] = inst
-            if cfg.weight_instance_loss:
-                loss = loss + cfg.weight_instance_loss * inst
+            with span("nemo.prior.instance"):
+                inst = (params.instance ** 2).mean()
+                if mesh is not None and mesh.rank != 0:
+                    inst = torch.zeros_like(inst)
+                metrics["instance_loss"] = inst
+                if cfg.weight_instance_loss:
+                    loss = loss + cfg.weight_instance_loss * inst
         if assets.gmm is not None:
-            g = batch_mean(gmm_log_likelihood(assets.gmm, poses), mesh)
-            metrics["gmm_loss"] = g
-            if cfg.weight_gmm_loss:
-                loss = loss + cfg.weight_gmm_loss * g
+            with span("nemo.prior.gmm"):
+                g = batch_mean(gmm_log_likelihood(assets.gmm, poses), mesh)
+                metrics["gmm_loss"] = g
+                if cfg.weight_gmm_loss:
+                    loss = loss + cfg.weight_gmm_loss * g
         if cfg.weight_humor_loss and assets.humor is not None:
-            hl = humor_dynamics_loss(params, cfg, assets, view_idx,
-                                     frame_idx, mesh)
-            metrics["humor_loss"] = hl
-            loss = loss + cfg.weight_humor_loss * hl
+            with span("nemo.prior.humor"):
+                hl = humor_dynamics_loss(params, cfg, assets, view_idx,
+                                         frame_idx, mesh)
+                metrics["humor_loss"] = hl
+                loss = loss + cfg.weight_humor_loss * hl
     if include_3d and cfg.weight_3d_loss and cfg.model_version >= 3:
-        theta = assets.hmr_theta[view_idx, frame_idx]
-        mask = assets.hmr_mask[view_idx, frame_idx]
-        l3d = batch_mean(keypoint_loss(preds["poses"], theta, mask,
-                                       loss_type="mse_robust"), mesh)
-        metrics["loss_3d"] = l3d
-        loss = loss + cfg.weight_3d_loss * l3d
+        with span("nemo.loss.3d"):
+            theta = assets.hmr_theta[view_idx, frame_idx]
+            mask = assets.hmr_mask[view_idx, frame_idx]
+            l3d = batch_mean(keypoint_loss(preds["poses"], theta, mask,
+                                           loss_type="mse_robust"), mesh)
+            metrics["loss_3d"] = l3d
+            loss = loss + cfg.weight_3d_loss * l3d
     metrics["total_loss"] = loss
     return loss, metrics
 

@@ -38,6 +38,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from . import _build
+from ..utils.trace import launch
 
 LAUNCHES = {"chamfer_nn": 0}
 
@@ -191,11 +192,11 @@ def nn_one_way_cuda(a: torch.Tensor, b: torch.Tensor
     lib = _build.library()
     dist = torch.empty((T, N), dtype=torch.float32, device=dev)
     idx = torch.empty((T, N), dtype=torch.int64, device=dev)
-    err = lib.nemo_chamfer_nn(a.data_ptr(), b.data_ptr(), T, N, M, sp.q,
-                              sp.ranges, sp.range, dist.data_ptr(),
-                              idx.data_ptr(), _build.stream_handle(dev))
-    _build.check(err, "nemo_chamfer_nn")
-    LAUNCHES["chamfer_nn"] += 1
+    with launch(LAUNCHES, "chamfer_nn"):
+        err = lib.nemo_chamfer_nn(a.data_ptr(), b.data_ptr(), T, N, M, sp.q,
+                                  sp.ranges, sp.range, dist.data_ptr(),
+                                  idx.data_ptr(), _build.stream_handle(dev))
+        _build.check(err, "nemo_chamfer_nn")
     return dist, idx
 
 

@@ -24,6 +24,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from . import _build
+from ..utils.trace import launch
 
 LAUNCHES = {"fk_fwd": 0, "fk_bwd": 0}
 
@@ -196,11 +197,11 @@ def fk_fwd_cuda(R_l: torch.Tensor, t_l: torch.Tensor, parents
     lib = _build.library()
     R_g = torch.empty_like(R_l)
     t_g = torch.empty_like(t_l)
-    err = lib.nemo_fk_fwd(R_l.data_ptr(), t_l.data_ptr(), tree.address, B, J,
-                          R_g.data_ptr(), t_g.data_ptr(),
-                          _build.stream_handle(dev))
-    _build.check(err, "nemo_fk_fwd")
-    LAUNCHES["fk_fwd"] += 1
+    with launch(LAUNCHES, "fk_fwd"):
+        err = lib.nemo_fk_fwd(R_l.data_ptr(), t_l.data_ptr(), tree.address,
+                              B, J, R_g.data_ptr(), t_g.data_ptr(),
+                              _build.stream_handle(dev))
+        _build.check(err, "nemo_fk_fwd")
     return R_g, t_g
 
 
@@ -219,12 +220,12 @@ def fk_bwd_cuda(R_l, t_l, R_g, gR_g, gt_g, parents
     lib = _build.library()
     gR_l = torch.empty_like(R_l)
     gt_l = torch.empty_like(t_l)
-    err = lib.nemo_fk_bwd(R_l.data_ptr(), t_l.data_ptr(), R_g.data_ptr(),
-                          gR_g.data_ptr(), gt_g.data_ptr(), tree.address, B, J,
-                          gR_l.data_ptr(), gt_l.data_ptr(),
-                          _build.stream_handle(dev))
-    _build.check(err, "nemo_fk_bwd")
-    LAUNCHES["fk_bwd"] += 1
+    with launch(LAUNCHES, "fk_bwd"):
+        err = lib.nemo_fk_bwd(R_l.data_ptr(), t_l.data_ptr(), R_g.data_ptr(),
+                              gR_g.data_ptr(), gt_g.data_ptr(), tree.address,
+                              B, J, gR_l.data_ptr(), gt_l.data_ptr(),
+                              _build.stream_handle(dev))
+        _build.check(err, "nemo_fk_bwd")
     return gR_l, gt_l
 
 

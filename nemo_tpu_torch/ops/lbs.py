@@ -61,6 +61,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ..utils.trace import launch
 from ._emulation import in_order as _in_order
 from ._emulation import mm_3xtf32 as _mm_3xtf32
 from ._emulation import tf32 as _tf32
@@ -418,12 +419,12 @@ def skin_fwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t,
     mesh_bf16 = out_dtype == torch.bfloat16
     lib = _build.library()
     verts = torch.empty((B, 3, V), dtype=out_dtype, device=dev)
-    err = getattr(lib, "nemo_skin_fwd" + sfx)(
-        int(mesh_bf16), B, V, pf.data_ptr(), A34.data_ptr(),
-        v_shaped_t.data_ptr(), posedirs_t.data_ptr(), W_t.data_ptr(),
-        verts.data_ptr(), _build.stream_handle(dev))
-    _build.check(err, "nemo_skin_fwd" + sfx)
-    LAUNCHES["skin_fwd" + sfx + (IO_BF16 if mesh_bf16 else "")] += 1
+    with launch(LAUNCHES, "skin_fwd" + sfx + (IO_BF16 if mesh_bf16 else "")):
+        err = getattr(lib, "nemo_skin_fwd" + sfx)(
+            int(mesh_bf16), B, V, pf.data_ptr(), A34.data_ptr(),
+            v_shaped_t.data_ptr(), posedirs_t.data_ptr(), W_t.data_ptr(),
+            verts.data_ptr(), _build.stream_handle(dev))
+        _build.check(err, "nemo_skin_fwd" + sfx)
     return verts
 
 
@@ -485,15 +486,16 @@ def skin_bwd_cuda(pf, A34, v_shaped_t, posedirs_t, W_t, g,
     gpf = torch.empty((B, NUM_POSE_FEATURES), **f32)
     gA = torch.empty((B, NUM_JOINTS, 12), **f32)
     gvsh = torch.empty((3, V), **f32)
-    err = getattr(lib, "nemo_skin_bwd" + sfx)(
-        int(mesh_bf16), B, V, pf.data_ptr(), A34.data_ptr(),
-        v_shaped_t.data_ptr(), posedirs_t.data_ptr(), W_t.data_ptr(),
-        g.data_ptr(), None if vp is None else vp.data_ptr(),
-        scratch.data_ptr(), gpf.data_ptr(), gA.data_ptr(), gvsh.data_ptr(),
-        _build.stream_handle(dev))
-    _build.check(err, "nemo_skin_bwd" + sfx)
-    LAUNCHES[("skin_bwd" if vp is None else "skin_bwd_vp") + sfx
-             + (IO_BF16 if mesh_bf16 else "")] += 1
+    key = (("skin_bwd" if vp is None else "skin_bwd_vp") + sfx
+           + (IO_BF16 if mesh_bf16 else ""))
+    with launch(LAUNCHES, key):
+        err = getattr(lib, "nemo_skin_bwd" + sfx)(
+            int(mesh_bf16), B, V, pf.data_ptr(), A34.data_ptr(),
+            v_shaped_t.data_ptr(), posedirs_t.data_ptr(), W_t.data_ptr(),
+            g.data_ptr(), None if vp is None else vp.data_ptr(),
+            scratch.data_ptr(), gpf.data_ptr(), gA.data_ptr(),
+            gvsh.data_ptr(), _build.stream_handle(dev))
+        _build.check(err, "nemo_skin_bwd" + sfx)
     return gpf, gA, gvsh
 
 
@@ -546,14 +548,14 @@ def _v2v_launch(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
     grads = (empty(B, NUM_POSE_FEATURES), empty(B, NUM_JOINTS, 12),
              empty(3, V)) if mode == 1 else None
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = getattr(lib, "nemo_v2v_l1" + sfx)(
-        B, V, pf_o.data_ptr(), A_o.data_ptr(), pf_r.data_ptr(),
-        A_r.data_ptr(), v_shaped_t.data_ptr(), posedirs_t.data_ptr(),
-        W_t.data_ptr(), mode, scratch.data_ptr(), ptr(sign), ptr(vp),
-        total.data_ptr(), *(ptr(t) for t in (grads or (None,) * 3)),
-        _build.stream_handle(dev))
-    _build.check(err, "nemo_v2v_l1" + sfx)
-    LAUNCHES[("v2v_fwd", "v2v_grad", "v2v_pair")[mode] + sfx] += 1
+    with launch(LAUNCHES, ("v2v_fwd", "v2v_grad", "v2v_pair")[mode] + sfx):
+        err = getattr(lib, "nemo_v2v_l1" + sfx)(
+            B, V, pf_o.data_ptr(), A_o.data_ptr(), pf_r.data_ptr(),
+            A_r.data_ptr(), v_shaped_t.data_ptr(), posedirs_t.data_ptr(),
+            W_t.data_ptr(), mode, scratch.data_ptr(), ptr(sign), ptr(vp),
+            total.data_ptr(), *(ptr(t) for t in (grads or (None,) * 3)),
+            _build.stream_handle(dev))
+        _build.check(err, "nemo_v2v_l1" + sfx)
     return total, sign, vp, grads
 
 

@@ -38,6 +38,7 @@ from typing import Tuple
 import torch
 
 from . import _build
+from ..utils.trace import launch
 from ._emulation import in_order, mm_3xtf32
 from .lbs import bf16_round
 
@@ -407,12 +408,12 @@ def mlp_fwd_cuda(x, W1, b1, W2, b2, W3, b3, Wo, bo,
     out = torch.empty((B, O), **f32)
     h1, h2, z = (torch.empty((B, H), **f32) for _ in range(3))
     scratch = _scratch(lib, B, D, H, O, dev)
-    err = lib.nemo_mlp_fwd(_ARITH[precision], B, D, H, O, *(
-        t.data_ptr() for t in (x, W1, b1, W2, b2, W3, b3, Wo, bo, out, h1,
-                               h2, z, scratch)),
-        _build.stream_handle(dev))
-    _build.check(err, "nemo_mlp_fwd")
-    LAUNCHES[_key("mlp_fwd", precision)] += 1
+    with launch(LAUNCHES, _key("mlp_fwd", precision)):
+        err = lib.nemo_mlp_fwd(_ARITH[precision], B, D, H, O, *(
+            t.data_ptr() for t in (x, W1, b1, W2, b2, W3, b3, Wo, bo, out,
+                                   h1, h2, z, scratch)),
+            _build.stream_handle(dev))
+        _build.check(err, "nemo_mlp_fwd")
     return out, h1, h2, z
 
 
@@ -428,12 +429,12 @@ def mlp_bwd_cuda(gout, x, h1, h2, z, W1, W2, W3, Wo,
     grads = [torch.empty(s, **f32) for s in
              ((B, D), (D, H), (H,), (H, H), (H,), (H, H), (H,), (H, O), (O,))]
     scratch = _scratch(lib, B, D, H, O, dev)
-    err = lib.nemo_mlp_bwd(_ARITH[precision], B, D, H, O, *(
-        t.data_ptr() for t in (gout, x, h1, h2, z, W1, W2, W3, Wo, *grads,
-                               scratch)),
-        _build.stream_handle(dev))
-    _build.check(err, "nemo_mlp_bwd")
-    LAUNCHES[_key("mlp_bwd", precision)] += 1
+    with launch(LAUNCHES, _key("mlp_bwd", precision)):
+        err = lib.nemo_mlp_bwd(_ARITH[precision], B, D, H, O, *(
+            t.data_ptr() for t in (gout, x, h1, h2, z, W1, W2, W3, Wo,
+                                   *grads, scratch)),
+            _build.stream_handle(dev))
+        _build.check(err, "nemo_mlp_bwd")
     return tuple(grads)
 
 

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..utils.trace import launch
 
 LAUNCHES = {"raster_stream": 0, "raster_gather": 0}
 GROUP = 8   # gather mode's floor on K, as in the JAX package
@@ -542,14 +543,14 @@ def raster_stream_cuda(ent: Entries, inp: StreamInputs, img_hw,
     z, fid, bary = _outputs(ent, img_hw)
     ints, keys = _workspace(ent, th, tw, dev)
     lib = _build.library()
-    err = lib.nemo_raster_stream(
-        ent.N, ent.nty * ent.ntx, int(img_hw[0]), int(img_hw[1]), th, tw,
-        ent.ntx, inp.attr.data_ptr(), inp.fid.data_ptr(),
-        inp.starts.data_ptr(), inp.counts.data_ptr(), ints.data_ptr(),
-        keys.data_ptr(), z.data_ptr(), fid.data_ptr(), bary.data_ptr(),
-        _build.stream_handle(dev))
-    _build.check(err, "nemo_raster_stream")
-    LAUNCHES["raster_stream"] += 1
+    with launch(LAUNCHES, "raster_stream"):
+        err = lib.nemo_raster_stream(
+            ent.N, ent.nty * ent.ntx, int(img_hw[0]), int(img_hw[1]), th,
+            tw, ent.ntx, inp.attr.data_ptr(), inp.fid.data_ptr(),
+            inp.starts.data_ptr(), inp.counts.data_ptr(), ints.data_ptr(),
+            keys.data_ptr(), z.data_ptr(), fid.data_ptr(), bary.data_ptr(),
+            _build.stream_handle(dev))
+        _build.check(err, "nemo_raster_stream")
     return z, fid, bary
 
 
@@ -563,14 +564,14 @@ def raster_gather_cuda(ent: Entries, inp: GatherInputs, img_hw,
     z, fid, bary = _outputs(ent, img_hw)
     ints, keys = _workspace(ent, th, tw, dev)
     lib = _build.library()
-    err = lib.nemo_raster_gather(
-        ent.N, ent.nty * ent.ntx, int(img_hw[0]), int(img_hw[1]), th, tw,
-        ent.ntx, ent.F, inp.tbl.shape[1], inp.attr_face.data_ptr(),
-        inp.tbl.data_ptr(), inp.counts.data_ptr(), ints.data_ptr(),
-        keys.data_ptr(), z.data_ptr(), fid.data_ptr(), bary.data_ptr(),
-        _build.stream_handle(dev))
-    _build.check(err, "nemo_raster_gather")
-    LAUNCHES["raster_gather"] += 1
+    with launch(LAUNCHES, "raster_gather"):
+        err = lib.nemo_raster_gather(
+            ent.N, ent.nty * ent.ntx, int(img_hw[0]), int(img_hw[1]), th,
+            tw, ent.ntx, ent.F, inp.tbl.shape[1], inp.attr_face.data_ptr(),
+            inp.tbl.data_ptr(), inp.counts.data_ptr(), ints.data_ptr(),
+            keys.data_ptr(), z.data_ptr(), fid.data_ptr(), bary.data_ptr(),
+            _build.stream_handle(dev))
+        _build.check(err, "nemo_raster_gather")
     return z, fid, bary
 
 

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.trace import span
+
 
 def batch_rows(n: int, rank: int, size: int) -> slice:
     """Rank ``rank``'s rows of a leading axis of length n split over
@@ -193,7 +195,9 @@ def data_parallel_step(loss_fn, mesh: Optional[Mesh],
     (reduce_gradients), and returns the global metrics, detached; the
     caller steps its optimizer. A batch that does not tile the ranks runs
     whole on every rank with no mesh, and rank 0's gradient is taken.
-    Without a mesh, or on one rank, it is a plain gradient step."""
+    Without a mesh, or on one rank, it is a plain gradient step. The loss
+    and its backward are the spans ``nemo.fit.forward`` and
+    ``nemo.fit.backward`` (utils.trace)."""
 
     def wrapped(params: torch.nn.Module, cfg, assets, view_idx, frame_idx,
                 noise: Optional[torch.Tensor] = None
@@ -210,9 +214,11 @@ def data_parallel_step(loss_fn, mesh: Optional[Mesh],
         if noise is not None:
             kw["noise"] = noise
         params.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(params, cfg, assets, view_idx, frame_idx,
-                                **kw)
-        loss.backward()
+        with span("nemo.fit.forward"):
+            loss, metrics = loss_fn(params, cfg, assets, view_idx, frame_idx,
+                                    **kw)
+        with span("nemo.fit.backward"):
+            loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         if many:
             metrics = reduce_gradients(mesh, list(params.parameters()),

@@ -1,6 +1,6 @@
-"""Run directories, timers, the latest checkpoint, the JSONL metric log and
-a torch.profiler trace (port of nemo_tpu/utils/exp.py), and the config
-merge and per-action YAML of nemo_tpu/utils/config.py."""
+"""Run directories, timers, the latest checkpoint and the JSONL metric log
+(port of nemo_tpu/utils/exp.py), and the config merge and per-action YAML
+of nemo_tpu/utils/config.py."""
 
 from __future__ import annotations
 
@@ -11,9 +11,8 @@ import os
 import os.path as osp
 import sys
 import time
-from contextlib import contextmanager
 from types import SimpleNamespace
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, List, Optional
 
 
 class Timer:
@@ -67,26 +66,6 @@ class MetricWriter:
 
     def close(self) -> None:
         self._f.close()
-
-
-@contextmanager
-def profile_trace(log_dir: Optional[str]) -> Iterator[None]:
-    """Trace the block with torch.profiler (host and, where a card is
-    visible, device activity) into a Chrome trace under log_dir; nothing
-    when log_dir is None."""
-    if log_dir is None:
-        yield
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(osp.join(
-        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
 def explicit_cli_keys(argv: Optional[List[str]] = None) -> List[str]:

@@ -12,10 +12,12 @@ of ``--steps`` each, then ``--reps`` rounds of timed main runs of
 clock; each run ends with its metrics on the host). With
 ``--profile_steps`` it then traces that many main steps of each under
 torch.profiler and reports the kernels a step, the launch calls a step,
-the device's kernel time a step, the busy share of the traced wall time
-(the union of kernel intervals over it) and the kernels with the most
-device time. To compare two commits, unpack each (git archive) and run
-each copy's own script in one call.
+the device's kernel time and busy time (the union of kernel intervals) a
+step, the kernels with the most device time, and the port's spans
+(portbench/harness/spans.py): device ms a step by owner span, the host's
+own ms a step outside CUDA calls, and the spans' table on standard error.
+To compare two commits, unpack each (git archive) and run each copy's own
+script in one call.
 
 Configurations (chip_smoke.py):
   reference            reference_config: NemoV2, batch 512, h_dim 1000, RBF
@@ -102,10 +104,11 @@ def timed_run(fitter, steps: int) -> float:
 
 def profile(fitter, steps: int) -> dict:
     """Trace ``steps`` main steps: per-step kernel count, launch calls,
-    kernel time, busy share of the traced wall time, top kernels."""
+    kernel and busy time, top kernels, device time by owner span."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
+    from portbench.harness.spans import reduce_spans, table
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
@@ -115,7 +118,8 @@ def profile(fitter, steps: int) -> dict:
         wall = time.perf_counter() - t0
     kernels, launches = [], 0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a record_function's range on the device's timeline is no kernel
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             kernels.append((e.name, e.time_range.start, e.time_range.end))
         elif "LaunchKernel" in e.name:
             launches += 1
@@ -130,13 +134,17 @@ def profile(fitter, steps: int) -> dict:
         per_name[name][1] += 1
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:15]
     total_us = sum(t - s for _, s, t in kernels)
+    sp = reduce_spans(prof.events(), steps, mark=None)
+    print(table(sp), file=sys.stderr)
     return {
         "steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
         "kernels_per_step": len(kernels) / steps,
         "launch_calls_per_step": launches / steps,
         "kernel_ms_per_step": 1e-3 * total_us / steps,
         "busy_ms_per_step": 1e-3 * busy / steps,
-        "busy_share_of_traced_wall": 1e-3 * busy / (1e3 * wall),
+        "device_ms_per_step_by_span": {
+            k: 1e-3 * us / steps for k, us in sp["owned_us"].items()},
+        "host_ms_per_step": 1e-3 * sp["step_host_us"] / steps,
         "top_kernels": [{"name": n[:90], "ms_per_step": 1e-3 * us / steps,
                          "per_step": c / steps} for n, (us, c) in top],
     }

@@ -80,7 +80,9 @@ def main(argv=None) -> int:
         for e in prof.key_averages():
             dt = getattr(e, "device_time_total", 0) or getattr(
                 e, "cuda_time_total", 0)
-            if dt > 0 and "raster" in e.key:
+            # kernels only: not the port's nemo.ops.raster_* launch spans
+            if dt > 0 and "raster" in e.key and \
+                    not e.key.startswith("nemo."):
                 name = e.key.split("raster_")[1].split("(")[0].split("<")[0]
                 out[name] = dt / 10 / 1e3
         return out

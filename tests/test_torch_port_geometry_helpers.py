@@ -2,8 +2,8 @@
 on the CPU: apply_extrinsics and estimate_translation (geometry/camera.py),
 euler_to_quat, euler_to_rotmat and rot6d_to_aa (geometry/rotations.py),
 the torch similarity_transform, rigid_transform, apply_rigid_transform and
-reconstruction_error (geometry/procrustes.py), and find_latest_ckpt and
-profile_trace (utils/exp.py).
+reconstruction_error (geometry/procrustes.py), and find_latest_ckpt
+(utils/exp.py).
 
 The inputs are those of tests/test_{camera,procrustes,rotations}.py
 (np.random.RandomState(0), scipy's seeded rotations). An SVD's singular
@@ -14,7 +14,6 @@ estimate_translation's 3x3 solve of squared focal-length terms, whose
 normal equations have entries near f^2 = 2.5e7).
 """
 
-import json
 import os
 
 import jax.numpy as jnp
@@ -52,8 +51,7 @@ def test_exports():
     assert sorted(tgeo.__all__) == sorted(jgeo.__all__)
     for name in tgeo.__all__:
         assert getattr(tgeo, name) is not None, name
-    for name in ("find_latest_ckpt", "profile_trace"):
-        assert name in tutils.__all__
+    assert "find_latest_ckpt" in tutils.__all__
 
 
 # ---------------------------------------------------------------------------
@@ -226,20 +224,3 @@ def test_find_latest_ckpt(tmp_path):
         os.makedirs(os.path.join(d, n))
     assert tutils.find_latest_ckpt(d) == jexp.find_latest_ckpt(d) == \
         "sd_000100"
-
-
-def test_profile_trace(tmp_path):
-    """A Chrome trace of the block's operations under log_dir; None
-    traces nothing and still runs the block."""
-    log = str(tmp_path / "trace")
-    with tutils.profile_trace(log):
-        y = torch.ones(64, 64) @ torch.ones(64, 64)
-    assert float(y[0, 0]) == 64.0
-    (name,) = os.listdir(log)
-    with open(os.path.join(log, name)) as f:
-        trace = json.load(f)
-    assert any("mm" in e.get("name", "") for e in trace["traceEvents"])
-    ran = []
-    with tutils.profile_trace(None):
-        ran.append(1)
-    assert ran == [1] and os.listdir(log) == [name]
