@@ -17,8 +17,9 @@ Run from the repository root with no arguments:
    direction's device time a launch from torch.profiler beside the one-call
    time and an empty kernel's launch floor); K2 in fused, forward-only and
    pair modes (B=512, the 6890-vertex synthetic SMPL's tables), the fused
-   and forward-only modes (the one-pass kernel) also at B=960, with the
-   kernel's registers, shared memory and spills; K3f and the pair mode
+   and forward-only modes (the one-pass kernel) also at B=960 and at the
+   benchmark cell's B=28200, with the kernel's registers, shared memory and
+   spills; K3f and the pair mode
    (the one-pass forward kernel, with its registers, shared memory and
    spills) at (512, 6890), (960, 1024), (37, 300) and (1, 5), each run
    twice for bit-stability;
@@ -235,6 +236,7 @@ import time
 
 BATCH = 512
 BATCH_A = 8 * 120       # path A's full batch: every view and frame
+B_CELL = 47 * 600       # the benchmark cell cv_47x600's full batch
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores, 700 W
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores, 700 W
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores, 700 W
@@ -670,6 +672,13 @@ def kernel_phase(device, smpl):
     # orders and move a gradient entry by a whole term.
     vsh = smpl.v_template.t().contiguous()
     pd, W = smpl.posedirs_t, smpl.lbs_weights_t
+
+    def k2(args, grad):
+        """K2's fused (grad) or forward-only mode, reading the model's
+        padded posedirs copy as the fit does."""
+        return lbs.v2v_l1_cuda(*args, grad=grad,
+                               posedirs_pad=smpl.posedirs_pad)
+
     print(f"[kernel] v2v_fused_kernel resources (cudaFuncGetAttributes): "
           f"{json.dumps(lbs.v2v_fused_attributes())}")
 
@@ -721,9 +730,9 @@ def kernel_phase(device, smpl):
     def k2_fused_checks(args, tag):
         """K2's one-pass kernel (fused and forward-only modes) against the
         plain version; returns (total, grads) of each."""
-        tot_k, grads_k = lbs.v2v_l1_cuda(*args, grad=True)
+        tot_k, grads_k = k2(args, True)
         tot_p, grads_p = lbs.v2v_l1_plain(*args, grad=True)
-        tot_f, _ = lbs.v2v_l1_cuda(*args, grad=False)
+        tot_f, _ = k2(args, False)
         # total: B x 20670 |diff| terms summed in another order, rtol 1e-5
         check(f"v2v_grad total{tag}", tot_k, tot_p,
               1e-5 * float(tot_p.abs()), errs)
@@ -738,7 +747,7 @@ def kernel_phase(device, smpl):
         for name, gk, gp in zip(("gpf", "gA", "gvsh"), grads_k, grads_p):
             check(f"v2v_grad {name}{tag}", gk, gp,
                   1e-4 * float(gp.abs().max()), errs)
-        rerun = lbs.v2v_l1_cuda(*args, grad=True)
+        rerun = k2(args, True)
         if not (torch.equal(rerun[0], tot_k) and all(
                 torch.equal(a, b) for a, b in zip(rerun[1], grads_k))):
             raise AssertionError(f"K2 is not bit-stable run to run{tag}")
@@ -754,14 +763,14 @@ def kernel_phase(device, smpl):
         pd2 = pd.reshape(207, VV)
         io = nbytes(*args[:2], *args[5:], tot) + nbytes(vsh, pd, W)
         timed("v2v_grad", f"B={Bk}, V={V}",
-              lambda: lbs.v2v_l1_cuda(*args, grad=True),
+              lambda: k2(args, True),
               lambda: lbs.v2v_l1_plain(*args, grad=True),
               bv * (2 * SIDE_FLOP + L1_FLOP + GRAD_FLOP),
               io + nbytes(*grads),
               library=lambda: torch.matmul(gvp, pd2.t()),
               tc_flop=bv * (K2_TC_FWD_FLOP + K2_TC_GRAD_FLOP))
         timed("v2v_fwd", f"B={Bk}, V={V}",
-              lambda: lbs.v2v_l1_cuda(*args, grad=False),
+              lambda: k2(args, False),
               lambda: lbs.v2v_l1_plain(*args, grad=False),
               bv * (2 * SIDE_FLOP + L1_FLOP), io,
               library=lambda: torch.matmul(pf2, pd2),
@@ -867,6 +876,13 @@ def kernel_phase(device, smpl):
     k2_times(args_a, grads_a, tot_a,
              torch.randn((B_A, 3 * V), generator=gen_a).to(device))
     del args_a, grads_a
+    # K2's fused and forward-only modes at the benchmark cell's full batch
+    # (cv_47x600: 47 instances x 600 frames), where each block walks a
+    # range of 216 vertex tiles: checked as at B=512 (the plain version's
+    # (B, 3, 4, V) blends take about 9 GB each)
+    gen_c = torch.Generator().manual_seed(B_CELL)
+    k2_fused_checks(k2_inputs(B_CELL, gen_c), f" B={B_CELL}")
+    torch.cuda.empty_cache()
     timed("skin_bwd", f"B={B}, V={V}",
           lambda: lbs.skin_bwd_cuda(*side, g),
           lambda: lbs.skin_bwd_plain(*side, g),

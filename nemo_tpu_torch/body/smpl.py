@@ -6,10 +6,13 @@ Port of nemo_tpu/body/smpl.py. Forward kinematics runs through kernel K1
 through kernel K3 (``ops.lbs.skin_verts_t``); everything else is plain
 PyTorch.
 
-The model keeps logical tables only: ``posedirs_t (207, 3, V)`` and
+The model keeps logical tables: ``posedirs_t (207, 3, V)`` and
 ``lbs_weights_t (24, V)`` feed K2 and K3 directly (the kernels mask the
-ragged vertex edge, so there is no tiled or padded copy), and a vertex
-subset's tables are contiguous column slices of them. Those two are the
+ragged vertex edge, so there is no tiled copy), and a vertex subset's tables
+are contiguous column slices of them. The one padded copy is
+``posedirs_pad``, posedirs_t with rows padded to a multiple of 16 vertices
+(``ops.lbs.padded_posedirs``), made once here for K2's fused kernel with
+f32 tables. Those two are the
 skinning tables, in float32 or, built with ``skin_dtype=torch.bfloat16``
 (the JAX package's NEMO_TPU_SKIN_BF16 / ``--skin_bf16``), in bfloat16, which
 selects the kernels' bf16 computation; they feed only K2 and K3. Every
@@ -28,7 +31,7 @@ import torch
 from .. import device_index
 from ..geometry.rotations import batch_rodrigues
 from ..ops.fk import fk_compose
-from ..ops.lbs import skin_v2v_l1, skin_verts_t
+from ..ops.lbs import padded_posedirs, skin_v2v_l1, skin_verts_t
 
 NUM_BODY_JOINTS = 23
 NUM_JOINTS = 24
@@ -61,6 +64,7 @@ class SMPLModel:
     vertex_joint_ids: np.ndarray     # (21,) int
     joint_map: np.ndarray            # (49,) int
     faces: Optional[np.ndarray] = None
+    posedirs_pad: Optional[torch.Tensor] = None  # f32 tables: K2's copy
 
     @property
     def num_vertices(self) -> int:
@@ -71,15 +75,18 @@ class SMPLModel:
         return self.v_template.device
 
     def to(self, device) -> "SMPLModel":
+        pad = self.posedirs_pad
         return dataclasses.replace(
-            self, **{f: getattr(self, f).to(device) for f in _TENSOR_FIELDS})
+            self, **{f: getattr(self, f).to(device) for f in _TENSOR_FIELDS},
+            posedirs_pad=None if pad is None else pad.to(device))
 
     @classmethod
     def from_numpy(cls, device=None, skin_dtype: torch.dtype = torch.float32,
                    **arrays) -> "SMPLModel":
         """Build from numpy arrays keyed by field name; the skinning tables
         (posedirs_t, lbs_weights_t) rounded to ``skin_dtype`` (float32 or
-        bfloat16, round to nearest even), every other field float32."""
+        bfloat16, round to nearest even), every other field float32; with
+        float32 tables also posedirs_pad."""
         if skin_dtype not in SKIN_DTYPES:
             raise ValueError(f"skin_dtype {skin_dtype}: expected one of "
                              f"{SKIN_DTYPES}")
@@ -92,7 +99,9 @@ class SMPLModel:
                                                np.int64),
                    joint_map=np.asarray(arrays["joint_map"], np.int64),
                    faces=(None if arrays.get("faces") is None
-                          else np.asarray(arrays["faces"], np.int64)))
+                          else np.asarray(arrays["faces"], np.int64)),
+                   posedirs_pad=(padded_posedirs(kw["posedirs_t"])
+                                 if skin_dtype == torch.float32 else None))
 
 
 def build_fused_tables(lbs_weights: np.ndarray, J_regressor_extra: np.ndarray,
@@ -319,4 +328,5 @@ def smpl_v2v_l1_sum(model: SMPLModel, betas: torch.Tensor,
         pf_r, A_r = _pose_inputs(model, J, body_rot_r, orient_rot_r)
     return skin_v2v_l1(model.num_vertices, pf_o, A_o,
                        v_shaped.t().contiguous(), model.posedirs_t,
-                       model.lbs_weights_t, pf_r, A_r, vjp=vjp)
+                       model.lbs_weights_t, pf_r, A_r, vjp=vjp,
+                       posedirs_pad=model.posedirs_pad)

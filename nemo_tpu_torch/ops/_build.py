@@ -46,15 +46,18 @@ _SIGNATURES = {
     # backward, J, out int[4]: the K1 kernel's registers a thread, static
     # and dynamic (at J joints) shared memory bytes, local (spill) bytes
     "nemo_fk_attributes": [_I, _I, _P],
-    # B, V, pf_o, A_o, pf_r, A_r, vsh_t, posedirs_t, W_t, mode,
-    # scratch, sign, vp, total, gpf, gA, gvsh, stream (the _bf16 twins of
-    # this and the skinning entries below take bf16 tables and vp)
-    "nemo_v2v_l1": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+    # B, V, pf_o, A_o, pf_r, A_r, vsh_t, posedirs_t, W_t, posedirs_pad,
+    # its row pitch, mode, scratch, sign, vp, total, gpf, gA, gvsh, stream
+    # (the _bf16 twins of this and the skinning entries below take bf16
+    # tables and vp; nemo_v2v_l1_bf16 no padded table or pitch)
+    "nemo_v2v_l1": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                     _P, _P, _P, _P, _P, _P, _P, _P],
     "nemo_v2v_l1_bf16": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                          _P, _P, _P, _P, _P, _P, _P, _P],
-    # floats of scratch nemo_v2v_l1 needs at (B, V, mode), -1 if refused
+    # floats of scratch nemo_v2v_l1 (_bf16: nemo_v2v_l1_bf16) needs at (B,
+    # V, mode), -1 if refused
     "nemo_v2v_scratch_floats": [_I, _I, _I],
+    "nemo_v2v_scratch_floats_bf16": [_I, _I, _I],
     # out int[4]: the fused K2 kernel's registers a thread, static and
     # dynamic shared memory bytes, local (spill) bytes
     "nemo_v2v_fused_attributes": [_P],

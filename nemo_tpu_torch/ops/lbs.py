@@ -21,7 +21,10 @@ NEMO_TPU_SKIN_VP_RES environment knobs; all three modes give the same
 gradients.
 
 Layouts are the logical vertex-major tables: posedirs_t (207, 3, V),
-W_t (24, V), v_shaped_t (3, V), verts (B, 3, V). On a CUDA tensor a wrapper
+W_t (24, V), v_shaped_t (3, V), verts (B, 3, V); K2's fused and
+forward-only modes with f32 tables read, in place of posedirs_t, its copy
+with rows padded to a multiple of 16 vertices (``padded_posedirs``, made
+once at set-up). On a CUDA tensor a wrapper
 launches its kernel, each one pass with the posedirs contractions on the
 tensor cores in 3xTF32: K2's fused and forward-only modes, K3b, and one
 forward kernel for K3f and K2's pair mode (the source notes have the counts
@@ -195,11 +198,16 @@ def v2v_pair_plain(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
 # ---------------------------------------------------------------------------
 
 FUSED_ROWS, FUSED_VERTS = 32, 16   # csrc/skin_common.cuh's kFB and kFV
+# K2's fused kernel with f32 tables (csrc/v2v.cu's kWR, kWHalf): 16-row
+# batch tiles of 16-vertex tiles, and the features of its two vph halves
+# (207: the end, less the zero pad row)
+WS_ROWS = 16
+WS_HALVES = (0, 104, NUM_POSE_FEATURES)
 
 
 def fused_ranges(B: int, V: int, num_sms: int) -> int:
-    """The one-pass kernels' vertex ranges (csrc/skin_common.cuh:
-    fused_ranges)."""
+    """K3b's one-pass kernel's vertex ranges, and the bf16 tables' K2
+    fused kernel's (csrc/skin_common.cuh: fused_ranges)."""
     n_bt = -(-B // FUSED_ROWS)
     return min(2 * max(1, num_sms // n_bt), -(-V // FUSED_VERTS))
 
@@ -210,19 +218,42 @@ def _blocks(B: int, V: int, num_sms: int):
     return rows, _ranges(V, fused_ranges(B, V, num_sms))
 
 
+def _fewest_tile_times(n_bt: int, n_tiles: int, cap: int,
+                       num_sms: int) -> int:
+    """Of R = 1 .. cap vertex ranges, the smallest with the fewest tile
+    times at one block an SM, each wave of blocks counted as its longest
+    range plus 2 tile times of set-up."""
+    cost = lambda R: -(-(n_bt * R) // num_sms) * (-(-n_tiles // R) + 2)
+    return min(range(1, cap + 1), key=lambda R: (cost(R), R))
+
+
+def ws_ranges(B: int, V: int, num_sms: int) -> int:
+    """K2's fused kernel's vertex ranges with f32 tables (csrc/v2v.cu:
+    ws_ranges): _fewest_tile_times over 16-row batch tiles and 16-vertex
+    tiles, up to 4 SMs / batch tiles ranges, at least 2 (while there are 2
+    vertex tiles)."""
+    n_bt, n_tiles = -(-B // WS_ROWS), -(-V // FUSED_VERTS)
+    cap = min(max(2, 4 * num_sms // n_bt), n_tiles)
+    return _fewest_tile_times(n_bt, n_tiles, cap, num_sms)
+
+
+def _ws_blocks(B: int, V: int, num_sms: int):
+    """K2's fused kernel's (batch tiles, vertex ranges) as index pairs."""
+    rows = [(b, min(B, b + WS_ROWS)) for b in range(0, B, WS_ROWS)]
+    return rows, _ranges(V, ws_ranges(B, V, num_sms))
+
+
 FWD_SIDE_ROWS = 32   # csrc/skin_fwd.cuh's kXR: 32 rows of one side, or 16 of two
 
 
 def fwd_ranges(B: int, V: int, sides: int, num_sms: int) -> int:
     """The forward kernel's vertex ranges (csrc/skin_fwd.cuh: fwd_ranges)
-    for K3f (sides=1) or K2's pair mode (sides=2): of R = 1 .. min(4 SMs /
-    batch tiles, vertex tiles), the smallest with the fewest tile times,
-    each wave of blocks counted as its largest range plus 2 of set-up."""
+    for K3f (sides=1) or K2's pair mode (sides=2): _fewest_tile_times over
+    16-vertex tiles, up to 4 SMs / batch tiles ranges."""
     n_bt = -(-B // (FWD_SIDE_ROWS // sides))
     n_tiles = -(-V // FUSED_VERTS)
     cap = min(max(1, 4 * num_sms // n_bt), n_tiles)
-    cost = lambda R: -(-(n_bt * R) // num_sms) * (-(-n_tiles // R) + 2)
-    return min(range(1, cap + 1), key=lambda R: (cost(R), R))
+    return _fewest_tile_times(n_bt, n_tiles, cap, num_sms)
 
 
 def _ranges(V: int, R: int):
@@ -239,13 +270,24 @@ def _posed_3xtf32(pf, posedirs_t, v_shaped_t) -> torch.Tensor:
     return _mm_3xtf32(pf, pd2).reshape(B, 3, V) + v_shaped_t
 
 
-def _split_grads(M4, vp, g, posedirs_t, W_t, num_sms: int) -> Grads:
+def _posed_halves(pf, posedirs_t, v_shaped_t) -> torch.Tensor:
+    """vp (B, 3, V) as K2's fused kernel sums it: the posedirs contraction
+    in 3xTF32 over each of WS_HALVES' feature halves, the halves added in
+    order, then v_shaped."""
+    B, V = pf.shape[0], v_shaped_t.shape[-1]
+    pd2 = posedirs_t.reshape(NUM_POSE_FEATURES, 3 * V)
+    return _in_order([_mm_3xtf32(pf[:, lo:hi], pd2[lo:hi])
+                      for lo, hi in zip(WS_HALVES[:-1], WS_HALVES[1:])]
+                     ).reshape(B, 3, V) + v_shaped_t
+
+
+def _split_grads(M4, vp, g, posedirs_t, W_t, rows, ranges) -> Grads:
     """(gpf, gA, gvsh) as the one-pass kernels form them from the blend M4
     (B, 3, 4, V), the posed vertices vp and the cotangent g: gvp in f32,
-    gpf in 3xTF32, and the per-block partials (gpf and gA a vertex range,
-    gvsh a batch tile) summed in the kernels' fixed order."""
-    B, V = g.shape[0], g.shape[-1]
-    rows, ranges = _blocks(B, V, num_sms)
+    gpf in 3xTF32, and the per-block partials (gpf and gA a vertex range of
+    ``ranges``, gvsh a batch tile of ``rows``) summed in the kernels' fixed
+    order."""
+    B = g.shape[0]
     gvp = torch.einsum('bikv,biv->bkv', M4[:, :, :3], g)
     gM4 = torch.einsum('biv,bkv->bikv', g, _homogeneous(vp))
     gpf = _in_order([_mm_3xtf32(gvp[:, :, lo:hi].reshape(B, -1),
@@ -262,24 +304,27 @@ def _split_grads(M4, vp, g, posedirs_t, W_t, num_sms: int) -> Grads:
 def v2v_l1_split_emulation(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r,
                            A_r, num_sms: int = 132
                            ) -> Tuple[torch.Tensor, Grads]:
-    """(total, (gpf, gA, gvsh)) in the fused K2 kernel's arithmetic: both
-    posedirs contractions in 3xTF32, and the per-block partials (|diff| a
-    batch tile and vertex range; gpf and gA a range; gvsh a batch tile)
-    summed in the kernel's fixed order. Nothing on the main path calls it:
-    the tests hold it against the JAX kernel and v2v_l1_plain to show that
-    the split and the reduction order stay inside the tolerances."""
+    """(total, (gpf, gA, gvsh)) in the arithmetic of K2's fused kernel with
+    f32 tables (csrc/v2v.cu: v2v_fused_kernel_ws): both sides' vp in
+    3xTF32 by feature half (_posed_halves), gpf in 3xTF32, and the
+    per-block partials of its
+    blocks (16-row batch tiles x ws_ranges' ranges of 16-vertex tiles:
+    |diff| a block, gpf and gA a range, gvsh a batch tile) summed in the
+    kernel's fixed order. Nothing on the main path calls it: the tests hold
+    it against the JAX kernel and v2v_l1_plain to show that the split and
+    the reduction order stay inside the tolerances."""
     B, V = pf_o.shape[0], v_shaped_t.shape[-1]
-    rows, ranges = _blocks(B, V, num_sms)
-    vp_o, M_o = _posed_3xtf32(pf_o, posedirs_t, v_shaped_t), _blend(A_o, W_t)
+    rows, ranges = _ws_blocks(B, V, num_sms)
+    vp_o, M_o = _posed_halves(pf_o, posedirs_t, v_shaped_t), _blend(A_o, W_t)
     o = torch.einsum('bikv,bkv->biv', M_o, _homogeneous(vp_o))
     r = torch.einsum('bikv,bkv->biv', _blend(A_r, W_t),
-                     _homogeneous(_posed_3xtf32(pf_r, posedirs_t,
+                     _homogeneous(_posed_halves(pf_r, posedirs_t,
                                                 v_shaped_t)))
     diff = r - o
     total = _in_order([diff[b0:b1, :, lo:hi].abs().sum()
                        for b0, b1 in rows for lo, hi in ranges])
     return total, _split_grads(M_o, vp_o, torch.sign(diff), posedirs_t, W_t,
-                               num_sms)
+                               rows, ranges)
 
 
 def skin_bwd_split_emulation(pf, A34, v_shaped_t, posedirs_t, W_t, g,
@@ -293,7 +338,9 @@ def skin_bwd_split_emulation(pf, A34, v_shaped_t, posedirs_t, W_t, g,
     split and the reduction order stay inside the tolerances."""
     if vp is None:
         vp = _posed_3xtf32(pf, posedirs_t, v_shaped_t)
-    return _split_grads(_blend(A34, W_t), vp, g, posedirs_t, W_t, num_sms)
+    B, V = g.shape[0], g.shape[-1]
+    return _split_grads(_blend(A34, W_t), vp, g, posedirs_t, W_t,
+                        *_blocks(B, V, num_sms))
 
 
 def skin_fwd_split_emulation(pf, A34, v_shaped_t, posedirs_t, W_t
@@ -523,23 +570,52 @@ def skin_bwd_attributes(stored_vp: bool = False, bf16: bool = False,
         2 if stored_vp else 1, int(io_bf16))
 
 
+def padded_posedirs(posedirs_t: torch.Tensor) -> torch.Tensor:
+    """A copy of posedirs_t (207, 3, V) f32 as K2's fused kernel reads it:
+    each row padded with zeros to a multiple of 16 vertices (FUSED_VERTS),
+    so every 16-vertex tile of a row is one aligned 64-byte segment. Made
+    once, at set-up, beside the table (SMPLModel.posedirs_pad; about 17 MB
+    for SMPL)."""
+    P, K, V = posedirs_t.shape
+    pad = posedirs_t.new_zeros((P, K, -(-V // FUSED_VERTS) * FUSED_VERTS))
+    pad[..., :V] = posedirs_t
+    return pad
+
+
 def _v2v_launch(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
-                mode: int, want_vp: bool):
+                mode: int, want_vp: bool, posedirs_pad=None):
     """One nemo_v2v_l1 call: mode 0 total, 1 fused grads, 2 pair. Returns
     (total, sign, vp, (gpf, gA, gvsh)), with None for what the mode skips.
     Modes 0 and 1 take only the per-block partials as scratch (mode 1:
-    about 17.5 MB at B=512 on 132 SMs); no (B, 3, V) tensor."""
+    about 6.7 MB at B=512 and 258 MB at B=28200 on 132 SMs, f32 tables);
+    no (B, 3, V) tensor. With f32 tables they read posedirs_pad
+    (padded_posedirs of posedirs_t) in place of posedirs_t; None: one is
+    made for this call."""
     B, V, dev, sfx = _check_skin_inputs(pf_o, A_o, v_shaped_t, posedirs_t,
                                         W_t)
     _check_skin_inputs(pf_r, A_r, v_shaped_t, posedirs_t, W_t)
     lib = _build.library()
     _check_alignment("K2", V, A_o=A_o, A_r=A_r, v_shaped_t=v_shaped_t,
                      posedirs_t=posedirs_t, W_t=W_t)
+    pad_args = ()
+    if not sfx:
+        if mode < 2 and posedirs_pad is None:
+            posedirs_pad = padded_posedirs(posedirs_t)
+        if posedirs_pad is not None:
+            if (posedirs_pad.shape[:2] != posedirs_t.shape[:2]
+                    or posedirs_pad.dtype != torch.float32
+                    or posedirs_pad.device != dev
+                    or not posedirs_pad.is_contiguous()):
+                raise ValueError("posedirs_pad must be padded_posedirs("
+                                 "posedirs_t), on the tables' device")
+            pad_args = (posedirs_pad.data_ptr(), posedirs_pad.shape[-1])
+        else:
+            pad_args = (None, 0)
     f32 = dict(dtype=torch.float32, device=dev)
     empty = lambda *shape, on=True: torch.empty(shape, **f32) if on else None
-    n_scratch = lib.nemo_v2v_scratch_floats(B, V, mode)
+    n_scratch = getattr(lib, "nemo_v2v_scratch_floats" + sfx)(B, V, mode)
     if n_scratch < 0:
-        raise ValueError(f"nemo_v2v_l1 refuses B={B}, V={V}")
+        raise ValueError(f"nemo_v2v_l1{sfx} refuses B={B}, V={V}")
     scratch = empty(n_scratch)
     total = empty()
     sign = empty(B, 3, V, on=mode == 2)
@@ -552,7 +628,8 @@ def _v2v_launch(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
         err = getattr(lib, "nemo_v2v_l1" + sfx)(
             B, V, pf_o.data_ptr(), A_o.data_ptr(), pf_r.data_ptr(),
             A_r.data_ptr(), v_shaped_t.data_ptr(), posedirs_t.data_ptr(),
-            W_t.data_ptr(), mode, scratch.data_ptr(), ptr(sign), ptr(vp),
+            W_t.data_ptr(), *pad_args, mode, scratch.data_ptr(), ptr(sign),
+            ptr(vp),
             total.data_ptr(), *(ptr(t) for t in (grads or (None,) * 3)),
             _build.stream_handle(dev))
         _build.check(err, "nemo_v2v_l1" + sfx)
@@ -567,10 +644,15 @@ def v2v_fused_attributes(bf16: bool = False) -> dict:
 
 
 def v2v_l1_cuda(pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
-                grad: bool) -> Tuple[torch.Tensor, Optional[Grads]]:
-    """Launch K2 (CUDA tensors only): fused grad mode or total only."""
+                grad: bool, posedirs_pad: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[Grads]]:
+    """Launch K2 (CUDA tensors only): fused grad mode or total only.
+    posedirs_pad: padded_posedirs(posedirs_t), made once by a caller that
+    launches repeatedly; None (or bf16 tables): made for this call (or not
+    needed)."""
     total, _, _, grads = _v2v_launch(pf_o, A_o, v_shaped_t, posedirs_t, W_t,
-                                     pf_r, A_r, int(grad), want_vp=False)
+                                     pf_r, A_r, int(grad), want_vp=False,
+                                     posedirs_pad=posedirs_pad)
     return total, grads
 
 
@@ -641,7 +723,8 @@ class SkinV2VL1(torch.autograd.Function):
     kernels (_kernel_operands)."""
 
     @staticmethod
-    def forward(ctx, vjp, pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r):
+    def forward(ctx, vjp, pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r,
+                posedirs_pad):
         grad = any(ctx.needs_input_grad[1:4])
         args = (pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r, A_r)
         cpu = _build.route(*args) == "cpu"
@@ -651,8 +734,8 @@ class SkinV2VL1(torch.autograd.Function):
                                     args)
         ctx.fused = vjp == "fused"
         if not grad or ctx.fused:
-            total, grads = (v2v_l1_plain if cpu else v2v_l1_cuda)(
-                *args, grad=grad)
+            total, grads = v2v_l1_plain(*args, grad=grad) if cpu else \
+                v2v_l1_cuda(*args, grad=grad, posedirs_pad=posedirs_pad)
             if grad:
                 ctx.save_for_backward(*grads)
             return total
@@ -671,13 +754,14 @@ class SkinV2VL1(torch.autograd.Function):
                 else skin_bwd_cuda
             gpf, gA, gvsh = bwd(*args, sign, vp)
         s = -ghat
-        return None, gpf * s, gA * s, gvsh * s, None, None, None, None
+        return None, gpf * s, gA * s, gvsh * s, None, None, None, None, None
 
 
 def skin_v2v_l1(V: int, pf_o: torch.Tensor, A_o: torch.Tensor,
                 v_shaped_t: torch.Tensor, posedirs_t: torch.Tensor,
                 W_t: torch.Tensor, pf_r: torch.Tensor,
-                A_r: torch.Tensor, vjp: str = "fused") -> torch.Tensor:
+                A_r: torch.Tensor, vjp: str = "fused",
+                posedirs_pad: Optional[torch.Tensor] = None) -> torch.Tensor:
     """sum |skin(pf_r, A_r) - skin(pf_o, A_o)| (a 0-d tensor).
 
     V: the vertex count (checked against the tables). pf_*: (B, 207) pose
@@ -686,10 +770,13 @@ def skin_v2v_l1(V: int, pf_o: torch.Tensor, A_o: torch.Tensor,
     call computes the loss and the gradients), "pair" (K2 stores the sign,
     K3b computes the gradients in the backward) or "pair_vp" (K2 also
     stores the posed vertices, and K3b reads them instead of recomputing).
+    posedirs_pad: the table's padded_posedirs copy, which the "fused" mode
+    and the undifferentiated call read with f32 tables on the card, made
+    once at set-up (SMPLModel.posedirs_pad); None: made for each call.
     """
     if vjp not in VJP_MODES:
         raise ValueError(f"vjp {vjp!r}: expected one of {VJP_MODES}")
     if v_shaped_t.shape[-1] != V or W_t.shape[-1] != V:
         raise ValueError(f"tables hold {W_t.shape[-1]} vertices, expected {V}")
     return SkinV2VL1.apply(vjp, pf_o, A_o, v_shaped_t, posedirs_t, W_t, pf_r,
-                           A_r)
+                           A_r, posedirs_pad)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """K2, K3b and K3f of one checkout, timed on one GPU, with digests of outputs.
 
-    python scripts/torch_v2v_times.py [--root DIR] [--batches 512 960]
+    python scripts/torch_v2v_times.py [--root DIR] [--batches 512 960 28200]
         [--reps 20] [--label NAME] [--tables f32|bf16]
 
 Imports ``nemo_tpu_torch`` and ``chip_smoke`` from DIR (default: the
@@ -14,7 +14,10 @@ checkout this script lies in) and builds its kernels there.
   grad=True and grad=False. Each line carries the sha256 of the mode's
   outputs on these seeded inputs (fused: the total, gpf, gA and gvsh;
   forward-only: the total), so two checkouts whose K2 computes the same
-  bits print the same digests.
+  bits print the same digests. B=28200 is the benchmark cell's full batch
+  (cv_47x600: 47 x 600 rows a step). A ``resources`` line gives the fused
+  kernel's registers, shared memory and spill bytes
+  (``lbs.v2v_fused_attributes``, the tables' instantiation).
 - K2's pair mode on the same inputs: holds ``lbs.v2v_pair_cuda`` against
   ``lbs.v2v_pair_plain`` (total rtol 1e-5, sign exact, vp within 1e-5 of
   its largest entry) and times it with vp stored and without; digests of
@@ -92,7 +95,8 @@ def loop_ms(fn, reps: int) -> float:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--root", default=REPO)
-    p.add_argument("--batches", type=int, nargs="+", default=[512, 960])
+    p.add_argument("--batches", type=int, nargs="+",
+                   default=[512, 960, 28200])
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--label", default="")
     p.add_argument("--tables", choices=("f32", "bf16"), default="f32")
@@ -117,6 +121,10 @@ def main(argv=None) -> int:
         {"skin_dtype": torch.bfloat16} if bf16 else {}))
     vsh = smpl.v_template.t().contiguous()
     label = args.label or root
+    # K2 reads the model's padded posedirs copy where the checkout's model
+    # holds one (f32 tables), as the fit does
+    pad = getattr(smpl, "posedirs_pad", None)
+    k2_kw = {} if pad is None else {"posedirs_pad": pad}
     vp_tol, grad_tol = (2.0 ** -8, 1e-3) if bf16 else (1e-5, 1e-4)
 
     def emit(fn, **rec):
@@ -125,21 +133,25 @@ def main(argv=None) -> int:
         print(json.dumps({"label": label, "tables": args.tables, **rec,
                           "reps": args.reps}), flush=True)
 
+    print(json.dumps({"label": label, "tables": args.tables,
+                      "kernel": "K2", "resources":
+                      lbs.v2v_fused_attributes(bf16=bf16)}), flush=True)
     for B in args.batches:
         gen = torch.Generator().manual_seed(B)
         pf_o, A_o = skin_side_inputs(smpl, B, gen, device)
         pf_r, A_r = skin_side_inputs(smpl, B, gen, device, offset=10.0)
         a = (pf_o, A_o, vsh, smpl.posedirs_t, smpl.lbs_weights_t, pf_r, A_r)
-        tot_k, grads = lbs.v2v_l1_cuda(*a, grad=True)
-        tot_f, _ = lbs.v2v_l1_cuda(*a, grad=False)
+        tot_k, grads = lbs.v2v_l1_cuda(*a, grad=True, **k2_kw)
+        tot_f, _ = lbs.v2v_l1_cuda(*a, grad=False, **k2_kw)
         tot_p, _ = lbs.v2v_l1_plain(*a, grad=False)
         rel = float((tot_k - tot_p).abs() / tot_p.abs())
         if not rel <= 1e-5:
             raise AssertionError(f"B={B}: total off by {rel:.3e} (rtol 1e-5)")
         sha = {"fused": digest(tot_k, *grads), "forward_only": digest(tot_f)}
         for mode, grad in (("fused", True), ("forward_only", False)):
-            emit(lambda: lbs.v2v_l1_cuda(*a, grad=grad), kernel="K2",
-                 mode=mode, B=B, V=6890, total_rel_err=rel, sha256=sha[mode])
+            emit(lambda: lbs.v2v_l1_cuda(*a, grad=grad, **k2_kw),
+                 kernel="K2", mode=mode, B=B, V=6890, total_rel_err=rel,
+                 sha256=sha[mode])
         tot_p, sign_p, vp_p = lbs.v2v_pair_plain(*a, want_vp=True)
         for want_vp in (True, False):
             got = lbs.v2v_pair_cuda(*a, want_vp=want_vp)

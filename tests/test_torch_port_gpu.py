@@ -120,11 +120,26 @@ def test_fk_kernels_refuse_what_they_cannot_take(cuda):
 @pytest.mark.parametrize("V", [5, 300, 1000, 6890])
 @pytest.mark.parametrize("B", [1, 37, 70, 300, 960])
 def test_v2v_kernel_matches_plain(cuda, B, V):
-    """K2's one-pass kernel (modes 0 and 1) against the plain version at
-    ragged shapes: B not a multiple of the 32-row batch tile, V leaving the
+    """K2's fused kernel (modes 0 and 1) against the plain version at
+    ragged shapes: B not a multiple of the 16-row batch tile, V leaving the
     last 16-vertex tile and the last vertex range partial; a second run
     bit-identical (fixed-order partials, no atomics); the forward-only
     total equal to the fused one bit for bit."""
+    _v2v_kernel_matches_plain(cuda, B, V)
+
+
+@pytest.mark.parametrize("B", [3000, 4224])
+def test_v2v_kernel_matches_plain_at_long_ranges(cuda, B):
+    """The same where each block walks as many vertex tiles as at the
+    benchmark cell's 28200 rows (3000: lbs.ws_ranges gives 2 ranges of 431
+    tiles, as there) or all of them (4224: one range), so the tables' ring
+    and the double buffers turn over hundreds of times."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert lbs.ws_ranges(B, 6890, sms) == (2 if B == 3000 else 1)
+    _v2v_kernel_matches_plain(cuda, B, 6890)
+
+
+def _v2v_kernel_matches_plain(cuda, B, V):
     gen = torch.Generator().manual_seed(V)
     f = lambda *s: torch.randn(s, generator=gen)
     pf_o, pf_r = 0.1 * f(B, 207), 0.1 * f(B, 207)
@@ -134,18 +149,54 @@ def test_v2v_kernel_matches_plain(cuda, B, V):
     W = W / W.sum(0, keepdim=True)
     args = [x.to(cuda).contiguous() for x in
             (pf_o, A_o, f(3, V), 0.01 * f(207, 3, V), W, pf_r, A_r)]
-    tot_k, gk = lbs.v2v_l1_cuda(*args, grad=True)
+    pad = lbs.padded_posedirs(args[3])
+    tot_k, gk = lbs.v2v_l1_cuda(*args, grad=True, posedirs_pad=pad)
     tot_p, gp = lbs.v2v_l1_plain(*args, grad=True)
-    tot_f, none = lbs.v2v_l1_cuda(*args, grad=False)
+    tot_f, none = lbs.v2v_l1_cuda(*args, grad=False, posedirs_pad=pad)
     assert none is None
     torch.testing.assert_close(tot_k, tot_p, rtol=1e-5, atol=0)
     assert torch.equal(tot_f, tot_k)
     for a, b in zip(gk, gp):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=1e-4 * float(b.abs().max()))
-    tot_2, g2 = lbs.v2v_l1_cuda(*args, grad=True)
+    tot_2, g2 = lbs.v2v_l1_cuda(*args, grad=True)   # a pad of its own
     assert torch.equal(tot_2, tot_k)
     assert all(torch.equal(a, b) for a, b in zip(g2, gk))
+
+
+def test_v2v_fused_kernel_reads_the_padded_table_it_is_given(cuda):
+    """Modes 0 and 1 read posedirs_pad at its own row pitch: a copy padded
+    16 vertices wider gives the same bits; one of another shape or device,
+    or a pitch the kernel's 16-byte copies cannot take, is refused."""
+    from nemo_tpu_torch.ops import _build
+    B, V = 37, 300
+    gen = torch.Generator().manual_seed(2)
+    f = lambda *s: torch.randn(s, generator=gen).to(cuda)
+    W = torch.rand((24, V), generator=gen)
+    args = (0.1 * f(B, 207), f(B, 24, 12), f(3, V), 0.01 * f(207, 3, V),
+            (W / W.sum(0, keepdim=True)).to(cuda), 0.1 * f(B, 207),
+            f(B, 24, 12))
+    pad = lbs.padded_posedirs(args[3])
+    wide = torch.zeros((207, 3, pad.shape[-1] + 16), device=cuda)
+    wide[..., :V] = args[3]
+    for grad in (False, True):
+        tot, g = lbs.v2v_l1_cuda(*args, grad=grad, posedirs_pad=pad)
+        tot_w, g_w = lbs.v2v_l1_cuda(*args, grad=grad, posedirs_pad=wide)
+        assert torch.equal(tot_w, tot)
+        assert g is None or all(torch.equal(a, b) for a, b in zip(g_w, g))
+        for bad in (pad[:100], pad.cpu(), pad.double()):
+            with pytest.raises(ValueError, match="posedirs_pad"):
+                lbs.v2v_l1_cuda(*args, grad=grad, posedirs_pad=bad)
+    lib = _build.library()
+    f32 = lambda *s: torch.empty(s, device=cuda)
+    out = [f32(1), f32(B, 207), f32(B, 24, 12), f32(3, V)]
+    scratch = f32(lib.nemo_v2v_scratch_floats(B, V, 1))
+    for ldv in (V, pad.shape[-1] - 16, pad.shape[-1] + 2):
+        err = lib.nemo_v2v_l1(
+            B, V, *(args[i].data_ptr() for i in (0, 1, 5, 6, 2, 3, 4)),
+            pad.data_ptr(), ldv, 1, scratch.data_ptr(), None, None,
+            *(t.data_ptr() for t in out), _build.stream_handle(cuda))
+        assert err != 0, ldv
 
 
 def test_v2v_fused_kernel_scratch_and_resources(cuda):
@@ -176,17 +227,22 @@ def test_v2v_fused_kernel_scratch_and_resources(cuda):
 @pytest.mark.parametrize("B,V", [(1, 5), (37, 300), (512, 6890), (960, 6890),
                                  (4096, 100)])
 def test_v2v_fused_ranges_match_kernel(cuda, B, V):
-    """lbs.fused_ranges, which the CPU emulation of K2's reduction order
-    uses, gives the kernel's own ranges: the scratch the library asks for
-    in modes 0 and 1 follows from it."""
+    """lbs.ws_ranges, which the CPU emulation of K2's reduction order uses,
+    gives the f32 kernel's own ranges, and lbs.fused_ranges the bf16
+    kernel's: the scratch the library asks for in modes 0 and 1 follows
+    from them."""
     from nemo_tpu_torch.ops import _build
     lib = _build.library()
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    R = lbs.fused_ranges(B, V, sms)
-    n_bt = -(-B // lbs.FUSED_ROWS)
-    assert lib.nemo_v2v_scratch_floats(B, V, 0) == n_bt * R
-    assert lib.nemo_v2v_scratch_floats(B, V, 1) == \
-        n_bt * R + R * B * (207 + 24 * 12) + n_bt * 3 * V
+    for fn, R, rows in (
+            (lib.nemo_v2v_scratch_floats, lbs.ws_ranges(B, V, sms),
+             lbs.WS_ROWS),
+            (lib.nemo_v2v_scratch_floats_bf16, lbs.fused_ranges(B, V, sms),
+             lbs.FUSED_ROWS)):
+        n_bt = -(-B // rows)
+        assert fn(B, V, 0) == n_bt * R
+        assert fn(B, V, 1) == n_bt * R + R * B * (207 + 24 * 12) + \
+            n_bt * 3 * V
 
 
 @pytest.mark.parametrize("name", ["A_o", "A_r", "posedirs_t", "W_t",
