@@ -39,7 +39,11 @@ Run from the repository root with no arguments:
    O) = (512, 105, 1000, 147), (960, ...) and (1, ...), each run twice
    for bit-stability, with the GEMM kernel's registers, shared memory and
    spills, its distance from its CPU emulation at B=512 and the same
-   products as a chain of cuBLAS calls timed beside it. Then the skinning
+   products as a chain of cuBLAS calls timed beside it; K7 (GroupNorm +
+   ReLU, HuMoR's layer) forward and backward, dx alone and with dgamma
+   and dbeta, at (960, 1024) in 16 groups against the eager composition,
+   rerun bit-identical, with its resources and times beside the eager
+   forward and forward-backward. Then the skinning
    kernels' bf16 instantiations (bf16 tables, --skin_bf16: K2 fused,
    forward-only and pair at (512, 6890), K3b both modes at (512, 6890)
    and (960, 1024), K3f at (960, 1024) and (512, 6890)) against their
@@ -270,6 +274,11 @@ KERNELS = {
                 "nemo_tpu/ops/mlp_pallas.py:153"),
     "mlp_bwd": ("nemo_tpu_torch/csrc/mlp.cu",
                 "nemo_tpu/ops/mlp_pallas.py:177"),
+    # K7 replaces no TPU kernel: XLA fuses the JAX package's composition
+    "humor_gn_fwd": ("nemo_tpu_torch/csrc/groupnorm.cu",
+                     "none: XLA fuses nemo_tpu/models/humor.py:_group_norm"),
+    "humor_gn_bwd": ("nemo_tpu_torch/csrc/groupnorm.cu",
+                     "none: XLA fuses nemo_tpu/models/humor.py:_group_norm"),
 }
 # the bf16 tables' instantiations of the skinning kernels (--skin_bf16):
 # the same sources and TPU kernels, their computation with bf16 tables
@@ -1723,6 +1732,134 @@ def mlp_phase(device, rec):
     return {mlp._key(k, p): max(v for n, v in errs.items()
                                 if n.startswith(mlp._key(k, p) + " "))
             for p in mlp.NET_PRECISIONS for k in ("mlp_fwd", "mlp_bwd")}
+
+
+GN_SHAPES = ((960, 1024), (28200, 1024))
+
+
+def gn_phase(device, rec):
+    """K7 (GroupNorm + ReLU, ops/groupnorm.py) against the eager composition
+    it replaces (models/humor.py _group_norm and a ReLU, with its autograd)
+    on the card in 16 groups at GN_SHAPES: HuMoR's layer width at the
+    reference fit's batch and at cvh_47x600's full batch. x = 2 N(0, 1) +
+    0.5, gamma 0.5 + U(0, 1), beta 0.4 N(0, 1), a N(0, 1) cotangent.
+    Tolerances: the output 1e-5, dx, dgamma and dbeta 1e-4 of each tensor's
+    largest entry (a group's sums in another order, a product by 1 /
+    sqrt(var + eps) in place of the division); dx is the same with and
+    without dgamma and dbeta, and a rerun gives the same bits. Printed
+    beside them: each output's distance from the composition in float64,
+    and the library's route's (relu of torch.nn.functional.group_norm).
+    Times: the kernel's forward, its backward (dx alone, as the fit runs
+    it) and its backward with dgamma and dbeta, its device time a launch
+    (torch.profiler), beside the eager forward, the eager forward and
+    backward, the library's route (its forward, and its backward alone
+    from a kept graph) and the bytes' bound. The kernel table keeps the
+    first shape's times."""
+    import torch
+    import torch.nn.functional as F
+    from nemo_tpu_torch.models.humor import _group_norm
+    from nemo_tpu_torch.ops import groupnorm
+    G, eps = 16, groupnorm.EPS
+    errs = {}
+    for R, C in GN_SHAPES:
+        gen = torch.Generator(device=device).manual_seed(R)
+        x = 2 * torch.randn((R, C), generator=gen, device=device) + 0.5
+        gamma = 0.5 + torch.rand((C,), generator=gen, device=device)
+        beta = 0.4 * torch.randn((C,), generator=gen, device=device)
+        gy = torch.randn((R, C), generator=gen, device=device)
+
+        def library(xx, g, b):
+            return torch.relu(F.group_norm(xx, G, g, b, eps))
+
+        y, mean, rstd = groupnorm.gn_relu_fwd_cuda(x, gamma, beta, G)
+        dx, dg, db = groupnorm.gn_relu_bwd_cuda(x, gamma, beta, mean, rstd,
+                                                gy, G, wgrad=True)
+        dx_alone = groupnorm.gn_relu_bwd_cuda(x, gamma, beta, mean, rstd,
+                                              gy, G)[0]
+
+        def composed(dt, lib=False):
+            """(y, dx, dgamma, dbeta) of the eager composition, or of the
+            library's route, in type dt."""
+            xs, gs, bs = (t.to(dt, copy=True).requires_grad_()
+                          for t in (x, gamma, beta))
+            out = (library(xs, gs, bs) if lib
+                   else torch.relu(_group_norm(xs, gs, bs, G)))
+            out.backward(gy.to(dt))
+            return out.detach(), xs.grad, gs.grad, bs.grad
+
+        mine = (y, dx, dg, db)
+        for key, got, ref in zip(("humor_gn_fwd", "humor_gn_bwd",
+                                  "humor_gn_bwd dgamma",
+                                  "humor_gn_bwd dbeta"), mine,
+                                 composed(torch.float32)):
+            rel = 1e-5 if key == "humor_gn_fwd" else 1e-4
+            check(key, got, ref, rel * float(ref.abs().max()), errs)
+        f64 = composed(torch.float64)
+
+        def far(outs):
+            """Each output's largest distance from the float64 composition
+            over its largest entry."""
+            return {n: float((o.double() - r).abs().max() / r.abs().max())
+                    for n, o, r in zip(("y", "dx", "dgamma", "dbeta"), outs,
+                                       f64)}
+        far_k7, far_lib = far(mine), far(composed(torch.float32, lib=True))
+        del f64
+        again = (groupnorm.gn_relu_fwd_cuda(x, gamma, beta, G)
+                 + groupnorm.gn_relu_bwd_cuda(x, gamma, beta, mean, rstd, gy,
+                                              G, wgrad=True))
+        if not (torch.equal(dx_alone, dx) and all(
+                torch.equal(a, b) for a, b in zip(again, (y, mean, rstd, dx,
+                                                          dg, db)))):
+            raise AssertionError(f"K7 at ({R}, {C}): a rerun, or dx without "
+                                 "dgamma, differs")
+        print(f"[kernel] K7 at ({R}, {C}) in {G} groups bit-identical on a "
+              f"second run; dx the same with and without dgamma and dbeta; "
+              f"largest distance over the largest entry from the float64 "
+              f"composition: K7 {json.dumps(far_k7)}, the library's route "
+              f"{json.dumps(far_lib)}")
+        xr = x.clone().requires_grad_()
+        y_lib = library(xr, gamma, beta)
+
+        def eager_fwd():
+            with torch.no_grad():
+                torch.relu(_group_norm(x, gamma, beta, G))
+
+        def eager_bwd():
+            torch.autograd.grad(torch.relu(_group_norm(xr, gamma, beta, G)),
+                                xr, gy)
+
+        def lib_fwd():
+            with torch.no_grad():
+                library(x, gamma, beta)
+
+        def lib_bwd():
+            torch.autograd.grad(y_lib, xr, gy, retain_graph=True)
+
+        def k_fwd():
+            groupnorm.gn_relu_fwd_cuda(x, gamma, beta, G)
+
+        def k_bwd():
+            groupnorm.gn_relu_bwd_cuda(x, gamma, beta, mean, rstd, gy, G)
+        small = 4 * (2 * C + 2 * R * G)
+        time_kernel(rec, "humor_gn_fwd", [R, C, G], k_fwd, eager_fwd,
+                    8 * R * C, 8 * R * C + small, library=lib_fwd)
+        time_kernel(rec, "humor_gn_bwd", [R, C, G], k_bwd, eager_bwd,
+                    12 * R * C, 12 * R * C + small, library=lib_bwd)
+        wg_ms = median_ms(lambda: groupnorm.gn_relu_bwd_cuda(
+            x, gamma, beta, mean, rstd, gy, G, wgrad=True))
+        dev = profiled_ms(k_fwd, ["humor_gn_fwd"])
+        dev.update(profiled_ms(k_bwd, ["humor_gn_bwd"]))
+        print(f"[time] K7 at ({R}, {C}): backward with dgamma and dbeta "
+              f"{wg_ms:.4f} ms; device time a launch {json.dumps(dev)} ms "
+              f"(torch.profiler, 20 launches)")
+        del x, gy, y, dx, dx_alone, dg, db, again, xr, y_lib
+        torch.cuda.empty_cache()
+    print(f"[kernel] K7 resources "
+          f"{json.dumps(groupnorm.gn_relu_attributes(False, False, 1024))} "
+          f"forward, {json.dumps(groupnorm.gn_relu_attributes(True, False, 1024))} "
+          f"backward, {json.dumps(groupnorm.gn_relu_attributes(True, True, 1024))} "
+          f"with dgamma")
+    return {k: v for k, v in errs.items() if " " not in k}
 
 
 # ---------------------------------------------------------------------------
@@ -5092,7 +5229,8 @@ def path_o_train(device, files, root, out):
     through _humor_params bit for bit; three steps at epochs 1, 2, 2 on
     the card and the CPU from that state with the same batches of
     O_CHECK_B windows and draws (GT past, then carried predictions past
-    the milestone)."""
+    the milestone), the CPU on the card's ReLU gates (humor_gates), each
+    gate the CPU would set otherwise within O_GATE_ABS of 0."""
     import numpy as np
     import torch
     from nemo_tpu_torch.cli import humor_tool
@@ -5248,23 +5386,30 @@ def path_o_train(device, files, root, out):
         w = windows[O_BATCH * (i + 1):O_BATCH * (i + 1) + O_CHECK_B]
         batches.append((epoch, w, hl.scheduled_draws(
             gen, hl.sched_samp_gt_p(epoch, 1, 2), O_SEQ, O_CHECK_B, 48)))
+    gates, flips = [], []
     for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
         t0 = time.perf_counter()
         p, o = hm.humor_train_state_from_jax(*state, device=dev)
         stats = []
-        for epoch, w, (coins, eps) in batches:
-            wt = torch.as_tensor(w, device=dev)
-            p, o, st = step(p, o, wt[:, :-1], wt[:, 1:], epoch,
-                            draws=(coins.to(dev), eps.to(dev)))
-            stats.append(hl.stats_to_host(st))
+        with (humor_gates(record=gates) if where == "card"
+              else humor_gates(impose=gates, flips=flips)):
+            for epoch, w, (coins, eps) in batches:
+                wt = torch.as_tensor(w, device=dev)
+                p, o, st = step(p, o, wt[:, :-1], wt[:, 1:], epoch,
+                                draws=(coins.to(dev), eps.to(dev)))
+                stats.append(hl.stats_to_host(st))
         res[where] = (stats, hm.humor_train_state_to_jax(p, o))
         secs[f"check {where}"] = round(time.perf_counter() - t0, 3)
     stat_err = max(abs(cs[k] - v) / max(abs(v), 1e-30)
                    for cs, vs in zip(res["card"][0], res["cpu"][0])
                    for k, v in vs.items())
     worst = o_rel_state(res["card"][1], res["cpu"][1])
+    far = max(flips, default=0.0)
     print(f"[path O] O1 three steps (epochs 1, 2, 2; {O_CHECK_B} x {O_SEQ} "
-          f"transitions) card vs CPU: statistics worst {stat_err:.2e} "
+          f"transitions; the CPU on the card's ReLU gates, {len(flips)} of "
+          f"{len(gates)} GroupNorm calls with a gate its own rounding sets "
+          f"otherwise, the farthest from 0 at {far:.2e}, tolerance "
+          f"{O_GATE_ABS}) card vs CPU: statistics worst {stat_err:.2e} "
           f"relative (tolerance {O_STAT_RTOL}), lr "
           f"{[s['lr'] for s in res['card'][0]]}; updated tensors and Adam "
           f"moments worst " + "; ".join(f"{k} {e:.2e}" for e, k in worst[:6])
@@ -5273,6 +5418,8 @@ def path_o_train(device, files, root, out):
         fails.append("O1 statistics card vs CPU")
     if not worst[0][0] <= O_STATE_RTOL:
         fails.append("O1 updated tensors card vs CPU")
+    if not far <= O_GATE_ABS:
+        fails.append("O1 ReLU gates card vs CPU")
     out["o1"] = dict(secs=secs, steps=steps, step_ms=step_ms,
                      steps_s=1e3 / step_ms, stat_err=stat_err,
                      state_err=worst[0][0], state_worst=worst[0][1],
@@ -5280,13 +5427,71 @@ def path_o_train(device, files, root, out):
     return params, fails
 
 
+@contextlib.contextmanager
+def humor_gates(record=None, impose=None, flips=None):
+    """HuMoR's ReLU gates after each GroupNorm, call by call, for O1's
+    three-step card-vs-CPU check. With ``record`` (the card) each call's
+    gates (its output > 0) are appended; with ``impose`` (the CPU) each call
+    takes the next recorded gates: the eager composition's value where the
+    card's gate is open, 0 where it is shut, and ``flips`` gets the largest
+    |value| where the CPU's own rounding would have set a gate otherwise.
+    Adam's state after three steps with carried predictions follows every
+    gate: on the CPU a 1e-7 relative change of the windows moves its moments
+    by up to 7.7e-3 of a tensor's largest entry, and the card's K7 read
+    2.07e-4 against the eager CPU (H100 runs); with the card's gates the
+    two sides differ by their arithmetic alone. So O1 does not test K7's
+    mask within O_GATE_ABS of 0 (a flipped gate that near 0 passes): O2's
+    gate check, which reads K7's own pre-ReLU values, and gn_phase and the
+    gpu tests (tests/test_torch_port_gpu.py), which hold K7's output and
+    gradients against the eager composition, test it on their own."""
+    import torch
+    from nemo_tpu_torch.models import humor as hm
+    route = hm._gn_relu
+    gates = None if impose is None else iter(impose)
+
+    def gn_relu(x, gamma, beta, groups):
+        if gates is None:
+            y = route(x, gamma, beta, groups)
+            record.append((y > 0).cpu())
+            return y
+        gate = next(gates)
+        z = hm._group_norm(x, gamma, beta, groups)
+        moved = (z > 0) != gate
+        if bool(moved.any()):
+            flips.append(float(z.detach()[moved].abs().max()))
+        return torch.where(gate, z, torch.zeros_like(z))
+    hm._gn_relu = gn_relu
+    try:
+        yield
+    finally:
+        hm._gn_relu = route
+    if gates is not None and next(gates, None) is not None:
+        raise AssertionError("humor_gates: the CPU made fewer GroupNorm "
+                             "calls than the card")
+
+
+def pre_relu(x, gamma, beta, groups):
+    """GroupNorm's output before HuMoR's ReLU as apply_mlp's route computes
+    it: on a CUDA float32 tensor K7's, as relu(z) - relu(-z) (K7 with gamma
+    and beta negated gives relu(-z): fmaf with negated operands is the exact
+    negation), the eager composition elsewhere."""
+    import torch
+    from nemo_tpu_torch.models.humor import _group_norm
+    from nemo_tpu_torch.ops.groupnorm import group_norm_relu
+    if x.is_cuda and x.dtype == torch.float32:
+        return (group_norm_relu(x, gamma, beta, groups)
+                - group_norm_relu(x, -gamma, -beta, groups))
+    return _group_norm(x, gamma, beta, groups)
+
+
 def humor_pre_relu(p, cfg, past, tgt, eps):
     """{(module, layer): the GroupNorm output that each ReLU of the three
     HuMoR MLPs reads}, as models/humor.apply_mlp computes it for
     humor_single_step's posterior, prior and decoder (eps the posterior
-    draw). Rows are samples: GroupNorm and the MLPs act on each alone."""
+    draw): K7's on the card (pre_relu). Rows are samples: GroupNorm and the
+    MLPs act on each alone."""
     import torch
-    from nemo_tpu_torch.models.humor import _group_norm, humor_posterior
+    from nemo_tpu_torch.models.humor import humor_posterior
     with torch.no_grad():
         qm, qv = humor_posterior(p, cfg, past, tgt)
         z = qm + eps * torch.sqrt(qv)
@@ -5298,8 +5503,8 @@ def humor_pre_relu(p, cfg, past, tgt, eps):
             q = p[name]
             x = x @ q["w0"] + q["b0"]
             for i in range(1, n):
-                g = _group_norm(x, q[f"gn{i}_g"], q[f"gn{i}_b"],
-                                cfg.num_groups)
+                g = pre_relu(x, q[f"gn{i}_g"], q[f"gn{i}_b"],
+                             cfg.num_groups)
                 out[(name, i)] = g
                 r = torch.relu(g)
                 if skip is not None:
@@ -6067,6 +6272,7 @@ def main() -> int:
     kernel_err.update(raster_phase(device, smpl, bundle, rec))
     kernel_err.update(chamfer_phase(device, smpl, rec))
     kernel_err.update(mlp_phase(device, rec))
+    kernel_err.update(gn_phase(device, rec))
     kernel_err.update(io_bf16_phase(device, smpl, smpl_b, rec))
     paths, secs = {}, {}
 

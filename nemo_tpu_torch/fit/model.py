@@ -19,7 +19,10 @@ Each part of the main-stage loss runs under one layer span (utils.trace):
 ``nemo.net.phase`` and ``nemo.net.motion`` (the networks), ``nemo.body.smpl``
 (SMPL), ``nemo.loss.keypoints`` and ``nemo.loss.3d`` (the data terms), and
 ``nemo.prior.vposer``, ``nemo.prior.v2v`` (K2 or the subset path),
-``nemo.prior.instance``, ``nemo.prior.gmm`` and ``nemo.prior.humor``.
+``nemo.prior.instance``, ``nemo.prior.gmm`` and ``nemo.prior.humor``; inside
+the last, ``nemo.humor.state`` builds the HuMoR states and
+``nemo.humor.posterior`` and ``nemo.humor.prior`` (models/humor.py) run
+the CVAE.
 """
 
 from __future__ import annotations
@@ -409,7 +412,8 @@ def humor_dynamics_loss(params: NemoParams, cfg: NemoConfig,
             rotmat_to_aa(dR) * fps, poses[i][:, :63], joints[i],
             (joints[i] - joints[i - 1]) * fps], dim=-1)
 
-    states = torch.stack([state(1), state(2)], dim=1)   # (B, 2, STATE_DIM)
+    with span("nemo.humor.state"):
+        states = torch.stack([state(1), state(2)], dim=1)  # (B, 2, STATE_DIM)
     assert states.shape[-1] == STATE_DIM
     kl = humor_infer_seq(assets.humor, assets.humor_cfg, states)["kl"]
     return batch_mean(kl, mesh)

@@ -10,7 +10,10 @@ form of the JAX package's ``lax.scan``).
 Parameters are the JAX package's nested dict ({"encoder", "decoder",
 "prior"} -> {"w0", "b0", "gn1_g", ...}) with tensors for arrays; weights
 are (in, out) as in JAX. ``humor_from_numpy`` carries a JAX parameter tree
-across. No kernel runs here: the rollout is 1024-wide matmuls.
+across. Between the MLPs' linear layers, GroupNorm and ReLU run as one
+kernel (K7, ops/groupnorm.py) on CUDA float32 tensors; the products are
+1024-wide matmuls. ``humor_infer_seq`` marks its encoder and prior as the
+spans ``nemo.humor.posterior`` and ``nemo.humor.prior`` (utils.trace).
 
 Training: ``humor_single_step`` (the posterior draw is an argument, so the
 same draw can be given to both packages), ``humor_train_loss`` and
@@ -34,6 +37,8 @@ import numpy as np
 import torch
 
 from ..geometry.rotations import batch_rodrigues, rotmat_to_aa
+from ..ops.groupnorm import group_norm_plain, group_norm_relu
+from ..utils.trace import span
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -85,14 +90,8 @@ def pack_state(d: Dict[str, torch.Tensor]) -> torch.Tensor:
 # MLP with GroupNorm + latent skip (humor_model.py MLP :1209-1244)
 # ---------------------------------------------------------------------------
 
-def _group_norm(x: torch.Tensor, gamma, beta, groups: int,
-                eps: float = 1e-5) -> torch.Tensor:
-    B, D = x.shape
-    xg = x.reshape(B, groups, D // groups)
-    m = xg.mean(dim=2, keepdim=True)
-    v = ((xg - m) ** 2).mean(dim=2, keepdim=True)
-    xg = (xg - m) / torch.sqrt(v + eps)
-    return xg.reshape(B, D) * gamma + beta
+# the eager GroupNorm (ops/groupnorm.py's plain version)
+_group_norm = group_norm_plain
 
 
 def _lin_init(gen: torch.Generator, i: int, o: int):
@@ -119,14 +118,22 @@ def init_mlp(gen: torch.Generator, layers, skip_size: int = 0
     return p
 
 
+def _gn_relu(x: torch.Tensor, gamma, beta, groups: int) -> torch.Tensor:
+    """GroupNorm then ReLU: ops.groupnorm.group_norm_relu in float32 (K7 on
+    a CUDA tensor, the eager composition on the CPU), the eager composition
+    in any other type."""
+    if x.dtype == torch.float32:
+        return group_norm_relu(x, gamma, beta, groups)
+    return torch.relu(_group_norm(x, gamma, beta, groups))
+
+
 def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, n_layers: int,
               num_groups: int, skip_in: Optional[torch.Tensor] = None
               ) -> torch.Tensor:
     """n_layers = number of Linear layers."""
     x = x @ p["w0"] + p["b0"]
     for i in range(1, n_layers):
-        x = _group_norm(x, p[f"gn{i}_g"], p[f"gn{i}_b"], num_groups)
-        x = torch.relu(x)
+        x = _gn_relu(x, p[f"gn{i}_g"], p[f"gn{i}_b"], num_groups)
         if skip_in is not None:
             x = torch.cat([x, skip_in], dim=1)
         x = x @ p[f"w{i}"] + p[f"b{i}"]
@@ -407,8 +414,10 @@ def humor_infer_seq(p: Params, cfg: HumorConfig, states: torch.Tensor
     B, T, D = states.shape
     past = states[:, :-1].reshape(B * (T - 1), D)
     nxt = states[:, 1:].reshape(B * (T - 1), D)
-    qm, qv = humor_posterior(p, cfg, past, nxt)
-    pm, pv = humor_prior(p, cfg, past)
+    with span("nemo.humor.posterior"):
+        qm, qv = humor_posterior(p, cfg, past, nxt)
+    with span("nemo.humor.prior"):
+        pm, pv = humor_prior(p, cfg, past)
     kl_per = 0.5 * (torch.log(pv) - torch.log(qv)
                     + (qv + (qm - pm) ** 2) / pv - 1.0).sum(-1)
     shape = (B, T - 1)

@@ -5,8 +5,9 @@ K1 ``fk.fk_compose`` (forward and backward kernels), K2
 ``lbs.skin_verts_t`` (forward and backward kernels), K4
 ``chamfer.nn_one_way`` (under ``chamfer.chamfer_distance`` and
 ``chamfer.chamfer_one_way``), K5
-``raster.rasterize_triangles`` (stream and gather modes) and K6
-``mlp.motion_net_mlp`` (forward and backward kernels). Each wrapper
+``raster.rasterize_triangles`` (stream and gather modes), K6
+``mlp.motion_net_mlp`` (forward and backward kernels) and K7
+``groupnorm.group_norm_relu`` (forward and backward kernels). Each wrapper
 counts its kernel launches; :func:`launch_counts` reads the counts and
 :func:`reset_launches` sets them to zero.
 """
@@ -15,15 +16,16 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import chamfer, fk, lbs, mlp, raster
+from . import chamfer, fk, groupnorm, lbs, mlp, raster
 from .chamfer import chamfer_distance, chamfer_one_way, nn_one_way
 from .fk import fk_compose
+from .groupnorm import group_norm_relu
 from .lbs import skin_v2v_l1, skin_verts_t
 from .mlp import motion_net_mlp
 from .raster import rasterize_triangles, rasterize_triangles_batched
 
 _COUNTERS = (fk.LAUNCHES, lbs.LAUNCHES, chamfer.LAUNCHES, raster.LAUNCHES,
-             mlp.LAUNCHES)
+             mlp.LAUNCHES, groupnorm.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -39,5 +41,6 @@ def reset_launches() -> None:
 
 __all__ = ["fk_compose", "skin_v2v_l1", "skin_verts_t", "nn_one_way",
            "chamfer_distance", "chamfer_one_way", "motion_net_mlp",
+           "group_norm_relu",
            "rasterize_triangles", "rasterize_triangles_batched",
            "launch_counts", "reset_launches"]

@@ -34,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of csrc/*.cu; every function returns a cudaError_t as int.
 _SIGNATURES = {
     # R_l, t_l, tree (host int*, ops/fk.py kinematic_tree().packed), B, J,
@@ -113,6 +114,16 @@ _SIGNATURES = {
     # int[4]: the K6 GEMM kernel's registers a thread, static and dynamic
     # shared memory bytes, local (spill) bytes
     "nemo_mlp_attributes": [_I, _I, _P],
+    # R, C, G, x, gamma, beta, eps, y, mean, rstd, stream
+    "nemo_gn_relu_fwd": [_I, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P],
+    # R, C, G, x, gamma, beta, mean, rstd, gy, dx, dgamma (null: dx alone),
+    # dbeta, scratch, stream
+    "nemo_gn_relu_bwd": [_I, _I, _I] + [_P] * 11,
+    # floats of scratch nemo_gn_relu_bwd needs for dgamma and dbeta at (R, C)
+    "nemo_gn_relu_scratch_floats": [_I, _I],
+    # backward, wgrad, C, out int[4]: K7's registers a thread, static and
+    # dynamic shared memory bytes, local (spill) bytes
+    "nemo_gn_relu_attributes": [_I, _I, _I, _P],
 }
 
 build_seconds = None  # wall time of the build this process ran, if any

@@ -24,6 +24,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from . import _build
+from ._emulation import fma as _fma
 from ..utils.trace import launch
 
 LAUNCHES = {"fk_fwd": 0, "fk_bwd": 0}
@@ -126,13 +127,6 @@ def fk_bwd_plain(R_l, t_l, R_g, gR_g, gt_g, parents
 # ---------------------------------------------------------------------------
 # the kernels' arithmetic on the CPU (csrc/fk.cu, step for step)
 # ---------------------------------------------------------------------------
-
-def _fma(a, b, c):
-    """fmaf(a, b, c) on f32 tensors: the product is exact in f64, and the
-    sum is rounded to f64 and then to f32 (one rounding, but for the rare
-    double-rounding case)."""
-    return (a.double() * b.double() + c.double()).float()
-
 
 def _dot3(a, b):
     """The kernel's dot3 over the last axis: fma(a2, b2, fma(a1, b1,

@@ -1398,3 +1398,105 @@ def test_skin_verts_t_io_bf16_card_vs_cpu(cuda, tables):
     tol = GRAD_BF16 if tables == "bf16" else 1e-4
     for a, b in zip(gk, gc):
         _close_scaled(a, b, tol)
+
+
+# K7: GroupNorm + ReLU (ops/groupnorm.py); R odd, HuMoR's widths in 16
+# groups at the reference fit's batch and cvh_47x600's full batch, the
+# 128-wide test HuMoR, and groups across whole float4s of a lane
+GN_SHAPES = [(1, 1024, 16), (37, 1024, 16), (960, 1024, 16),
+             (28200, 1024, 16), (61, 512, 16), (33, 128, 16), (9, 1024, 4),
+             (5, 1024, 1)]
+
+
+def _gn_inputs(R, C, groups, dev):
+    gen = torch.Generator().manual_seed(R + C)
+    x = 2.0 * torch.randn((R, C), generator=gen) + 0.5
+    if R > 2:
+        x[1, :C // groups] = 3.25            # a constant group
+    gamma = 0.5 + torch.rand((C,), generator=gen)
+    beta = 0.4 * torch.randn((C,), generator=gen)
+    gy = torch.randn((R, C), generator=gen)
+    return [t.to(dev) for t in (x, gamma, beta, gy)]
+
+
+@pytest.mark.parametrize("R,C,groups", GN_SHAPES)
+def test_gn_relu_kernels_match_eager(cuda, R, C, groups):
+    """K7's forward and backward against the eager composition on the card
+    and its autograd (the output 1e-5, dx, dgamma and dbeta 1e-4 of the
+    largest entry: the kernels sum a group in another order and multiply by
+    1 / sqrt(var + eps)), and against their CPU emulation (1e-6: the same
+    operations in the same order, the emulation's fmaf through float64 but
+    for its rare double rounding). dx with and without dgamma is the same,
+    and a rerun gives the same bits."""
+    from nemo_tpu_torch.models.humor import _group_norm
+    from nemo_tpu_torch.ops import _emulation, groupnorm
+    x, gamma, beta, gy = _gn_inputs(R, C, groups, cuda)
+    xs, gs, bs = (t.clone().requires_grad_() for t in (x, gamma, beta))
+    want = torch.relu(_group_norm(xs, gs, bs, groups))
+    want.backward(gy)
+    y, mean, rstd = groupnorm.gn_relu_fwd_cuda(x, gamma, beta, groups)
+    dx, dg, db = groupnorm.gn_relu_bwd_cuda(x, gamma, beta, mean, rstd, gy,
+                                            groups, wgrad=True)
+    dx_alone, none_g, none_b = groupnorm.gn_relu_bwd_cuda(
+        x, gamma, beta, mean, rstd, gy, groups)
+    torch.cuda.synchronize()
+    assert none_g is None and none_b is None
+    assert torch.equal(dx_alone, dx)
+    _close_scaled(y, want.detach(), 1e-5)
+    for got, ref in ((dx, xs.grad), (dg, gs.grad), (db, bs.grad)):
+        _close_scaled(got, ref, 1e-4)
+    cpu = [t.cpu() for t in (x, gamma, beta, gy)]
+    ye, me, re = _emulation.gn_relu_fwd_emulation(*cpu[:3], groups)
+    dxe, dge, dbe = _emulation.gn_relu_bwd_emulation(
+        *cpu[:3], mean.cpu(), rstd.cpu(), cpu[3], groups, wgrad=True)
+    for got, ref in ((y, ye), (mean, me), (rstd, re), (dx, dxe), (dg, dge),
+                     (db, dbe)):
+        _close_scaled(got.cpu(), ref, 1e-6)
+    again = groupnorm.gn_relu_fwd_cuda(x, gamma, beta, groups)
+    again_b = groupnorm.gn_relu_bwd_cuda(x, gamma, beta, mean, rstd, gy,
+                                         groups, wgrad=True)
+    assert all(torch.equal(a, b) for a, b in zip(again + again_b,
+                                                 (y, mean, rstd, dx, dg, db)))
+
+
+def test_gn_relu_through_humor(cuda, monkeypatch):
+    """HuMoR's posterior and prior on the card through K7 (apply_mlp's
+    route) against the eager composition on the card: the outputs 1e-5 and
+    the gradients of the inputs 1e-4 of their largest entries, four forward
+    and four backward launches an MLP, none with frozen weights' dgamma."""
+    from nemo_tpu_torch.models import humor
+    gen = torch.Generator().manual_seed(3)
+    cfg = humor.HumorConfig()
+    p = humor.init_humor(gen, cfg)
+    for mod in ("encoder", "prior"):
+        for i in range(1, 5):
+            p[mod][f"gn{i}_g"] = 0.5 + torch.rand(1024, generator=gen)
+            p[mod][f"gn{i}_b"] = 0.3 * torch.randn(1024, generator=gen)
+    p = humor.humor_to(p, cuda)
+    states = torch.randn((301, 2, humor.STATE_DIM), generator=gen).to(cuda)
+
+    def run():
+        s = states.clone().requires_grad_()
+        out = humor.humor_infer_seq(p, cfg, s)
+        out["kl"].sum().backward()
+        return out["kl"].detach(), out["z_mean"].detach(), s.grad
+
+    reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["humor_gn_fwd"] == 8 and counts["humor_gn_bwd"] == 8
+    monkeypatch.setattr(humor, "_gn_relu", lambda x, g, b, n: torch.relu(
+        humor._group_norm(x, g, b, n)))
+    want = run()
+    _close_scaled(got[0], want[0], 1e-5)
+    _close_scaled(got[1], want[1], 1e-5)
+    _close_scaled(got[2], want[2], 1e-4)
+
+
+def test_gn_relu_kernel_resources(cuda):
+    """K7's kernels at C = 1024 spill nothing."""
+    from nemo_tpu_torch.ops import groupnorm
+    for backward, wgrad in ((False, False), (True, False), (True, True)):
+        a = groupnorm.gn_relu_attributes(backward, wgrad, 1024)
+        assert a["local_bytes"] == 0, (backward, wgrad, a)
